@@ -1,0 +1,310 @@
+"""Drive the PyTorch/CUDA port on one GPU and check every kernel on its path.
+
+Run from the root of a checkout, on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing one line and raising on any failure:
+
+1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
+   then the kernels are built from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, in parallel);
+2. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes (512^3 as 262,144 pencils of 512), plus ragged batches,
+   other lengths and the fused kernel with a random twiddle; with its
+   median time, the plain version's, one PyTorch library call's
+   (``torch.fft.fft``, a yardstick the port never calls) and its bound;
+3. the main path with the default plan, ``plan((512,)*3, make_fft_mesh(1, 1))``
+   (resolves to four_step / all_to_all): forward against ``torch.fft.fftn``,
+   the round trip, and 3 ``fft_matmul`` launches per direction;
+4. the same with ``method='stockham'``: 2 ``fft_twiddle_transpose`` and 1
+   ``fft_pencil`` launches per direction;
+5. a ``kernels`` JSON line, the card line and, last, the result line.
+
+It imports neither jax nor the JAX package. Without CUDA, or without the
+rest of the repository beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: torch.cuda.is_available() is False; this script "
+             "needs an NVIDIA GPU")
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'src'))
+
+import repro_torch.fft as fft  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import _build, fft_fused, fft_matmul, fft_pencil  # noqa: E402
+from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
+
+N = 512
+SEED = 0
+
+#: H100 SXM data-sheet peaks (dense, at the 700 W limit): HBM bytes/s and
+#: fp32 flop/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+#: kernel vs plain version, max |kernel - plain| / max |plain|: both are
+#: fp32 (eps 6e-8) through log2(n) = 9 butterfly stages or sums of at most
+#: 32 terms per four-step factor, taken in different orders; the largest
+#: elementwise gap over 2.7e8 outputs stays far below 1e-5 of the largest
+#: magnitude
+KERNEL_RTOL = 1e-5
+#: main path vs torch.fft.fftn and round trip, relative L2: three fp32
+#: pencil passes of the above error each, averaged over the array
+PATH_RTOL = 1e-5
+
+KERNELS = {
+    'fft_pencil': dict(source='src/repro_torch/csrc/fft_pencil.cu',
+                       replaces='src/repro/kernels/fft_pencil.py:76'),
+    'fft_twiddle_transpose': dict(source='src/repro_torch/csrc/fft_pencil.cu',
+                                  replaces='src/repro/kernels/fft_fused.py:58'),
+    'fft_matmul': dict(source='src/repro_torch/csrc/fft_matmul.cu',
+                       replaces='src/repro/kernels/fft_matmul.py:71'),
+}
+COUNTER = {'fft_pencil': 'fft_pencil', 'fft_twiddle_transpose': 'fft_fused',
+           'fft_matmul': 'fft_matmul'}
+
+
+def say(phase: str, **kw) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median over ``reps`` of one call's device time (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def planar(shape, gen) -> tuple:
+    return (torch.randn(shape, generator=gen, device='cuda'),
+            torch.randn(shape, generator=gen, device='cuda'))
+
+
+def max_err(got, want) -> tuple:
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    return err, err / scale
+
+
+def bound(n_elems: int, flops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate (each
+    planar input read once, each output written once) and flops over
+    the fp32 rate."""
+    t_bytes = 16 * n_elems / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def fft_flops(n: int, pencils: int) -> float:
+    """The operations a length-n FFT needs, 5 n log2 n a pencil, whatever
+    form a kernel computes it in (the four-step's dense products do more)."""
+    return 5.0 * n * math.log2(n) * pencils
+
+
+def check(name, got, want, where) -> float:
+    err, rel = max_err(got, want)
+    if not rel <= KERNEL_RTOL:
+        raise AssertionError(f"{name} {where}: max err {err:.3e} = {rel:.3e} of max|plain| "
+                             f"> {KERNEL_RTOL}")
+    return err
+
+
+def phase_card() -> str:
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader', '-i', '0'],
+        check=True, capture_output=True, text=True).stdout.strip()
+    say('card', card=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
+        device=repr(torch.cuda.get_device_name(0)))
+    t0 = time.perf_counter()
+    _build.build()
+    for name in _build.SOURCES:
+        report = [ln.strip() for ln in _build.build_log(name).splitlines()
+                  if 'registers' in ln or 'spill' in ln]
+        say('build', source=name, ptxas=repr(' | '.join(report)))
+    say('build', seconds=f"{time.perf_counter() - t0:.1f}")
+    return card
+
+
+def phase_kernels(gen) -> dict:
+    """Each kernel against its plain version; returns name -> record."""
+    rec = {}
+    x = planar((N, N, N), gen)
+    pencils = N * N
+    xc = torch.complex(*x)
+
+    # fft_pencil
+    err = max(check('fft_pencil', fft_pencil.fft_pencil(*x, inverse=inv),
+                    fft_pencil.fft_pencil_plain(*x, inverse=inv), f"{N}^3 inverse={inv}")
+              for inv in (False, True))
+    ms = time_ms(lambda: fft_pencil.fft_pencil(*x), 20)
+    plain = time_ms(lambda: fft_pencil.fft_pencil_plain(*x), 5)
+    lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 20)
+    b, by = bound(x[0].numel(), fft_flops(N, pencils))
+    rec['fft_pencil'] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=b, bound_by=by)
+
+    # fft_twiddle_transpose (the 3-D path has no twiddle; one checked too)
+    err = max(check('fft_twiddle_transpose',
+                    fft_fused.fft_twiddle_transpose(*x, inverse=inv),
+                    fft_fused.fft_twiddle_transpose_plain(*x, inverse=inv),
+                    f"{N}^3 inverse={inv}")
+              for inv in (False, True))
+    w = planar((N, N), gen)
+    err = max(err, check('fft_twiddle_transpose',
+                         fft_fused.fft_twiddle_transpose(*x, *w),
+                         fft_fused.fft_twiddle_transpose_plain(*x, *w),
+                         f"{N}^3 with twiddle"))
+    ms = time_ms(lambda: fft_fused.fft_twiddle_transpose(*x), 20)
+    plain = time_ms(lambda: fft_fused.fft_twiddle_transpose_plain(*x), 5)
+    lib = time_ms(lambda: torch.fft.fft(xc, dim=-1).transpose(-1, -2).contiguous(), 20)
+    b, by = bound(x[0].numel(), fft_flops(N, pencils))
+    rec['fft_twiddle_transpose'] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                        library_ms=lib, bound_ms=b, bound_by=by)
+
+    # fft_matmul
+    err = max(check('fft_matmul', fft_matmul.fft_matmul(*x, inverse=inv),
+                    fft_matmul.fft_matmul_plain(*x, inverse=inv), f"{N}^3 inverse={inv}")
+              for inv in (False, True))
+    ms = time_ms(lambda: fft_matmul.fft_matmul(*x), 20)
+    plain = time_ms(lambda: fft_matmul.fft_matmul_plain(*x), 5)
+    lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 20)
+    b, by = bound(x[0].numel(), fft_flops(N, pencils))
+    rec['fft_matmul'] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=b, bound_by=by)
+    del x, xc
+
+    # ragged tiles and other lengths: every n the kernels take
+    for n in (2, 4, 16, 64, 512, 1024, 4096):
+        y = planar((37, n), gen)
+        z = planar((3, 29, n), gen)
+        wz = planar((29, n), gen)
+        for inv in (False, True):
+            check('fft_pencil', fft_pencil.fft_pencil(*y, inverse=inv),
+                  fft_pencil.fft_pencil_plain(*y, inverse=inv), f"(37, {n})")
+            check('fft_matmul', fft_matmul.fft_matmul(*y, inverse=inv),
+                  fft_matmul.fft_matmul_plain(*y, inverse=inv), f"(37, {n})")
+            check('fft_twiddle_transpose',
+                  fft_fused.fft_twiddle_transpose(*z, *wz, inverse=inv),
+                  fft_fused.fft_twiddle_transpose_plain(*z, *wz, inverse=inv),
+                  f"(3, 29, {n}) with twiddle")
+    for name, r in rec.items():
+        say('kernel', name=name, tol=KERNEL_RTOL,
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
+    return rec
+
+
+def profile(fn) -> dict:
+    """One call under ``torch.profiler``: device time per kernel, the
+    device's busy time and its idle share of the call's wall time (the
+    profiler's own overhead is in the wall time)."""
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
+    busy_us = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=f"{wall_us / 1e3:.6g}", device_busy_ms=f"{busy_us / 1e3:.6g}",
+                idle_share=f"{1 - busy_us / wall_us:.3f}",
+                top=json.dumps([[k[:48], round(v / 1e3, 3)] for k, v in top]))
+
+
+def phase_path(label: str, gen, expect_method: str, expect: dict, **plan_kw) -> dict:
+    """One main path: plan, forward, inverse; returns the launch counts."""
+    p = fft.plan((N, N, N), make_fft_mesh(1, 1), **plan_kw)
+    if (p.method, p.comm, p.resolved_kernel) != (expect_method, 'all_to_all', 'pallas'):
+        raise AssertionError(f"{label}: resolved to {p.method}/{p.comm}/{p.resolved_kernel}")
+    xr, xi = planar((N, N, N), gen)
+    x = torch.complex(xr, xi)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    y = p.forward(x)
+    fwd = kernels.launch_counts()
+    x2 = p.inverse(y)
+    torch.cuda.synchronize()
+    total = kernels.launch_counts()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ref = torch.fft.fftn(x)
+    fwd_err = float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref))
+    del ref
+    rt_err = float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x))
+    for k, per_dir in expect.items():
+        if fwd[k] != per_dir or total[k] != 2 * per_dir:
+            raise AssertionError(f"{label}: {k} launched {fwd[k]} forward / {total[k]} "
+                                 f"in all, expected {per_dir} per direction")
+    for k in total:
+        if k not in expect and total[k]:
+            raise AssertionError(f"{label}: unexpected {k} launches {total[k]}")
+    if not (fwd_err <= PATH_RTOL and rt_err <= PATH_RTOL):
+        raise AssertionError(f"{label}: forward rel L2 {fwd_err:.3e}, round trip "
+                             f"{rt_err:.3e}, limit {PATH_RTOL}")
+    del y, x2
+    ms = time_ms(lambda: p.inverse(p.forward(x)), 5)
+    planar_ms = time_ms(lambda: p.inverse(p.forward((xr, xi))), 5)
+    lib = time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), 5)
+    say('path', label=label, method=p.method, comm=p.comm, kernel=p.resolved_kernel,
+        fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
+        launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
+        fwd_inv_ms=f"{ms:.6g}",
+        planar_fwd_inv_ms=f"{planar_ms:.6g}", library_ms=f"{lib:.6g}")
+    say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
+    return total
+
+
+def main() -> None:
+    card = phase_card()
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    rec = phase_kernels(gen)
+    # each path runs its own kernels and no other, so a kernel's count is
+    # the one from the path that launched it
+    default = phase_path('default', gen, 'four_step', {'fft_matmul': 3})
+    stockham = phase_path('stockham', gen, 'stockham', {'fft_fused': 2, 'fft_pencil': 1},
+                          method='stockham')
+    launches = {k: default[k] + stockham[k] for k in default}
+    out = []
+    for name, meta in KERNELS.items():
+        n_launch = launches.get(COUNTER[name], 0)
+        if n_launch == 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+        out.append(dict(name=name, route='cuda', **meta, launches=n_launch, **rec[name]))
+    print(json.dumps({'kernels': out}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                             'kind': torch.cuda.get_device_name(0),
+                                             'count': torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == '__main__':
+    main()

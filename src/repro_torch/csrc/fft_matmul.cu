@@ -1,0 +1,157 @@
+// Bailey four-step pencil FFT for Hopper (sm_90a), fp32 FMA on the CUDA cores.
+//
+// Replaces the TPU kernel fft_matmul (src/repro/kernels/fft_matmul.py:71).
+// Each length-n pencil (n = n1 * n2, n1 >= n2, powers of two) is viewed as
+// A[k1, k2] = x[k1 * n2 + k2] and transformed as
+//   B = F1 . A           (DFT over k1, F1[j1, k1] = w_n1^(j1 k1))
+//   C = B * W            (W[j1, k2] = w_n^(j1 k2))
+//   D = C . F2           (DFT over k2, F2[k2, j2] = w_n2^(k2 j2))
+//   y[j2 * n1 + j1] = D[j1, j2]
+// with planar complex arithmetic and fp32 accumulation. The DFT products are
+// computed here, in the kernel body, not by a library GEMM. The inverse uses
+// the conjugate tables and multiplies by 1/n (`scale`), exact for pow2 n.
+//
+// Bound: operations. 4 n (n1 + n2) real multiply-adds per pencil (98,304 at
+// n = 512) against 16 bytes moved per element: about 12 flop/byte, above the
+// fp32 CUDA-core ridge. This first version keeps everything a block needs in
+// shared memory: the three tables, a tile of P pencils and the twiddled
+// intermediate C. Device memory is read once and written once. Step 2 walks
+// k2 fastest (A reads contiguous, F1 reads broadcast); step 4 walks j1
+// fastest, so the natural-order output is stored contiguously and the C rows
+// (stride n2 + 1) and F2 reads hit distinct banks. F1 rows are padded to
+// n1 + 1 for the same reason. No TF32, no tensor cores yet.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+struct Layout {
+  int f1, f2, w, x, c;  // float offsets of each region (re; im follows)
+  long long total;      // floats
+};
+
+__host__ __device__ Layout carve(int n1, int n2, int P) {
+  const int n = n1 * n2;
+  Layout l;
+  l.f1 = 0;
+  l.f2 = l.f1 + 2 * n1 * (n1 + 1);
+  l.w = l.f2 + 2 * n2 * n2;
+  l.x = l.w + 2 * n1 * n2;
+  l.c = l.x + 2 * P * n;
+  l.total = (long long)l.c + 2LL * P * n1 * (n2 + 1);
+  return l;
+}
+
+__global__ void four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                                 float* __restrict__ yr, float* __restrict__ yi,
+                                 const float* __restrict__ f1r, const float* __restrict__ f1i,
+                                 const float* __restrict__ f2r, const float* __restrict__ f2i,
+                                 const float* __restrict__ twr, const float* __restrict__ twi,
+                                 long long batch, int n1, int n2, int P, float scale) {
+  extern __shared__ float smem[];
+  const int n = n1 * n2;
+  const Layout lay = carve(n1, n2, P);
+  float* F1r = smem + lay.f1;
+  float* F1i = F1r + n1 * (n1 + 1);
+  float* F2r = smem + lay.f2;
+  float* F2i = F2r + n2 * n2;
+  float* Wr = smem + lay.w;
+  float* Wi = Wr + n1 * n2;
+  float* Xr = smem + lay.x;
+  float* Xi = Xr + P * n;
+  float* Cr = smem + lay.c;
+  float* Ci = Cr + P * n1 * (n2 + 1);
+  const int cld = n2 + 1;          // C row stride
+  const int cpl = n1 * cld;        // C pencil stride
+
+  const long long row0 = (long long)blockIdx.x * P;
+  const int rows = batch - row0 < P ? (int)(batch - row0) : P;
+  const long long base = row0 * n;
+
+  for (int i = threadIdx.x; i < n1 * n1; i += blockDim.x) {
+    const int j = i / n1, k = i - j * n1;
+    F1r[j * (n1 + 1) + k] = f1r[i];
+    F1i[j * (n1 + 1) + k] = f1i[i];
+  }
+  for (int i = threadIdx.x; i < n2 * n2; i += blockDim.x) {
+    F2r[i] = f2r[i];
+    F2i[i] = f2i[i];
+  }
+  for (int i = threadIdx.x; i < n1 * n2; i += blockDim.x) {
+    Wr[i] = twr[i];
+    Wi[i] = twi[i];
+  }
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
+    Xr[i] = xr[base + i];
+    Xi[i] = xi[base + i];
+  }
+  __syncthreads();
+
+  // steps 2 + 3: C[p, j1, k2] = W[j1, k2] * sum_k1 F1[j1, k1] A[p, k1, k2]
+  for (int o = threadIdx.x; o < rows * n; o += blockDim.x) {
+    const int p = o / n;
+    const int r = o - p * n;
+    const int j1 = r / n2;
+    const int k2 = r - j1 * n2;
+    const float* ar = Xr + p * n + k2;
+    const float* ai = Xi + p * n + k2;
+    const float* fr = F1r + j1 * (n1 + 1);
+    const float* fi = F1i + j1 * (n1 + 1);
+    float br = 0.f, bi = 0.f;
+    for (int k1 = 0; k1 < n1; ++k1) {
+      const float xr_ = ar[k1 * n2], xi_ = ai[k1 * n2];
+      br += fr[k1] * xr_ - fi[k1] * xi_;
+      bi += fr[k1] * xi_ + fi[k1] * xr_;
+    }
+    const float wr = Wr[r], wi = Wi[r];
+    Cr[p * cpl + j1 * cld + k2] = br * wr - bi * wi;
+    Ci[p * cpl + j1 * cld + k2] = br * wi + bi * wr;
+  }
+  __syncthreads();
+
+  // steps 4 + 5: y[p, j2 * n1 + j1] = sum_k2 C[p, j1, k2] F2[k2, j2]
+  for (int o = threadIdx.x; o < rows * n; o += blockDim.x) {
+    const int p = o / n;
+    const int r = o - p * n;
+    const int j2 = r / n1;
+    const int j1 = r - j2 * n1;
+    const float* cr = Cr + p * cpl + j1 * cld;
+    const float* ci = Ci + p * cpl + j1 * cld;
+    float dr = 0.f, di = 0.f;
+    for (int k2 = 0; k2 < n2; ++k2) {
+      const float fr = F2r[k2 * n2 + j2], fi = F2i[k2 * n2 + j2];
+      dr += cr[k2] * fr - ci[k2] * fi;
+      di += cr[k2] * fi + ci[k2] * fr;
+    }
+    yr[base + o] = dr * scale;
+    yi[base + o] = di * scale;
+  }
+}
+
+constexpr int kThreads = 256;
+
+}  // namespace
+
+extern "C" {
+
+// Shared bytes a launch with P pencils of n1 * n2 needs.
+long long four_step_smem_bytes(int n1, int n2, int P) {
+  return carve(n1, n2, P).total * (long long)sizeof(float);
+}
+
+int fft_matmul_launch(const float* xr, const float* xi, float* yr, float* yi,
+                      const float* f1r, const float* f1i, const float* f2r,
+                      const float* f2i, const float* twr, const float* twi,
+                      long long batch, int n1, int n2, int P, float scale,
+                      void* stream) {
+  const long long blocks = (batch + P - 1) / P;
+  const long long smem = four_step_smem_bytes(n1, n2, P);
+  cudaError_t err = cudaFuncSetAttribute(
+      four_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  four_step_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, f1r, f1i, f2r, f2i, twr, twi, batch, n1, n2, P, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

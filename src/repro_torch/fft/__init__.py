@@ -1,0 +1,14 @@
+"""``repro_torch.fft`` — the port's public FFT API.
+
+    import repro_torch.fft as fft
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    p = fft.plan((n, n, n), make_fft_mesh(1, 1))
+    y = p.forward(x)                   # complex64 in -> complex64 out
+    re, im = p.forward((re, im))       # planar float32 pairs work too
+    x2 = p.inverse(y)
+"""
+from repro_torch.fft import methods
+from repro_torch.fft.api import FFT, plan
+
+__all__ = ['FFT', 'plan', 'methods']

@@ -1,0 +1,193 @@
+"""The pencil-method registry of the port.
+
+Port of ``repro.fft.methods``. Every local pencil transform of the port
+dispatches through here. A method owns a plain PyTorch ``pencil_fn``
+(the 'reference' tier, along the LAST axis) and, where one exists, a
+``kernel_fn``: the wrapper of its hand-written CUDA kernel.
+
+The ``kernel=`` values keep the reference's names so that options
+round-trip: ``'pallas'`` names the hand-written CUDA tier here.
+
+* ``'auto'`` runs the kernel on a CUDA tensor and the plain version on a
+  CPU tensor.
+* ``'pallas'`` runs the kernel; on a CPU tensor it raises (there is no
+  interpret mode).
+* ``'reference'`` runs the plain version.
+
+A method without a kernel (``'direct'``) runs its plain version under
+every tier, as in the reference. ``'block'`` is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import fft1d as f1
+from repro_torch.core import twiddle as tw
+from repro_torch.core.plan import KERNEL_TIERS
+from repro_torch.core.twiddle import Planar
+from repro_torch.kernels import fft_fused, fft_matmul, fft_pencil
+
+#: below this pencil length 'auto' takes Stockham butterflies instead of
+#: the four-step matmul form (dense DFT for non-pow2 lengths)
+AUTO_MATMUL_MIN = 64
+
+_NOT_PORTED = {
+    'block': "method 'block' and its kernel (src/repro/kernels/fft_block.py:"
+             "fft_block) are not ported yet: ROADMAP queue 2, 'fft_block'",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Method:
+    """One registered local pencil algorithm."""
+    name: str
+    pencil_fn: Callable
+    kernel_fn: Optional[Callable] = None
+    pow2_only: bool = True
+    description: str = ''
+
+
+_REGISTRY: Dict[str, Method] = {}
+
+
+def register(method: Method) -> Method:
+    if method.name in _REGISTRY:
+        raise ValueError(f"method {method.name!r} already registered")
+    _REGISTRY[method.name] = method
+    return method
+
+
+def names() -> Tuple[str, ...]:
+    """Registered concrete method names (excludes the 'auto' alias)."""
+    return tuple(_REGISTRY)
+
+
+def get(name: str) -> Method:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[name])
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown FFT method {name!r}; known: {names() + ('auto',)}"
+        ) from None
+
+
+def validate(name: str) -> str:
+    """Check ``name`` is 'auto' or a registered method; returns it."""
+    if name != 'auto':
+        get(name)
+    return name
+
+
+def resolve(name: str, n: int) -> Method:
+    """Resolve a method name (including 'auto') for pencil length n:
+    four-step from AUTO_MATMUL_MIN up, Stockham below, direct DFT for
+    non-pow2 lengths."""
+    if name == 'auto':
+        if n >= AUTO_MATMUL_MIN and tw.is_pow2(n):
+            return _REGISTRY['four_step']
+        return _REGISTRY['stockham' if tw.is_pow2(n) else 'direct']
+    return get(name)
+
+
+def validate_kernel(kernel: str) -> str:
+    if kernel not in KERNEL_TIERS:
+        raise ValueError(f"unknown kernel tier {kernel!r}; known: {KERNEL_TIERS}")
+    return kernel
+
+
+def resolve_kernel(kernel: str, method: Optional[Method] = None,
+                   device=None) -> str:
+    """The tier that runs for a tensor on ``device``: 'pallas' (the CUDA
+    kernel) or 'reference' (the plain version)."""
+    validate_kernel(kernel)
+    if kernel == 'reference':
+        return 'reference'
+    if method is not None and method.kernel_fn is None:
+        return 'reference'
+    on_cuda = device is not None and torch.device(device).type == 'cuda'
+    if kernel == 'pallas' and not on_cuda:
+        raise ValueError(
+            f"kernel='pallas' runs the CUDA kernels and a tensor on {device} "
+            "has none (no interpret mode); use kernel='auto' or 'reference'")
+    return 'pallas' if on_cuda else 'reference'
+
+
+def _checked(method: str, n: int) -> Method:
+    m = resolve(method, n)
+    if m.pow2_only and not tw.is_pow2(n):
+        raise ValueError(
+            f"method {m.name!r} requires a power-of-two pencil length, "
+            f"got {n} (use method='direct' or 'auto')")
+    return m
+
+
+def apply(re: torch.Tensor, im: torch.Tensor, *, axis: int = -1,
+          inverse: bool = False, method: str = 'auto',
+          kernel: str = 'auto') -> Planar:
+    """Run a registered pencil method along ``axis`` of planar (re, im).
+
+    The kernel tier needs the pencil axis last and contiguous: a
+    non-last axis is moved to the end with a ``.contiguous()`` copy (one
+    extra pass over device memory) and the result is returned as a view
+    in the caller's axis order."""
+    axis = axis % re.ndim
+    m = _checked(method, re.shape[axis])
+    last = axis == re.ndim - 1
+    if not last:
+        re, im = re.movedim(axis, -1), im.movedim(axis, -1)
+    if resolve_kernel(kernel, m, re.device) == 'pallas':
+        yr, yi = m.kernel_fn(re.contiguous(), im.contiguous(), inverse=inverse)
+    else:
+        yr, yi = m.pencil_fn(re, im, inverse=inverse)
+    if not last:
+        yr, yi = yr.movedim(-1, axis), yi.movedim(-1, axis)
+    return yr, yi
+
+
+def apply_fused(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
+                method: str = 'auto', kernel: str = 'auto',
+                wr=None, wi=None) -> Planar:
+    """One fused superstep: FFT along the LAST axis, an optional planar
+    twiddle, and the last two axes exchanged,
+    ``out[..., k, j] = (W * FFT(x))[..., j, k]``.
+
+    On the kernel tier Stockham runs the fused CUDA kernel (one pass);
+    other methods run their kernel and return a transposed view."""
+    if re.ndim < 2:
+        raise ValueError("apply_fused needs a batch axis next to the "
+                         f"pencil axis, got shape {tuple(re.shape)}")
+    m = _checked(method, re.shape[-1])
+    if resolve_kernel(kernel, m, re.device) == 'pallas':
+        re, im = re.contiguous(), im.contiguous()
+        if m.name == 'stockham':
+            return fft_fused.fft_twiddle_transpose(re, im, wr, wi, inverse=inverse)
+        yr, yi = m.kernel_fn(re, im, inverse=inverse)
+        if wr is not None:
+            yr, yi = tw.cmul(yr, yi, wr, wi)
+        return yr.transpose(-1, -2), yi.transpose(-1, -2)
+    return f1.fft_twiddle_transpose(re, im, wr, wi, inverse=inverse,
+                                    fft_fn=m.pencil_fn)
+
+
+register(Method(
+    name='stockham',
+    pencil_fn=f1.fft_stockham,
+    kernel_fn=fft_pencil.fft_pencil,
+    description='radix-2 Stockham autosort butterflies (paper-faithful)'))
+
+register(Method(
+    name='four_step',
+    pencil_fn=f1.fft_four_step,
+    kernel_fn=fft_matmul.fft_matmul,
+    description='Bailey four-step as dense DFT products'))
+
+register(Method(
+    name='direct',
+    pencil_fn=f1.dft_direct,
+    pow2_only=False,
+    description='dense O(n^2) DFT matrix (oracle / non-pow2 sizes)'))

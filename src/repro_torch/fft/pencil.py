@@ -1,0 +1,197 @@
+"""wsFFT pencil machinery: the distributed multidimensional FFT.
+
+Port of ``repro.fft.pencil``. For a 3-D transform the input A[x, y, z]
+lives with (x, y) on the two mesh axes and z in memory; each superstep
+FFTs the in-memory axis, and between supersteps one all-to-all along
+one mesh axis exchanges the in-memory axis with a mesh-owned one. The
+semantic (x, y, z) axis order never changes; only ownership rotates:
+('x', 'y', None) -> ('y', None, 'x') after a forward 3-D FFT.
+
+Where the reference wraps its local function in ``shard_map``, the
+port runs it on each rank's local block. Each serial (fft, swap) pair
+runs as one fused superstep (:func:`_fused_pair`); the last fft runs
+through :func:`repro_torch.fft.methods.apply`.
+
+Not ported yet: ``overlap_chunks > 1`` (ROADMAP queue 1, 'Overlap') and
+real plans (ROADMAP queue 1, 'Facade: real plans').
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+import torch
+
+from repro_torch.comm import strategies
+from repro_torch.core import plan as planlib
+from repro_torch.core.plan import Layout, PencilPlan
+from repro_torch.core.twiddle import Planar
+from repro_torch.fft import methods
+
+
+# ---------------------------------------------------------------------------
+# Schedule derivation (pure layout algebra)
+# ---------------------------------------------------------------------------
+
+def forward_schedule(layout: Layout) -> Tuple[Tuple, Layout]:
+    """Returns (steps, final_layout). Each step is ('fft', mem_pos) or
+    ('swap', mesh_axis, mem_pos)."""
+    steps: List[Tuple] = []
+    lay = layout
+    transformed = set()
+    ndim = len(layout)
+    while len(transformed) < ndim:
+        mems = [p for p in planlib.memory_axes(lay) if p not in transformed]
+        if not mems:
+            raise ValueError(f"no untransformed memory axis in {lay}")
+        mem = mems[0]
+        steps.append(('fft', mem))
+        transformed.add(mem)
+        # swap with the first untransformed mesh-owned axis, position order
+        pend = [(p, o) for p, o in enumerate(lay) if o is not None and p not in transformed]
+        if pend:
+            _, owner = pend[0]
+            steps.append(('swap', owner, mem))
+            lay = planlib.swap(lay, owner, mem)
+    return tuple(steps), lay
+
+
+def inverse_schedule(layout: Layout) -> Tuple[Tuple, Layout]:
+    """Mirror of forward_schedule from the forward's final layout: each
+    swap reversed, IFFTs in reverse superstep order, ending at
+    ``layout``."""
+    fwd, final = forward_schedule(layout)
+    pre_layouts = []
+    lay = layout
+    for step in fwd:
+        pre_layouts.append(lay)
+        if step[0] == 'swap':
+            lay = planlib.swap(lay, step[1], step[2])
+    if lay != final:
+        raise AssertionError(f"schedule replay ended at {lay}, not {final}")
+    steps: List[Tuple] = []
+    for step, pre in zip(reversed(fwd), reversed(pre_layouts)):
+        if step[0] == 'fft':
+            steps.append(step)
+        else:
+            _, mesh_axis, _ = step
+            # the position sharded before the forward swap is the memory
+            # position of the inverse swap
+            steps.append(('swap', mesh_axis, planlib.owner_pos(pre, mesh_axis)))
+    return tuple(steps), layout
+
+
+# ---------------------------------------------------------------------------
+# Local execution of a schedule (per rank)
+# ---------------------------------------------------------------------------
+
+def _fft_along(re, im, axis: int, *, inverse: bool, plan: PencilPlan) -> Planar:
+    return methods.apply(re, im, axis=axis, inverse=inverse,
+                         method=plan.method, kernel=plan.kernel)
+
+
+def _swap(x, mesh_axis, *, shard_pos: int, mem_pos: int, plan: PencilPlan):
+    return strategies.swap_axes_wire(
+        strategies.resolve(plan.comm), x, plan.mesh, mesh_axis,
+        shard_pos=shard_pos, mem_pos=mem_pos, wire_dtype=plan.wire_dtype)
+
+
+def _fused_pair(re, im, *, a: int, s: int, mesh_axis, inverse: bool,
+                plan: PencilPlan) -> Planar:
+    """One fused superstep: FFT along local axis ``a`` and the swap that
+    exchanges it with the mesh axis at local position ``s``. The fft
+    axis is moved last, the fused op emits the last two axes exchanged,
+    the collective runs at the permuted positions, and a permutation
+    (a view) restores the original axis order."""
+    nd = re.ndim
+    fr, fi = methods.apply_fused(re.movedim(a, -1), im.movedim(a, -1),
+                                 inverse=inverse, method=plan.method,
+                                 kernel=plan.kernel)
+    # net arrange+emit permutation: order[i] = original axis at new pos i
+    order = [p for p in range(nd) if p != a]
+    order = order[:-1] + [a] + order[-1:]
+    s_new = order.index(s)
+    fr = _swap(fr, mesh_axis, shard_pos=s_new, mem_pos=nd - 2, plan=plan)
+    fi = _swap(fi, mesh_axis, shard_pos=s_new, mem_pos=nd - 2, plan=plan)
+    inv = [0] * nd
+    for i2, p in enumerate(order):
+        inv[p] = i2
+    return fr.permute(inv), fi.permute(inv)
+
+
+def _execute(re, im, layout: Layout, steps, *, inverse: bool,
+             plan: PencilPlan, batch_ndim: int) -> Planar:
+    """Run fft/swap steps, threading the layout. A serial (fft, swap)
+    pair whose swap splits the just-transformed axis (the schedule
+    invariant in both directions) runs as one fused superstep."""
+    off = batch_ndim
+    lay = layout
+    i = 0
+    while i < len(steps):
+        step = steps[i]
+        nxt = steps[i + 1] if i + 1 < len(steps) else None
+        if (step[0] == 'fft' and nxt is not None and nxt[0] == 'swap'
+                and nxt[2] == step[1] and re.ndim >= 2):
+            _, mesh_axis, _ = nxt
+            re, im = _fused_pair(
+                re, im, a=off + step[1],
+                s=off + planlib.owner_pos(lay, mesh_axis),
+                mesh_axis=mesh_axis, inverse=inverse, plan=plan)
+            lay = planlib.swap(lay, mesh_axis, nxt[2])
+            i += 2
+            continue
+        if step[0] == 'fft':
+            re, im = _fft_along(re, im, off + step[1], inverse=inverse, plan=plan)
+        else:
+            _, mesh_axis, mem_pos = step
+            sp = off + planlib.owner_pos(lay, mesh_axis)
+            re = _swap(re, mesh_axis, shard_pos=sp, mem_pos=off + mem_pos, plan=plan)
+            im = _swap(im, mesh_axis, shard_pos=sp, mem_pos=off + mem_pos, plan=plan)
+            lay = planlib.swap(lay, mesh_axis, mem_pos)
+        i += 1
+    return re, im
+
+
+# ---------------------------------------------------------------------------
+# Factory
+# ---------------------------------------------------------------------------
+
+def make_fft(plan: PencilPlan, *, inverse: bool = False,
+             restore_layout: bool = False, overlap_chunks: int = 1,
+             real: bool = False) -> Tuple[Callable, Layout, Layout]:
+    """Build the per-rank FFT of a complex plan.
+
+    Returns (fn, in_layout, out_layout). ``fn(re, im)`` maps this rank's
+    planar block, with ONE leading batch axis, in ``in_layout`` to its
+    block in ``out_layout``. The inverse consumes the forward's output
+    layout and returns the plan's layout; with ``restore_layout`` both
+    directions consume and produce the plan's layout (extra swaps)."""
+    if real:
+        raise NotImplementedError(
+            "real plans (rplan / rfft_via) are not ported yet: ROADMAP "
+            "queue 1, 'Facade: real plans'")
+    if overlap_chunks != 1:
+        raise NotImplementedError(
+            "overlap_chunks > 1 is not ported yet: ROADMAP queue 1, 'Overlap'")
+    plan.validate()
+    methods.validate(plan.method)
+    strategies.validate(plan.comm)
+    if inverse:
+        steps, _ = inverse_schedule(plan.layout)
+        in_layout, out_layout = forward_schedule(plan.layout)[1], plan.layout
+        if restore_layout:
+            steps = tuple(('swap', ax, mp) for ax, mp
+                          in planlib.plan_swaps(plan.layout, in_layout)) + steps
+            in_layout = plan.layout
+    else:
+        steps, out_layout = forward_schedule(plan.layout)
+        in_layout = plan.layout
+        if restore_layout:
+            steps = steps + tuple(('swap', ax, mp) for ax, mp
+                                  in planlib.plan_swaps(out_layout, plan.layout))
+            out_layout = plan.layout
+
+    def local(re: torch.Tensor, im: torch.Tensor) -> Planar:
+        return _execute(re, im, in_layout, steps, inverse=inverse, plan=plan,
+                        batch_ndim=1)
+
+    return local, in_layout, out_layout

@@ -1,0 +1,66 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+One module per TPU kernel it replaces (same names as ``repro.kernels``):
+
+* :mod:`.fft_pencil` — radix-2 Stockham pencil FFT
+* :mod:`.fft_fused` — Stockham + optional twiddle + transposed emit
+* :mod:`.fft_matmul` — Bailey four-step
+
+Each wrapper runs its plain version on a CPU tensor and launches its
+kernel on a CUDA tensor (or raises), and counts its launches in the
+module's ``launches`` integer. ``fft_block`` is still to be ported
+(ROADMAP queue 2).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core import twiddle as tw
+
+KERNEL_MODULES = ('fft_pencil', 'fft_fused', 'fft_matmul')
+
+
+def _modules():
+    import importlib
+    return {m: importlib.import_module(f'repro_torch.kernels.{m}')
+            for m in KERNEL_MODULES}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, per kernel module."""
+    return {m: mod.launches for m, mod in _modules().items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _modules().values():
+        mod.launches = 0
+
+
+def check_planar(name: str, re: torch.Tensor, im: torch.Tensor,
+                 min_ndim: int = 1) -> int:
+    """Validate a planar operand for a kernel wrapper; returns n, the
+    length of the last axis. Raises on anything the kernel does not
+    take: mismatched or non-fp32 planes, a non-contiguous plane, a
+    non-pow2 length, or a device that is neither CPU nor CUDA."""
+    if re.shape != im.shape or re.device != im.device:
+        raise ValueError(f"{name}: re {tuple(re.shape)} on {re.device} and "
+                         f"im {tuple(im.shape)} on {im.device} differ")
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise TypeError(f"{name}: planes must be float32, got {re.dtype}/{im.dtype}")
+    if not (re.is_contiguous() and im.is_contiguous()):
+        raise ValueError(f"{name}: planes must be contiguous")
+    if re.ndim < min_ndim:
+        raise ValueError(f"{name}: needs at least {min_ndim} dims, got {tuple(re.shape)}")
+    if re.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f"{name}: unsupported device {re.device}")
+    n = re.shape[-1]
+    if not tw.is_pow2(n):
+        raise ValueError(f"{name}: pencil length must be a power of two, got {n}")
+    return n
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+

@@ -1,0 +1,68 @@
+"""The port on the card: each CUDA kernel against its plain version, and
+a small plan end to end. Every test here is marked ``cuda`` and skips
+without an NVIDIA GPU (the kernels have no CPU mode). This file imports
+no jax, so it runs on the GPU machine as it is:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances: max |kernel - plain| <= 1e-5 * max |plain|, as in
+``chip_smoke.py`` (fp32 sums in another order); the plan against
+torch.fft.fftn and its round trip, relative L2 <= 1e-5.
+"""
+import pytest
+import torch
+
+import repro_torch.fft as fft
+from repro_torch import kernels
+from repro_torch.kernels import fft_fused, fft_matmul, fft_pencil
+from repro_torch.launch.mesh import make_fft_mesh
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device='cuda').manual_seed(0)
+
+
+def _planar(shape, gen):
+    return (torch.randn(shape, generator=gen, device='cuda'),
+            torch.randn(shape, generator=gen, device='cuda'))
+
+
+def _rel(got, want):
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want))
+            / max(float(w.abs().max()) for w in want))
+
+
+@pytest.mark.parametrize("n", [2, 16, 512, 4096])
+def test_kernels_match_plain_versions(gen, n):
+    """Ragged batches (37 and 29 are not multiples of a block's
+    pencils), a leading dim and a broadcast twiddle."""
+    x, z, w = _planar((37, n), gen), _planar((3, 29, n), gen), _planar((29, n), gen)
+    for inverse in (False, True):
+        assert _rel(fft_pencil.fft_pencil(*x, inverse=inverse),
+                    fft_pencil.fft_pencil_plain(*x, inverse=inverse)) <= 1e-5
+        assert _rel(fft_matmul.fft_matmul(*x, inverse=inverse),
+                    fft_matmul.fft_matmul_plain(*x, inverse=inverse)) <= 1e-5
+        assert _rel(fft_fused.fft_twiddle_transpose(*z, *w, inverse=inverse),
+                    fft_fused.fft_twiddle_transpose_plain(*z, *w, inverse=inverse)) <= 1e-5
+
+
+@pytest.mark.parametrize("method, counts", [
+    ('four_step', {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 6}),
+    ('stockham', {'fft_pencil': 2, 'fft_fused': 4, 'fft_matmul': 0}),
+])
+def test_plan_on_the_card(gen, method, counts):
+    n = 64
+    p = fft.plan((n, n, n), make_fft_mesh(1, 1), method=method)
+    x = torch.complex(*_planar((2, n, n, n), gen))
+    kernels.reset_launch_counts()
+    y = p.forward(x)
+    x2 = p.inverse(y)
+    assert kernels.launch_counts() == counts
+    ref = torch.fft.fftn(x, dim=(1, 2, 3))
+    assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+    assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5
