@@ -10,16 +10,27 @@ Phases, each printing one line and raising on any failure:
    then the kernels are built from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (512^3 as 262,144 pencils of 512), plus ragged batches,
-   other lengths and the fused kernel with a random twiddle; with its
-   median time, the plain version's, one PyTorch library call's
-   (``torch.fft.fft``, a yardstick the port never calls) and its bound;
+   path's shapes (512^3 as 262,144 pencils of 512; ``fft_matmul`` and
+   ``fft_block`` also at the real path's 262,144 half pencils of 256),
+   plus ragged batches, other lengths and the fused kernel with a random
+   twiddle; with its median time, the plain version's, one PyTorch
+   library call's (``torch.fft.fft``, a yardstick the port never calls)
+   and its bound;
 3. the main path with the default plan, ``plan((512,)*3, make_fft_mesh(1, 1))``
    (resolves to four_step / all_to_all): forward against ``torch.fft.fftn``,
    the round trip, and 3 ``fft_matmul`` launches per direction;
 4. the same with ``method='stockham'``: 2 ``fft_twiddle_transpose`` and 1
    ``fft_pencil`` launches per direction;
-5. a ``kernels`` JSON line, the card line and, last, the result line.
+5. the same with ``method='block'``: 3 ``fft_block`` launches per direction;
+6. the real plan ``rplan((512,)*3, make_fft_mesh(1, 1))`` (resolves to
+   four_step, spectrum (512, 512, 257)): forward against
+   ``torch.fft.rfftn``, the round trip, 3 ``fft_matmul`` launches per
+   direction; then the same with ``method='block'``, 3 ``fft_block``;
+7. a ``kernels`` JSON line, the card line and, last, the result line.
+
+Each path prints its fwd+inv time, the library's (``fftn``+``ifftn`` or
+``rfftn``+``irfftn``) and a ``[profile]`` line with device time by
+kernel.
 
 It imports neither jax nor the JAX package. Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -43,7 +54,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'src
 
 import repro_torch.fft as fft  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels import _build, fft_fused, fft_matmul, fft_pencil  # noqa: E402
+from repro_torch.kernels import _build, fft_block, fft_fused, fft_matmul, fft_pencil  # noqa: E402
+from repro_torch.core.twiddle import four_step_factors  # noqa: E402
 from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
 
 N = 512
@@ -71,9 +83,15 @@ KERNELS = {
                                   replaces='src/repro/kernels/fft_fused.py:58'),
     'fft_matmul': dict(source='src/repro_torch/csrc/fft_matmul.cu',
                        replaces='src/repro/kernels/fft_matmul.py:71'),
+    'fft_block': dict(source='src/repro_torch/csrc/fft_block.cu',
+                      replaces='src/repro/kernels/fft_block.py:49'),
 }
 COUNTER = {'fft_pencil': 'fft_pencil', 'fft_twiddle_transpose': 'fft_fused',
-           'fft_matmul': 'fft_matmul'}
+           'fft_matmul': 'fft_matmul', 'fft_block': 'fft_block'}
+
+
+#: the measured keys of each kernel's record in the ``kernels`` JSON line
+JSON_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 
 
 def say(phase: str, **kw) -> None:
@@ -195,12 +213,18 @@ def phase_kernels(gen) -> dict:
                              bound_ms=b, bound_by=by)
     del x, xc
 
+    rec['fft_block'] = kernel_block(gen)
+    kernel_half_pencils(gen)
+
     # ragged tiles and other lengths: every n the kernels take
-    for n in (2, 4, 16, 64, 512, 1024, 4096):
+    for n in (2, 4, 16, 64, 256, 512, 1024, 4096):
         y = planar((37, n), gen)
         z = planar((3, 29, n), gen)
         wz = planar((29, n), gen)
+        yb = torch.stack(y)
         for inv in (False, True):
+            check('fft_block', fft_block.fft_block(yb, inverse=inv),
+                  fft_block.fft_block_plain(yb, inverse=inv), f"(2, 37, {n})")
             check('fft_pencil', fft_pencil.fft_pencil(*y, inverse=inv),
                   fft_pencil.fft_pencil_plain(*y, inverse=inv), f"(37, {n})")
             check('fft_matmul', fft_matmul.fft_matmul(*y, inverse=inv),
@@ -213,6 +237,51 @@ def phase_kernels(gen) -> dict:
         say('kernel', name=name, tol=KERNEL_RTOL,
             **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
     return rec
+
+
+def kernel_block(gen) -> dict:
+    """``fft_block`` on the stacked (2, 512 * 512, 512) of the block path."""
+    pencils = N * N
+    x = torch.stack(planar((pencils, N), gen))
+    err = max(check('fft_block', fft_block.fft_block(x, inverse=inv),
+                    fft_block.fft_block_plain(x, inverse=inv),
+                    f"(2, {pencils}, {N}) inverse={inv}")
+              for inv in (False, True))
+    xc = torch.complex(x[0], x[1])
+    n1, n2 = four_step_factors(N)
+    b, by = bound(pencils * N, fft_flops(N, pencils))
+    return dict(max_abs_err=err, ms=time_ms(lambda: fft_block.fft_block(x), 20),
+                plain_ms=time_ms(lambda: fft_block.fft_block_plain(x), 5),
+                library_ms=time_ms(lambda: torch.fft.fft(xc, dim=-1), 20),
+                bound_ms=b, bound_by=by,
+                dense_flop_ms=8.0 * N * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3)
+
+
+def kernel_half_pencils(gen) -> None:
+    """The real path's r2c/c2r supersteps: 512 * 512 half pencils of 256,
+    through ``fft_matmul`` (default method) and ``fft_block``
+    (``method='block'``), each against its plain version, forward and
+    inverse, with its times and bound at that shape."""
+    n, pencils = N // 2, N * N
+    x = planar((pencils, n), gen)
+    xs = torch.stack(x)
+    xc = torch.complex(*x)
+    lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 20)
+    b, by = bound(pencils * n, fft_flops(n, pencils))
+    n1, n2 = four_step_factors(n)
+    runs = (('fft_matmul', lambda inv: fft_matmul.fft_matmul(*x, inverse=inv),
+             lambda inv: fft_matmul.fft_matmul_plain(*x, inverse=inv)),
+            ('fft_block', lambda inv: fft_block.fft_block(xs, inverse=inv),
+             lambda inv: fft_block.fft_block_plain(xs, inverse=inv)))
+    for name, run, plain in runs:
+        err = max(check(name, run(inv), plain(inv), f"({pencils}, {n}) inverse={inv}")
+                  for inv in (False, True))
+        extra = ({'dense_flop_ms': f"{8.0 * n * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3:.6g}"}
+                 if name == 'fft_block' else {})
+        say('kernel', name=name, n=n, pencils=pencils, tol=KERNEL_RTOL,
+            max_abs_err=f"{err:.6g}", ms=f"{time_ms(lambda: run(False), 20):.6g}",
+            plain_ms=f"{time_ms(lambda: plain(False), 5):.6g}", library_ms=f"{lib:.6g}",
+            bound_ms=f"{b:.6g}", bound_by=by, **extra)
 
 
 def profile(fn) -> dict:
@@ -232,19 +301,27 @@ def profile(fn) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
     busy_us = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall_ms=f"{wall_us / 1e3:.6g}", device_busy_ms=f"{busy_us / 1e3:.6g}",
                 idle_share=f"{1 - busy_us / wall_us:.3f}",
                 top=json.dumps([[k[:48], round(v / 1e3, 3)] for k, v in top]))
 
 
-def phase_path(label: str, gen, expect_method: str, expect: dict, **plan_kw) -> dict:
-    """One main path: plan, forward, inverse; returns the launch counts."""
-    p = fft.plan((N, N, N), make_fft_mesh(1, 1), **plan_kw)
+def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = False,
+               **plan_kw) -> dict:
+    """One main path: plan, forward, inverse; returns the launch counts.
+    A real path (``rplan``) takes a real operand and is held against
+    ``torch.fft.rfftn``; a complex one against ``torch.fft.fftn``."""
+    p = (fft.rplan if real else fft.plan)((N, N, N), make_fft_mesh(1, 1), **plan_kw)
     if (p.method, p.comm, p.resolved_kernel) != (expect_method, 'all_to_all', 'pallas'):
         raise AssertionError(f"{label}: resolved to {p.method}/{p.comm}/{p.resolved_kernel}")
-    xr, xi = planar((N, N, N), gen)
-    x = torch.complex(xr, xi)
+    if real:
+        if p.spectrum_shape != (N, N, N // 2 + 1):
+            raise AssertionError(f"{label}: spectrum shape {p.spectrum_shape}")
+        x = torch.randn((N, N, N), generator=gen, device='cuda')
+    else:
+        xr, xi = planar((N, N, N), gen)
+        x = torch.complex(xr, xi)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -255,7 +332,9 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, **plan_kw) -> 
     torch.cuda.synchronize()
     total = kernels.launch_counts()
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    ref = torch.fft.fftn(x)
+    ref = torch.fft.rfftn(x) if real else torch.fft.fftn(x)
+    if y.shape != ref.shape or y.dtype != torch.complex64:
+        raise AssertionError(f"{label}: forward gave {y.dtype}{tuple(y.shape)}")
     fwd_err = float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref))
     del ref
     rt_err = float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x))
@@ -271,13 +350,18 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, **plan_kw) -> 
                              f"{rt_err:.3e}, limit {PATH_RTOL}")
     del y, x2
     ms = time_ms(lambda: p.inverse(p.forward(x)), 5)
-    planar_ms = time_ms(lambda: p.inverse(p.forward((xr, xi))), 5)
-    lib = time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), 5)
+    extra = {}
+    if real:
+        lib = time_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x), s=x.shape), 5)
+        extra['spectrum'] = json.dumps(list(p.spectrum_shape))
+    else:
+        extra['planar_fwd_inv_ms'] = (
+            f"{time_ms(lambda: p.inverse(p.forward((xr, xi))), 5):.6g}")
+        lib = time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), 5)
     say('path', label=label, method=p.method, comm=p.comm, kernel=p.resolved_kernel,
         fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
         launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
-        fwd_inv_ms=f"{ms:.6g}",
-        planar_fwd_inv_ms=f"{planar_ms:.6g}", library_ms=f"{lib:.6g}")
+        fwd_inv_ms=f"{ms:.6g}", library_ms=f"{lib:.6g}", **extra)
     say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
     return total
 
@@ -288,16 +372,23 @@ def main() -> None:
     rec = phase_kernels(gen)
     # each path runs its own kernels and no other, so a kernel's count is
     # the one from the path that launched it
-    default = phase_path('default', gen, 'four_step', {'fft_matmul': 3})
-    stockham = phase_path('stockham', gen, 'stockham', {'fft_fused': 2, 'fft_pencil': 1},
-                          method='stockham')
-    launches = {k: default[k] + stockham[k] for k in default}
+    paths = [
+        phase_path('default', gen, 'four_step', {'fft_matmul': 3}),
+        phase_path('stockham', gen, 'stockham', {'fft_fused': 2, 'fft_pencil': 1},
+                   method='stockham'),
+        phase_path('block', gen, 'block', {'fft_block': 3}, method='block'),
+        phase_path('real', gen, 'four_step', {'fft_matmul': 3}, real=True),
+        phase_path('real_block', gen, 'block', {'fft_block': 3}, real=True,
+                   method='block'),
+    ]
+    launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []
     for name, meta in KERNELS.items():
         n_launch = launches.get(COUNTER[name], 0)
         if n_launch == 0:
             raise AssertionError(f"{name} was not launched on the main path")
-        out.append(dict(name=name, route='cuda', **meta, launches=n_launch, **rec[name]))
+        out.append(dict(name=name, route='cuda', **meta, launches=n_launch,
+                        **{k: rec[name][k] for k in JSON_KEYS}))
     print(json.dumps({'kernels': out}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -14,10 +14,17 @@ the same functions.
   ``Precision.HIGHEST``): on a CUDA tensor it sets
   ``torch.backends.cuda.matmul.allow_tf32 = False`` before its
   products, so no TF32 rounding enters.
+* ``fft_four_step_block`` — the block-complex four-step: the complex
+  axis carried as a leading size-2 axis, two real contractions per
+  pencil against ``_block_consts_np``, full fp32 like the four-step.
+* ``rfft_pencil`` / ``irfft_pencil`` / ``rfft_via`` — the real-input
+  pencils: a length-n/2 complex FFT inside a Hermitian pack/combine.
 """
 from __future__ import annotations
 
 import functools
+
+import numpy as np
 import torch
 
 from repro_torch.core import twiddle as tw
@@ -111,6 +118,65 @@ def fft_four_step(re: torch.Tensor, im: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Block-complex four-step (complex carried as a leading size-2 axis)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _block_consts_np(n1: int, n2: int, inverse: bool):
+    """Constants of the block-complex four-step, numpy float64.
+
+    F1b[c, j, d, k]: one real contraction over (d, k) computes both
+    complex components, [yr; yi] = [[Fr, -Fi], [Fi, Fr]] @ [xr; xi].
+    G[c, m, j, d, l]: the twiddle folded into the second factor,
+    G[j, l, m] = W[j, l] F2[l, m] as a complex number, so steps 3 and 4
+    are one contraction that emits natural order."""
+    f1r, f1i = tw.dft_matrix_np(n1, inverse=inverse)
+    f2r, f2i = tw.dft_matrix_np(n2, inverse=inverse)
+    wr, wi = tw.four_step_twiddle_np(n1, n2, inverse=inverse)
+    f1b = np.zeros((2, n1, 2, n1))
+    f1b[0, :, 0, :], f1b[0, :, 1, :] = f1r, -f1i
+    f1b[1, :, 0, :], f1b[1, :, 1, :] = f1i, f1r
+    gr = wr[:, :, None] * f2r[None] - wi[:, :, None] * f2i[None]
+    gi = wr[:, :, None] * f2i[None] + wi[:, :, None] * f2r[None]
+    g = np.zeros((2, n2, n1, 2, n2))          # [c, m, j, d, l]
+    g[0, :, :, 0, :] = gr.transpose(2, 0, 1)
+    g[0, :, :, 1, :] = -gi.transpose(2, 0, 1)
+    g[1, :, :, 0, :] = gi.transpose(2, 0, 1)
+    g[1, :, :, 1, :] = gr.transpose(2, 0, 1)
+    return f1b, g
+
+
+@functools.lru_cache(maxsize=None)
+def block_tables(n1: int, n2: int, inverse: bool, device: torch.device):
+    """(F1b, G) of :func:`_block_consts_np` as fp32 on ``device``."""
+    return tuple(tw.table(a, device) for a in _block_consts_np(n1, n2, inverse))
+
+
+def fft_four_step_block(x: torch.Tensor, axis: int, *,
+                        inverse: bool = False) -> torch.Tensor:
+    """Block-complex four-step FFT along ``axis`` of ``x``, whose leading
+    axis of size 2 holds (re, im). Natural-order output, full fp32.
+
+      b[c, j1, k2] = sum_{d, k1} F1b[c, j1, d, k1] a[d, k1, k2]
+      y[c, m n1 + j1] = sum_{d, l} G[c, m, j1, d, l] b[d, j1, l]
+    with a[d] = x[d] viewed as (n1, n2)."""
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    n1, n2 = tw.four_step_factors(n)
+    full_fp32_matmul(x.device)
+    f1b, g = block_tables(n1, n2, inverse, x.device)
+    a = x.movedim(axis, -1)
+    lead = tuple(a.shape[1:-1])
+    a = a.reshape(2, -1, n1, n2)
+    b = torch.einsum('cjdk,dakl->cajl', f1b, a)
+    d = torch.einsum('cmjdl,dajl->camj', g, b)
+    y = d.reshape((2,) + lead + (n,))
+    if inverse:
+        y = y * (1.0 / n)
+    return y.movedim(-1, axis)
+
+
+# ---------------------------------------------------------------------------
 # Fused superstep: FFT + twiddle rotation + transposed emit
 # ---------------------------------------------------------------------------
 
@@ -127,6 +193,76 @@ def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
     if wr is not None:
         yr, yi = tw.cmul(yr, yi, wr, wi)
     return yr.transpose(-1, -2), yi.transpose(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# Real-input pencils: pack two reals as one complex
+# ---------------------------------------------------------------------------
+#
+# A length-n real FFT is one length-n/2 complex FFT plus an O(n)
+# Hermitian combine: c[t] = a[2t] + i a[2t+1], C = FFT_{n/2}(c); with
+# Cm[k] = C[(n/2 - k) mod n/2], E = (C + conj(Cm))/2 and
+# O = (C - conj(Cm))/(2i) are the even/odd half spectra, and
+# A[k] = E[k] + w_n^k O[k] (k < n/2), A[n/2] = E[0] - O[0].
+
+@functools.lru_cache(maxsize=None)
+def _split_table(n: int, device: torch.device) -> Planar:
+    return tuple(tw.table(a, device) for a in tw.rfft_split_twiddle_np(n))
+
+
+def rfft_pencil(x: torch.Tensor, *, cfft) -> Planar:
+    """Half-spectrum rfft of a real tensor along its last axis (n ->
+    n//2 + 1 bins, ``np.fft.rfft``'s layout). ``cfft(re, im)`` is any
+    length-n/2 forward complex FFT. The imaginary parts of bins 0 and
+    n/2 are exactly zero."""
+    n = x.shape[-1]
+    if n % 2:
+        raise ValueError(f"rfft pencil needs an even length, got {n}")
+    cr, ci = cfft(x[..., 0::2], x[..., 1::2])
+    cmr = torch.roll(torch.flip(cr, (-1,)), 1, -1)
+    cmi = torch.roll(torch.flip(ci, (-1,)), 1, -1)
+    er, ei = (cr + cmr) * 0.5, (ci - cmi) * 0.5
+    our, oui = (ci + cmi) * 0.5, (cmr - cr) * 0.5
+    wr, wi = _split_table(n, x.device)
+    ar = er + (our * wr - oui * wi)
+    ai = ei + (our * wi + oui * wr)
+    edge_r = er[..., :1] - our[..., :1]
+    return (torch.cat([ar, edge_r], dim=-1),
+            torch.cat([ai, torch.zeros_like(edge_r)], dim=-1))
+
+
+def irfft_pencil(re: torch.Tensor, im: torch.Tensor, *, cifft) -> torch.Tensor:
+    """Inverse of :func:`rfft_pencil`: a planar half spectrum (last axis
+    n//2 + 1) to the real tensor (last axis n). ``cifft`` is any
+    length-n/2 inverse complex FFT with its 1/(n/2) scaling, so the 1/n
+    of ``np.fft.irfft`` comes out exactly."""
+    nh = re.shape[-1]
+    h = nh - 1
+    n = 2 * h
+    if h < 1:
+        raise ValueError(f"irfft pencil needs >= 2 spectrum bins, got {nh}")
+    ar, ai = re[..., :h], im[..., :h]
+    amr = torch.flip(re[..., 1:], (-1,))
+    ami = torch.flip(im[..., 1:], (-1,))
+    er, ei = (ar + amr) * 0.5, (ai - ami) * 0.5
+    tr, ti = (ar - amr) * 0.5, (ai + ami) * 0.5
+    wr, wi = _split_table(n, re.device)
+    our = tr * wr + ti * wi
+    oui = ti * wr - tr * wi
+    cr, ci = cifft(er - oui, ei + our)
+    return torch.stack([cr, ci], dim=-1).reshape(tuple(re.shape[:-1]) + (n,))
+
+
+def rfft_via(pencil_fn):
+    """A ``real_fn`` from a complex pencil ``(re, im, *, inverse)``: the
+    forward maps a real tensor to the planar half spectrum, the inverse
+    (``real_fn(re, im, inverse=True)``) maps it back."""
+    def real_fn(x, im=None, *, inverse=False):
+        if inverse:
+            return irfft_pencil(
+                x, im, cifft=lambda r, i: pencil_fn(r, i, inverse=True))
+        return rfft_pencil(x, cfft=lambda r, i: pencil_fn(r, i, inverse=False))
+    return real_fn
 
 
 # ---------------------------------------------------------------------------

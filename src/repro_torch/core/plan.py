@@ -77,6 +77,10 @@ class PencilPlan:
     kernel      local-compute tier ('auto'|'pallas'|'reference'); in the
                 port 'pallas' names the hand-written CUDA kernels
     comm        redistribution strategy ('all_to_all')
+    real        real-input (rfft) plan: the LAST axis is transformed
+                real-to-complex in the first superstep and every later
+                superstep sees its half spectrum (n -> n//2 + 1 bins,
+                padded for even sharding)
     wire_dtype  swap wire format ('native'|'fp16'|'bf16')
     """
     shape: Tuple[int, ...]
@@ -85,7 +89,14 @@ class PencilPlan:
     method: str = 'auto'
     kernel: str = 'auto'
     comm: str = 'all_to_all'
+    real: bool = False
     wire_dtype: str = 'native'
+
+    @property
+    def real_axis(self) -> Optional[int]:
+        """The axis the r2c/c2r transform runs along (the last, as in
+        ``np.fft.rfftn``), or None for a complex plan."""
+        return len(self.shape) - 1 if self.real else None
 
     def axis_size(self, mesh_axis: MeshAxis) -> int:
         if mesh_axis is None:
@@ -111,6 +122,13 @@ class PencilPlan:
             p = self.axis_size(o)
             if s % p:
                 raise ValueError(f"axis size {s} not divisible by mesh extent {p} ({o})")
+        if self.real:
+            if self.layout[-1] is not None:
+                raise ValueError(
+                    f"real plans transform the last axis first, so it must "
+                    f"start in memory (None), got layout {self.layout}")
+            if self.shape[-1] % 2:
+                raise ValueError(f"real plans need an even last axis, got {self.shape}")
 
 
 def make_fft3d_plan(n: int, mesh, row_axis: str = 'x', col_axis: str = 'y',

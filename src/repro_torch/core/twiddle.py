@@ -84,6 +84,16 @@ def four_step_twiddle_np(n1: int, n2: int, *, inverse: bool = False) -> Tuple[np
     return np.cos(ang), im
 
 
+@functools.lru_cache(maxsize=None)
+def rfft_split_twiddle_np(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) of w_n^k, k in [0, n//2): the post-combine twiddles of
+    the pack-two-reals-as-one-complex rfft (A[k] = E[k] + w_n^k O[k]).
+    The inverse combine uses the conjugate."""
+    k = np.arange(n // 2, dtype=np.float64)
+    ang = -2.0 * math.pi * k / n
+    return np.cos(ang), np.sin(ang)
+
+
 def four_step_factors(n: int) -> Tuple[int, int]:
     """Split n = n1 * n2 with n1 >= n2, both powers of two, as square as
     possible."""

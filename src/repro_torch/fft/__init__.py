@@ -7,8 +7,12 @@
     y = p.forward(x)                   # complex64 in -> complex64 out
     re, im = p.forward((re, im))       # planar float32 pairs work too
     x2 = p.inverse(y)
+
+    r = fft.rplan((n, n, n), make_fft_mesh(1, 1))
+    s = r.forward(xr)                  # float32 in -> complex64 (n, n, n//2 + 1)
+    xr2 = r.inverse(s)
 """
 from repro_torch.fft import methods
-from repro_torch.fft.api import FFT, plan
+from repro_torch.fft.api import FFT, plan, plan_op, rplan
 
-__all__ = ['FFT', 'plan', 'methods']
+__all__ = ['FFT', 'plan', 'rplan', 'plan_op', 'methods']

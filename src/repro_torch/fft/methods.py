@@ -2,8 +2,10 @@
 
 Port of ``repro.fft.methods``. Every local pencil transform of the port
 dispatches through here. A method owns a plain PyTorch ``pencil_fn``
-(the 'reference' tier, along the LAST axis) and, where one exists, a
-``kernel_fn``: the wrapper of its hand-written CUDA kernel.
+(the 'reference' tier, along the LAST axis), where one exists a
+``kernel_fn`` (the wrapper of its hand-written CUDA kernel), and a
+``real_fn``: the real-input transform, the pencil inside the Hermitian
+pack/combine of :func:`repro_torch.core.fft1d.rfft_via`.
 
 The ``kernel=`` values keep the reference's names so that options
 round-trip: ``'pallas'`` names the hand-written CUDA tier here.
@@ -15,7 +17,9 @@ round-trip: ``'pallas'`` names the hand-written CUDA tier here.
 * ``'reference'`` runs the plain version.
 
 A method without a kernel (``'direct'``) runs its plain version under
-every tier, as in the reference. ``'block'`` is not ported yet.
+every tier, as in the reference. ``'block'`` (the block-complex
+four-step, complex carried as a leading size-2 axis) also has
+:func:`apply_block` for that stacked form.
 """
 from __future__ import annotations
 
@@ -28,17 +32,11 @@ from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.plan import KERNEL_TIERS
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import fft_fused, fft_matmul, fft_pencil
+from repro_torch.kernels import fft_block, fft_fused, fft_matmul, fft_pencil
 
 #: below this pencil length 'auto' takes Stockham butterflies instead of
 #: the four-step matmul form (dense DFT for non-pow2 lengths)
 AUTO_MATMUL_MIN = 64
-
-_NOT_PORTED = {
-    'block': "method 'block' and its kernel (src/repro/kernels/fft_block.py:"
-             "fft_block) are not ported yet: ROADMAP queue 2, 'fft_block'",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Method:
@@ -46,6 +44,7 @@ class Method:
     name: str
     pencil_fn: Callable
     kernel_fn: Optional[Callable] = None
+    real_fn: Optional[Callable] = None
     pow2_only: bool = True
     description: str = ''
 
@@ -66,8 +65,6 @@ def names() -> Tuple[str, ...]:
 
 
 def get(name: str) -> Method:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[name])
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -138,9 +135,10 @@ def apply(re: torch.Tensor, im: torch.Tensor, *, axis: int = -1,
     axis = axis % re.ndim
     m = _checked(method, re.shape[axis])
     last = axis == re.ndim - 1
+    tier = resolve_kernel(kernel, m, re.device)
     if not last:
         re, im = re.movedim(axis, -1), im.movedim(axis, -1)
-    if resolve_kernel(kernel, m, re.device) == 'pallas':
+    if tier == 'pallas':
         yr, yi = m.kernel_fn(re.contiguous(), im.contiguous(), inverse=inverse)
     else:
         yr, yi = m.pencil_fn(re, im, inverse=inverse)
@@ -174,20 +172,99 @@ def apply_fused(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
                                     fft_fn=m.pencil_fn)
 
 
+def apply_real(x: torch.Tensor, im: Optional[torch.Tensor] = None, *,
+               axis: int = -1, inverse: bool = False, method: str = 'auto',
+               kernel: str = 'auto'):
+    """Run a method's real-input transform along ``axis``.
+
+    Forward (``im is None``): real tensor -> planar half spectrum, the
+    axis going n -> n//2 + 1 (``np.fft.rfft``'s layout). Inverse: planar
+    half spectrum ``(x, im)`` -> real tensor. 'auto' resolves by the
+    half length n//2, the length of the complex pencil inside.
+
+    On the kernel tier that length-n/2 complex FFT runs the method's
+    CUDA kernel (the reference runs its plain pencil there for Stockham
+    and four-step); the Hermitian combine is plain tensor ops on both
+    tiers. A non-last axis is moved last and the result returned as a
+    view in the caller's axis order."""
+    axis = axis % x.ndim
+    if inverse:
+        if im is None:
+            raise ValueError("inverse real transform takes a planar (re, im) half spectrum")
+        n = 2 * (x.shape[axis] - 1)
+    else:
+        if im is not None:
+            raise ValueError("forward real transform takes ONE real tensor")
+        n = x.shape[axis]
+    if n % 2:
+        raise ValueError(f"real transforms need an even length, got {n}")
+    m = _checked(method, max(n // 2, 1))
+    if resolve_kernel(kernel, m, x.device) == 'pallas':
+        # the pack reads every other element: the kernel takes contiguous planes
+        real_fn = f1.rfft_via(lambda r, i, *, inverse: m.kernel_fn(
+            r.contiguous(), i.contiguous(), inverse=inverse))
+    else:
+        real_fn = m.real_fn
+    last = axis == x.ndim - 1
+    if not last:
+        x = x.movedim(axis, -1)
+        im = None if im is None else im.movedim(axis, -1)
+    if inverse:
+        y = real_fn(x, im, inverse=True)
+        return y if last else y.movedim(-1, axis)
+    yr, yi = real_fn(x)
+    if not last:
+        yr, yi = yr.movedim(-1, axis), yi.movedim(-1, axis)
+    return yr, yi
+
+
+def apply_block(x: torch.Tensor, *, axis: int, inverse: bool = False,
+                kernel: str = 'auto') -> torch.Tensor:
+    """The 'block' method on its stacked form: ``x`` carries a leading
+    size-2 complex axis (x[0] = re, x[1] = im) and is transformed along
+    ``axis`` (counted over x's own dims). On the kernel tier a non-last
+    axis is moved last with a ``.contiguous()`` copy, as in
+    :func:`apply`, and the result returned as a view in x's axis order."""
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    if not tw.is_pow2(n):
+        raise ValueError(f"method 'block' requires a power-of-two pencil length, got {n}")
+    if resolve_kernel(kernel, _REGISTRY['block'], x.device) == 'pallas':
+        last = axis == x.ndim - 1
+        y = fft_block.fft_block(x.movedim(axis, -1).contiguous(), inverse=inverse)
+        return y if last else y.movedim(-1, axis)
+    return f1.fft_four_step_block(x, axis, inverse=inverse)
+
+
+def _block_pencil(re, im, *, inverse=False) -> Planar:
+    y = f1.fft_four_step_block(torch.stack([re, im]), -1, inverse=inverse)
+    return y[0], y[1]
+
+
 register(Method(
     name='stockham',
     pencil_fn=f1.fft_stockham,
     kernel_fn=fft_pencil.fft_pencil,
+    real_fn=f1.rfft_via(f1.fft_stockham),
     description='radix-2 Stockham autosort butterflies (paper-faithful)'))
 
 register(Method(
     name='four_step',
     pencil_fn=f1.fft_four_step,
     kernel_fn=fft_matmul.fft_matmul,
+    real_fn=f1.rfft_via(f1.fft_four_step),
     description='Bailey four-step as dense DFT products'))
+
+register(Method(
+    name='block',
+    pencil_fn=_block_pencil,
+    kernel_fn=fft_block.fft_block_planar,
+    real_fn=f1.rfft_via(_block_pencil),
+    description='block-complex four-step: two real contractions, folded twiddle'))
 
 register(Method(
     name='direct',
     pencil_fn=f1.dft_direct,
+    real_fn=f1.rfft_via(f1.dft_direct),
     pow2_only=False,
     description='dense O(n^2) DFT matrix (oracle / non-pow2 sizes)'))

@@ -10,14 +10,19 @@ semantic (x, y, z) axis order never changes; only ownership rotates:
 Where the reference wraps its local function in ``shard_map``, the
 port runs it on each rank's local block. Each serial (fft, swap) pair
 runs as one fused superstep (:func:`_fused_pair`); the last fft runs
-through :func:`repro_torch.fft.methods.apply`.
+through :func:`repro_torch.fft.methods.apply`. ``method='block'``
+complex plans carry (re, im) stacked on a leading axis of 2 through
+every superstep (:func:`repro_torch.fft.methods.apply_block`). Real
+plans transform the last axis real-to-complex first and run the rest as
+a complex sub-plan on the padded half spectrum.
 
-Not ported yet: ``overlap_chunks > 1`` (ROADMAP queue 1, 'Overlap') and
-real plans (ROADMAP queue 1, 'Facade: real plans').
+Not ported yet: ``overlap_chunks > 1`` (ROADMAP queue 1, 'Overlap').
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import dataclasses
+import math
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -32,9 +37,12 @@ from repro_torch.fft import methods
 # Schedule derivation (pure layout algebra)
 # ---------------------------------------------------------------------------
 
-def forward_schedule(layout: Layout) -> Tuple[Tuple, Layout]:
+def forward_schedule(layout: Layout,
+                     first_mem: Optional[int] = None) -> Tuple[Tuple, Layout]:
     """Returns (steps, final_layout). Each step is ('fft', mem_pos) or
-    ('swap', mesh_axis, mem_pos)."""
+    ('swap', mesh_axis, mem_pos). ``first_mem`` forces that memory axis
+    into the first superstep: real plans transform the r2c axis before
+    any exchange, so everything on the wire is half spectrum."""
     steps: List[Tuple] = []
     lay = layout
     transformed = set()
@@ -43,7 +51,13 @@ def forward_schedule(layout: Layout) -> Tuple[Tuple, Layout]:
         mems = [p for p in planlib.memory_axes(lay) if p not in transformed]
         if not mems:
             raise ValueError(f"no untransformed memory axis in {lay}")
-        mem = mems[0]
+        if first_mem is not None and first_mem not in transformed:
+            if first_mem not in mems:
+                raise ValueError(f"axis {first_mem} must start in memory to be the "
+                                 f"first superstep of {layout}")
+            mem = first_mem
+        else:
+            mem = mems[0]
         steps.append(('fft', mem))
         transformed.add(mem)
         # swap with the first untransformed mesh-owned axis, position order
@@ -55,11 +69,12 @@ def forward_schedule(layout: Layout) -> Tuple[Tuple, Layout]:
     return tuple(steps), lay
 
 
-def inverse_schedule(layout: Layout) -> Tuple[Tuple, Layout]:
+def inverse_schedule(layout: Layout,
+                     first_mem: Optional[int] = None) -> Tuple[Tuple, Layout]:
     """Mirror of forward_schedule from the forward's final layout: each
     swap reversed, IFFTs in reverse superstep order, ending at
     ``layout``."""
-    fwd, final = forward_schedule(layout)
+    fwd, final = forward_schedule(layout, first_mem)
     pre_layouts = []
     lay = layout
     for step in fwd:
@@ -78,6 +93,42 @@ def inverse_schedule(layout: Layout) -> Tuple[Tuple, Layout]:
             # position of the inverse swap
             steps.append(('swap', mesh_axis, planlib.owner_pos(pre, mesh_axis)))
     return tuple(steps), layout
+
+
+# ---------------------------------------------------------------------------
+# Half-spectrum extent bookkeeping (real plans)
+# ---------------------------------------------------------------------------
+
+def real_half_extent(n: int) -> int:
+    """Half-spectrum length of a length-n real transform."""
+    return n // 2 + 1
+
+
+def real_padded_extent(shape, layout: Layout, mesh_shape, *,
+                       restore_layout: bool = False) -> int:
+    """On-wire extent of the half-spectrum last axis: n//2 + 1 zero-padded
+    to the smallest multiple of every group size that owns the axis
+    along the swap sequence (restore swaps included). The pad lies
+    wholly in the trailing shards."""
+    ra = len(shape) - 1
+    nh = real_half_extent(shape[-1])
+    steps, final = forward_schedule(tuple(layout), first_mem=ra)
+    swaps = [(s[1], s[2]) for s in steps if s[0] == 'swap']
+    if restore_layout:
+        swaps += list(planlib.plan_swaps(final, tuple(layout)))
+    lay = tuple(layout)
+    lcm = 1
+    for ax, mp in swaps:
+        lay = planlib.swap(lay, ax, mp)
+        if lay[ra] is not None:
+            lcm = math.lcm(lcm, strategies.static_group_size(lay[ra], mesh_shape))
+    return -(-nh // lcm) * lcm
+
+
+def packed_plan(plan: PencilPlan, nh_pad: int) -> PencilPlan:
+    """The complex plan of a real plan's post-r2c supersteps: the same
+    mesh, layout and method, the last axis at its padded half extent."""
+    return dataclasses.replace(plan, shape=plan.shape[:-1] + (nh_pad,), real=False)
 
 
 # ---------------------------------------------------------------------------
@@ -156,42 +207,104 @@ def _execute(re, im, layout: Layout, steps, *, inverse: bool,
 # ---------------------------------------------------------------------------
 
 def make_fft(plan: PencilPlan, *, inverse: bool = False,
-             restore_layout: bool = False, overlap_chunks: int = 1,
-             real: bool = False) -> Tuple[Callable, Layout, Layout]:
-    """Build the per-rank FFT of a complex plan.
+             restore_layout: bool = False,
+             overlap_chunks: int = 1) -> Tuple[Callable, Layout, Layout]:
+    """Build the per-rank FFT of a plan.
 
-    Returns (fn, in_layout, out_layout). ``fn(re, im)`` maps this rank's
-    planar block, with ONE leading batch axis, in ``in_layout`` to its
-    block in ``out_layout``. The inverse consumes the forward's output
-    layout and returns the plan's layout; with ``restore_layout`` both
-    directions consume and produce the plan's layout (extra swaps)."""
-    if real:
-        raise NotImplementedError(
-            "real plans (rplan / rfft_via) are not ported yet: ROADMAP "
-            "queue 1, 'Facade: real plans'")
+    Returns (fn, in_layout, out_layout). For a complex plan ``fn(re, im)``
+    maps this rank's planar block, with ONE leading batch axis, in
+    ``in_layout`` to its block in ``out_layout``. A real plan differs at
+    the r2c boundary only: the forward takes ONE real block and returns
+    the planar padded half spectrum (last axis ``real_padded_extent``),
+    the inverse takes that and returns the real block. The inverse
+    consumes the forward's output layout and returns the plan's layout;
+    with ``restore_layout`` both directions consume and produce the
+    plan's layout (extra swaps)."""
     if overlap_chunks != 1:
         raise NotImplementedError(
             "overlap_chunks > 1 is not ported yet: ROADMAP queue 1, 'Overlap'")
     plan.validate()
     methods.validate(plan.method)
     strategies.validate(plan.comm)
+    first = plan.real_axis
     if inverse:
-        steps, _ = inverse_schedule(plan.layout)
-        in_layout, out_layout = forward_schedule(plan.layout)[1], plan.layout
+        steps, _ = inverse_schedule(plan.layout, first)
+        in_layout, out_layout = forward_schedule(plan.layout, first)[1], plan.layout
         if restore_layout:
             steps = tuple(('swap', ax, mp) for ax, mp
                           in planlib.plan_swaps(plan.layout, in_layout)) + steps
             in_layout = plan.layout
     else:
-        steps, out_layout = forward_schedule(plan.layout)
+        steps, out_layout = forward_schedule(plan.layout, first)
         in_layout = plan.layout
         if restore_layout:
             steps = steps + tuple(('swap', ax, mp) for ax, mp
                                   in planlib.plan_swaps(out_layout, plan.layout))
             out_layout = plan.layout
 
-    def local(re: torch.Tensor, im: torch.Tensor) -> Planar:
-        return _execute(re, im, in_layout, steps, inverse=inverse, plan=plan,
-                        batch_ndim=1)
+    if plan.real:
+        fn = _real_local(plan, steps, in_layout, inverse=inverse,
+                         restore_layout=restore_layout)
+    elif plan.method == 'block':
+        def fn(re: torch.Tensor, im: torch.Tensor) -> Planar:
+            return _execute_block(re, im, in_layout, steps, inverse=inverse, plan=plan)
+    else:
+        def fn(re: torch.Tensor, im: torch.Tensor) -> Planar:
+            return _execute(re, im, in_layout, steps, inverse=inverse, plan=plan,
+                            batch_ndim=1)
+    return fn, in_layout, out_layout
 
-    return local, in_layout, out_layout
+
+def _execute_block(re, im, layout: Layout, steps, *, inverse: bool,
+                   plan: PencilPlan) -> Planar:
+    """The block-complex schedule: (re, im) stacked on a leading axis of
+    2 (after it, one batch axis), one :func:`methods.apply_block` per
+    fft step and one swap of the stacked tensor per swap step."""
+    x = torch.stack([re, im])
+    off = 2
+    lay = layout
+    for step in steps:
+        if step[0] == 'fft':
+            x = methods.apply_block(x, axis=off + step[1], inverse=inverse,
+                                    kernel=plan.kernel)
+        else:
+            _, mesh_axis, mem_pos = step
+            x = _swap(x, mesh_axis, shard_pos=off + planlib.owner_pos(lay, mesh_axis),
+                      mem_pos=off + mem_pos, plan=plan)
+            lay = planlib.swap(lay, mesh_axis, mem_pos)
+    return x[0], x[1]
+
+
+def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
+                restore_layout: bool) -> Callable:
+    """The per-rank function of a real plan. The r2c superstep is first
+    (forward) or last (inverse) by the ``first_mem`` rule; the steps in
+    between run as a complex plan on the padded half spectrum."""
+    ra = plan.real_axis
+    off = 1
+    nh = real_half_extent(plan.shape[-1])
+    nh_pad = real_padded_extent(plan.shape, plan.layout, plan.mesh.shape,
+                                restore_layout=restore_layout)
+    packed = packed_plan(plan, nh_pad)
+
+    def forward(x: torch.Tensor) -> Planar:
+        if steps[0] != ('fft', ra):
+            raise AssertionError(f"real schedule starts with {steps[0]}")
+        re, im = methods.apply_real(x, axis=off + ra, method=plan.method,
+                                    kernel=plan.kernel)
+        if nh_pad != nh:      # the real axis is the last one
+            re = torch.nn.functional.pad(re, (0, nh_pad - nh))
+            im = torch.nn.functional.pad(im, (0, nh_pad - nh))
+        return _execute(re, im, in_layout, steps[1:], inverse=False, plan=packed,
+                        batch_ndim=off)
+
+    def inverse_(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+        if steps[-1] != ('fft', ra):
+            raise AssertionError(f"real schedule ends with {steps[-1]}")
+        re, im = _execute(re, im, in_layout, steps[:-1], inverse=True, plan=packed,
+                          batch_ndim=off)
+        re, im = re.narrow(off + ra, 0, nh), im.narrow(off + ra, 0, nh)
+        return methods.apply_real(re, im, axis=off + ra, inverse=True,
+                                  method=plan.method, kernel=plan.kernel)
+
+    return inverse_ if inverse else forward

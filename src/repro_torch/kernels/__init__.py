@@ -5,11 +5,11 @@ One module per TPU kernel it replaces (same names as ``repro.kernels``):
 * :mod:`.fft_pencil` — radix-2 Stockham pencil FFT
 * :mod:`.fft_fused` — Stockham + optional twiddle + transposed emit
 * :mod:`.fft_matmul` — Bailey four-step
+* :mod:`.fft_block` — block-complex four-step
 
 Each wrapper runs its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (or raises), and counts its launches in the
-module's ``launches`` integer. ``fft_block`` is still to be ported
-(ROADMAP queue 2).
+module's ``launches`` integer.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import twiddle as tw
 
-KERNEL_MODULES = ('fft_pencil', 'fft_fused', 'fft_matmul')
+KERNEL_MODULES = ('fft_pencil', 'fft_fused', 'fft_matmul', 'fft_block')
 
 
 def _modules():

@@ -6,15 +6,15 @@ no jax, so it runs on the GPU machine as it is:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: max |kernel - plain| <= 1e-5 * max |plain|, as in
-``chip_smoke.py`` (fp32 sums in another order); the plan against
-torch.fft.fftn and its round trip, relative L2 <= 1e-5.
+``chip_smoke.py`` (fp32 sums in another order); a plan against
+torch.fft.fftn or rfftn and its round trip, relative L2 <= 1e-5.
 """
 import pytest
 import torch
 
 import repro_torch.fft as fft
 from repro_torch import kernels
-from repro_torch.kernels import fft_fused, fft_matmul, fft_pencil
+from repro_torch.kernels import fft_block, fft_fused, fft_matmul, fft_pencil
 from repro_torch.launch.mesh import make_fft_mesh
 
 pytestmark = pytest.mark.cuda
@@ -37,7 +37,7 @@ def _rel(got, want):
             / max(float(w.abs().max()) for w in want))
 
 
-@pytest.mark.parametrize("n", [2, 16, 512, 4096])
+@pytest.mark.parametrize("n", [2, 16, 256, 512, 4096])
 def test_kernels_match_plain_versions(gen, n):
     """Ragged batches (37 and 29 are not multiples of a block's
     pencils), a leading dim and a broadcast twiddle."""
@@ -52,8 +52,9 @@ def test_kernels_match_plain_versions(gen, n):
 
 
 @pytest.mark.parametrize("method, counts", [
-    ('four_step', {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 6}),
-    ('stockham', {'fft_pencil': 2, 'fft_fused': 4, 'fft_matmul': 0}),
+    ('four_step', {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 6, 'fft_block': 0}),
+    ('stockham', {'fft_pencil': 2, 'fft_fused': 4, 'fft_matmul': 0, 'fft_block': 0}),
+    ('block', {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 0, 'fft_block': 6}),
 ])
 def test_plan_on_the_card(gen, method, counts):
     n = 64
@@ -64,5 +65,36 @@ def test_plan_on_the_card(gen, method, counts):
     x2 = p.inverse(y)
     assert kernels.launch_counts() == counts
     ref = torch.fft.fftn(x, dim=(1, 2, 3))
+    assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+    assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [2, 16, 256, 512, 1024, 4096])
+def test_fft_block_matches_plain_version(gen, n):
+    """A ragged batch of 37 in both forms: stacked (2, 37, n) and the
+    planar pair the method registry passes."""
+    x = torch.stack(_planar((37, n), gen))
+    for inverse in (False, True):
+        want = fft_block.fft_block_plain(x, inverse=inverse)
+        assert _rel(fft_block.fft_block(x, inverse=inverse), want) <= 1e-5
+        assert _rel(fft_block.fft_block_planar(x[0], x[1], inverse=inverse), want) <= 1e-5
+
+
+@pytest.mark.parametrize("method, counts", [
+    ('auto', {'fft_pencil': 2, 'fft_fused': 0, 'fft_matmul': 4, 'fft_block': 0}),
+    ('block', {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 0, 'fft_block': 6}),
+])
+def test_rplan_on_the_card(gen, method, counts):
+    """At 64^3 'auto' takes Stockham for the length-32 half pencils and
+    the four-step for the length-64 pencils."""
+    n = 64
+    p = fft.rplan((n, n, n), make_fft_mesh(1, 1), method=method)
+    x = torch.randn((2, n, n, n), generator=gen, device='cuda')
+    kernels.reset_launch_counts()
+    y = p.forward(x)
+    x2 = p.inverse(y)
+    assert kernels.launch_counts() == counts
+    ref = torch.fft.rfftn(x, dim=(1, 2, 3))
+    assert y.shape == ref.shape
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
     assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5

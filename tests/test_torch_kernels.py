@@ -26,6 +26,7 @@ from repro.kernels import fft_pencil as jkp
 from repro_torch import kernels
 from repro_torch.fft import api, methods
 from repro_torch.kernels import _build
+from repro_torch.kernels import fft_block as tkb
 from repro_torch.kernels import fft_fused as tkf
 from repro_torch.kernels import fft_matmul as tkm
 from repro_torch.kernels import fft_pencil as tkp
@@ -98,7 +99,10 @@ def test_cpu_calls_build_and_count_nothing():
     tkp.fft_pencil(*x)
     tkm.fft_matmul(*x)
     tkf.fft_twiddle_transpose(*x)
-    assert kernels.launch_counts() == {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 0}
+    tkb.fft_block(torch.stack(x))
+    tkb.fft_block_planar(*x)
+    assert kernels.launch_counts() == {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 0,
+                                       'fft_block': 0}
     assert _build._LIBS == {}
 
 
@@ -108,7 +112,7 @@ def test_kernel_modules_import_without_nvcc():
     imports every module and runs a CPU plan."""
     code = (
         "import torch, repro_torch.fft as fft\n"
-        "from repro_torch.kernels import fft_pencil, fft_fused, fft_matmul, _build\n"
+        "from repro_torch.kernels import fft_pencil, fft_fused, fft_matmul, fft_block, _build\n"
         "from repro_torch.launch.mesh import make_fft_mesh\n"
         "p = fft.plan((8, 8, 8), make_fft_mesh(1, 1, device='cpu'))\n"
         "p.forward(torch.zeros(8, 8, 8, dtype=torch.complex64))\n"
@@ -119,7 +123,8 @@ def test_kernel_modules_import_without_nvcc():
                    cwd=str(_build.CSRC.parents[2]), timeout=120)
 
 
-@pytest.mark.parametrize("fn", [tkp.fft_pencil, tkm.fft_matmul, tkf.fft_twiddle_transpose])
+@pytest.mark.parametrize("fn", [tkp.fft_pencil, tkm.fft_matmul, tkf.fft_twiddle_transpose,
+                                tkb.fft_block_planar])
 def test_wrapper_rejects_what_the_kernel_does_not_take(fn):
     x = torch.zeros(4, 8)
     with pytest.raises(TypeError):

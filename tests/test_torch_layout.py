@@ -73,6 +73,26 @@ def test_schedules_equal_reference(layout):
     assert tplan.memory_axes(layout) == jplan.memory_axes(layout)
 
 
+@pytest.mark.parametrize("layout", _layouts(), ids=str)
+def test_real_schedules_and_pad_equal_reference(layout):
+    """Schedules with the r2c axis forced first (``first_mem``), and the
+    padded half-spectrum extent for several meshes, with and without
+    the restore swaps."""
+    for mem in tplan.memory_axes(layout):
+        assert (tpencil.forward_schedule(layout, mem)
+                == jpencil.forward_schedule(layout, mem))
+        assert (tpencil.inverse_schedule(layout, mem)
+                == jpencil.inverse_schedule(layout, mem))
+    if layout[-1] is not None:
+        return
+    shape = (16,) * len(layout)
+    for mesh in ({'x': 1, 'y': 1}, {'x': 2, 'y': 2}, {'x': 2, 'y': 4}, {'x': 4, 'y': 1}):
+        for restore in (False, True):
+            assert (tpencil.real_padded_extent(shape, layout, mesh, restore_layout=restore)
+                    == jpencil.real_padded_extent(shape, layout, mesh,
+                                                  restore_layout=restore)), (mesh, restore)
+
+
 @pytest.mark.parametrize("rank", [2, 3])
 def test_plan_swaps_equal_reference(rank):
     lays = [lay for lay in _layouts() if len(lay) == rank]

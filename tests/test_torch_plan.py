@@ -149,15 +149,17 @@ class _FourRanks:
 
 @pytest.mark.parametrize("kw, item", [
     (dict(shape=(64,)), 'Rank 1/2'),
-    (dict(real=True), 'Facade'),
+    (dict(shape=(64,), real=True), 'Rank 1/2'),
     (dict(overlap_chunks=2), 'Overlap'),
-    (dict(method='block'), 'fft_block'),
+    (dict(real=True, overlap_chunks=2), 'Overlap'),
 ])
 def test_later_slices_raise_with_their_roadmap_item(meshes, kw, item):
     _, tmesh = meshes
     shape = kw.pop('shape', (16, 16, 16))
     with pytest.raises(NotImplementedError, match=item):
         tfft.plan(shape, tmesh, **kw)
+    with pytest.raises(NotImplementedError, match='Operator plans'):
+        tfft.plan_op(shape, tmesh, **kw)
 
 
 def test_multirank_auto_comm_needs_the_selector():
