@@ -12,20 +12,25 @@ Phases, each printing one line and raising on any failure:
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (512^3 as 262,144 pencils of 512; ``fft_matmul`` and
    ``fft_block`` also at the real path's 262,144 half pencils of 256),
-   plus ragged batches, other lengths and the fused kernel with a random
-   twiddle; with its median time, the plain version's, one PyTorch
-   library call's (``torch.fft.fft``, a yardstick the port never calls)
-   and its bound;
+   plus ragged batches of every length 2..4096 and the fused kernel with
+   a random twiddle; with its median time, the plain version's, one
+   PyTorch library call's (``torch.fft.fft``, a yardstick the port never
+   calls) and its bound. ``fft_block`` also prints the body its launches
+   run (``variant``: 'mma' on the tensor cores for 64 <= n <= 1024, else
+   'fma'), its shared bytes and blocks an SM, and, as a yardstick in the
+   same run, the CUDA-core body's time at (2, 262144, 512) (``fma_ms``);
 3. the main path with the default plan, ``plan((512,)*3, make_fft_mesh(1, 1))``
    (resolves to four_step / all_to_all): forward against ``torch.fft.fftn``,
    the round trip, and 3 ``fft_matmul`` launches per direction;
 4. the same with ``method='stockham'``: 2 ``fft_twiddle_transpose`` and 1
    ``fft_pencil`` launches per direction;
-5. the same with ``method='block'``: 3 ``fft_block`` launches per direction;
+5. the same with ``method='block'``: 3 ``fft_block`` launches per direction,
+   all of them on the tensor-core body;
 6. the real plan ``rplan((512,)*3, make_fft_mesh(1, 1))`` (resolves to
    four_step, spectrum (512, 512, 257)): forward against
    ``torch.fft.rfftn``, the round trip, 3 ``fft_matmul`` launches per
-   direction; then the same with ``method='block'``, 3 ``fft_block``;
+   direction; then the same with ``method='block'``, 3 ``fft_block``, all
+   on the tensor-core body;
 7. a ``kernels`` JSON line, the card line and, last, the result line.
 
 Each path prints its fwd+inv time, the library's (``fftn``+``ifftn`` or
@@ -40,6 +45,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,19 +105,21 @@ def say(phase: str, **kw) -> None:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median over ``reps`` of one call's device time (CUDA events)."""
+    """Median over ``reps`` of one call's device time: CUDA events around
+    each call, the calls queued back to back with one synchronize at the
+    end, so the host's time to issue a call hides behind the device time
+    of the one before (synchronizing after each call would count it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for a, b in events:
         a.record()
         fn()
         b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in events)
     return times[len(times) // 2]
 
 
@@ -158,11 +166,47 @@ def phase_card() -> str:
     t0 = time.perf_counter()
     _build.build()
     for name in _build.SOURCES:
-        report = [ln.strip() for ln in _build.build_log(name).splitlines()
-                  if 'registers' in ln or 'spill' in ln]
-        say('build', source=name, ptxas=repr(' | '.join(report)))
+        for entry in ptxas_report(_build.build_log(name)):
+            say('build', source=name, **entry)
+            if entry['kernel'].startswith('block_mma_kernel') and (
+                    entry['spill_stores'] or entry['spill_loads']):
+                raise AssertionError(f"{entry['kernel']} spills: {entry}")
     say('build', seconds=f"{time.perf_counter() - t0:.1f}")
     return card
+
+
+def kernel_name(sym: str) -> str:
+    """A kernel's name from its mangled symbol, with integer template
+    arguments: ``_ZN12_GLOBAL__N_116block_mma_kernelILi32ELi16EEEv...``
+    is ``block_mma_kernel<32,16>``."""
+    if not sym.startswith('_Z'):
+        return sym
+    i, name = 3 if sym.startswith('_ZN') else 2, sym
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        name, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+    args = re.match(r'I((?:Li\d+E)+)E', sym[i:])
+    if args:
+        name += '<' + ','.join(re.findall(r'Li(\d+)E', args.group(1))) + '>'
+    return name
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spill bytes of each kernel in ``nvcc -Xptxas -v``'s
+    report, the kernel named by its identifier and template arguments."""
+    out = []
+    for ln in log.splitlines():
+        if 'Compiling entry function' in ln:
+            out.append(dict(kernel=kernel_name(ln.split("'")[1]), registers=None,
+                            spill_stores=None, spill_loads=None))
+        elif out and 'spill stores' in ln:
+            st, ld = re.findall(r'(\d+) bytes spill (?:stores|loads)', ln)
+            out[-1].update(spill_stores=int(st), spill_loads=int(ld))
+        elif out and 'Used' in ln and 'registers' in ln:
+            out[-1]['registers'] = int(re.search(r'Used (\d+) registers', ln).group(1))
+    return out
 
 
 def phase_kernels(gen) -> dict:
@@ -217,7 +261,7 @@ def phase_kernels(gen) -> dict:
     kernel_half_pencils(gen)
 
     # ragged tiles and other lengths: every n the kernels take
-    for n in (2, 4, 16, 64, 256, 512, 1024, 4096):
+    for n in (1 << k for k in range(1, 13)):
         y = planar((37, n), gen)
         z = planar((3, 29, n), gen)
         wz = planar((29, n), gen)
@@ -240,7 +284,8 @@ def phase_kernels(gen) -> dict:
 
 
 def kernel_block(gen) -> dict:
-    """``fft_block`` on the stacked (2, 512 * 512, 512) of the block path."""
+    """``fft_block`` on the stacked (2, 512 * 512, 512) of the block path,
+    with the CUDA-core body timed on the same input as a yardstick."""
     pencils = N * N
     x = torch.stack(planar((pencils, N), gen))
     err = max(check('fft_block', fft_block.fft_block(x, inverse=inv),
@@ -250,11 +295,15 @@ def kernel_block(gen) -> dict:
     xc = torch.complex(x[0], x[1])
     n1, n2 = four_step_factors(N)
     b, by = bound(pencils * N, fft_flops(N, pencils))
+    y = torch.empty_like(x)
     return dict(max_abs_err=err, ms=time_ms(lambda: fft_block.fft_block(x), 20),
                 plain_ms=time_ms(lambda: fft_block.fft_block_plain(x), 5),
                 library_ms=time_ms(lambda: torch.fft.fft(xc, dim=-1), 20),
                 bound_ms=b, bound_by=by,
-                dense_flop_ms=8.0 * N * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3)
+                fma_ms=time_ms(lambda: fft_block._launch(x[0], x[1], y[0], y[1], N, False,
+                                                         _body='fma'), 20),
+                dense_flop_ms=8.0 * N * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3,
+                **fft_block.launch_info(N, pencils))
 
 
 def kernel_half_pencils(gen) -> None:
@@ -276,8 +325,8 @@ def kernel_half_pencils(gen) -> None:
     for name, run, plain in runs:
         err = max(check(name, run(inv), plain(inv), f"({pencils}, {n}) inverse={inv}")
                   for inv in (False, True))
-        extra = ({'dense_flop_ms': f"{8.0 * n * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3:.6g}"}
-                 if name == 'fft_block' else {})
+        extra = ({'dense_flop_ms': f"{8.0 * n * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3:.6g}",
+                  **fft_block.launch_info(n, pencils)} if name == 'fft_block' else {})
         say('kernel', name=name, n=n, pencils=pencils, tol=KERNEL_RTOL,
             max_abs_err=f"{err:.6g}", ms=f"{time_ms(lambda: run(False), 20):.6g}",
             plain_ms=f"{time_ms(lambda: plain(False), 5):.6g}", library_ms=f"{lib:.6g}",
@@ -331,6 +380,7 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     x2 = p.inverse(y)
     torch.cuda.synchronize()
     total = kernels.launch_counts()
+    on_mma = fft_block.launches_mma
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     ref = torch.fft.rfftn(x) if real else torch.fft.fftn(x)
     if y.shape != ref.shape or y.dtype != torch.complex64:
@@ -345,6 +395,9 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     for k in total:
         if k not in expect and total[k]:
             raise AssertionError(f"{label}: unexpected {k} launches {total[k]}")
+    if on_mma != total['fft_block']:
+        raise AssertionError(f"{label}: {on_mma} of {total['fft_block']} "
+                             "fft_block launches on the tensor-core body")
     if not (fwd_err <= PATH_RTOL and rt_err <= PATH_RTOL):
         raise AssertionError(f"{label}: forward rel L2 {fwd_err:.3e}, round trip "
                              f"{rt_err:.3e}, limit {PATH_RTOL}")
@@ -361,7 +414,8 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     say('path', label=label, method=p.method, comm=p.comm, kernel=p.resolved_kernel,
         fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
         launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
-        fwd_inv_ms=f"{ms:.6g}", library_ms=f"{lib:.6g}", **extra)
+        fft_block_mma=on_mma, fwd_inv_ms=f"{ms:.6g}",
+        library_ms=f"{lib:.6g}", **extra)
     say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
     return total
 

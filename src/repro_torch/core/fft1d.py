@@ -152,6 +152,49 @@ def block_tables(n1: int, n2: int, inverse: bool, device: torch.device):
     return tuple(tw.table(a, device) for a in _block_consts_np(n1, n2, inverse))
 
 
+def tf32_rna(x: np.ndarray) -> np.ndarray:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero: the rounding of ``cvt.rna.tf32.f32``. Adds half a TF32
+    ulp to the bit pattern and clears the low 13 bits."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(x: np.ndarray):
+    """(big, small) TF32 pair of an fp32 array: big = rna(x),
+    small = rna(x - big), so big + small is x to about 2^-22 of |x|."""
+    x = np.asarray(x, dtype=np.float32)
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_mma_np(n1: int, n2: int, inverse: bool):
+    """The block four-step with the twiddle kept apart from F2, numpy
+    float64: F1b as a (2 n1, 2 n1) real matrix (rows (c, j1), columns
+    (d, k1)); the block F2 as a (2 n2, 2 n2) matrix (rows (d, k2),
+    columns (e, m)), [[F2r, F2i], [-F2i, F2r]]; and planar W (2, n1, n2).
+    With b = F1b a and c = b * W as complex numbers, y[e, m n1 + j1] =
+    sum_{d, k2} c[d, j1, k2] F2b[(d, k2), (e, m)]: the function of G."""
+    f1b, _ = _block_consts_np(n1, n2, inverse)
+    f2r, f2i = tw.dft_matrix_np(n2, inverse=inverse)
+    f2b = np.block([[f2r, f2i], [-f2i, f2r]])
+    return (f1b.reshape(2 * n1, 2 * n1), f2b,
+            np.stack(tw.four_step_twiddle_np(n1, n2, inverse=inverse)))
+
+
+@functools.lru_cache(maxsize=None)
+def block_mma_tables(n1: int, n2: int, inverse: bool, device: torch.device):
+    """The tensor-core ``fft_block``'s tables on ``device``: F1b (2, 2 n1,
+    2 n1) and F2b (2, 2 n2, 2 n2) of :func:`_block_mma_np` as their
+    3xTF32 pairs ([big, small] on the leading axis, split from the fp32
+    table by :func:`tf32_split`), and W (2, n1, n2) in plain fp32 (the
+    twiddle is applied on the CUDA cores, not in a product)."""
+    f1b, f2b, w = _block_mma_np(n1, n2, inverse)
+    return (tw.table(np.stack(tf32_split(f1b)), device),
+            tw.table(np.stack(tf32_split(f2b)), device), tw.table(w, device))
+
+
 def fft_four_step_block(x: torch.Tensor, axis: int, *,
                         inverse: bool = False) -> torch.Tensor:
     """Block-complex four-step FFT along ``axis`` of ``x``, whose leading

@@ -9,7 +9,8 @@ One module per TPU kernel it replaces (same names as ``repro.kernels``):
 
 Each wrapper runs its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (or raises), and counts its launches in the
-module's ``launches`` integer.
+module's ``launches`` integer (``fft_block`` also counts those of its
+tensor-core body in ``launches_mma``).
 """
 from __future__ import annotations
 
@@ -34,8 +35,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Set every launch counter of every kernel module to 0 (``launches``
+    and a module's per-body counters such as ``fft_block.launches_mma``)."""
     for mod in _modules().values():
-        mod.launches = 0
+        for name in list(vars(mod)):
+            if name.startswith('launches'):
+                setattr(mod, name, 0)
 
 
 def check_planar(name: str, re: torch.Tensor, im: torch.Tensor,

@@ -1,17 +1,23 @@
 """Block-complex four-step pencil FFT: the CUDA kernel and its plain version.
 
 Replaces ``repro.kernels.fft_block.fft_block``
-(src/repro/kernels/fft_block.py:49). The kernel is ``block_kernel`` in
-``csrc/fft_block.cu``: each pencil n = n1 * n2 runs the two real
-contractions of the TPU kernel, against F1b (the 2x2-block DFT of the
-first factor) and G (the twiddle folded into the second factor, which
-emits natural order), with fp32 FMA on the CUDA cores. The C entry takes
-separate re/im planes, so the stacked form :func:`fft_block` passes
-``x[0]``/``x[1]`` and the planar form :func:`fft_block_planar` passes
-its pair, neither with a stack copy. Blocks are persistent and keep
-F1b, a tile of P pencils and (for n <= 512) G in shared memory; its
-dense products cost 8 n (n1 + n2) flop a pencil, and the function's
-bound is the FFT's 16 bytes per element.
+(src/repro/kernels/fft_block.py:49). ``csrc/fft_block.cu`` holds two
+bodies, chosen by the pencil length alone (:func:`variant`):
+
+* ``'mma'`` (``block_mma_kernel``, 64 <= n <= 1024): both dense products
+  of the four-step on the tensor cores, ``mma.sync`` m16n8k8 in 3xTF32,
+  against F1b and the block F2 with the twiddle W applied between them
+  in registers (``core/fft1d.py:block_mma_tables``); the split tables
+  go to the card in the mma fragment order (:func:`frag_a`,
+  :func:`frag_b`);
+* ``'fma'`` (``block_kernel``, every other n): fp32 FMA on the CUDA
+  cores against the TPU kernel's F1b and G (the twiddle folded into F2).
+
+The C entries take separate re/im planes, so the stacked form
+:func:`fft_block` passes ``x[0]``/``x[1]`` and the planar form
+:func:`fft_block_planar` its pair, neither with a stack copy. Blocks are
+persistent and keep the tables and a tile of pencils in shared memory;
+the function's bound is the FFT's 16 bytes per element.
 """
 from __future__ import annotations
 
@@ -26,8 +32,19 @@ from repro_torch.core.twiddle import Planar
 from repro_torch.kernels import _build, check_planar, stream_of
 from repro_torch.kernels.fft_pencil import tile_pencils
 
-#: launches of the CUDA kernel (plain-version calls do not count)
+#: launches of either CUDA body (plain-version calls do not count)
 launches = 0
+#: of those, launches of the tensor-core body
+launches_mma = 0
+
+#: the pencil lengths the tensor-core body takes (n2 >= 8), inclusive
+MMA_LENGTHS = (64, 1024)
+
+
+def variant(n: int) -> str:
+    """The body a CUDA launch of length-n pencils runs: ``'mma'`` for
+    64 <= n <= 1024, else ``'fma'``."""
+    return 'mma' if MMA_LENGTHS[0] <= n <= MMA_LENGTHS[1] else 'fma'
 
 
 def fft_block_plain(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
@@ -36,46 +53,136 @@ def fft_block_plain(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     return f1.fft_four_step_block(x, -1, inverse=inverse)
 
 
+# ---------------------------------------------------------------------------
+# Tables in the m16n8k8 fragment order
+# ---------------------------------------------------------------------------
+
+def frag_a(a: torch.Tensor) -> torch.Tensor:
+    """A (..., M, K) as m16n8k8 A fragments: for m-tile mi, k-step s and
+    lane 4 g + t, the four floats a0..a3 = A[16 mi + g, 8 s + t],
+    A[16 mi + g + 8, 8 s + t], A[16 mi + g, 8 s + t + 4],
+    A[16 mi + g + 8, 8 s + t + 4], flat in (mi, s, lane, reg) order."""
+    *lead, m, k = a.shape
+    t = a.reshape(*lead, m // 16, 2, 8, k // 8, 2, 4)      # mi, hr, g, s, hk, t
+    nl = len(lead)
+    t = t.permute(*range(nl), *(nl + i for i in (0, 3, 2, 5, 4, 1)))
+    return t.reshape(*lead, -1)
+
+
+def frag_b(b: torch.Tensor) -> torch.Tensor:
+    """B (..., K, N) as m16n8k8 B fragments: for k-step s, n-tile nj and
+    lane 4 g + t, the two floats b0, b1 = B[8 s + t, 8 nj + g],
+    B[8 s + t + 4, 8 nj + g], flat in (s, nj, lane, reg) order."""
+    *lead, k, n = b.shape
+    t = b.reshape(*lead, k // 8, 2, 4, n // 8, 8)          # s, hk, t, nj, g
+    nl = len(lead)
+    t = t.permute(*range(nl), *(nl + i for i in (0, 3, 4, 2, 1)))
+    return t.reshape(*lead, -1)
+
+
+def mma_rows(n1: int) -> torch.Tensor:
+    """The order of F1b's rows (c, j1) = c n1 + j1 in the mma body: each
+    16-row m-tile holds 8 j1 of c = 0, then the same 8 j1 of c = 1, so
+    the real and imaginary part of one output land in one thread."""
+    return torch.arange(2 * n1).reshape(2, n1 // 8, 8).permute(1, 0, 2).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def mma_tables(n1: int, n2: int, inverse: bool, device: torch.device):
+    """(F1b, F2b, W) as the mma body reads them: F1b's 3xTF32 pair with
+    rows in :func:`mma_rows` order as A fragments, F2b's pair as B
+    fragments, each [big, small] flat and contiguous; W planar fp32."""
+    f1b, f2b, w = f1.block_mma_tables(n1, n2, inverse, device)
+    fa = frag_a(f1b[:, mma_rows(n1).to(device)]).contiguous()
+    return fa, frag_b(f2b).contiguous(), w
+
+
+# ---------------------------------------------------------------------------
+# Launch
+# ---------------------------------------------------------------------------
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load('fft_block')
     _build.declare(lib, 'fft_block_launch', 6,
                    (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_float))
+    _build.declare(lib, 'fft_block_mma_launch', 7,
+                   (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float))
     lib.fft_block_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.fft_block_smem_bytes.restype = ctypes.c_longlong
     lib.fft_block_slices.argtypes = [ctypes.c_int] * 3
     lib.fft_block_slices.restype = ctypes.c_int
+    lib.fft_block_mma_pencils.argtypes = [ctypes.c_int] * 2
+    lib.fft_block_mma_pencils.restype = ctypes.c_int
+    lib.fft_block_mma_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.fft_block_mma_smem_bytes.restype = ctypes.c_longlong
+    lib.fft_block_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+    lib.fft_block_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tensor,
-            n: int, inverse: bool) -> None:
-    """Run the kernel on contiguous fp32 planes (..., n) into (yr, yi)."""
-    global launches
-    batch = re.numel() // n
-    if batch == 0:
-        return
+def _shape(n: int, batch: int, body: str):
+    """(n1, n2, pencils a tile, G slices, shared bytes a block) of a
+    launch of ``body`` on ``batch`` pencils of n."""
     n1, n2 = tw.four_step_factors(n)
     lib = _lib()
+    if body == 'mma':
+        return (n1, n2, lib.fft_block_mma_pencils(n1, n2), 0,
+                lib.fft_block_mma_smem_bytes(n1, n2))
     P = tile_pencils(n, batch)
     jc = lib.fft_block_slices(n1, n2, P)
     if jc == 0:
         raise ValueError(
             f"fft_block: n={n} does not fit one block: {P} pencil(s) and one G slice "
             f"need {lib.fft_block_smem_bytes(n1, n2, P, 1)} bytes of shared memory")
-    f1b, g = f1.block_tables(n1, n2, inverse, re.device)
+    return n1, n2, P, jc, lib.fft_block_smem_bytes(n1, n2, P, jc)
+
+
+def launch_info(n: int, batch: int) -> dict:
+    """What a launch on ``batch`` pencils of n runs on the current card:
+    its body, pencils a tile, shared bytes a block and blocks an SM."""
+    body = variant(n)
+    n1, n2, P, _, smem = _shape(n, batch, body)
+    per_sm = ctypes.c_int(0)
+    err = _lib().fft_block_blocks_per_sm(int(body == 'mma'), n1, n2, smem,
+                                         ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(f"fft_block: occupancy query failed with CUDA error {err}")
+    return dict(variant=body, pencils_per_tile=P, smem_bytes=smem,
+                blocks_per_sm=per_sm.value)
+
+
+def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tensor,
+            n: int, inverse: bool, _body: str | None = None) -> None:
+    """Run the kernel on contiguous fp32 planes (..., n) into (yr, yi).
+    The body is :func:`variant` of n; ``_body`` overrides it only to time
+    the CUDA-core body beside the tensor-core one."""
+    global launches, launches_mma
+    batch = re.numel() // n
+    if batch == 0:
+        return
+    body = _body or variant(n)
+    n1, n2, P, jc, smem = _shape(n, batch, body)
+    scale = (1.0 / n) if inverse else 1.0
+    ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
     with torch.cuda.device(re.device):
-        err = lib.fft_block_launch(
-            re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            f1b.data_ptr(), g.data_ptr(), batch, n1, n2, P, jc,
-            (1.0 / n) if inverse else 1.0, stream_of(re))
+        if body == 'mma':
+            fa, fb, w = mma_tables(n1, n2, inverse, re.device)
+            err = _lib().fft_block_mma_launch(*ptrs, fa.data_ptr(), fb.data_ptr(),
+                                              w.data_ptr(), batch, n1, n2, scale,
+                                              stream_of(re))
+        else:
+            f1b, g = f1.block_tables(n1, n2, inverse, re.device)
+            err = _lib().fft_block_launch(*ptrs, f1b.data_ptr(), g.data_ptr(), batch,
+                                          n1, n2, P, jc, scale, stream_of(re))
     if err:
         raise RuntimeError(
-            f"fft_block: launch failed with CUDA error {err} (n={n}, {P} pencils per "
-            f"tile, {jc} G slices, {lib.fft_block_smem_bytes(n1, n2, P, jc)} bytes of "
-            "shared memory)")
+            f"fft_block: {body} launch failed with CUDA error {err} (n={n}, {P} pencils "
+            f"per tile, {smem} bytes of shared memory)")
     launches += 1
+    launches_mma += body == 'mma'
 
 
 def fft_block(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:

@@ -64,20 +64,34 @@ def test_plan_on_the_card(gen, method, counts):
     y = p.forward(x)
     x2 = p.inverse(y)
     assert kernels.launch_counts() == counts
+    assert fft_block.launches_mma == counts['fft_block']    # n = 64: the tensor-core body
     ref = torch.fft.fftn(x, dim=(1, 2, 3))
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
     assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5
 
 
-@pytest.mark.parametrize("n", [2, 16, 256, 512, 1024, 4096])
+@pytest.mark.parametrize("n", [2, 16, 32, 64, 256, 512, 1024, 2048, 4096])
 def test_fft_block_matches_plain_version(gen, n):
     """A ragged batch of 37 in both forms: stacked (2, 37, n) and the
-    planar pair the method registry passes."""
+    planar pair the method registry passes, on both sides of the
+    tensor-core body's range (64 <= n <= 1024)."""
+    assert fft_block.variant(n) == ('mma' if 64 <= n <= 1024 else 'fma')
     x = torch.stack(_planar((37, n), gen))
     for inverse in (False, True):
         want = fft_block.fft_block_plain(x, inverse=inverse)
         assert _rel(fft_block.fft_block(x, inverse=inverse), want) <= 1e-5
         assert _rel(fft_block.fft_block_planar(x[0], x[1], inverse=inverse), want) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [64, 512])
+def test_fft_block_takes_planes_that_are_not_16_byte_aligned(gen, n):
+    """Contiguous planes 4 bytes past an aligned address: the tensor-core
+    body's tile loads take 4-byte copies in place of 16-byte ones."""
+    flat = _planar((37 * n + 1,), gen)
+    re, im = (t[1:].view(37, n) for t in flat)
+    assert re.data_ptr() % 16 and fft_block.variant(n) == 'mma'
+    want = fft_block.fft_block_plain(torch.stack([re, im]), inverse=True)
+    assert _rel(fft_block.fft_block_planar(re, im, inverse=True), want) <= 1e-5
 
 
 @pytest.mark.parametrize("method, counts", [
@@ -86,7 +100,9 @@ def test_fft_block_matches_plain_version(gen, n):
 ])
 def test_rplan_on_the_card(gen, method, counts):
     """At 64^3 'auto' takes Stockham for the length-32 half pencils and
-    the four-step for the length-64 pencils."""
+    the four-step for the length-64 pencils; 'block' runs its length-64
+    pencils on the tensor-core body and the half pencils of 32 on the
+    CUDA-core one."""
     n = 64
     p = fft.rplan((n, n, n), make_fft_mesh(1, 1), method=method)
     x = torch.randn((2, n, n, n), generator=gen, device='cuda')
@@ -94,6 +110,7 @@ def test_rplan_on_the_card(gen, method, counts):
     y = p.forward(x)
     x2 = p.inverse(y)
     assert kernels.launch_counts() == counts
+    assert fft_block.launches_mma == (4 if method == 'block' else 0)
     ref = torch.fft.rfftn(x, dim=(1, 2, 3))
     assert y.shape == ref.shape
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5

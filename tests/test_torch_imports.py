@@ -1,12 +1,14 @@
-"""Static check: the port and its chip script import neither jax nor the
-JAX package ``repro`` (not even its numpy-only modules)."""
+"""Static check: the port, its chip script and its scripts under
+``benchmarks/`` (``torch_*.py``) import neither jax nor the JAX package
+``repro`` (not even its numpy-only modules)."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / 'src' / 'repro_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
+FILES = (sorted((ROOT / 'src' / 'repro_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
+         + sorted((ROOT / 'benchmarks').glob('torch_*.py')))
 BANNED = ('jax', 'jaxlib', 'repro')
 
 
