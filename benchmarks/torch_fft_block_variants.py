@@ -4,9 +4,14 @@ Run from the root of a checkout, on the machine with the card:
 
     python3 benchmarks/torch_fft_block_variants.py
 
-Each variant is ``src/repro_torch/csrc/fft_block.cu`` with exact text
-edits (an edit that no longer matches the source fails the run), built
-with the port's own ``nvcc`` flags into ``build/variants/``:
+Each variant is ``src/repro_torch/csrc/fft_block.cu`` and the header it
+includes, ``csrc/four_step_mma.cuh`` (the tensor-core body, shared with
+``fft_matmul``), with exact text edits: an edit applies to whichever of
+the two files holds its text (today every edit lands in the header), and
+an edit that matches neither fails the run. Each variant's two files are
+written to ``build/variants/<variant>/``, the header beside the source
+where its quoted include finds it, and built with the port's own
+``nvcc`` flags there:
 
 * ``committed``: the source as it is;
 * ``chained``: every mma of a k-step accumulates straight into the
@@ -47,6 +52,7 @@ from repro_torch.core.twiddle import four_step_factors  # noqa: E402
 from repro_torch.kernels import _build, fft_block  # noqa: E402
 
 OUT = ROOT / 'build' / 'variants'
+HEADER = 'four_step_mma.cuh'
 SHAPES = ((64, 262144), (128, 262144), (256, 262144), (512, 262144), (1024, 131072))
 CHECKED = 8192
 
@@ -68,15 +74,20 @@ VARIANTS = {
 
 
 def build(name: str, edits) -> tuple:
-    src = (_build.CSRC / 'fft_block.cu').read_text()
+    files = {f: (_build.CSRC / f).read_text() for f in ('fft_block.cu', HEADER)}
     for old, new in edits:
-        if old not in src:
+        hit = [f for f, text in files.items() if old in text]
+        if not hit:
             raise SystemExit(f"{name}: edit no longer matches the source: {old!r}")
-        src = src.replace(old, new)
-    OUT.mkdir(parents=True, exist_ok=True)
-    cu, lib = OUT / f'{name}.cu', OUT / f'lib{name}.so'
-    cu.write_text(src)
-    return subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, '-o', str(lib), str(cu)],
+        for f in hit:
+            files[f] = files[f].replace(old, new)
+    out = OUT / name
+    out.mkdir(parents=True, exist_ok=True)
+    for f, text in files.items():
+        (out / f).write_text(text)
+    lib = out / f'lib{name}.so'
+    return subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, '-o', str(lib),
+                             str(out / 'fft_block.cu')],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 

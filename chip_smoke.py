@@ -12,16 +12,20 @@ Phases, each printing one line and raising on any failure:
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (512^3 as 262,144 pencils of 512; ``fft_matmul`` and
    ``fft_block`` also at the real path's 262,144 half pencils of 256),
-   plus ragged batches of every length 2..4096 and the fused kernel with
-   a random twiddle; with its median time, the plain version's, one
-   PyTorch library call's (``torch.fft.fft``, a yardstick the port never
-   calls) and its bound. ``fft_block`` also prints the body its launches
-   run (``variant``: 'mma' on the tensor cores for 64 <= n <= 1024, else
-   'fma'), its shared bytes and blocks an SM, and, as a yardstick in the
-   same run, the CUDA-core body's time at (2, 262144, 512) (``fma_ms``);
+   plus ragged batches of every length 2..4096, the fused kernel with
+   a random twiddle, and both tensor-core kernels on planes one float
+   past a 16-byte boundary; with its median time, the plain version's,
+   one PyTorch library call's (``torch.fft.fft``, a yardstick the port
+   never calls) and its bound. ``fft_matmul`` and ``fft_block`` also
+   print the body their launches run (``variant``: 'mma', the shared
+   tensor-core four-step of ``csrc/four_step_mma.cuh``, for
+   64 <= n <= 1024, else 'fma'), its shared bytes and blocks an SM
+   (``fft_matmul`` its registers too), and, as a yardstick in the same
+   run, the CUDA-core body's time on the same input (``fma_ms``);
 3. the main path with the default plan, ``plan((512,)*3, make_fft_mesh(1, 1))``
    (resolves to four_step / all_to_all): forward against ``torch.fft.fftn``,
-   the round trip, and 3 ``fft_matmul`` launches per direction;
+   the round trip, and 3 ``fft_matmul`` launches per direction, all of
+   them on the tensor-core body;
 4. the same with ``method='stockham'``: 2 ``fft_twiddle_transpose`` and 1
    ``fft_pencil`` launches per direction;
 5. the same with ``method='block'``: 3 ``fft_block`` launches per direction,
@@ -29,8 +33,8 @@ Phases, each printing one line and raising on any failure:
 6. the real plan ``rplan((512,)*3, make_fft_mesh(1, 1))`` (resolves to
    four_step, spectrum (512, 512, 257)): forward against
    ``torch.fft.rfftn``, the round trip, 3 ``fft_matmul`` launches per
-   direction; then the same with ``method='block'``, 3 ``fft_block``, all
-   on the tensor-core body;
+   direction; then the same with ``method='block'``, 3 ``fft_block``;
+   every launch of both on the tensor-core body;
 7. a ``kernels`` JSON line, the card line and, last, the result line.
 
 Each path prints its fwd+inv time, the library's (``fftn``+``ifftn`` or
@@ -168,7 +172,7 @@ def phase_card() -> str:
     for name in _build.SOURCES:
         for entry in ptxas_report(_build.build_log(name)):
             say('build', source=name, **entry)
-            if entry['kernel'].startswith('block_mma_kernel') and (
+            if '_mma_kernel' in entry['kernel'] and (
                     entry['spill_stores'] or entry['spill_loads']):
                 raise AssertionError(f"{entry['kernel']} spills: {entry}")
     say('build', seconds=f"{time.perf_counter() - t0:.1f}")
@@ -245,20 +249,14 @@ def phase_kernels(gen) -> dict:
     rec['fft_twiddle_transpose'] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                         library_ms=lib, bound_ms=b, bound_by=by)
 
-    # fft_matmul
-    err = max(check('fft_matmul', fft_matmul.fft_matmul(*x, inverse=inv),
-                    fft_matmul.fft_matmul_plain(*x, inverse=inv), f"{N}^3 inverse={inv}")
-              for inv in (False, True))
-    ms = time_ms(lambda: fft_matmul.fft_matmul(*x), 20)
-    plain = time_ms(lambda: fft_matmul.fft_matmul_plain(*x), 5)
-    lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 20)
-    b, by = bound(x[0].numel(), fft_flops(N, pencils))
-    rec['fft_matmul'] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=b, bound_by=by)
     del x, xc
 
-    rec['fft_block'] = kernel_block(gen)
-    kernel_half_pencils(gen)
+    rec.update(kernels_four_step(gen, N))
+    # the real path's r2c/c2r supersteps: 512 * 512 half pencils of 256
+    for name, r in kernels_four_step(gen, N // 2).items():
+        say('kernel', name=name, n=N // 2, pencils=N * N, tol=KERNEL_RTOL,
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
+    kernel_unaligned(gen)
 
     # ragged tiles and other lengths: every n the kernels take
     for n in (1 << k for k in range(1, 13)):
@@ -283,54 +281,63 @@ def phase_kernels(gen) -> dict:
     return rec
 
 
-def kernel_block(gen) -> dict:
-    """``fft_block`` on the stacked (2, 512 * 512, 512) of the block path,
-    with the CUDA-core body timed on the same input as a yardstick."""
+def tensor_core_extras(module, x: tuple, n: int, pencils: int) -> dict:
+    """What ``fft_matmul`` and ``fft_block`` print beside their times: the
+    CUDA-core body's time on the same planes (``fma_ms``), a yardstick in
+    the same run, the dense products' time at the fp32 CUDA-core peak
+    (``dense_flop_ms``) and what the launch runs (``launch_info``: body,
+    pencils a tile, shared bytes, blocks an SM; registers for fft_matmul)."""
+    n1, n2 = four_step_factors(n)
+    y = tuple(torch.empty_like(p) for p in x)
+    return dict(fma_ms=time_ms(lambda: module._launch(*x, *y, n, False, _body='fma'), 20),
+                dense_flop_ms=8.0 * n * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3,
+                **module.launch_info(n, pencils))
+
+
+def kernels_four_step(gen, n: int) -> dict:
+    """``fft_matmul`` (a planar pair: the default and real paths) and
+    ``fft_block`` (stacked: the block paths) on 512 * 512 pencils of n,
+    each against its plain version, forward and inverse; name -> its
+    times, bound and tensor-core extras at that shape."""
     pencils = N * N
-    x = torch.stack(planar((pencils, N), gen))
-    err = max(check('fft_block', fft_block.fft_block(x, inverse=inv),
-                    fft_block.fft_block_plain(x, inverse=inv),
-                    f"(2, {pencils}, {N}) inverse={inv}")
-              for inv in (False, True))
-    xc = torch.complex(x[0], x[1])
-    n1, n2 = four_step_factors(N)
-    b, by = bound(pencils * N, fft_flops(N, pencils))
-    y = torch.empty_like(x)
-    return dict(max_abs_err=err, ms=time_ms(lambda: fft_block.fft_block(x), 20),
-                plain_ms=time_ms(lambda: fft_block.fft_block_plain(x), 5),
-                library_ms=time_ms(lambda: torch.fft.fft(xc, dim=-1), 20),
-                bound_ms=b, bound_by=by,
-                fma_ms=time_ms(lambda: fft_block._launch(x[0], x[1], y[0], y[1], N, False,
-                                                         _body='fma'), 20),
-                dense_flop_ms=8.0 * N * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3,
-                **fft_block.launch_info(N, pencils))
-
-
-def kernel_half_pencils(gen) -> None:
-    """The real path's r2c/c2r supersteps: 512 * 512 half pencils of 256,
-    through ``fft_matmul`` (default method) and ``fft_block``
-    (``method='block'``), each against its plain version, forward and
-    inverse, with its times and bound at that shape."""
-    n, pencils = N // 2, N * N
     x = planar((pencils, n), gen)
     xs = torch.stack(x)
     xc = torch.complex(*x)
     lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 20)
     b, by = bound(pencils * n, fft_flops(n, pencils))
-    n1, n2 = four_step_factors(n)
-    runs = (('fft_matmul', lambda inv: fft_matmul.fft_matmul(*x, inverse=inv),
+    runs = (('fft_matmul', fft_matmul, lambda inv: fft_matmul.fft_matmul(*x, inverse=inv),
              lambda inv: fft_matmul.fft_matmul_plain(*x, inverse=inv)),
-            ('fft_block', lambda inv: fft_block.fft_block(xs, inverse=inv),
+            ('fft_block', fft_block, lambda inv: fft_block.fft_block(xs, inverse=inv),
              lambda inv: fft_block.fft_block_plain(xs, inverse=inv)))
-    for name, run, plain in runs:
+    rec = {}
+    for name, module, run, plain in runs:
         err = max(check(name, run(inv), plain(inv), f"({pencils}, {n}) inverse={inv}")
                   for inv in (False, True))
-        extra = ({'dense_flop_ms': f"{8.0 * n * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3:.6g}",
-                  **fft_block.launch_info(n, pencils)} if name == 'fft_block' else {})
-        say('kernel', name=name, n=n, pencils=pencils, tol=KERNEL_RTOL,
-            max_abs_err=f"{err:.6g}", ms=f"{time_ms(lambda: run(False), 20):.6g}",
-            plain_ms=f"{time_ms(lambda: plain(False), 5):.6g}", library_ms=f"{lib:.6g}",
-            bound_ms=f"{b:.6g}", bound_by=by, **extra)
+        rec[name] = dict(max_abs_err=err, ms=time_ms(lambda: run(False), 20),
+                         plain_ms=time_ms(lambda: plain(False), 5), library_ms=lib,
+                         bound_ms=b, bound_by=by, **tensor_core_extras(module, x, n, pencils))
+    return rec
+
+
+def kernel_unaligned(gen) -> None:
+    """Both tensor-core kernels at n = 512 on planes one float past a
+    16-byte boundary: the body's tile loads take 4-byte copies (``vec``
+    = 0), which no path's allocations reach."""
+    n, batch = N, 37
+    flat = planar((batch * n + 1,), gen)
+    re_, im_ = (t[1:].view(batch, n) for t in flat)
+    if not (re_.data_ptr() % 16 and im_.data_ptr() % 16):
+        raise AssertionError("unaligned check: the planes are 16-byte aligned")
+    xs = torch.stack([re_, im_])
+    for inv in (False, True):
+        err = check('fft_matmul', fft_matmul.fft_matmul(re_, im_, inverse=inv),
+                    fft_matmul.fft_matmul_plain(re_, im_, inverse=inv),
+                    f"({batch}, {n}) at an offset of one float, inverse={inv}")
+        err = max(err, check('fft_block', fft_block.fft_block_planar(re_, im_, inverse=inv),
+                             fft_block.fft_block_plain(xs, inverse=inv),
+                             f"({batch}, {n}) at an offset of one float, inverse={inv}"))
+    say('kernel', check='planes at an offset of one float', n=n, batch=batch,
+        variant=fft_matmul.variant(n), max_abs_err=f"{err:.6g}", tol=KERNEL_RTOL)
 
 
 def profile(fn) -> dict:
@@ -380,7 +387,7 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     x2 = p.inverse(y)
     torch.cuda.synchronize()
     total = kernels.launch_counts()
-    on_mma = fft_block.launches_mma
+    on_mma = {'fft_block': fft_block.launches_mma, 'fft_matmul': fft_matmul.launches_mma}
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     ref = torch.fft.rfftn(x) if real else torch.fft.fftn(x)
     if y.shape != ref.shape or y.dtype != torch.complex64:
@@ -395,9 +402,10 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     for k in total:
         if k not in expect and total[k]:
             raise AssertionError(f"{label}: unexpected {k} launches {total[k]}")
-    if on_mma != total['fft_block']:
-        raise AssertionError(f"{label}: {on_mma} of {total['fft_block']} "
-                             "fft_block launches on the tensor-core body")
+    for k, mma in on_mma.items():
+        if mma != total[k]:
+            raise AssertionError(f"{label}: {mma} of {total[k]} {k} launches on the "
+                                 "tensor-core body")
     if not (fwd_err <= PATH_RTOL and rt_err <= PATH_RTOL):
         raise AssertionError(f"{label}: forward rel L2 {fwd_err:.3e}, round trip "
                              f"{rt_err:.3e}, limit {PATH_RTOL}")
@@ -414,7 +422,7 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     say('path', label=label, method=p.method, comm=p.comm, kernel=p.resolved_kernel,
         fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
         launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
-        fft_block_mma=on_mma, fwd_inv_ms=f"{ms:.6g}",
+        launches_mma=json.dumps(on_mma), fwd_inv_ms=f"{ms:.6g}",
         library_ms=f"{lib:.6g}", **extra)
     say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
     return total

@@ -14,40 +14,9 @@
 // at 512^3 at the 67 TFLOP/s fp32 CUDA-core peak: more than the byte bound,
 // so only the tensor cores can bring the kernel to it.
 //
-// block_mma_kernel, for 64 <= n <= 1024 (n2 >= 8: the products' K and N are
-// multiples of mma's 8). Both dense products run on the tensor cores with
-// mma.sync m16n8k8 TF32 in 3xTF32: every operand x is split into
-// big = rna(x) and small = rna(x - big), and a product is small*big +
-// big*small + big*big (small*small dropped), in that order, each k-step's
-// three products in a fresh accumulator that is added to the running sum
-// with an fp32 add (the tensor cores truncate when they add C; chained into
-// one accumulator the error grows fourfold and is biased toward zero). One
-// TF32 pass would be ~3e-4 off. The constant tables come split from the host
-// (core/fft1d.py:block_mma_tables) and in the mma fragment order
-// (kernels/fft_block.py:frag_a, frag_b), so a lane reads each fragment as one
-// float4 or float2; the data is split in registers with cvt.rna's rounding.
-// For a tile of P pencils (P n = 4096 floats a plane, 2048 at n = 1024):
-//   step 2: B = F1b (2 n1 x 2 n1, rows (c, j1), cols (d, k1)) times the tile
-//           (2 n1 x P n2, rows (d, k1), cols (p, k2)). The rows of F1b are
-//           ordered so each 16-row m-tile holds 8 j1 of c = 0, then the same
-//           8 j1 of c = 1: the real and imaginary part of b[j1, (p, k2)] land
-//           in the same thread (accumulators 0/2 and 1/3), and the twiddle
-//           W[j1, k2] is applied there, in registers, in fp32.
-//   step 3: Y = C (P n1 x 2 n2, rows (p, j1), cols (d, k2)) times the block
-//           F2 (2 n2 x 2 n2, [[F2r, F2i], [-F2i, F2r]]), rows (p, j1), cols
-//           (e, m): y_e[p n + m n1 + j1].
-// Instead of the TPU kernel's G (the twiddle folded into F2, a different
-// 2 n2 x 2 n2 matrix for every j1, 128 KiB at n = 512) step 3 is one
-// product whose N is 2 n2, not the P pencils of a tile. Device memory is
-// read once and written once. A tile lands in shared memory by cp.async,
-// 16 bytes a thread (rows k1 of stride P n2 + 8 = 8 mod 32, so B fragments
-// hit 32 banks); C stays in shared memory (row stride 2 n2 + 4 = 4 mod 8, for
-// the A fragments); step 3 stores its output straight from the accumulators,
-// 8 lanes on 8 consecutive j1 of a row m: whole 32-byte sectors. So the tile
-// buffer is free once step 2 has read it, and the next tile's load is in
-// flight during step 3 (and the other block's products). Blocks are
-// persistent (one per resident slot) and stage the split tables once; at
-// n = 512 a block takes 112,640 bytes, two an SM.
+// block_mma_kernel, for 64 <= n <= 1024: the tensor-core four-step of
+// four_step_mma.cuh (3xTF32 mma.sync, cp.async tile loads, persistent
+// blocks), which fft_matmul.cu's matmul_mma_kernel runs too.
 //
 // block_kernel, for every other n (2..32, 2048, 4096): fp32 FMA on the
 // CUDA cores against the TPU kernel's two constants F1b and G
@@ -57,13 +26,10 @@
 // G's j1-slices are staged at a time for each tile. A ragged last tile is
 // masked in both bodies.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "four_step_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr long long kMaxSmemBytes = 232448;  // opt-in limit of one block on sm_90
 
 // ---------------------------------------------------------------------------
@@ -203,302 +169,15 @@ block_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// ---------------------------------------------------------------------------
-// block_mma_kernel: 3xTF32 mma.sync on the tensor cores
-// ---------------------------------------------------------------------------
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest, ties
-// away from zero), in two integer operations: ptxas expands cvt.rna into a
-// longer sequence that also handles NaN and infinity.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// d += a b on one m16n8k8 tile. With g = lane / 4, t = lane % 4:
-// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k = t,
-// n = g), b1 (k = t + 4, n = g); d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t),
-// d3 (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc += a b in 3xTF32: small(a) big(b) + big(a) small(b) + big(a) big(b),
-// the small terms first, into a fresh accumulator that is then added to acc
-// on the CUDA cores. The tensor cores align and truncate the sum of C and the
-// products, so chaining every k-step's products into acc would add one biased
-// truncation of acc's size per mma; this way each k-step rounds once, to
-// nearest.
-__device__ __forceinline__ void add_3xtf32(float (&acc)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                           const uint32_t (&bs)[2]) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(d, as[0], as[1], as[2], as[3], bb[0], bb[1]);
-  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bs[0], bs[1]);
-  mma_tf32(d, ab[0], ab[1], ab[2], ab[3], bb[0], bb[1]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += d[e];
-}
-
-// A length of the mma body, with the k-steps of step 2 and step 3 unrolled at
-// a time (U2_, U3_; 0 for all of them).
-template <int N1_, int N2_, int U2_, int U3_>
-struct MmaShape {
-  static constexpr int N1 = N1_, N2 = N2_, N = N1 * N2;
-  static constexpr int TILE = N >= 1024 ? 2048 : 4096;  // floats a plane of a tile
-  static constexpr int P = TILE / N;                    // pencils a tile
-  static constexpr int PER_WARP = TILE / 64 / kWarps;   // m16n8 output tiles a warp, each step
-  // step 2: (2 N1 x 2 N1) times (2 N1 x P N2); a warp owns WM2 x WN2 tiles
-  static constexpr int MT2 = N1 / 8, NT2 = P * N2 / 8, KS2 = N1 / 4;
-  static constexpr int WM2 = MT2 < 2 ? MT2 : 2, WN2 = PER_WARP / WM2, GN2 = NT2 / WN2;
-  // step 3: (P N1 x 2 N2) times (2 N2 x 2 N2); a warp owns WM3 x WN3 tiles
-  static constexpr int MT3 = P * N1 / 16, NT3 = N2 / 4, KS3 = N2 / 4;
-  static constexpr int WN3 = NT3 < PER_WARP ? NT3 : PER_WARP, WM3 = PER_WARP / WN3;
-  static constexpr int GN3 = NT3 / WN3;
-  static constexpr int U2 = U2_ ? U2_ : KS2, U3 = U3_ ? U3_ : KS3;
-  // shared memory, in floats
-  static constexpr int LDX = P * N2 + 8;  // tile row k1, (p, k2) inner: 8 (mod 32)
-  static constexpr int LDC = 2 * N2 + 4;  // C row (p, j1), (d, k2) inner: 4 (mod 8)
-  static constexpr int XPLANE = N1 * LDX;
-  static constexpr int FA = 2 * 4 * N1 * N1;  // F1b big, small: fragment order
-  static constexpr int FB = 2 * 4 * N2 * N2;  // F2b big, small: fragment order
-  static constexpr int XS = 2 * XPLANE;       // the tile, both planes
-  static constexpr int CS = P * N1 * LDC;
-  static constexpr int FLOATS = FA + FB + XS + CS;
-  static_assert(N2 >= 8 && N1 >= N2, "mma body needs 8 <= n2 <= n1");
-  static_assert(MT2 % WM2 == 0 && NT2 % WN2 == 0 && (MT2 / WM2) * GN2 == kWarps, "step 2");
-  static_assert(MT3 % WM3 == 0 && NT3 % WN3 == 0 && (MT3 / WM3) * GN3 == kWarps, "step 3");
-  static_assert(LDX % 32 == 8 && LDC % 8 == 4, "bank padding");
-  static_assert(KS2 % U2 == 0 && KS3 % U3 == 0, "whole unrolled rounds");
-};
-
-// 16 bytes from device memory into shared memory without a register, or 16
-// zero bytes where !valid (src-size 0: nothing is read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Start the copy of a tile's two planes into X[d][k1][p N2 + k2]; pencils past
-// `rows` are zeros. With 16-byte aligned planes (vec) the copy is cp.async and
-// lands while the caller computes; else it is done here, 4 bytes at a time.
-template <class S>
-__device__ __forceinline__ void load_tile(float* X, const float* __restrict__ xr,
-                                          const float* __restrict__ xi, int rows, bool vec) {
-  constexpr int Q = S::TILE / 4;  // float4s a plane
-  static_assert(2 * Q % kThreads == 0, "whole rounds");
-#pragma unroll
-  for (int r = 0; r < 2 * Q / kThreads; ++r) {
-    const int i = r * kThreads + threadIdx.x;
-    const int d = i / Q, e = 4 * (i % Q);
-    const int p = e / S::N, q = e % S::N;
-    const float* src = (d ? xi : xr) + e;
-    float* dst = X + d * S::XPLANE + (q / S::N2) * S::LDX + p * S::N2 + q % S::N2;
-    if (vec) {
-      cp_async16(dst, p < rows ? src : xr, p < rows);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dst[c] = p < rows ? src[c] : 0.f;
-    }
-  }
-  cp_async_commit();
-}
-
-// step 2 and the twiddle: C[(p, j1)][(d, k2)] = (F1b a)[d, j1, k2] W[j1, k2].
-template <class S>
-__device__ __forceinline__ void step2(const float* FA, const float* X, float* C,
-                                      const float* __restrict__ wr,
-                                      const float* __restrict__ wi, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / S::GN2, wn = warp % S::GN2;
-  const float4* fab = reinterpret_cast<const float4*>(FA);
-  const float4* fas = reinterpret_cast<const float4*>(FA + S::FA / 2);
-  float acc[S::WM2][S::WN2][4] = {};
-#pragma unroll 1
-  for (int s0 = 0; s0 < S::KS2; s0 += S::U2)
-#pragma unroll
-  for (int s = s0; s < s0 + S::U2; ++s) {
-    const int d = (8 * s) / S::N1, k1 = (8 * s) % S::N1 + t;
-    const float* xk = X + d * S::XPLANE + k1 * S::LDX + wn * S::WN2 * 8 + g;
-    uint32_t bb[S::WN2][2], bs[S::WN2][2];
-#pragma unroll
-    for (int j = 0; j < S::WN2; ++j) {
-      split_tf32(xk[8 * j], bb[j][0], bs[j][0]);
-      split_tf32(xk[8 * j + 4 * S::LDX], bb[j][1], bs[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < S::WM2; ++i) {
-      const int f = ((wm * S::WM2 + i) * S::KS2 + s) * 32 + lane;
-      const float4 b4 = fab[f], s4 = fas[f];
-      const uint32_t ab[4] = {__float_as_uint(b4.x), __float_as_uint(b4.y),
-                              __float_as_uint(b4.z), __float_as_uint(b4.w)};
-      const uint32_t as[4] = {__float_as_uint(s4.x), __float_as_uint(s4.y),
-                              __float_as_uint(s4.z), __float_as_uint(s4.w)};
-#pragma unroll
-      for (int j = 0; j < S::WN2; ++j) add_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
-    }
-  }
-  // rows g and g + 8 of m-tile mi are (c = 0, j1) and (c = 1, j1), j1 = 8 mi + g
-#pragma unroll
-  for (int i = 0; i < S::WM2; ++i) {
-    const int j1 = 8 * (wm * S::WM2 + i) + g;
-#pragma unroll
-    for (int j = 0; j < S::WN2; ++j) {
-      const int col = (wn * S::WN2 + j) * 8 + 2 * t;
-      const int p = col / S::N2, k2 = col % S::N2;
-      const float2 w_r = __ldg(reinterpret_cast<const float2*>(wr + j1 * S::N2 + k2));
-      const float2 w_i = __ldg(reinterpret_cast<const float2*>(wi + j1 * S::N2 + k2));
-      const float* a = acc[i][j];
-      float* c = C + (p * S::N1 + j1) * S::LDC + k2;
-      *reinterpret_cast<float2*>(c) =
-          make_float2(a[0] * w_r.x - a[2] * w_i.x, a[1] * w_r.y - a[3] * w_i.y);
-      *reinterpret_cast<float2*>(c + S::N2) =
-          make_float2(a[0] * w_i.x + a[2] * w_r.x, a[1] * w_i.y + a[3] * w_r.y);
-    }
-  }
-}
-
-// step 3: y_e[p n + m n1 + j1] = scale (C F2b)[(p, j1), (e, m)], for p < rows,
-// straight from the accumulators: the 8 lanes of one t write 8 consecutive j1,
-// one whole 32-byte sector a row m.
-template <class S>
-__device__ __forceinline__ void step3(const float* FB, const float* C,
-                                      float* __restrict__ yr, float* __restrict__ yi,
-                                      int rows, float scale, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / S::GN3, wn = warp % S::GN3;
-  const float2* fbb = reinterpret_cast<const float2*>(FB);
-  const float2* fbs = reinterpret_cast<const float2*>(FB + S::FB / 2);
-  float acc[S::WM3][S::WN3][4] = {};
-#pragma unroll 1
-  for (int s0 = 0; s0 < S::KS3; s0 += S::U3)
-#pragma unroll
-  for (int s = s0; s < s0 + S::U3; ++s) {
-    uint32_t ab[S::WM3][4], as[S::WM3][4];
-#pragma unroll
-    for (int i = 0; i < S::WM3; ++i) {
-      const float* c = C + ((wm * S::WM3 + i) * 16 + g) * S::LDC + 8 * s + t;
-      split_tf32(c[0], ab[i][0], as[i][0]);
-      split_tf32(c[8 * S::LDC], ab[i][1], as[i][1]);
-      split_tf32(c[4], ab[i][2], as[i][2]);
-      split_tf32(c[8 * S::LDC + 4], ab[i][3], as[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < S::WN3; ++j) {
-      const int f = (s * S::NT3 + wn * S::WN3 + j) * 32 + lane;
-      const float2 b2 = fbb[f], s2 = fbs[f];
-      const uint32_t bb[2] = {__float_as_uint(b2.x), __float_as_uint(b2.y)};
-      const uint32_t bs[2] = {__float_as_uint(s2.x), __float_as_uint(s2.y)};
-#pragma unroll
-      for (int i = 0; i < S::WM3; ++i) add_3xtf32(acc[i][j], ab[i], as[i], bb, bs);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < S::WM3; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = (wm * S::WM3 + i) * 16 + g + 8 * h;
-      if (row / S::N1 >= rows) continue;
-      const long long at = (long long)(row / S::N1) * S::N + row % S::N1;
-#pragma unroll
-      for (int j = 0; j < S::WN3; ++j) {
-        const int col = (wn * S::WN3 + j) * 8 + 2 * t;
-        float* y = (col / S::N2 ? yi : yr) + at + (col % S::N2) * S::N1;
-        y[0] = acc[i][j][2 * h] * scale;
-        y[S::N1] = acc[i][j][2 * h + 1] * scale;
-      }
-    }
-  }
-}
-
 template <int N1, int N2, int U2, int U3>
 __global__ void __launch_bounds__(kThreads, 2)
 block_mma_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ yr, float* __restrict__ yi,
                  const float* __restrict__ fa, const float* __restrict__ fb,
                  const float* __restrict__ w, long long batch, float scale, int vec) {
-  using S = MmaShape<N1, N2, U2, U3>;
   extern __shared__ __align__(16) float smem[];
-  float* FA = smem;
-  float* FB = FA + S::FA;
-  float* X = FB + S::FB;
-  float* C = X + S::XS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < S::FA / 4; i += kThreads)
-    reinterpret_cast<float4*>(FA)[i] = __ldg(reinterpret_cast<const float4*>(fa) + i);
-  for (int i = threadIdx.x; i < S::FB / 4; i += kThreads)
-    reinterpret_cast<float4*>(FB)[i] = __ldg(reinterpret_cast<const float4*>(fb) + i);
-
-  // The next tile's load starts as soon as step 2 has read the current one
-  // and lands during step 3; the barrier at the top of each round orders it
-  // (and step 3's reads of C) before step 2 of that round.
-  const long long tiles = (batch + S::P - 1) / S::P;
-  auto rows_of = [&](long long tile) {
-    return batch - tile * S::P < S::P ? (int)(batch - tile * S::P) : S::P;
-  };
-  const long long first = blockIdx.x;
-  if (first < tiles)
-    load_tile<S>(X, xr + first * S::P * S::N, xi + first * S::P * S::N, rows_of(first), vec);
-  for (long long tile = first; tile < tiles; tile += gridDim.x) {
-    const long long base = tile * S::P * S::N, next = tile + gridDim.x;
-    cp_async_wait_all();
-    __syncthreads();
-    step2<S>(FA, X, C, w, w + S::N, warp, lane);
-    __syncthreads();
-    if (next < tiles)
-      load_tile<S>(X, xr + next * S::P * S::N, xi + next * S::P * S::N, rows_of(next), vec);
-    step3<S>(FB, C, yr + base, yi + base, rows_of(tile), scale, warp, lane);
-  }
+  four_step_mma<MmaShape<N1, N2, U2, U3>>(smem, xr, xi, yr, yi, fa, fb, w, batch, scale, vec);
 }
-
-// Call f with the MmaShape of (n1, n2); -1 for a shape the mma body does not
-// take. The unrolling of each is the fastest measured on an H100 that keeps
-// within the 128 registers of two blocks an SM without spilling
-// (benchmarks/torch_fft_block_variants.py).
-template <class F>
-long long with_mma_shape(int n1, int n2, F&& f) {
-  if (n1 == 8 && n2 == 8) return f(MmaShape<8, 8, 0, 0>{});
-  if (n1 == 16 && n2 == 8) return f(MmaShape<16, 8, 1, 1>{});
-  if (n1 == 16 && n2 == 16) return f(MmaShape<16, 16, 0, 1>{});
-  if (n1 == 32 && n2 == 16) return f(MmaShape<32, 16, 1, 1>{});
-  if (n1 == 32 && n2 == 32) return f(MmaShape<32, 32, 0, 0>{});
-  return -1;
-}
-
-// Blocks a slot for `kern` with `smem` dynamic bytes, after raising its limit.
-template <class K>
-cudaError_t resident_blocks(K kern, long long smem, int* per_sm, int* sms) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, (size_t)smem);
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -562,19 +241,8 @@ int fft_block_mma_launch(const float* xr, const float* xi, float* yr, float* yi,
                          int n1, int n2, float scale, void* stream) {
   return (int)with_mma_shape(n1, n2, [&](auto s) {
     using S = decltype(s);
-    const auto kernel = block_mma_kernel<S::N1, S::N2, S::U2, S::U3>;
-    const long long smem = (long long)S::FLOATS * sizeof(float);
-    int per_sm = 0, sms = 0;
-    cudaError_t err = resident_blocks(kernel, smem, &per_sm, &sms);
-    if (err != cudaSuccess) return (long long)err;
-    if (per_sm < 1) return (long long)cudaErrorInvalidConfiguration;
-    const long long tiles = (batch + S::P - 1) / S::P;
-    const long long slots = (long long)sms * per_sm;
-    const long long blocks = tiles < slots ? tiles : slots;
-    const int vec = aligned16(xr) && aligned16(xi);  // the tile loads' 16-byte copies
-    kernel<<<(unsigned)blocks, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-        xr, xi, yr, yi, fa, fb, w, batch, scale, vec);
-    return (long long)cudaGetLastError();
+    return launch_mma<S>(block_mma_kernel<S::N1, S::N2, S::U2, S::U3>, xr, xi, yr, yi, fa,
+                         fb, w, batch, scale, stream);
   });
 }
 

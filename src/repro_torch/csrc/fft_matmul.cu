@@ -1,4 +1,5 @@
-// Bailey four-step pencil FFT for Hopper (sm_90a), fp32 FMA on the CUDA cores.
+// Bailey four-step pencil FFT for Hopper (sm_90a): two bodies, chosen by the
+// pencil length alone.
 //
 // Replaces the TPU kernel fft_matmul (src/repro/kernels/fft_matmul.py:71).
 // Each length-n pencil (n = n1 * n2, n1 >= n2, powers of two) is viewed as
@@ -11,17 +12,29 @@
 // computed here, in the kernel body, not by a library GEMM. The inverse uses
 // the conjugate tables and multiplies by 1/n (`scale`), exact for pow2 n.
 //
-// Bound: operations. 4 n (n1 + n2) real multiply-adds per pencil (98,304 at
-// n = 512) against 16 bytes moved per element: about 12 flop/byte, above the
-// fp32 CUDA-core ridge. This first version keeps everything a block needs in
-// shared memory: the three tables, a tile of P pencils and the twiddled
-// intermediate C. Device memory is read once and written once. Step 2 walks
-// k2 fastest (A reads contiguous, F1 reads broadcast); step 4 walks j1
-// fastest, so the natural-order output is stored contiguously and the C rows
-// (stride n2 + 1) and F2 reads hit distinct banks. F1 rows are padded to
-// n1 + 1 for the same reason. No TF32, no tensor cores yet.
+// Bound: by what an FFT needs, memory (16 bytes per element moved, 0.64 ms
+// at 512^3). The dense products do 8 n (n1 + n2) flop a pencil (98,304
+// multiply-adds at n = 512), 0.77 ms at 512^3 at the 67 TFLOP/s fp32
+// CUDA-core peak: only the tensor cores can bring the kernel to its bound.
+//
+// matmul_mma_kernel, for 64 <= n <= 1024: the tensor-core four-step of
+// four_step_mma.cuh (3xTF32 mma.sync, cp.async tile loads, persistent
+// blocks), which fft_block.cu's block_mma_kernel runs too. The TPU kernel's
+// four real GEMMs per complex product, F1r Ar - F1i Ai and F1r Ai + F1i Ar,
+// are the rows of the block product [[F1r, -F1i], [F1i, F1r]] [Ar; Ai], and
+// C F2 is C times the block [[F2r, F2i], [-F2i, F2r]]: the same numbers as
+// fft_block's tables, so the host passes those (kernels/fft_matmul.py).
+//
+// four_step_kernel, for every other n (2..32, 2048, 4096): fp32 FMA on the
+// CUDA cores. A block keeps everything it needs in shared memory: the three
+// tables, a tile of P pencils and the twiddled intermediate C. Device memory
+// is read once and written once. Step 2 walks k2 fastest (A reads
+// contiguous, F1 reads broadcast); step 4 walks j1 fastest, so the
+// natural-order output is stored contiguously and the C rows (stride
+// n2 + 1) and F2 reads hit distinct banks. F1 rows are padded to n1 + 1 for
+// the same reason.
 
-#include <cuda_runtime.h>
+#include "four_step_mma.cuh"
 
 namespace {
 
@@ -128,7 +141,26 @@ __global__ void four_step_kernel(const float* __restrict__ xr, const float* __re
   }
 }
 
-constexpr int kThreads = 256;
+template <int N1, int N2, int U2, int U3>
+__global__ void __launch_bounds__(kThreads, 2)
+matmul_mma_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* __restrict__ yr, float* __restrict__ yi,
+                  const float* __restrict__ fa, const float* __restrict__ fb,
+                  const float* __restrict__ w, long long batch, float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  four_step_mma<MmaShape<N1, N2, U2, U3>>(smem, xr, xi, yr, yi, fa, fb, w, batch, scale, vec);
+}
+
+// Registers a thread and blocks an SM of `kern` with `smem` dynamic bytes.
+template <class K>
+cudaError_t occupancy(K kern, long long smem, int* per_sm, int* regs) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  int sms = 0;
+  return resident_blocks(kern, smem, per_sm, &sms);
+}
 
 }  // namespace
 
@@ -152,6 +184,41 @@ int fft_matmul_launch(const float* xr, const float* xi, float* yr, float* yi,
   four_step_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, f1r, f1i, f2r, f2i, twr, twi, batch, n1, n2, P, scale);
   return (int)cudaGetLastError();
+}
+
+// Pencils a tile of the mma body; -1 where it does not take (n1, n2).
+int fft_matmul_mma_pencils(int n1, int n2) {
+  return (int)with_mma_shape(n1, n2, [](auto s) { return (long long)decltype(s)::P; });
+}
+
+// Shared bytes a block of the mma body takes; -1 where it does not take (n1, n2).
+long long fft_matmul_mma_smem_bytes(int n1, int n2) {
+  return with_mma_shape(n1, n2, [](auto s) {
+    return (long long)decltype(s)::FLOATS * (long long)sizeof(float);
+  });
+}
+
+// Blocks an SM holds and registers a thread: of the mma body (mma != 0) for
+// (n1, n2), else of four_step_kernel with `smem` bytes; the CUDA error, or -1
+// for an unknown shape.
+int fft_matmul_blocks_per_sm(int mma, int n1, int n2, long long smem, int* per_sm,
+                             int* regs) {
+  if (!mma) return (int)occupancy(four_step_kernel, smem, per_sm, regs);
+  return (int)with_mma_shape(n1, n2, [&](auto s) {
+    using S = decltype(s);
+    return (long long)occupancy(matmul_mma_kernel<S::N1, S::N2, S::U2, S::U3>,
+                                (long long)S::FLOATS * sizeof(float), per_sm, regs);
+  });
+}
+
+int fft_matmul_mma_launch(const float* xr, const float* xi, float* yr, float* yi,
+                          const float* fa, const float* fb, const float* w, long long batch,
+                          int n1, int n2, float scale, void* stream) {
+  return (int)with_mma_shape(n1, n2, [&](auto s) {
+    using S = decltype(s);
+    return launch_mma<S>(matmul_mma_kernel<S::N1, S::N2, S::U2, S::U3>, xr, xi, yr, yi, fa,
+                         fb, w, batch, scale, stream);
+  });
 }
 
 }  // extern "C"

@@ -9,8 +9,9 @@ One module per TPU kernel it replaces (same names as ``repro.kernels``):
 
 Each wrapper runs its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (or raises), and counts its launches in the
-module's ``launches`` integer (``fft_block`` also counts those of its
-tensor-core body in ``launches_mma``).
+module's ``launches`` integer (``fft_matmul`` and ``fft_block`` also
+count those of their tensor-core body, the four-step of
+``csrc/four_step_mma.cuh`` that both run, in ``launches_mma``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every launch counter of every kernel module to 0 (``launches``
-    and a module's per-body counters such as ``fft_block.launches_mma``)."""
+    and a module's per-body counters such as ``launches_mma``)."""
     for mod in _modules().values():
         for name in list(vars(mod)):
             if name.startswith('launches'):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). Libraries go
 to ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a digest of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. The
+``.gitignore``), named by a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. The
 compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside each library as ``.log``.
 
@@ -49,9 +50,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f'lib{name}-{digest}.so'
+    """Where the library of ``csrc/<name>.cu`` lives: named by a digest of
+    that source, of every header in ``csrc`` (a source includes them by
+    a quoted name, which ``nvcc`` finds beside it) and of the flags."""
+    h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + b'\0' + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:12]}.so'
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

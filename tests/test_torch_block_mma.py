@@ -1,7 +1,7 @@
 """The arithmetic of the tensor-core ``fft_block`` body, on the CPU.
 
-``block_mma_kernel`` (``src/repro_torch/csrc/fft_block.cu``) runs only on
-the card. These tests hold what it computes, from the tables it is given:
+``block_mma_kernel`` (``src/repro_torch/csrc/fft_block.cu``, the body of
+``csrc/four_step_mma.cuh``) runs only on the card. These tests hold what it computes, from the tables it is given:
 
 * the host's 3xTF32 split of F1b and the block F2
   (``core/fft1d.py:block_mma_tables``): TF32 values, round to nearest
@@ -12,7 +12,8 @@ the card. These tests hold what it computes, from the tables it is given:
 * the fragment order the kernel reads (``kernels/fft_block.py:frag_a``,
   ``frag_b``, ``mma_rows``) unpacks, by the m16n8k8 lane mapping, to
   the matrices;
-* a torch emulation of the kernel's four-step (rna by bit operations,
+* a torch emulation of the kernel's four-step
+  (``tests/_torch_mma_emulation.py``: rna by bit operations,
   three passes small*big, big*small, big*big, fp32 sums, ragged tiles
   zero-filled) is within 1e-5 * max|plain| of ``fft_block_plain`` and of
   the JAX package's Pallas ``fft_block`` in interpret mode (the tolerance
@@ -35,6 +36,8 @@ from repro_torch.core import fft1d as tf
 from repro_torch.core import twiddle as ttw
 from repro_torch.kernels import fft_block as tkb
 
+from _torch_mma_emulation import emulate as _emulate, rna as _rna
+
 KERNEL_RTOL = 1e-5
 MMA_NS = [64, 128, 256, 512, 1024]
 RNG = np.random.default_rng(14)
@@ -43,72 +46,6 @@ RNG = np.random.default_rng(14)
 def _rel(got, want):
     got, want = np.asarray(got), np.asarray(want)
     return float(np.abs(got - want).max() / np.abs(want).max())
-
-
-# ---------------------------------------------------------------------------
-# The emulation
-# ---------------------------------------------------------------------------
-
-def _rna(x: torch.Tensor) -> torch.Tensor:
-    """fp32 to TF32 by bit operations, as ``cvt.rna.tf32.f32``."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _split(x: torch.Tensor):
-    big = _rna(x)
-    return big, _rna(x - big)
-
-
-def _rz(v: torch.Tensor) -> torch.Tensor:
-    """float64 to float32, rounded toward zero."""
-    f = v.float()
-    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def _product(a, b, passes: int, accumulate: str = 'ieee') -> torch.Tensor:
-    """a @ b in 3xTF32 as the kernel takes it: the small terms first,
-    fp32 sums (TF32 products are exact in fp32); ``passes=1`` keeps
-    big*big alone. ``a``/``b`` are (big, small) pairs.
-
-    ``accumulate`` other than 'ieee' models the tensor cores' addition
-    instead: each m16n8k8 mma adds its 8 exact products to C and rounds
-    the sum toward zero. 'chained' takes every k-step's three mma into
-    one accumulator; 'fresh' takes them into a fresh one and adds that
-    to the running sum with an fp32 add, as the kernel does."""
-    (ab, as_), (bb, bs) = a, b
-    if accumulate == 'ieee':
-        return ab @ bb if passes == 1 else (as_ @ bb + ab @ bs) + ab @ bb
-    acc = torch.zeros(ab.shape[0], bb.shape[1])
-    for k in range(0, ab.shape[1], 8):
-        terms = [u[:, k:k + 8].double() @ v[k:k + 8].double()
-                 for u, v in ((as_, bb), (ab, bs), (ab, bb))]
-        d = acc if accumulate == 'chained' else torch.zeros_like(acc)
-        for term in terms:
-            d = _rz(d.double() + term)
-        acc = d if accumulate == 'chained' else acc + d
-    return acc
-
-
-def _emulate(x: torch.Tensor, inverse: bool, passes: int = 3,
-             accumulate: str = 'ieee') -> torch.Tensor:
-    """The tensor-core body on a stacked (2, B, n): tiles of P pencils
-    (the last zero-filled), step 2 against the split F1b, the twiddle in
-    fp32, step 3 against the split block F2, natural order out."""
-    _, batch, n = x.shape
-    n1, n2 = ttw.four_step_factors(n)
-    f1b, f2b, w = tf.block_mma_tables(n1, n2, inverse, torch.device('cpu'))
-    P = (2048 if n >= 1024 else 4096) // n
-    bp = -(-batch // P) * P
-    xp = torch.zeros(2, bp, n)
-    xp[:, :batch] = x
-    a = xp.reshape(2, bp, n1, n2).permute(0, 2, 1, 3).reshape(2 * n1, bp * n2)
-    b = _product((f1b[0], f1b[1]), _split(a), passes, accumulate).reshape(2, n1, bp, n2)
-    wr, wi = w[0][:, None, :], w[1][:, None, :]
-    c = torch.stack([b[0] * wr - b[1] * wi, b[0] * wi + b[1] * wr])   # (d, j1, p, k2)
-    c = c.permute(2, 1, 0, 3).reshape(bp * n1, 2 * n2)
-    y = _product(_split(c), (f2b[0], f2b[1]), passes, accumulate)     # rows (p, j1), cols (e, m)
-    y = y.reshape(bp, n1, 2, n2).permute(2, 0, 3, 1).reshape(2, bp, n)[:, :batch]
-    return y * (1.0 / n) if inverse else y
 
 
 # ---------------------------------------------------------------------------

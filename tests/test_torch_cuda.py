@@ -65,6 +65,7 @@ def test_plan_on_the_card(gen, method, counts):
     x2 = p.inverse(y)
     assert kernels.launch_counts() == counts
     assert fft_block.launches_mma == counts['fft_block']    # n = 64: the tensor-core body
+    assert fft_matmul.launches_mma == counts['fft_matmul']  # n = 64: the tensor-core body
     ref = torch.fft.fftn(x, dim=(1, 2, 3))
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
     assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5
@@ -94,6 +95,24 @@ def test_fft_block_takes_planes_that_are_not_16_byte_aligned(gen, n):
     assert _rel(fft_block.fft_block_planar(re, im, inverse=True), want) <= 1e-5
 
 
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024])
+def test_fft_matmul_on_the_tensor_core_body_matches_plain_version(gen, n):
+    """A ragged batch of 37 (not a multiple of the body's tile) and
+    planes 4 bytes past an aligned address (the tile loads' 4-byte
+    copies), forward and inverse; every launch on the tensor-core body."""
+    assert fft_matmul.variant(n) == 'mma'
+    x = _planar((37, n), gen)
+    flat = _planar((37 * n + 1,), gen)
+    off = tuple(t[1:].view(37, n) for t in flat)
+    assert off[0].data_ptr() % 16 and off[1].data_ptr() % 16
+    kernels.reset_launch_counts()
+    for inverse in (False, True):
+        for planes in (x, off):
+            assert _rel(fft_matmul.fft_matmul(*planes, inverse=inverse),
+                        fft_matmul.fft_matmul_plain(*planes, inverse=inverse)) <= 1e-5
+    assert fft_matmul.launches == fft_matmul.launches_mma == 4
+
+
 @pytest.mark.parametrize("method, counts", [
     ('auto', {'fft_pencil': 2, 'fft_fused': 0, 'fft_matmul': 4, 'fft_block': 0}),
     ('block', {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 0, 'fft_block': 6}),
@@ -111,6 +130,7 @@ def test_rplan_on_the_card(gen, method, counts):
     x2 = p.inverse(y)
     assert kernels.launch_counts() == counts
     assert fft_block.launches_mma == (4 if method == 'block' else 0)
+    assert fft_matmul.launches_mma == counts['fft_matmul']  # n = 64: the tensor-core body
     ref = torch.fft.rfftn(x, dim=(1, 2, 3))
     assert y.shape == ref.shape
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
