@@ -8,7 +8,10 @@ Phases, each printing one line and raising on any failure:
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
    then the kernels are built from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, in parallel);
+   per source, in parallel), each kernel's registers and spills printed
+   (a spill in a tensor-core or radix-8 kernel fails the run), each
+   radix-8 kernel with its block at the main path's shapes (pencils,
+   threads, shared bytes, which the library must agree with);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (512^3 as 262,144 pencils of 512; ``fft_matmul`` and
    ``fft_block`` also at the real path's 262,144 half pencils of 256),
@@ -16,18 +19,21 @@ Phases, each printing one line and raising on any failure:
    a random twiddle, and both tensor-core kernels on planes one float
    past a 16-byte boundary; with its median time, the plain version's,
    one PyTorch library call's (``torch.fft.fft``, a yardstick the port
-   never calls) and its bound. ``fft_matmul`` and ``fft_block`` also
-   print the body their launches run (``variant``: 'mma', the shared
-   tensor-core four-step of ``csrc/four_step_mma.cuh``, for
-   64 <= n <= 1024, else 'fma'), its shared bytes and blocks an SM
-   (``fft_matmul`` its registers too), and, as a yardstick in the same
-   run, the CUDA-core body's time on the same input (``fma_ms``);
+   never calls) and its bound. ``fft_pencil`` and
+   ``fft_twiddle_transpose`` also print the body their launches run
+   (``variant``: 'radix8', the register-resident body, for
+   2 <= n <= 4096), its block, and the radix-2 body's time on the same
+   input (``radix2_ms``). ``fft_matmul`` and ``fft_block`` print theirs
+   (``variant``: 'mma', the shared tensor-core four-step of
+   ``csrc/four_step_mma.cuh``, for 64 <= n <= 1024, else 'fma'), its
+   shared bytes and blocks an SM (``fft_matmul`` its registers too),
+   and the CUDA-core body's time on the same input (``fma_ms``);
 3. the main path with the default plan, ``plan((512,)*3, make_fft_mesh(1, 1))``
    (resolves to four_step / all_to_all): forward against ``torch.fft.fftn``,
    the round trip, and 3 ``fft_matmul`` launches per direction, all of
    them on the tensor-core body;
 4. the same with ``method='stockham'``: 2 ``fft_twiddle_transpose`` and 1
-   ``fft_pencil`` launches per direction;
+   ``fft_pencil`` launches per direction, all of them on the radix-8 body;
 5. the same with ``method='block'``: 3 ``fft_block`` launches per direction,
    all of them on the tensor-core body;
 6. the real plan ``rplan((512,)*3, make_fft_mesh(1, 1))`` (resolves to
@@ -171,12 +177,32 @@ def phase_card() -> str:
     _build.build()
     for name in _build.SOURCES:
         for entry in ptxas_report(_build.build_log(name)):
+            entry.update(radix8_shared(entry['kernel']))
             say('build', source=name, **entry)
-            if '_mma_kernel' in entry['kernel'] and (
+            if ('_mma_kernel' in entry['kernel'] or 'radix8_' in entry['kernel']) and (
                     entry['spill_stores'] or entry['spill_loads']):
                 raise AssertionError(f"{entry['kernel']} spills: {entry}")
     say('build', seconds=f"{time.perf_counter() - t0:.1f}")
     return card
+
+
+def radix8_shared(kernel: str) -> dict:
+    """A radix-8 kernel's block at the main path's shapes (262,144
+    pencils; rows of 512 for the fused kernel), its shared memory being
+    all dynamic: pencils, threads and shared bytes from the layout
+    functions, which must give the bytes the library's
+    ``radix8_smem_bytes`` gives."""
+    m = re.fullmatch(r'radix8_(pencil|fused)_kernel<(\d+)>', kernel)
+    if not m:
+        return {}
+    n, fused = 1 << int(m.group(2)), m.group(1) == 'fused'
+    P, threads, smem = (fft_fused.tile_layout(n, N) if fused
+                        else fft_pencil.radix8_layout(n, N * N))
+    lib = fft_pencil._lib()
+    if lib.radix8_smem_bytes(n, P, int(fused)) != smem:
+        raise AssertionError(f"{kernel}: the layout's {smem} shared bytes differ from the "
+                             f"library's {lib.radix8_smem_bytes(n, P, int(fused))}")
+    return dict(pencils=P, threads=threads, smem_bytes=smem)
 
 
 def kernel_name(sym: str) -> str:
@@ -228,8 +254,13 @@ def phase_kernels(gen) -> dict:
     plain = time_ms(lambda: fft_pencil.fft_pencil_plain(*x), 5)
     lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 20)
     b, by = bound(x[0].numel(), fft_flops(N, pencils))
-    rec['fft_pencil'] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=b, bound_by=by)
+    y = tuple(torch.empty_like(p) for p in x)
+    P, threads, smem = fft_pencil.radix8_layout(N, pencils)
+    rec['fft_pencil'] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+        variant=fft_pencil.variant(N), pencils_per_block=P, threads=threads, smem_bytes=smem,
+        radix2_ms=time_ms(lambda: fft_pencil._launch(*x, *y, N, False, _body='radix2'), 20))
+    del y
 
     # fft_twiddle_transpose (the 3-D path has no twiddle; one checked too)
     err = max(check('fft_twiddle_transpose',
@@ -246,8 +277,14 @@ def phase_kernels(gen) -> dict:
     plain = time_ms(lambda: fft_fused.fft_twiddle_transpose_plain(*x), 5)
     lib = time_ms(lambda: torch.fft.fft(xc, dim=-1).transpose(-1, -2).contiguous(), 20)
     b, by = bound(x[0].numel(), fft_flops(N, pencils))
-    rec['fft_twiddle_transpose'] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                        library_ms=lib, bound_ms=b, bound_by=by)
+    y = tuple(torch.empty_like(p) for p in x)
+    P, threads, smem = fft_fused.tile_layout(N, N)
+    rec['fft_twiddle_transpose'] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+        variant=fft_fused.variant(N), pencils_per_block=P, threads=threads, smem_bytes=smem,
+        radix2_ms=time_ms(lambda: fft_fused._launch(*x, None, None, *y, False,
+                                                    _body='radix2'), 20))
+    del y
 
     del x, xc
 
@@ -388,6 +425,8 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     torch.cuda.synchronize()
     total = kernels.launch_counts()
     on_mma = {'fft_block': fft_block.launches_mma, 'fft_matmul': fft_matmul.launches_mma}
+    on_radix8 = {'fft_fused': fft_fused.launches_radix8,
+                 'fft_pencil': fft_pencil.launches_radix8}
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     ref = torch.fft.rfftn(x) if real else torch.fft.fftn(x)
     if y.shape != ref.shape or y.dtype != torch.complex64:
@@ -406,6 +445,10 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
         if mma != total[k]:
             raise AssertionError(f"{label}: {mma} of {total[k]} {k} launches on the "
                                  "tensor-core body")
+    for k, r8 in on_radix8.items():
+        if r8 != total[k]:
+            raise AssertionError(f"{label}: {r8} of {total[k]} {k} launches on the "
+                                 "radix-8 body")
     if not (fwd_err <= PATH_RTOL and rt_err <= PATH_RTOL):
         raise AssertionError(f"{label}: forward rel L2 {fwd_err:.3e}, round trip "
                              f"{rt_err:.3e}, limit {PATH_RTOL}")
@@ -422,7 +465,8 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     say('path', label=label, method=p.method, comm=p.comm, kernel=p.resolved_kernel,
         fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
         launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
-        launches_mma=json.dumps(on_mma), fwd_inv_ms=f"{ms:.6g}",
+        launches_mma=json.dumps(on_mma), launches_radix8=json.dumps(on_radix8),
+        fwd_inv_ms=f"{ms:.6g}",
         library_ms=f"{lib:.6g}", **extra)
     say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
     return total

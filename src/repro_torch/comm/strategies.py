@@ -71,10 +71,9 @@ def swap_axes_wire(strategy: 'Strategy', x: torch.Tensor, mesh, mesh_axis: MeshA
                    *, shard_pos: int, mem_pos: int,
                    wire_dtype: str = 'native') -> torch.Tensor:
     """One ownership swap, the operand cast to the wire format around
-    the collective only. A group of one rank is the identity: no cast,
-    no collective."""
-    if static_group_size(mesh_axis, mesh.shape) == 1:
-        return x
+    the collective only. A group of one rank runs no collective but
+    still takes the cast and the restore, as the reference does, so a
+    16-bit wire rounds the same on one rank as on many."""
     w, restore = wire_cast(x, wire_dtype)
     y = strategy.swap_axes(w, mesh, mesh_axis, shard_pos=shard_pos,
                            mem_pos=mem_pos)

@@ -2,7 +2,7 @@
 
 One module per TPU kernel it replaces (same names as ``repro.kernels``):
 
-* :mod:`.fft_pencil` — radix-2 Stockham pencil FFT
+* :mod:`.fft_pencil` — Stockham pencil FFT
 * :mod:`.fft_fused` — Stockham + optional twiddle + transposed emit
 * :mod:`.fft_matmul` — Bailey four-step
 * :mod:`.fft_block` — block-complex four-step
@@ -11,7 +11,9 @@ Each wrapper runs its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (or raises), and counts its launches in the
 module's ``launches`` integer (``fft_matmul`` and ``fft_block`` also
 count those of their tensor-core body, the four-step of
-``csrc/four_step_mma.cuh`` that both run, in ``launches_mma``).
+``csrc/four_step_mma.cuh`` that both run, in ``launches_mma``;
+``fft_pencil`` and ``fft_fused`` those of their radix-8 Stockham body
+in ``launches_radix8``).
 """
 from __future__ import annotations
 

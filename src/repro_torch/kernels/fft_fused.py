@@ -1,14 +1,19 @@
 """Fused superstep: Stockham FFT + optional twiddle + transposed emit.
 
 Replaces ``repro.kernels.fft_fused.fft_twiddle_transpose``
-(src/repro/kernels/fft_fused.py:58). The kernel is ``fused_kernel`` in
-``csrc/fft_pencil.cu``, sharing the Stockham stages of
-:mod:`.fft_pencil`: a block loads P pencils of one leading slice, runs
-every stage in shared memory, applies the twiddle and stores the tile
-transposed, ``out[..., k, j] = (W * FFT(x))[..., j, k]``, so the swap
-that follows reads its split axis next to memory. Memory-bound: one
-read and one write of every element (plus one read of the twiddle when
-there is one).
+(src/repro/kernels/fft_fused.py:58). ``csrc/fft_pencil.cu`` holds two
+bodies, chosen as :mod:`.fft_pencil`'s are (:func:`variant`):
+
+* ``'radix8'`` (``radix8_fused_kernel``, 2 <= n <= 4096): the radix-8
+  passes of ``fft_pencil``'s body on P pencils of one leading slice, the
+  scale and the twiddle applied in registers in the pre-transpose layout
+  (coalesced along the pencil), then the tile staged in shared memory
+  and stored transposed, ``out[..., k, j] = (W * FFT(x))[..., j, k]``,
+  in runs of P pencils (:func:`tile_layout`);
+* ``'radix2'`` (``fused_kernel``, every other n): the radix-2 body.
+
+Memory-bound: one read and one write of every element, 16 bytes an
+element, plus one read of the twiddle when there is one (24 bytes).
 """
 from __future__ import annotations
 
@@ -21,15 +26,33 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core.twiddle import Planar
 from repro_torch.kernels import _build, check_planar, stream_of
-from repro_torch.kernels.fft_pencil import master_table, tile_pencils
+from repro_torch.kernels.fft_pencil import (MAX_THREADS, _pow2_at_least, master_table,
+                                            radix8_smem_bytes, radix8_tables, radix8_threads,
+                                            tile_pencils, variant)
 
-#: launches of the CUDA kernel (plain-version calls do not count)
+#: pencils a block of the radix-8 body aims for: the length of each run
+#: of the transposed store (8 floats fill one 32-byte sector)
+RUN = 8
+
+#: launches of either CUDA body (plain-version calls do not count)
 launches = 0
+#: of those, launches of the radix-8 body
+launches_radix8 = 0
 
 
 def tile_layout(n: int, b: int):
-    """(P, ld): pencils per block and the padded shared row stride that
-    keeps the transposed read-out free of bank conflicts."""
+    """``(P, threads, smem_bytes)`` of a radix-8 launch on rows of b
+    pencils of n: P = ``RUN`` pencils a block (fewer where b is smaller,
+    or where P * n/8 threads would pass 1024, at n >= 2048), so the
+    transposed store writes runs of P floats."""
+    T = radix8_threads(n)
+    P = min(RUN, MAX_THREADS // T, _pow2_at_least(b))
+    return P, P * T, radix8_smem_bytes(n, P, fused=True)
+
+
+def _radix2_layout(n: int, b: int):
+    """(P, ld) of the radix-2 body: pencils per block and the padded row
+    stride that keeps its transposed read-out free of bank conflicts."""
     P = tile_pencils(n, b)
     return P, n + max(1, 32 // P)
 
@@ -57,9 +80,51 @@ def _lib():
     _build.declare(lib, 'fft_fused_launch', 8,
                    (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_float))
+    _build.declare(lib, 'fft_fused_radix8_launch', 8,
+                   (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_float))
     lib.stockham_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.stockham_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def _launch(re: torch.Tensor, im: torch.Tensor, twr, twi, yr: torch.Tensor,
+            yi: torch.Tensor, inverse: bool, _body: str | None = None) -> None:
+    """Run the kernel on contiguous fp32 planes (..., b, n), the twiddle
+    planes ``twr``/``twi`` of the same shape or None, into (yr, yi) of
+    (..., n, b). The body is :func:`variant` of n; ``_body`` overrides it
+    only to time the radix-2 body beside the radix-8 one."""
+    global launches, launches_radix8
+    b, n = re.shape[-2:]
+    if re.numel() == 0:
+        return
+    nl = re.numel() // (b * n)
+    body = _body or variant(n)
+    scale = (1.0 / n) if inverse else 1.0
+    ptrs = (re.data_ptr(), im.data_ptr(),
+            None if twr is None else twr.data_ptr(),
+            None if twi is None else twi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr())
+    lib = _lib()
+    with torch.cuda.device(re.device):
+        if body == 'radix8':
+            P, _, smem = tile_layout(n, b)
+            mr, mi = radix8_tables(n, inverse, re.device)
+            err = lib.fft_fused_radix8_launch(*ptrs, mr.data_ptr(), mi.data_ptr(), nl, b,
+                                              n, P, -1.0 if inverse else 1.0, scale,
+                                              stream_of(re))
+        else:
+            P, ld = _radix2_layout(n, b)
+            smem = lib.stockham_smem_bytes(n, P, ld)
+            mr, mi = master_table(n, inverse, re.device)
+            err = lib.fft_fused_launch(*ptrs, mr.data_ptr(), mi.data_ptr(), nl, b, n, P, ld,
+                                       scale, stream_of(re))
+    if err:
+        raise RuntimeError(f"fft_twiddle_transpose: {body} launch failed with CUDA error "
+                           f"{err} (n={n}, {P} pencils per block, {smem} bytes of shared "
+                           "memory)")
+    launches += 1
+    launches_radix8 += body == 'radix8'
 
 
 def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
@@ -71,33 +136,13 @@ def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
     pre-transpose output (..., b, n). A CPU tensor runs
     :func:`fft_twiddle_transpose_plain`; a CUDA tensor launches the
     kernel (or raises)."""
-    global launches
     n = check_planar('fft_twiddle_transpose', re, im, min_ndim=2)
     if (wr is None) != (wi is None):
         raise ValueError("fft_twiddle_transpose: give both twiddle planes or neither")
     if re.device.type == 'cpu':
         return fft_twiddle_transpose_plain(re, im, wr, wi, inverse=inverse)
     b = re.shape[-2]
-    lead = tuple(re.shape[:-2])
-    nl = re.numel() // (b * n) if b else 0
-    yr = torch.empty(lead + (n, b), dtype=re.dtype, device=re.device)
+    yr = torch.empty(tuple(re.shape[:-2]) + (n, b), dtype=re.dtype, device=re.device)
     yi = torch.empty_like(yr)
-    if re.numel() == 0:
-        return yr, yi
-    twr, twi = _twiddle(re, wr), _twiddle(re, wi)
-    lib = _lib()
-    P, ld = tile_layout(n, b)
-    smem = lib.stockham_smem_bytes(n, P, ld)
-    mr, mi = master_table(n, inverse, re.device)
-    with torch.cuda.device(re.device):
-        err = lib.fft_fused_launch(
-            re.data_ptr(), im.data_ptr(),
-            None if twr is None else twr.data_ptr(),
-            None if twi is None else twi.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), mr.data_ptr(), mi.data_ptr(),
-            nl, b, n, P, ld, (1.0 / n) if inverse else 1.0, stream_of(re))
-    if err:
-        raise RuntimeError(f"fft_twiddle_transpose: launch failed with CUDA error {err} "
-                           f"(n={n}, {P} pencils per block, {smem} bytes of shared memory)")
-    launches += 1
+    _launch(re, im, _twiddle(re, wr), _twiddle(re, wi), yr, yi, inverse)
     return yr, yi

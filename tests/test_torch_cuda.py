@@ -66,9 +66,28 @@ def test_plan_on_the_card(gen, method, counts):
     assert kernels.launch_counts() == counts
     assert fft_block.launches_mma == counts['fft_block']    # n = 64: the tensor-core body
     assert fft_matmul.launches_mma == counts['fft_matmul']  # n = 64: the tensor-core body
+    assert fft_pencil.launches_radix8 == counts['fft_pencil']  # every n: the radix-8 body
+    assert fft_fused.launches_radix8 == counts['fft_fused']
     ref = torch.fft.fftn(x, dim=(1, 2, 3))
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
     assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [2, 16, 512, 4096])
+def test_radix2_body_matches_plain_version(gen, n):
+    """The radix-2 Stockham body, which the radix-8 one is timed against,
+    on a ragged batch and ragged rows with a twiddle."""
+    x, z, w = _planar((37, n), gen), _planar((3, 29, n), gen), _planar((3, 29, n), gen)
+    y = tuple(torch.empty_like(p) for p in x)
+    yz = tuple(torch.empty((3, n, 29), device='cuda') for _ in range(2))
+    kernels.reset_launch_counts()
+    for inverse in (False, True):
+        fft_pencil._launch(*x, *y, n, inverse, _body='radix2')
+        assert _rel(y, fft_pencil.fft_pencil_plain(*x, inverse=inverse)) <= 1e-5
+        fft_fused._launch(*z, *w, *yz, inverse, _body='radix2')
+        assert _rel(yz, fft_fused.fft_twiddle_transpose_plain(*z, *w, inverse=inverse)) <= 1e-5
+    assert (fft_pencil.launches, fft_pencil.launches_radix8) == (2, 0)
+    assert (fft_fused.launches, fft_fused.launches_radix8) == (2, 0)
 
 
 @pytest.mark.parametrize("n", [2, 16, 32, 64, 256, 512, 1024, 2048, 4096])

@@ -116,6 +116,37 @@ def test_resolution_matches_reference(meshes, rank):
             assert (tp.in_layout, tp.out_layout) == (jp.in_layout, jp.out_layout), shape
 
 
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("wire", ['fp16', 'bf16'])
+def test_one_rank_wire_casts_as_the_reference(meshes, wire, real):
+    """On a one-rank mesh every swap is local, yet a 16-bit wire still
+    rounds the operand around it, in the reference and in the port: the
+    two agree, and both differ from the native wire.
+
+    The input lies on the sublattice of every 4th index, in multiples of
+    2^-16: every product with an irrational twiddle then meets a zero,
+    so both packages compute the same fp32 values exactly and round
+    them alike onto the wire (random data would put a few values on
+    either side of a 16-bit rounding step). Those values need 17 bits,
+    so the wire does round them."""
+    jmesh, tmesh = meshes
+    n = 16
+    x = np.zeros((2, n, n, n), np.complex64)
+    q = [RNG.integers(-2**16, 2**16, (2, 4, 4, 4)) / 2**16 for _ in range(2)]
+    x[(slice(None),) + (slice(0, n, 4),) * 3] = q[0] + (0 if real else 1j * q[1])
+    if real:
+        x = x.real.copy()
+    make_j, make_t = (jfft.rplan, tfft.rplan) if real else (jfft.plan, tfft.plan)
+    jp = make_j((n, n, n), jmesh, method='stockham', wire_dtype=wire, donate=False)
+    tp = make_t((n, n, n), tmesh, method='stockham', wire_dtype=wire)
+    jy = np.asarray(jp.forward(jnp.asarray(x)))
+    ty = tp.forward(from_numpy(x, 'cpu'))
+    assert _rel(_np(ty), jy) <= RTOL
+    assert _rel(_np(tp.inverse(ty)), np.asarray(jp.inverse(jnp.asarray(jy)))) <= RTOL
+    native = tp.with_options(wire_dtype='native').forward(from_numpy(x, 'cpu'))
+    assert _rel(_np(ty), _np(native)) > 0
+
+
 def test_with_options_round_trips(meshes):
     _, tmesh = meshes
     p = tfft.plan((16, 16, 16), tmesh)
