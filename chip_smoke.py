@@ -41,11 +41,31 @@ Phases, each printing one line and raising on any failure:
    ``torch.fft.rfftn``, the round trip, 3 ``fft_matmul`` launches per
    direction; then the same with ``method='block'``, 3 ``fft_block``;
    every launch of both on the tensor-core body;
-7. a ``kernels`` JSON line, the card line and, last, the result line.
+7. ``[cost]``, on the host: the cost model's report for the default plan
+   of 512^3 on an abstract 512 x 512 mesh (the paper's configuration)
+   and on a 2 x 2 one, and the selector's picks (strategy, overlap
+   chunks, method) for 32^3 to 512^3 on 1 x 1, 2 x 2 and 1 x 4 meshes,
+   complex and real, which must be the reference's; a plan whose pick
+   the port cannot swap yet (ppermute, on 1 x 4) must raise;
+8. the pipelined paths, 8 overlap chunks a (fft, swap) pair:
+   ``overlap`` (``plan(..., overlap_chunks=8)``, four_step: 17
+   ``fft_matmul`` launches per direction, 8 + 8 chunked and the last
+   superstep), ``stockham_overlap`` (17 ``fft_pencil``, no
+   ``fft_fused``: a chunked pair runs its fft unfused) and
+   ``real_overlap`` (``rplan``: 10 ``fft_matmul``, the r2c and c2r
+   pairs chunked by split-combine, the middle pair serial because its
+   257-bin axis does not divide by 8). ``overlap`` and ``real_overlap``
+   must give the forward of their unchunked plan bit for bit (the same
+   kernel on the same pencils); ``stockham_overlap`` runs
+   ``radix8_pencil_kernel`` where its unchunked plan runs
+   ``radix8_fused_kernel`` and is held within 1e-6 of it;
+9. a ``kernels`` JSON line, the card line and, last, the result line.
 
-Each path prints its fwd+inv time, the library's (``fftn``+``ifftn`` or
-``rfftn``+``irfftn``) and a ``[profile]`` line with device time by
-kernel.
+The five serial paths resolve through the cost-model selector, as a
+user's default plan does, to one overlap chunk. Each path prints its
+fwd+inv time, the library's (``fftn``+``ifftn`` or ``rfftn``+``irfftn``),
+its peak memory above the operand and a ``[profile]`` line with device
+time by kernel.
 
 It imports neither jax nor the JAX package. Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -71,8 +91,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'src
 import repro_torch.fft as fft  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import _build, fft_block, fft_fused, fft_matmul, fft_pencil  # noqa: E402
+from repro_torch.comm import cost as costlib  # noqa: E402
 from repro_torch.core.twiddle import four_step_factors  # noqa: E402
-from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
+from repro_torch.launch.mesh import abstract_fft_mesh, make_fft_mesh  # noqa: E402
 
 N = 512
 SEED = 0
@@ -91,6 +112,25 @@ KERNEL_RTOL = 1e-5
 #: main path vs torch.fft.fftn and round trip, relative L2: three fp32
 #: pencil passes of the above error each, averaged over the array
 PATH_RTOL = 1e-5
+#: a chunked Stockham pair (radix8_pencil_kernel) against the serial one
+#: (radix8_fused_kernel), max |a - b| / max |b|: one body, the same float
+#: operations, so equal unless the compiler contracts them differently
+STOCKHAM_OVERLAP_RTOL = 1e-6
+
+#: the reference selector's picks, (strategy, overlap_chunks, method) for
+#: (complex, real) plans, layout ('x', 'y', None), no measured table
+PICKS = {(n, mesh): picks
+         for n in (64, 128, 512)
+         for mesh, picks in {
+             (1, 1): (('all_to_all', 1, 'four_step'),
+                      ('all_to_all', 1, 'auto' if n == 64 else 'four_step')),
+             (2, 2): (('all_to_all', 8, 'four_step'),
+                      ('all_to_all', 1, 'auto' if n == 64 else 'four_step')),
+             (1, 4): (('ppermute', 8, 'four_step'),
+                      ('ppermute', 1, 'auto' if n == 64 else 'four_step')),
+         }.items()}
+PICKS.update({(32, (1, 1)): (('all_to_all', 1, 'stockham'), ('all_to_all', 1, 'stockham')),
+              (32, (2, 2)): (('all_to_all', 4, 'stockham'), ('all_to_all', 1, 'stockham'))})
 
 KERNELS = {
     'fft_pencil': dict(source='src/repro_torch/csrc/fft_pencil.cu',
@@ -401,13 +441,17 @@ def profile(fn) -> dict:
 
 
 def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = False,
-               **plan_kw) -> dict:
+               chunks: int = 1, unchunked_rtol: float = 0.0, **plan_kw) -> dict:
     """One main path: plan, forward, inverse; returns the launch counts.
     A real path (``rplan``) takes a real operand and is held against
-    ``torch.fft.rfftn``; a complex one against ``torch.fft.fftn``."""
+    ``torch.fft.rfftn``; a complex one against ``torch.fft.fftn``. A
+    pipelined path (``chunks`` > 1) is also held against its unchunked
+    plan's forward: bitwise, or within ``unchunked_rtol`` of its largest
+    magnitude."""
     p = (fft.rplan if real else fft.plan)((N, N, N), make_fft_mesh(1, 1), **plan_kw)
-    if (p.method, p.comm, p.resolved_kernel) != (expect_method, 'all_to_all', 'pallas'):
-        raise AssertionError(f"{label}: resolved to {p.method}/{p.comm}/{p.resolved_kernel}")
+    got = (p.method, p.comm, p.overlap_chunks, p.resolved_kernel)
+    if got != (expect_method, 'all_to_all', chunks, 'pallas'):
+        raise AssertionError(f"{label}: resolved to {got}")
     if real:
         if p.spectrum_shape != (N, N, N // 2 + 1):
             raise AssertionError(f"{label}: spectrum shape {p.spectrum_shape}")
@@ -452,9 +496,17 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     if not (fwd_err <= PATH_RTOL and rt_err <= PATH_RTOL):
         raise AssertionError(f"{label}: forward rel L2 {fwd_err:.3e}, round trip "
                              f"{rt_err:.3e}, limit {PATH_RTOL}")
+    extra = {}
+    if chunks > 1:
+        y1 = p.with_options(overlap_chunks=1).forward(x)
+        gap = float((y - y1).abs().max() / y1.abs().max())
+        extra.update(vs_unchunked_bitwise=torch.equal(y, y1), vs_unchunked_rel=f"{gap:.3e}")
+        if not (torch.equal(y, y1) if unchunked_rtol == 0.0 else gap <= unchunked_rtol):
+            raise AssertionError(f"{label}: forward differs from the unchunked plan's by "
+                                 f"{gap:.3e} of its largest magnitude, limit {unchunked_rtol}")
+        del y1
     del y, x2
     ms = time_ms(lambda: p.inverse(p.forward(x)), 5)
-    extra = {}
     if real:
         lib = time_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x), s=x.shape), 5)
         extra['spectrum'] = json.dumps(list(p.spectrum_shape))
@@ -462,7 +514,8 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
         extra['planar_fwd_inv_ms'] = (
             f"{time_ms(lambda: p.inverse(p.forward((xr, xi))), 5):.6g}")
         lib = time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), 5)
-    say('path', label=label, method=p.method, comm=p.comm, kernel=p.resolved_kernel,
+    say('path', label=label, method=p.method, comm=p.comm, chunks=p.overlap_chunks,
+        kernel=p.resolved_kernel,
         fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
         launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
         launches_mma=json.dumps(on_mma), launches_radix8=json.dumps(on_radix8),
@@ -472,10 +525,40 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     return total
 
 
+def phase_cost() -> None:
+    """The cost model on the host: reports and the selector's picks."""
+    t0 = time.perf_counter()
+    for rows, cols in ((512, 512), (2, 2)):
+        report = fft.plan((N, N, N), abstract_fft_mesh(rows, cols)).cost_report()
+        for line in report.splitlines():
+            print(f"[cost] {line}", flush=True)
+    for (n, mesh), want in PICKS.items():
+        am = abstract_fft_mesh(*mesh)
+        for make, pick in zip((fft.plan, fft.rplan), want):
+            real = make is fft.rplan
+            sel = costlib.select((n,) * 3, ('x', 'y', None), am.shape, real=real,
+                                 measured=None)
+            if (sel.strategy, sel.overlap_chunks, sel.method) != pick:
+                raise AssertionError(f"cost: {n}^3 on {mesh} real={real} picked "
+                                     f"{sel.strategy}/{sel.overlap_chunks}/{sel.method}, "
+                                     f"the reference picks {pick}")
+            try:
+                p = make((n,) * 3, am)
+            except NotImplementedError:
+                if pick[0] == 'all_to_all':
+                    raise
+                continue
+            if (p.comm, p.overlap_chunks, p.method) != pick:
+                raise AssertionError(f"cost: {n}^3 on {mesh} real={real} planned "
+                                     f"{p.comm}/{p.overlap_chunks}/{p.method}, not {pick}")
+    say('cost', picks=len(PICKS) * 2, ms=f"{(time.perf_counter() - t0) * 1e3:.3f}")
+
+
 def main() -> None:
     card = phase_card()
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rec = phase_kernels(gen)
+    phase_cost()
     # each path runs its own kernels and no other, so a kernel's count is
     # the one from the path that launched it
     paths = [
@@ -486,6 +569,15 @@ def main() -> None:
         phase_path('real', gen, 'four_step', {'fft_matmul': 3}, real=True),
         phase_path('real_block', gen, 'block', {'fft_block': 3}, real=True,
                    method='block'),
+        # 8 chunks of each of two (fft, swap) pairs, then the last fft
+        phase_path('overlap', gen, 'four_step', {'fft_matmul': 17}, chunks=8,
+                   overlap_chunks=8),
+        phase_path('stockham_overlap', gen, 'stockham', {'fft_pencil': 17}, chunks=8,
+                   unchunked_rtol=STOCKHAM_OVERLAP_RTOL, method='stockham',
+                   overlap_chunks=8),
+        # r2c: 8 chunks; middle pair serial (257 bins); last fft; mirrored
+        phase_path('real_overlap', gen, 'four_step', {'fft_matmul': 10}, real=True,
+                   chunks=8, overlap_chunks=8),
     ]
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []

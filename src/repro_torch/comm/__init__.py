@@ -1,2 +1,3 @@
 """``repro_torch.comm`` — the ownership swap over ``torch.distributed``
-and the cost model's method choice."""
+(:mod:`.strategies`), the cost model and ``comm='auto'`` selector
+(:mod:`.cost`), and compute/communication overlap (:mod:`.overlap`)."""

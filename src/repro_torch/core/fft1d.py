@@ -312,13 +312,34 @@ def rfft_via(pencil_fn):
 # Direct DFT (oracle for tiny sizes and non-pow2 lengths)
 # ---------------------------------------------------------------------------
 
+#: pencils per matrix product in ``dft_direct``: a fixed shape, whatever
+#: the batch, so the library picks one kernel for every block
+DIRECT_ROWS = 16384
+
+
 def dft_direct(re: torch.Tensor, im: torch.Tensor, *,
                inverse: bool = False) -> Planar:
+    """The dense DFT, y = x @ F.T, as four real matrix products in full
+    fp32, run on blocks of ``DIRECT_ROWS`` pencils with the last block
+    zero-padded. A product's kernel (and its summation order) may change
+    with the number of rows it is given; with one shape for every block a
+    pencil's bits depend on its own values only, so a chunked plan gives
+    the bits of the unchunked one."""
     n = re.shape[-1]
+    batch = tuple(re.shape[:-1])
     full_fp32_matmul(re.device)
     fr, fi = (tw.table(a, re.device) for a in tw.dft_matrix_np(n, inverse=inverse))
-    yr = re @ fr.T - im @ fi.T
-    yi = im @ fr.T + re @ fi.T
-    if inverse:
-        yr, yi = yr / n, yi / n
-    return yr, yi
+    xr, xi = re.reshape(-1, n), im.reshape(-1, n)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    rows = xr.shape[0]
+    for b0 in range(0, rows, DIRECT_ROWS):
+        m = min(DIRECT_ROWS, rows - b0)
+        br, bi = xr[b0:b0 + m], xi[b0:b0 + m]
+        if m < DIRECT_ROWS:
+            br = torch.cat([br, br.new_zeros(DIRECT_ROWS - m, n)])
+            bi = torch.cat([bi, bi.new_zeros(DIRECT_ROWS - m, n)])
+        pr, pi = (br @ fr.T - bi @ fi.T)[:m], (bi @ fr.T + br @ fi.T)[:m]
+        if inverse:
+            pr, pi = pr / n, pi / n
+        yr[b0:b0 + m], yi[b0:b0 + m] = pr, pi
+    return yr.reshape(batch + (n,)), yi.reshape(batch + (n,))

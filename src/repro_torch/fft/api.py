@@ -14,10 +14,16 @@ each rank passes its LOCAL block under :attr:`FFT.in_layout` (see
 ``FFTMesh.shard``) and gets its block under :attr:`FFT.out_layout`, as
 the reference's local function sees it inside ``shard_map``.
 
+``comm='auto'`` (the default) resolves the strategy, the overlap depth
+and, with ``method='auto'``, the method through the reference's cost
+model (:func:`repro_torch.comm.cost.select`) on every mesh, the
+abstract ones (``abstract_fft_mesh``) included; :meth:`FFT.cost_report`
+prints the priced schedule.
+
 Not ported yet: rank 1 (``fft/large1d.py``, complex and real),
-``plan_op``, ``overlap_chunks > 1``, ``comm='auto'`` on a multi-rank
-mesh (the cost-model selector) and strategies other than
-``'all_to_all'``; each raises naming its ROADMAP item.
+``plan_op``, and the swaps of strategies other than ``'all_to_all'``
+(a plan whose strategy, asked or picked, is one of them raises at plan
+time); each raises naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,11 +54,18 @@ def plan(shape: Sequence[int], mesh, *, method: str = 'auto',
         a CPU tensor) | 'pallas' (the CUDA kernels; raises on the CPU) |
         'reference' (plain versions).
       mesh_axes / layout: initial ownership, as in the reference.
-      comm: 'auto' | 'all_to_all'. On a one-rank mesh 'auto' resolves
-        as the reference's selector does there: 'all_to_all', one
-        overlap chunk, and the method from the cost model per axis (a
-        real plan's last axis priced at its half length n/2).
-      overlap_chunks: 1 (the default); more is a later slice.
+      comm: 'auto' | 'all_to_all' | 'ppermute' | 'hierarchical' |
+        'pod_tree:<spec>'. 'auto' prices the schedule under every
+        strategy with the paper's cycle model (under ``wire_dtype``, a
+        real plan on its half spectrum) and takes the reference's pick
+        of strategy, overlap depth and (with ``method='auto'``) method.
+        Only 'all_to_all' can swap yet: a plan on any other, asked or
+        picked, raises NotImplementedError (ROADMAP queue 1, 'Other
+        strategies').
+      overlap_chunks: pipeline each (fft, swap) pair over this many
+        chunks of a free local axis, the swap of chunk i in flight while
+        chunk i+1 computes. Default: the selector's pick under
+        ``comm='auto'``, else 1.
       wire_dtype: 'native' | 'fp16' | 'bf16' cast around each swap.
       restore_layout: forward and inverse consume and produce the input
         layout (extra swaps).
@@ -98,10 +111,9 @@ def plan(shape: Sequence[int], mesh, *, method: str = 'auto',
                     f"rank-3 mesh_axes must be a (row, col) pair of mesh "
                     f"axis names, got {axes!r}")
             layout = (axes[0], axes[1], None)
-    comm, oc, method = _resolve_comm(shape, mesh, comm, overlap_chunks, method, real)
-    if oc != 1:
-        raise NotImplementedError(
-            "overlap_chunks > 1 is not ported yet: ROADMAP queue 1, 'Overlap'")
+    comm, oc, method = _resolve_comm(shape, tuple(layout), mesh.shape, comm,
+                                     overlap_chunks, method, real, wire_dtype)
+    strategies.check_runnable(comm)
     pplan = PencilPlan(shape=shape, mesh=mesh, layout=tuple(layout),
                        method=method, kernel=kernel, comm=comm, real=real,
                        wire_dtype=wire_dtype)
@@ -124,25 +136,19 @@ def plan_op(*args, **kwargs):
         "queue 1, 'Operator plans'")
 
 
-def _resolve_comm(shape, mesh, comm, overlap_chunks, method, real=False):
-    """(strategy, overlap_chunks, method). Explicit choices win. Under
-    comm='auto' on a one-rank mesh every swap is the identity, so the
-    reference's selector lands on its first strategy ('all_to_all')
-    with no overlap, and picks the method per axis by the cost model; a
-    real plan spends its last axis on a length-n/2 pencil."""
+def _resolve_comm(shape, layout, mesh_shape, comm, overlap_chunks, method,
+                  real=False, wire_dtype='native'):
+    """(strategy, overlap_chunks, method). Explicit choices win; an
+    explicit strategy keeps one overlap chunk unless asked. Under
+    comm='auto' the selector prices the schedule under the plan's wire
+    format, as the reference's does."""
     if comm != 'auto':
         return comm, 1 if overlap_chunks is None else overlap_chunks, method
-    if mesh.size != 1:
-        raise NotImplementedError(
-            "comm='auto' on a multi-rank mesh needs the cost-model selector, "
-            "not ported yet (ROADMAP queue 1, 'Cost model + selector'); "
-            "pass comm='all_to_all'")
-    oc = 1 if overlap_chunks is None else overlap_chunks
-    if method == 'auto':
-        lens = shape[:-1] + (max(shape[-1] // 2, 1),) if real else shape
-        picks = {costlib.select_method(n) for n in lens}
-        method = picks.pop() if len(picks) == 1 else 'auto'
-    return 'all_to_all', oc, method
+    sel = costlib.select(shape, layout, mesh_shape, method=method, real=real,
+                         wire_dtype=wire_dtype)
+    oc = overlap_chunks if overlap_chunks is not None else sel.overlap_chunks
+    meth = sel.method if method == 'auto' else method
+    return sel.strategy, oc, meth
 
 
 class FFT:
@@ -180,10 +186,11 @@ class FFT:
     @property
     def resolved_kernel(self) -> str:
         """The tier the last superstep's pencils run on this plan's
-        device: 'pallas' (CUDA kernels) or 'reference'."""
+        device: 'pallas' (CUDA kernels) or 'reference'. An abstract mesh
+        has no device and answers for the card, the default."""
+        device = 'cuda' if self.mesh.device is None else self.mesh.device
         return methods.resolve_kernel(
-            self.kernel, methods.resolve(self.method, self.shape[-1]),
-            self.mesh.device)
+            self.kernel, methods.resolve(self.method, self.shape[-1]), device)
 
     @property
     def donates_input(self) -> bool:
@@ -274,6 +281,26 @@ class FFT:
         keep = min(blk[-1], max(0, pencil.real_half_extent(self.shape[-1]) - first))
         return blk[:-1] + (keep,)
 
+    # -- cost model -----------------------------------------------------------
+
+    def plan_cost(self, precision: str = 'fp32', *, measured='auto') -> costlib.PlanCost:
+        """The paper's cycle model applied to this plan's schedule under
+        its resolved strategy, method and overlap (WSE cycles, not a GPU
+        time). ``measured=None`` forces the analytic model."""
+        return costlib.pencil_plan_cost(
+            self.shape, self._pplan.layout, self.mesh.shape, precision=precision,
+            method=self.method, strategy=self.comm,
+            overlap_chunks=self.overlap_chunks, real=self.real,
+            padded_spectrum=self.padded_spectrum or not self.real,
+            measured=measured, wire_dtype=self.wire_dtype,
+            kernel=self.resolved_kernel)
+
+    def cost_report(self, precision: str = 'fp32') -> str:
+        """Predicted cycles per superstep and swap, beside the paper's
+        Table 1 where the configuration is one it measured."""
+        return costlib.format_report(self.plan_cost(precision), self.shape,
+                                     self.mesh.shape)
+
     # -- execution ----------------------------------------------------------
 
     def forward(self, x):
@@ -330,6 +357,10 @@ class FFT:
         return shape[:len(shape) - self.rank]
 
     def _apply(self, direction: str, x):
+        if self.mesh.device is None:
+            raise RuntimeError(
+                f"{self.mesh} prices plans and cannot run them; plan on "
+                "make_fft_mesh to execute")
         if self.real:
             return self._apply_real(direction, x)
         re, im, planar = self._split(x)

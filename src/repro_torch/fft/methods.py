@@ -18,8 +18,9 @@ round-trip: ``'pallas'`` names the hand-written CUDA tier here.
 
 A method without a kernel (``'direct'``) runs its plain version under
 every tier, as in the reference. ``'block'`` (the block-complex
-four-step, complex carried as a leading size-2 axis) also has
-:func:`apply_block` for that stacked form.
+four-step) runs on planar pairs like the others: its plain version
+stacks (re, im) on a leading size-2 axis inside the pencil, its kernel
+takes the planes.
 """
 from __future__ import annotations
 
@@ -216,24 +217,6 @@ def apply_real(x: torch.Tensor, im: Optional[torch.Tensor] = None, *,
     if not last:
         yr, yi = yr.movedim(-1, axis), yi.movedim(-1, axis)
     return yr, yi
-
-
-def apply_block(x: torch.Tensor, *, axis: int, inverse: bool = False,
-                kernel: str = 'auto') -> torch.Tensor:
-    """The 'block' method on its stacked form: ``x`` carries a leading
-    size-2 complex axis (x[0] = re, x[1] = im) and is transformed along
-    ``axis`` (counted over x's own dims). On the kernel tier a non-last
-    axis is moved last with a ``.contiguous()`` copy, as in
-    :func:`apply`, and the result returned as a view in x's axis order."""
-    axis = axis % x.ndim
-    n = x.shape[axis]
-    if not tw.is_pow2(n):
-        raise ValueError(f"method 'block' requires a power-of-two pencil length, got {n}")
-    if resolve_kernel(kernel, _REGISTRY['block'], x.device) == 'pallas':
-        last = axis == x.ndim - 1
-        y = fft_block.fft_block(x.movedim(axis, -1).contiguous(), inverse=inverse)
-        return y if last else y.movedim(-1, axis)
-    return f1.fft_four_step_block(x, axis, inverse=inverse)
 
 
 def _block_pencil(re, im, *, inverse=False) -> Planar:

@@ -10,13 +10,13 @@ semantic (x, y, z) axis order never changes; only ownership rotates:
 Where the reference wraps its local function in ``shard_map``, the
 port runs it on each rank's local block. Each serial (fft, swap) pair
 runs as one fused superstep (:func:`_fused_pair`); the last fft runs
-through :func:`repro_torch.fft.methods.apply`. ``method='block'``
-complex plans carry (re, im) stacked on a leading axis of 2 through
-every superstep (:func:`repro_torch.fft.methods.apply_block`). Real
-plans transform the last axis real-to-complex first and run the rest as
-a complex sub-plan on the padded half spectrum.
-
-Not ported yet: ``overlap_chunks > 1`` (ROADMAP queue 1, 'Overlap').
+through :func:`repro_torch.fft.methods.apply`. With ``overlap_chunks > 1``
+each (fft, swap) pair is pipelined over chunks of a free local axis
+(:mod:`repro_torch.comm.overlap`), its fft unfused, as in the reference.
+``method='block'`` plans run this same planar executor; the block
+kernel takes planar pairs. Real plans transform the last axis
+real-to-complex first and run the rest as a complex sub-plan on the
+padded half spectrum.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.comm import overlap as ov
 from repro_torch.comm import strategies
 from repro_torch.core import plan as planlib
 from repro_torch.core.plan import Layout, PencilPlan
@@ -140,10 +141,16 @@ def _fft_along(re, im, axis: int, *, inverse: bool, plan: PencilPlan) -> Planar:
                          method=plan.method, kernel=plan.kernel)
 
 
-def _swap(x, mesh_axis, *, shard_pos: int, mem_pos: int, plan: PencilPlan):
-    return strategies.swap_axes_wire(
+def _swap_start(x, mesh_axis, *, shard_pos: int, mem_pos: int,
+                plan: PencilPlan) -> strategies.PendingSwap:
+    return strategies.swap_start_wire(
         strategies.resolve(plan.comm), x, plan.mesh, mesh_axis,
         shard_pos=shard_pos, mem_pos=mem_pos, wire_dtype=plan.wire_dtype)
+
+
+def _swap(x, mesh_axis, *, shard_pos: int, mem_pos: int, plan: PencilPlan):
+    return _swap_start(x, mesh_axis, shard_pos=shard_pos, mem_pos=mem_pos,
+                       plan=plan).wait()
 
 
 def _fused_pair(re, im, *, a: int, s: int, mesh_axis, inverse: bool,
@@ -170,18 +177,41 @@ def _fused_pair(re, im, *, a: int, s: int, mesh_axis, inverse: bool,
 
 
 def _execute(re, im, layout: Layout, steps, *, inverse: bool,
-             plan: PencilPlan, batch_ndim: int) -> Planar:
-    """Run fft/swap steps, threading the layout. A serial (fft, swap)
-    pair whose swap splits the just-transformed axis (the schedule
-    invariant in both directions) runs as one fused superstep."""
+             plan: PencilPlan, batch_ndim: int, overlap_chunks: int = 1) -> Planar:
+    """Run fft/swap steps, threading the layout. With ``overlap_chunks >
+    1`` each (fft, swap) pair is pipelined over chunks of a local axis
+    that is neither its fft axis nor its swap's axes (leading batch axes
+    included), its fft unfused; a pair with no such axis runs serially.
+    A serial (fft, swap) pair whose swap splits the just-transformed
+    axis (the schedule invariant in both directions) runs as one fused
+    superstep."""
     off = batch_ndim
     lay = layout
     i = 0
     while i < len(steps):
         step = steps[i]
         nxt = steps[i + 1] if i + 1 < len(steps) else None
-        if (step[0] == 'fft' and nxt is not None and nxt[0] == 'swap'
-                and nxt[2] == step[1] and re.ndim >= 2):
+        pair = step[0] == 'fft' and nxt is not None and nxt[0] == 'swap'
+        if pair and overlap_chunks > 1:
+            mem = step[1]
+            _, mesh_axis, mem_pos = nxt
+            sp = planlib.owner_pos(lay, mesh_axis)
+            ck = ov.pick_chunk_axis(re.shape, (off + mem, off + mem_pos, off + sp),
+                                    overlap_chunks)
+            if ck is not None:
+                re, im = ov.overlapped_fft_swap(
+                    re, im,
+                    fft_fn=lambda r, i_, m=mem: _fft_along(
+                        r, i_, off + m, inverse=inverse, plan=plan),
+                    swap_start=lambda a, ma=mesh_axis, s=sp, mp=mem_pos:
+                        strategies.resolve(plan.comm).swap_start(
+                            a, plan.mesh, ma, shard_pos=off + s, mem_pos=off + mp),
+                    chunk_axis=ck, n_chunks=overlap_chunks,
+                    wire_dtype=plan.wire_dtype)
+                lay = planlib.swap(lay, mesh_axis, mem_pos)
+                i += 2
+                continue
+        if pair and nxt[2] == step[1] and re.ndim >= 2:
             _, mesh_axis, _ = nxt
             re, im = _fused_pair(
                 re, im, a=off + step[1],
@@ -220,9 +250,6 @@ def make_fft(plan: PencilPlan, *, inverse: bool = False,
     consumes the forward's output layout and returns the plan's layout;
     with ``restore_layout`` both directions consume and produce the
     plan's layout (extra swaps)."""
-    if overlap_chunks != 1:
-        raise NotImplementedError(
-            "overlap_chunks > 1 is not ported yet: ROADMAP queue 1, 'Overlap'")
     plan.validate()
     methods.validate(plan.method)
     strategies.validate(plan.comm)
@@ -244,42 +271,25 @@ def make_fft(plan: PencilPlan, *, inverse: bool = False,
 
     if plan.real:
         fn = _real_local(plan, steps, in_layout, inverse=inverse,
-                         restore_layout=restore_layout)
-    elif plan.method == 'block':
-        def fn(re: torch.Tensor, im: torch.Tensor) -> Planar:
-            return _execute_block(re, im, in_layout, steps, inverse=inverse, plan=plan)
+                         restore_layout=restore_layout, overlap_chunks=overlap_chunks)
     else:
         def fn(re: torch.Tensor, im: torch.Tensor) -> Planar:
             return _execute(re, im, in_layout, steps, inverse=inverse, plan=plan,
-                            batch_ndim=1)
+                            batch_ndim=1, overlap_chunks=overlap_chunks)
     return fn, in_layout, out_layout
 
 
-def _execute_block(re, im, layout: Layout, steps, *, inverse: bool,
-                   plan: PencilPlan) -> Planar:
-    """The block-complex schedule: (re, im) stacked on a leading axis of
-    2 (after it, one batch axis), one :func:`methods.apply_block` per
-    fft step and one swap of the stacked tensor per swap step."""
-    x = torch.stack([re, im])
-    off = 2
-    lay = layout
-    for step in steps:
-        if step[0] == 'fft':
-            x = methods.apply_block(x, axis=off + step[1], inverse=inverse,
-                                    kernel=plan.kernel)
-        else:
-            _, mesh_axis, mem_pos = step
-            x = _swap(x, mesh_axis, shard_pos=off + planlib.owner_pos(lay, mesh_axis),
-                      mem_pos=off + mem_pos, plan=plan)
-            lay = planlib.swap(lay, mesh_axis, mem_pos)
-    return x[0], x[1]
-
-
 def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
-                restore_layout: bool) -> Callable:
+                restore_layout: bool, overlap_chunks: int) -> Callable:
     """The per-rank function of a real plan. The r2c superstep is first
     (forward) or last (inverse) by the ``first_mem`` rule; the steps in
-    between run as a complex plan on the padded half spectrum."""
+    between run as a complex plan on the padded half spectrum.
+
+    With ``overlap_chunks > 1`` the r2c superstep joins the pipeline by
+    split-combine: chunks of a free axis of the REAL input (not the real
+    axis, not the first swap's axes) each run r2c + pad + swap, and the
+    inverse mirrors it with the last (swap, c2r) pair; with no such axis
+    the pair runs unchunked."""
     ra = plan.real_axis
     off = 1
     nh = real_half_extent(plan.shape[-1])
@@ -287,24 +297,69 @@ def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
                                 restore_layout=restore_layout)
     packed = packed_plan(plan, nh_pad)
 
-    def forward(x: torch.Tensor) -> Planar:
-        if steps[0] != ('fft', ra):
-            raise AssertionError(f"real schedule starts with {steps[0]}")
+    def r2c(x: torch.Tensor) -> Planar:
         re, im = methods.apply_real(x, axis=off + ra, method=plan.method,
                                     kernel=plan.kernel)
         if nh_pad != nh:      # the real axis is the last one
             re = torch.nn.functional.pad(re, (0, nh_pad - nh))
             im = torch.nn.functional.pad(im, (0, nh_pad - nh))
-        return _execute(re, im, in_layout, steps[1:], inverse=False, plan=packed,
-                        batch_ndim=off)
+        return re, im
+
+    def c2r(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+        re, im = re.narrow(off + ra, 0, nh), im.narrow(off + ra, 0, nh)
+        return methods.apply_real(re, im, axis=off + ra, inverse=True,
+                                  method=plan.method, kernel=plan.kernel)
+
+    def chunked_swap(shape, lay: Layout, swap_step):
+        """(chunk axis or None, start function) of the swap that pairs
+        with the r2c/c2r superstep, on a block of ``shape`` under ``lay``."""
+        _, mesh_axis, mem_pos = swap_step
+        sp = planlib.owner_pos(lay, mesh_axis)
+        ck = ov.pick_chunk_axis(shape, (off + ra, off + mem_pos, off + sp),
+                                overlap_chunks)
+
+        def start(t):
+            return _swap_start(t, mesh_axis, shard_pos=off + sp, mem_pos=off + mem_pos,
+                               plan=packed)
+        return ck, start
+
+    def forward(x: torch.Tensor) -> Planar:
+        if steps[0] != ('fft', ra):
+            raise AssertionError(f"real schedule starts with {steps[0]}")
+        rest = steps[1:]
+        if overlap_chunks > 1 and rest and rest[0][0] == 'swap':
+            ck, start = chunked_swap(x.shape, in_layout, rest[0])
+            if ck is not None:
+                re, im = ov.pipelined_pair(overlap_chunks, ck, compute=r2c,
+                                           swap_start=start, arrays=(x,))
+                lay = planlib.swap(in_layout, rest[0][1], rest[0][2])
+                return _execute(re, im, lay, rest[1:], inverse=False, plan=packed,
+                                batch_ndim=off, overlap_chunks=overlap_chunks)
+        re, im = r2c(x)
+        return _execute(re, im, in_layout, rest, inverse=False, plan=packed,
+                        batch_ndim=off, overlap_chunks=overlap_chunks)
 
     def inverse_(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         if steps[-1] != ('fft', ra):
             raise AssertionError(f"real schedule ends with {steps[-1]}")
-        re, im = _execute(re, im, in_layout, steps[:-1], inverse=True, plan=packed,
-                          batch_ndim=off)
-        re, im = re.narrow(off + ra, 0, nh), im.narrow(off + ra, 0, nh)
-        return methods.apply_real(re, im, axis=off + ra, inverse=True,
-                                  method=plan.method, kernel=plan.kernel)
+        head = steps[:-1]
+        if overlap_chunks > 1 and head and head[-1][0] == 'swap':
+            lay = in_layout
+            for st in head[:-1]:
+                if st[0] == 'swap':
+                    lay = planlib.swap(lay, st[1], st[2])
+            # the shape the pair will see: after the head, not at entry
+            pre = tuple(re.shape[:off]) + packed.local_shape(lay)
+            ck, start = chunked_swap(pre, lay, head[-1])
+            if ck is not None:
+                re, im = _execute(re, im, in_layout, head[:-1], inverse=True,
+                                  plan=packed, batch_ndim=off,
+                                  overlap_chunks=overlap_chunks)
+                return ov.pipelined_pair(overlap_chunks, ck, compute=c2r,
+                                         swap_start=start, swap_first=True,
+                                         arrays=(re, im))
+        re, im = _execute(re, im, in_layout, head, inverse=True, plan=packed,
+                          batch_ndim=off, overlap_chunks=overlap_chunks)
+        return c2r(re, im)
 
     return inverse_ if inverse else forward

@@ -11,6 +11,10 @@ a group of ranks for the swap collectives.
   over an initialised default process group, with one sub-group per
   axis and one flattened group for tuple axes (the rank-2 layout
   ``(('x', 'y'), None)``).
+* :func:`abstract_fft_mesh` names extents only, the counterpart of
+  ``jax.sharding.AbstractMesh``: plans on it are priced
+  (``FFT.plan_cost``/``cost_report``) at any size, the paper's
+  512 x 512 included, and cannot run.
 """
 from __future__ import annotations
 
@@ -119,3 +123,24 @@ def make_fft_mesh(rows: int = 1, cols: int = 1, *,
     dev = (torch.device('cuda', torch.cuda.current_device()) if dev_type == 'cuda'
            else torch.device('cpu'))
     return FFTMesh(rows, cols, dev, device_mesh=dm)
+
+
+class AbstractFFTMesh:
+    """Axis names and extents of an ('x', 'y') mesh, with no device and
+    no process group: a mesh to price plans on, not to run them."""
+
+    device = None
+
+    def __init__(self, rows: int, cols: int):
+        self.axis_names = AXES
+        self.shape: Dict[str, int] = {'x': rows, 'y': cols}
+        self.size = rows * cols
+
+    def __repr__(self) -> str:
+        return f"AbstractFFTMesh(x={self.shape['x']}, y={self.shape['y']})"
+
+
+def abstract_fft_mesh(rows: int, cols: int) -> AbstractFFTMesh:
+    """A ``rows x cols`` ('x', 'y') mesh for cost-only plans:
+    ``plan((512,)*3, abstract_fft_mesh(512, 512)).cost_report()``."""
+    return AbstractFFTMesh(rows, cols)

@@ -17,6 +17,14 @@ for a 16-bit wire, of the native-wire result. Rank 0 writes one record
 per case: the largest gaps over all ranks, each divided by the largest
 magnitude of its reference.
 
+The overlap cases (``OVERLAP_CASES``, ``REAL_OVERLAP_CASES``) run at
+64^3, where every pencil reaches the tensor-core bodies on the card,
+with a batch of one so the chunks split a mesh-local axis. Those with no
+options plan as a user would (``comm='auto'``, the selector's strategy,
+overlap depth and method; ``resolved`` records the pick); the others ask
+for ``overlap_chunks=2``. Each is also held against the same plan with
+``overlap_chunks=1``, forward and inverse (``*_vs_unchunked``).
+
 Real plans (``REAL_CASES``) take a real operand. Their half axis travels
 zero-padded to ``nh_pad`` bins; a rank's block of the spectrum is held
 against the bins of ``np.fft.rfftn`` (and of the single-process spectrum,
@@ -58,6 +66,21 @@ CASES = [
     ('r2_bf16', (16, 32), dict(method='four_step', wire_dtype='bf16')),
 ]
 
+#: (name, shape, plan options) at 64^3, planned without ``comm``
+OVERLAP_CASES = [
+    ('ovl_default', (64, 64, 64), dict()),
+    ('ovl_stockham', (64, 64, 64), dict(method='stockham', overlap_chunks=2)),
+    ('ovl_block', (64, 64, 64), dict(method='block', overlap_chunks=2)),
+    ('ovl_fp16', (64, 64, 64), dict(method='four_step', overlap_chunks=2,
+                                    wire_dtype='fp16')),
+]
+
+#: (name, shape, rplan options) at 64^3, planned without ``comm``
+REAL_OVERLAP_CASES = [
+    ('real_ovl_default', (64, 64, 64), dict()),
+    ('real_ovl_four_step', (64, 64, 64), dict(method='four_step', overlap_chunks=2)),
+]
+
 #: (name, shape, rplan options)
 REAL_CASES = [
     ('real_stockham_padded', (16, 16, 16), dict(method='stockham', padded_spectrum=True)),
@@ -76,38 +99,51 @@ def _gap(got, want):
     return float((got - want).abs().max()), float(want.abs().max())
 
 
-def _case(mesh, single, shape, kw):
+def _vs_unchunked(p, x_in, y, x2):
+    """The plan against itself with ``overlap_chunks=1``: forward on the
+    same block, inverse on the same spectrum."""
+    q = p.with_options(overlap_chunks=1)
+    return {'fwd_vs_unchunked': _gap(y, q.forward(x_in)),
+            'inv_vs_unchunked': _gap(x2, q.inverse(y))}
+
+
+def _case(mesh, single, shape, kw, batch=BATCH, comm='all_to_all'):
     rng = np.random.default_rng(list(shape))
-    x = rng.standard_normal((BATCH,) + shape) + 1j * rng.standard_normal((BATCH,) + shape)
+    x = rng.standard_normal((batch,) + shape) + 1j * rng.standard_normal((batch,) + shape)
     xt = torch.as_tensor(x.astype(np.complex64), device=mesh.device)
     axes = tuple(range(1, len(shape) + 1))
     want_np = torch.as_tensor(np.fft.fftn(x, axes=axes).astype(np.complex64),
                               device=mesh.device)
-    p = fft.plan(shape, mesh, comm='all_to_all', **kw)
-    single_kw = {k: v for k, v in kw.items() if k not in ('wire_dtype', 'layout', 'mesh_axes')}
-    p1 = fft.plan(shape, single, comm='all_to_all', **single_kw)
+    p = fft.plan(shape, mesh, **(dict(comm=comm) if comm else {}), **kw)
+    single_kw = {k: v for k, v in kw.items()
+                 if k not in ('wire_dtype', 'layout', 'mesh_axes', 'overlap_chunks')}
+    p1 = fft.plan(shape, single, comm='all_to_all', **dict(single_kw, method=p.method))
     y1 = p1.forward(xt)
-    y = p.forward(mesh.shard(xt, p.in_layout, batch_ndim=1))
+    x_in = mesh.shard(xt, p.in_layout, batch_ndim=1)
+    y = p.forward(x_in)
     x2 = p.inverse(y)
     rec = {
         'fwd_vs_single': _gap(y, mesh.shard(y1, p.out_layout, batch_ndim=1)),
         'fwd_vs_numpy': _gap(y, mesh.shard(want_np, p.out_layout, batch_ndim=1)),
         'roundtrip': _gap(x2, mesh.shard(xt, p.in_layout, batch_ndim=1)),
-        'shape_ok': (tuple(y.shape) == (BATCH,) + p.local_shape(p.out_layout)
-                     and tuple(x2.shape) == (BATCH,) + p.local_shape(p.in_layout)),
+        'shape_ok': (tuple(y.shape) == (batch,) + p.local_shape(p.out_layout)
+                     and tuple(x2.shape) == (batch,) + p.local_shape(p.in_layout)),
+        'resolved': [p.comm, p.overlap_chunks, p.method],
     }
     if kw.get('wire_dtype', 'native') != 'native':
         native = p.with_options(wire_dtype='native')
         rec['fwd_vs_native_wire'] = _gap(y, native.forward(mesh.shard(xt, p.in_layout, 1)))
+    if p.overlap_chunks > 1:
+        rec.update(_vs_unchunked(p, x_in, y, x2))
     return rec
 
 
-def _real_case(mesh, single, shape, kw):
+def _real_case(mesh, single, shape, kw, batch=BATCH, comm='all_to_all'):
     rng = np.random.default_rng(list(shape) + [1])
-    x = rng.standard_normal((BATCH,) + shape)
+    x = rng.standard_normal((batch,) + shape)
     xt = torch.as_tensor(x.astype(np.float32), device=mesh.device)
-    p = fft.rplan(shape, mesh, comm='all_to_all', **kw)
-    p1 = fft.rplan(shape, single, comm='all_to_all', method=kw['method'])
+    p = fft.rplan(shape, mesh, **(dict(comm=comm) if comm else {}), **kw)
+    p1 = fft.rplan(shape, single, comm='all_to_all', method=p.method)
     nh = shape[-1] // 2 + 1
     nh_pad = p.with_options(padded_spectrum=True).spectrum_shape[-1]
     lay = p.with_options(padded_spectrum=True).out_layout
@@ -125,21 +161,30 @@ def _real_case(mesh, single, shape, kw):
     def block(g):
         return mesh.shard(g, lay, batch_ndim=1)[..., :keep.numel()]
 
-    y = p.forward(mesh.shard(xt, p.in_layout, batch_ndim=1))
+    x_in = mesh.shard(xt, p.in_layout, batch_ndim=1)
+    y = p.forward(x_in)
     x2 = p.inverse(y)
-    return {
+    rec = {
         'fwd_vs_single': _gap(y, block(want_single)),
         'fwd_vs_numpy': _gap(y, block(want_np)),
-        'roundtrip': _gap(x2, mesh.shard(xt, p.in_layout, batch_ndim=1)),
-        'shape_ok': (tuple(y.shape) == (BATCH,) + p.spectrum_local_shape()
+        'roundtrip': _gap(x2, x_in),
+        'shape_ok': (tuple(y.shape) == (batch,) + p.spectrum_local_shape()
                      and y.shape[-1] == keep.numel()
-                     and tuple(x2.shape) == (BATCH,) + p.local_shape(p.in_layout)),
+                     and tuple(x2.shape) == (batch,) + p.local_shape(p.in_layout)),
+        'resolved': [p.comm, p.overlap_chunks, p.method],
     }
+    if p.overlap_chunks > 1:
+        rec.update(_vs_unchunked(p, x_in, y, x2))
+    return rec
 
 
 def run(rank: int, port: int, out: str, device: str) -> None:
     if device == 'cuda':
         torch.cuda.set_device(rank)
+    else:
+        # the ranks share the host's cores: one thread each, or their
+        # thread pools spin against one another (ten times slower at 64^3)
+        torch.set_num_threads(1)
     dist.init_process_group('nccl' if device == 'cuda' else 'gloo',
                             init_method=f'tcp://localhost:{port}',
                             rank=rank, world_size=WORLD)
@@ -149,15 +194,20 @@ def run(rank: int, port: int, out: str, device: str) -> None:
         mine = {name: _case(mesh, single, shape, kw) for name, shape, kw in CASES}
         mine.update({name: _real_case(mesh, single, shape, kw)
                      for name, shape, kw in REAL_CASES})
+        mine.update({name: _case(mesh, single, shape, kw, batch=1, comm=None)
+                     for name, shape, kw in OVERLAP_CASES})
+        mine.update({name: _real_case(mesh, single, shape, kw, batch=1, comm=None)
+                     for name, shape, kw in REAL_OVERLAP_CASES})
         every = [None] * WORLD
         dist.all_gather_object(every, mine)
         if rank == 0:
             merged = {}
-            for name, _, _ in CASES + REAL_CASES:
+            for name, _, _ in CASES + REAL_CASES + OVERLAP_CASES + REAL_OVERLAP_CASES:
                 recs = [r[name] for r in every]
-                m = {'shape_ok': all(r['shape_ok'] for r in recs)}
+                m = {'shape_ok': all(r['shape_ok'] for r in recs),
+                     'resolved': recs[0]['resolved']}
                 for key in recs[0]:
-                    if key != 'shape_ok':
+                    if key not in ('shape_ok', 'resolved'):
                         err = max(r[key][0] for r in recs)
                         ref = max(r[key][1] for r in recs)
                         m[key] = err / ref

@@ -82,6 +82,26 @@ def test_direct(n):
                     jf.dft_direct(*j, inverse=inverse)) <= RTOL
 
 
+@pytest.mark.parametrize("n", [12, 64])
+def test_direct_is_batch_invariant(n):
+    """A pencil's bits do not depend on the pencils batched with it: the
+    whole batch (three blocks of ``DIRECT_ROWS``, the last one padded)
+    against slices that start and end inside blocks, and against a
+    chunk taken along a leading axis."""
+    rows = 2 * tf.DIRECT_ROWS + 37
+    t = tuple(torch.from_numpy(a) for a in _planar((rows, n)))
+    for inverse in (False, True):
+        whole = tf.dft_direct(*t, inverse=inverse)
+        for a, b in ((0, 1), (100, 5000), (tf.DIRECT_ROWS - 1, tf.DIRECT_ROWS + 1),
+                     (rows - 40, rows)):
+            part = tf.dft_direct(t[0][a:b], t[1][a:b], inverse=inverse)
+            assert all(torch.equal(p, w[a:b]) for p, w in zip(part, whole)), (a, b)
+        cube = tuple(x[:rows - 37].reshape(8, -1, n) for x in t)
+        part = tf.dft_direct(cube[0][:, 3:5], cube[1][:, 3:5], inverse=inverse)
+        ref = tuple(w[:rows - 37].reshape(8, -1, n)[:, 3:5] for w in whole)
+        assert all(torch.equal(p, w) for p, w in zip(part, ref))
+
+
 @pytest.mark.parametrize("fn", ['stockham', 'four_step'])
 @pytest.mark.parametrize("twiddle", [False, True])
 def test_twiddle_transpose(fn, twiddle):

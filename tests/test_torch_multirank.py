@@ -1,6 +1,6 @@
 """The port's distributed FFT on 4 gloo CPU ranks (a 2 x 2 mesh, 16^3
-and 16 x 32, comm='all_to_all'), run by ``_torch_multirank_worker.py``
-in a subprocess.
+and 16 x 32 with comm='all_to_all'; 64^3 planned by the selector or with
+overlap_chunks=2), run by ``_torch_multirank_worker.py`` in a subprocess.
 
 Tolerances, each a max gap over all ranks divided by the largest
 magnitude of its reference:
@@ -13,7 +13,10 @@ magnitude of its reference:
 * fp16 / bf16 wire against the native wire of the same plan, against
   np.fft.fftn and for the round trip: <= 1.5e-3 / 1.2e-2, the bounds of
   ``tests/_wire_accuracy_worker.py`` (11- and 8-bit significands, one
-  cast per swap).
+  cast per swap);
+* a pipelined plan against the same plan with overlap_chunks=1, forward
+  and inverse: 0 (bitwise), for every method and wire: chunking only
+  regroups pencils whose arithmetic is independent of one another.
 """
 import json
 import os
@@ -26,7 +29,8 @@ import pytest
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from _torch_multirank_worker import CASES, REAL_CASES  # noqa: E402
+from _torch_multirank_worker import (  # noqa: E402
+    CASES, OVERLAP_CASES, REAL_CASES, REAL_OVERLAP_CASES)
 
 WIRE_BOUNDS = {'fp16': 1.5e-3, 'bf16': 1.2e-2}
 
@@ -77,6 +81,39 @@ def test_multirank_real_case(results, name, shape, kw):
     assert r['fwd_vs_numpy'] <= 1e-5
     assert r['roundtrip'] <= 1e-5
     if kw['method'] in ('stockham', 'block'):
+        assert r['fwd_vs_single'] == 0.0
+    else:
+        assert r['fwd_vs_single'] <= 1e-6
+
+
+#: the reference selector's pick at 64^3 on 2 x 2 (measured=None)
+DEFAULT_PICK = {False: ['all_to_all', 8, 'four_step'], True: ['all_to_all', 1, 'auto']}
+
+
+@pytest.mark.parametrize("name, shape, kw", OVERLAP_CASES + REAL_OVERLAP_CASES,
+                         ids=[c[0] for c in OVERLAP_CASES + REAL_OVERLAP_CASES])
+def test_multirank_overlap_case(results, name, shape, kw):
+    """64^3 on the 2 x 2 mesh: a plan with no options resolves to the
+    selector's pick and runs it; explicit overlap_chunks=2 for stockham,
+    block, the real split-combine and an fp16 wire. Each pipelined plan
+    is bitwise equal to its unchunked self, and to one process where the
+    serial cases are (stockham, block)."""
+    r = results[name]
+    real = name.startswith('real_')
+    assert r['shape_ok']
+    assert r['resolved'] == (DEFAULT_PICK[real] if not kw
+                             else ['all_to_all', 2, kw['method']])
+    if r['resolved'][1] > 1:
+        assert r['fwd_vs_unchunked'] == 0.0 and r['inv_vs_unchunked'] == 0.0
+    wire = kw.get('wire_dtype', 'native')
+    if wire != 'native':
+        for key in ('fwd_vs_native_wire', 'fwd_vs_numpy', 'roundtrip'):
+            assert r[key] <= WIRE_BOUNDS[wire], key
+        assert r['fwd_vs_native_wire'] > 0
+        return
+    assert r['fwd_vs_numpy'] <= 1e-5
+    assert r['roundtrip'] <= 1e-5
+    if r['resolved'][2] in ('stockham', 'block'):
         assert r['fwd_vs_single'] == 0.0
     else:
         assert r['fwd_vs_single'] <= 1e-6

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 import repro.fft as jfft
+from repro.comm import cost as rcost
 import repro_torch.fft as tfft
 from repro_torch.fft import api
-from repro_torch.launch.mesh import make_fft_mesh
+from repro_torch.launch.mesh import abstract_fft_mesh, make_fft_mesh
 from repro_torch.weights import from_numpy
 
 RTOL = 1e-5
@@ -152,6 +153,9 @@ def test_with_options_round_trips(meshes):
     p = tfft.plan((16, 16, 16), tmesh)
     q = p.with_options(wire_dtype='bf16')
     assert q._options() == dict(p._options(), wire_dtype='bf16')
+    q = p.with_options(overlap_chunks=4)
+    assert q._options() == dict(p._options(), overlap_chunks=4)
+    assert q.with_options(overlap_chunks=1)._options() == p._options()
     assert p.with_options()._options() == p._options()
     r = p.with_options(method='stockham', restore_layout=True, kernel='reference')
     assert (r.method, r.restore_layout, r.kernel, r.comm) == (
@@ -172,35 +176,77 @@ def test_operand_checks(meshes):
     assert not p.donates_input and torch.equal(x, torch.zeros_like(x))
 
 
-class _FourRanks:
-    size = 4
-    shape = {'x': 2, 'y': 2}
-    axis_names = ('x', 'y')
-
-
 @pytest.mark.parametrize("kw, item", [
     (dict(shape=(64,)), 'Rank 1/2'),
     (dict(shape=(64,), real=True), 'Rank 1/2'),
-    (dict(overlap_chunks=2), 'Overlap'),
-    (dict(real=True, overlap_chunks=2), 'Overlap'),
+    (dict(shape=(512,) * 3, mesh=(1, 4)), 'Other strategies'),
+    (dict(shape=(512,) * 3, mesh=(1, 4), real=True), 'Other strategies'),
 ])
 def test_later_slices_raise_with_their_roadmap_item(meshes, kw, item):
+    """Rank 1, operator plans, and a default plan whose selector pick is
+    a strategy the port cannot swap yet (ppermute on a 1 x 4 mesh): each
+    raises at plan time, naming its ROADMAP item."""
     _, tmesh = meshes
-    shape = kw.pop('shape', (16, 16, 16))
+    kw = dict(kw)
+    shape = kw.pop('shape')
+    mesh = abstract_fft_mesh(*kw.pop('mesh')) if 'mesh' in kw else tmesh
     with pytest.raises(NotImplementedError, match=item):
-        tfft.plan(shape, tmesh, **kw)
+        tfft.plan(shape, mesh, **kw)
     with pytest.raises(NotImplementedError, match='Operator plans'):
-        tfft.plan_op(shape, tmesh, **kw)
+        tfft.plan_op(shape, mesh, **kw)
 
 
 def test_multirank_auto_comm_needs_the_selector():
-    with pytest.raises(NotImplementedError, match='Cost model'):
-        api.plan((16, 16, 16), _FourRanks())
-    with pytest.raises(ValueError, match='Other strategies'):
-        api.plan((16, 16, 16), _FourRanks(), comm='ppermute')
-    p = api.plan((16, 16, 16), _FourRanks(), comm='all_to_all')
+    """On a 2 x 2 mesh the default plan resolves through the ported
+    selector to the reference's pick; an explicit strategy the port
+    cannot swap raises at plan time, naming its ROADMAP item."""
+    four = abstract_fft_mesh(2, 2)
+    for shape, real in [((16,) * 3, False), ((64,) * 3, False), ((64,) * 3, True)]:
+        sel = rcost.select(shape, ('x', 'y', None), dict(four.shape), real=real,
+                           measured=None)
+        p = api.plan(shape, four, real=real)
+        assert (p.comm, p.overlap_chunks, p.method) == (
+            sel.strategy, sel.overlap_chunks, sel.method)
+    assert (p.comm, p.overlap_chunks) == ('all_to_all', 1)
+    assert api.plan((64,) * 3, four).overlap_chunks == 8
+    with pytest.raises(NotImplementedError, match='Other strategies'):
+        api.plan((16, 16, 16), four, comm='ppermute')
+    p = api.plan((16, 16, 16), four, comm='all_to_all')
     assert (p.comm, p.overlap_chunks, p.method) == ('all_to_all', 1, 'auto')
     assert p.local_shape(p.in_layout) == (8, 8, 16)
+
+
+OVERLAP_METHODS = ['stockham', 'four_step', 'block', 'direct']
+
+
+@pytest.mark.parametrize("real", [False, True], ids=['complex', 'real'])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (8, 16, 32)], ids=['16^3', '8x16x32'])
+@pytest.mark.parametrize("method", OVERLAP_METHODS)
+def test_overlap_matches_reference(meshes, method, shape, real):
+    """``overlap_chunks`` = 2 and 4 on a one-rank mesh: the port against
+    ``repro.fft.plan(..., overlap_chunks=c)`` (within RTOL, forward and
+    inverse), and chunked against the port's own unchunked plan,
+    bitwise: every pencil's arithmetic is independent of its neighbours
+    and of where its chunk starts. The batch of 2 leaves the batch axis
+    unchunked at c = 4 and chunks it at c = 2."""
+    jmesh, tmesh = meshes
+    x = _cplx((2,) + shape)
+    if real:
+        x = x.real.copy()
+    make_j, make_t = (jfft.rplan, tfft.rplan) if real else (jfft.plan, tfft.plan)
+    base = make_t(shape, tmesh, method=method)
+    y1 = base.forward(from_numpy(x, 'cpu'))
+    x1 = base.inverse(y1)
+    for c in (2, 4):
+        jp = make_j(shape, jmesh, method=method, overlap_chunks=c, donate=False)
+        tp = make_t(shape, tmesh, method=method, overlap_chunks=c)
+        assert (tp.comm, tp.overlap_chunks) == (jp.comm, jp.overlap_chunks) == ('all_to_all', c)
+        jy = np.asarray(jp.forward(jnp.asarray(x)))
+        ty = tp.forward(from_numpy(x, 'cpu'))
+        assert _rel(_np(ty), jy) <= RTOL
+        tx = tp.inverse(ty)
+        assert _rel(_np(tx), np.asarray(jp.inverse(jnp.asarray(jy)))) <= RTOL
+        assert torch.equal(ty, y1) and torch.equal(tx, x1), c
 
 
 def test_default_mesh_is_the_card():

@@ -163,8 +163,6 @@ def test_block_kernel_tier_raises_on_cpu(meshes):
     _, tmesh = meshes
     x = torch.zeros(2, 3, 16)
     with pytest.raises(ValueError, match='pallas'):
-        methods.apply_block(x, axis=-1, kernel='pallas')
-    with pytest.raises(ValueError, match='pallas'):
         methods.apply(x[0], x[1], method='block', kernel='pallas')
     with pytest.raises(ValueError, match='pallas'):
         methods.apply_real(x[0], method='block', kernel='pallas')
