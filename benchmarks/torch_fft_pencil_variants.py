@@ -136,8 +136,8 @@ def main() -> None:
                        (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                         ctypes.c_float))
         _build.declare(lib, 'fft_fused_radix8_launch', 8,
-                       (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_float, ctypes.c_float))
+                       (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_float, ctypes.c_float))
     gen = torch.Generator(device='cuda').manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     rows = {}
@@ -165,8 +165,8 @@ def main() -> None:
                     P = min(run, fft_pencil.MAX_THREADS // fft_pencil.radix8_threads(n))
                     err = lib.fft_fused_radix8_launch(
                         xt[0].data_ptr(), xt[1].data_ptr(), None, None, yt[0].data_ptr(),
-                        yt[1].data_ptr(), tr.data_ptr(), ti.data_ptr(), batch // b, b, n, P,
-                        1.0, 1.0, stream)
+                        yt[1].data_ptr(), tr.data_ptr(), ti.data_ptr(), batch // b, b, 0, n,
+                        P, 1.0, 1.0, stream)
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err} at n={n}")
                 calls[f'fused_{name}_run{run}'] = (fused, yt)

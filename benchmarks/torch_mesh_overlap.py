@@ -1,17 +1,22 @@
-"""Time the default 512^3 plan on a 2 x 2 mesh of four NVIDIA GPUs.
+"""Time the default 512^3 plan on a mesh of four NVIDIA GPUs.
 
 Run from the root of a checkout, on a machine with four cards:
 
-    python3 benchmarks/torch_mesh_overlap.py [--n 512] [--reps 5] [--chunks 1,2,4,8]
+    python3 benchmarks/torch_mesh_overlap.py [--mesh 2x2|1x4] [--n 512] [--reps 5]
+        [--chunks 1,2,4,8]
 
 Four NCCL ranks (one process and one card each, ``tcp://localhost``)
-plan ``repro_torch.fft.plan((n,)*3, make_fft_mesh(2, 2))`` with its
-defaults, which the cost model resolves to ``all_to_all`` with 8 overlap
-chunks and ``four_step`` at n = 512, and the same plan with each of
-``--chunks`` overlap chunks. Each rank makes the global complex64
-operand from one seed on its card, takes its block, and checks:
+plan ``repro_torch.fft.plan((n,)*3, make_fft_mesh(rows, cols))`` with
+its defaults, which the cost model resolves at n = 512 to ``all_to_all``
+with 8 overlap chunks and ``four_step`` on 2 x 2, and to ``ppermute``
+with 8 chunks and ``four_step`` on 1 x 4, and the same plan with each of
+``--chunks`` overlap chunks; where the pick is not ``all_to_all``, every
+one of those plans also on ``all_to_all``, beside it. Each rank makes
+the global complex64 operand from one seed on its card, takes its
+block, and checks:
 
-* every chunked forward equals the unchunked one bit for bit;
+* every chunked forward, on either strategy, equals the default
+  strategy's unchunked one bit for bit;
 * the forward against ``torch.fft.fftn`` of the global array, and the
   round trip, relative L2 over all ranks (<= 1e-5);
 * the default plan's kernel launches per direction: 17 ``fft_matmul``
@@ -19,7 +24,8 @@ operand from one seed on its card, takes its block, and checks:
 
 Then each rank times fwd+inv of every plan by CUDA events (median of
 ``--reps``, the plans in turns: in order of chunks, then in reverse, a
-barrier before each series); each chunked plan also as ``<c>_serial``,
+barrier before each series), named ``<c>`` on the default strategy and
+``<comm>:<c>`` on another; each chunked plan also as ``<c>_serial``,
 every swap finished as soon as it is started, so that its chunks run
 one after another with no collective in flight during compute (the
 same bytes, collectives and kernels: what the overlap itself costs or
@@ -58,6 +64,8 @@ from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
 WORLD = 4
 SEED = 0
 RTOL = 1e-5
+#: the reference selector's pick of the 512^3 default plan on each mesh
+PICKS = {'2x2': ('all_to_all', 8, 'four_step'), '1x4': ('ppermute', 8, 'four_step')}
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> list:
@@ -96,33 +104,38 @@ def profile(fn) -> dict:
 
 
 class serial_swaps:
-    """Within the block, every all-to-all swap finishes where it starts."""
+    """Within the block, every swap finishes where it starts."""
 
     def __enter__(self):
-        self.start = strategies.AllToAllStrategy.swap_start
-
-        def start(strategy, *args, **kw):
-            y = self.start(strategy, *args, **kw).wait()
-            return strategies.PendingSwap(lambda: y)
-        strategies.AllToAllStrategy.swap_start = start
+        self.saved = {cls: cls.swap_start for cls in (strategies.AllToAllStrategy,
+                                                       strategies.PpermuteStrategy)}
+        for cls, start in self.saved.items():
+            def serial(strategy, *args, start=start, **kw):
+                y = start(strategy, *args, **kw).wait()
+                return strategies.PendingSwap(lambda: y)
+            cls.swap_start = serial
 
     def __exit__(self, *exc):
-        strategies.AllToAllStrategy.swap_start = self.start
+        for cls, start in self.saved.items():
+            cls.swap_start = start
 
 
-def run(rank: int, port: int, n: int, reps: int, chunks: tuple, out: str) -> None:
+def run(rank: int, port: int, mesh_name: str, n: int, reps: int, chunks: tuple,
+        out: str) -> None:
     torch.cuda.set_device(rank)
     # a rank that stops fails the others in minutes, not at NCCL's default
     dist.init_process_group('nccl', init_method=f'tcp://localhost:{port}', rank=rank,
                             world_size=WORLD, timeout=datetime.timedelta(seconds=300))
     try:
-        mesh = make_fft_mesh(2, 2)
+        mesh = make_fft_mesh(*(int(v) for v in mesh_name.split('x')))
         p = fft.plan((n, n, n), mesh)
-        if (p.comm, p.overlap_chunks, p.method) != ('all_to_all', 8, 'four_step'):
+        if n == 512 and (p.comm, p.overlap_chunks, p.method) != PICKS[mesh_name]:
             raise AssertionError(f"default plan resolved to {p.comm}/{p.overlap_chunks}/"
-                                 f"{p.method}")
-        plans = {c: p.with_options(overlap_chunks=c) for c in chunks}
-        q = plans[1]
+                                 f"{p.method}, the reference picks {PICKS[mesh_name]}")
+        comms = (p.comm,) + (('all_to_all',) if p.comm != 'all_to_all' else ())
+        plans = {(comm, c): p.with_options(comm=comm, overlap_chunks=c)
+                 for comm in comms for c in chunks}
+        q = plans[(p.comm, 1)]
         gen = torch.Generator(device='cuda').manual_seed(SEED)
         x = torch.complex(torch.randn((n, n, n), generator=gen, device='cuda'),
                           torch.randn((n, n, n), generator=gen, device='cuda'))
@@ -151,12 +164,15 @@ def run(rank: int, port: int, n: int, reps: int, chunks: tuple, out: str) -> Non
         dist.all_reduce(sums)
         del y, y1, x2, want
         series = {}
-        for c in chunks + chunks[::-1]:
-            for serial in (False, True) if c > 1 else (False,):
-                dist.barrier()
-                with serial_swaps() if serial else contextlib.nullcontext():
-                    series.setdefault(f"{c}_serial" if serial else str(c), []).extend(
-                        time_ms(lambda plan=plans[c]: plan.inverse(plan.forward(xb)), reps))
+        for comm in comms:
+            for c in chunks + chunks[::-1]:
+                name = str(c) if comm == p.comm else f"{comm}:{c}"
+                for serial in (False, True) if c > 1 else (False,):
+                    dist.barrier()
+                    with serial_swaps() if serial else contextlib.nullcontext():
+                        series.setdefault(f"{name}_serial" if serial else name, []).extend(
+                            time_ms(lambda plan=plans[(comm, c)]: plan.inverse(
+                                plan.forward(xb)), reps))
         # every rank profiles: the plans' collectives need all four
         prof = {name: profile(lambda plan=plan: plan.inverse(plan.forward(xb)))
                 for name, plan in (('unchunked', q), ('default', p))}
@@ -172,7 +188,7 @@ def run(rank: int, port: int, n: int, reps: int, chunks: tuple, out: str) -> Non
                   and all(r['launches_fwd']['fft_matmul'] == 17
                           and r['launches']['fft_matmul'] == 34 and r['launches_mma'] == 34
                           and sum(r['launches'].values()) == 34 for r in every))
-            summary = dict(n=n, mesh='2x2', plan=[p.comm, p.overlap_chunks, p.method],
+            summary = dict(n=n, mesh=mesh_name, plan=[p.comm, p.overlap_chunks, p.method],
                            bitwise_vs_unchunked=sums[4].item() == 0,
                            fwd_rel_l2=fwd_err, roundtrip_rel_l2=rt_err,
                            fwd_inv_ms_by_chunks={k: max(r['ms'][k] for r in every)
@@ -186,6 +202,7 @@ def run(rank: int, port: int, n: int, reps: int, chunks: tuple, out: str) -> Non
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--mesh', default='2x2', choices=sorted(PICKS))
     ap.add_argument('--n', type=int, default=512)
     ap.add_argument('--reps', type=int, default=5)
     ap.add_argument('--chunks', default='1,2,4,8',
@@ -205,8 +222,8 @@ def main() -> None:
         s.bind(('localhost', 0))
         port = s.getsockname()[1]
     chunks = tuple(sorted({1, *(int(c) for c in args.chunks.split(','))}))
-    mp.spawn(run, args=(port, args.n, args.reps, chunks, args.out), nprocs=WORLD,
-             join=True)
+    mp.spawn(run, args=(port, args.mesh, args.n, args.reps, chunks, args.out),
+             nprocs=WORLD, join=True)
     with open(args.out) as fh:
         summary = json.load(fh)
     for r in summary['ranks']:

@@ -1,15 +1,18 @@
-"""Run the port's 2 x 2 mesh cases on four NVIDIA GPUs over NCCL.
+"""Run the port's mesh cases on four NVIDIA GPUs over NCCL.
 
 Run from the root of a checkout, on a machine with four cards:
 
-    python3 benchmarks/torch_multirank_cuda.py [--out build/multirank_cuda.json]
+    python3 benchmarks/torch_multirank_cuda.py [--out build/multirank_cuda]
 
 It builds the CUDA kernels once, runs ``tests/_torch_multirank_worker.py``
 with ``cuda`` (four NCCL ranks, one card each, so every pencil runs the
-hand-written kernels on a mesh), and holds each case's record to the
-checks of ``tests/test_torch_multirank.py`` (the same functions, the
-same bounds: bitwise where they are bitwise). Printed: the cards' names
-and power limits, one line per case, and a last line
+hand-written kernels on a mesh): the ``base`` suite on 2 x 2 (the
+pencil, real, overlap and rank-1 cases) and the ``strategies`` suite on
+2 x 2 and 1 x 4 (every plan on ppermute, hierarchical and the mesh's pod
+tree, held against all_to_all; the bare swaps). Each case's record is
+held to the checks of ``tests/test_torch_multirank.py`` (the same
+functions, the same bounds: bitwise where they are bitwise). Printed:
+the cards' names and power limits, one line per case, and a last line
 ``[multirank] cuda: P of N cases passed``. It exits non-zero if a case
 fails, and imports neither jax nor the JAX package.
 """
@@ -29,6 +32,7 @@ TESTS = os.path.join(ROOT, 'tests')
 sys.path.insert(0, os.path.join(ROOT, 'src'))
 sys.path.insert(0, TESTS)
 
+import _torch_multirank_worker as worker  # noqa: E402
 import test_torch_multirank as checks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
@@ -37,7 +41,8 @@ WORLD = 4
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--out', default=os.path.join(ROOT, 'build', 'multirank_cuda.json'))
+    ap.add_argument('--out', default=os.path.join(ROOT, 'build', 'multirank_cuda'),
+                    help='directory of the per-run JSON records')
     args = ap.parse_args()
     if not torch.cuda.is_available() or torch.cuda.device_count() < WORLD:
         sys.exit(f"torch_multirank_cuda: needs {WORLD} CUDA devices")
@@ -47,32 +52,55 @@ def main() -> None:
     for c in cards:
         print(f"[card] {c}", flush=True)
     _build.build()           # once, before the ranks start
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with socket.socket() as s:
-        s.bind(('localhost', 0))
-        port = s.getsockname()[1]
-    subprocess.run([sys.executable, os.path.join(TESTS, '_torch_multirank_worker.py'),
-                    args.out, str(port), 'cuda'], check=True, timeout=900)
-    with open(args.out) as fh:
-        results = json.load(fh)
+    os.makedirs(args.out, exist_ok=True)
+    passed = total = 0
+    for mesh, suite in (('2x2', 'base'), ('2x2', 'strategies'), ('1x4', 'strategies')):
+        out = os.path.join(args.out, f'{suite}_{mesh}.json')
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            port = s.getsockname()[1]
+        subprocess.run([sys.executable, os.path.join(TESTS, '_torch_multirank_worker.py'),
+                        out, str(port), 'cuda', '--mesh', mesh, '--suite', suite],
+                       check=True, timeout=900)
+        with open(out) as fh:
+            results = json.load(fh)
+        for name, check in _checks(mesh, suite):
+            total += 1
+            try:
+                check(results[name])
+            except AssertionError as e:
+                print(f"[case] {mesh} {name} FAILED {e!r} {json.dumps(results[name])}",
+                      flush=True)
+                continue
+            passed += 1
+            print(f"[case] {mesh} {name} passed {json.dumps(results[name])}", flush=True)
+    print(f"[multirank] cuda: {passed} of {total} cases passed", flush=True)
+    if passed != total:
+        sys.exit(1)
+
+
+def _checks(mesh: str, suite: str):
+    """(case name, check of its record) of one worker run."""
+    if suite == 'strategies':
+        for comm in worker.strategies_for(mesh):
+            for name, _, kw in worker.STRATEGY_PLANS:
+                yield (f'{comm}/{name}',
+                       lambda r, kw=kw, comm=comm: checks.check_strategy_plan(r, kw, comm))
+            yield f'swap/{comm}', lambda r: _true(r)
+        return
     groups = ((checks.test_multirank_case, checks.CASES),
               (checks.test_multirank_real_case, checks.REAL_CASES),
               (checks.test_multirank_overlap_case,
                checks.OVERLAP_CASES + checks.REAL_OVERLAP_CASES))
-    passed = total = 0
     for check, cases in groups:
         for name, shape, kw in cases:
-            total += 1
-            try:
-                check(results, name, shape, kw)
-            except AssertionError as e:
-                print(f"[case] {name} FAILED {e!r} {json.dumps(results[name])}", flush=True)
-                continue
-            passed += 1
-            print(f"[case] {name} passed {json.dumps(results[name])}", flush=True)
-    print(f"[multirank] cuda: {passed} of {total} cases passed", flush=True)
-    if passed != total:
-        sys.exit(1)
+            yield name, lambda r, c=check, n=name, s=shape, k=kw: c({n: r}, n, s, k)
+    for name, _, kw in checks.RANK1_CASES:
+        yield name, lambda r, n=name, k=kw: checks.check_rank1(r, k, checks.RANK1_PICKS[n])
+
+
+def _true(r):
+    assert r is True
 
 
 if __name__ == '__main__':

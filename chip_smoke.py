@@ -16,8 +16,11 @@ Phases, each printing one line and raising on any failure:
    path's shapes (512^3 as 262,144 pencils of 512; ``fft_matmul`` and
    ``fft_block`` also at the real path's 262,144 half pencils of 256),
    plus ragged batches of every length 2..4096, the fused kernel with
-   a random twiddle, and both tensor-core kernels on planes one float
-   past a 16-byte boundary; with its median time, the plain version's,
+   a random twiddle, both tensor-core kernels on planes one float
+   past a 16-byte boundary, and the rank-1 paths' shapes (``fft_matmul``
+   on 32,768 pencils of 4096 and of 2048 and on 16,392 of 4096,
+   ``fft_twiddle_transpose`` on (8, 4096, 4096) with twiddle planes of
+   (4096, 4096) and without); with its median time, the plain version's,
    one PyTorch library call's (``torch.fft.fft``, a yardstick the port
    never calls) and its bound. ``fft_pencil`` and
    ``fft_twiddle_transpose`` also print the body their launches run
@@ -44,9 +47,10 @@ Phases, each printing one line and raising on any failure:
 7. ``[cost]``, on the host: the cost model's report for the default plan
    of 512^3 on an abstract 512 x 512 mesh (the paper's configuration)
    and on a 2 x 2 one, and the selector's picks (strategy, overlap
-   chunks, method) for 32^3 to 512^3 on 1 x 1, 2 x 2 and 1 x 4 meshes,
-   complex and real, which must be the reference's; a plan whose pick
-   the port cannot swap yet (ppermute, on 1 x 4) must raise;
+   chunks, method) for 32^3 to 512^3 and for rank-1 lengths 2^12 and
+   2^24 on 1 x 1, 2 x 2 and 1 x 4 meshes, complex and real, which must
+   be the reference's, and every pick must plan (ppermute on 1 x 4,
+   hierarchical for rank 1 on 2 x 2);
 8. the pipelined paths, 8 overlap chunks a (fft, swap) pair:
    ``overlap`` (``plan(..., overlap_chunks=8)``, four_step: 17
    ``fft_matmul`` launches per direction, 8 + 8 chunked and the last
@@ -59,7 +63,17 @@ Phases, each printing one line and raising on any failure:
    kernel on the same pencils); ``stockham_overlap`` runs
    ``radix8_pencil_kernel`` where its unchunked plan runs
    ``radix8_fused_kernel`` and is held within 1e-6 of it;
-9. a ``kernels`` JSON line, the card line and, last, the result line.
+9. the rank-1 paths on a batch of 8 signals of n = 2^24 (the 1 GiB of
+   the 512^3 paths), each a four-step of 4096 x 4096: ``large1d``
+   (``plan((1 << 24,), mesh)``, four_step: 2 ``fft_matmul`` a direction,
+   on the CUDA-core body, n = 4096), ``large1d_stockham``
+   (``method='stockham'``: 2 ``fft_fused`` a direction, the column
+   superstep's with the twiddle planes, ``launches_twiddle``) and
+   ``rlarge1d`` (``rplan((1 << 24,), mesh)``, four_step: 2
+   ``fft_matmul`` a direction, the r2c columns at 2048 and the rows at
+   4096), each held against ``torch.fft.fft`` / ``rfft`` of each signal
+   (the largest relative L2 of the 8);
+10. a ``kernels`` JSON line, the card line and, last, the result line.
 
 The five serial paths resolve through the cost-model selector, as a
 user's default plan does, to one overlap chunk. Each path prints its
@@ -131,6 +145,21 @@ PICKS = {(n, mesh): picks
          }.items()}
 PICKS.update({(32, (1, 1)): (('all_to_all', 1, 'stockham'), ('all_to_all', 1, 'stockham')),
               (32, (2, 2)): (('all_to_all', 4, 'stockham'), ('all_to_all', 1, 'stockham'))})
+
+#: the reference's rank-1 picks (``repro.fft.api._resolve_comm_1d``, no
+#: measured table), (strategy, overlap_chunks, method) for (complex, real)
+PICKS_1D = {
+    (1 << 12, (1, 1)): (('all_to_all', 1, 'four_step'), ('all_to_all', 1, 'auto')),
+    (1 << 12, (2, 2)): (('hierarchical', 1, 'four_step'), ('hierarchical', 1, 'auto')),
+    (1 << 12, (1, 4)): (('all_to_all', 1, 'four_step'), ('all_to_all', 1, 'auto')),
+    (1 << 24, (1, 1)): (('all_to_all', 1, 'four_step'), ('all_to_all', 1, 'four_step')),
+    (1 << 24, (2, 2)): (('ppermute', 1, 'four_step'), ('ppermute', 1, 'four_step')),
+    (1 << 24, (1, 4)): (('ppermute', 1, 'four_step'), ('ppermute', 1, 'four_step')),
+}
+
+#: the rank-1 paths: a batch of 8 signals of 2^24, the 512^3 paths' 1 GiB
+LARGE1D = (1 << 24,)
+LARGE1D_BATCH = (8,)
 
 KERNELS = {
     'fft_pencil': dict(source='src/repro_torch/csrc/fft_pencil.cu',
@@ -334,12 +363,14 @@ def phase_kernels(gen) -> dict:
         say('kernel', name=name, n=N // 2, pencils=N * N, tol=KERNEL_RTOL,
             **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
     kernel_unaligned(gen)
+    kernels_large1d(gen)
 
     # ragged tiles and other lengths: every n the kernels take
     for n in (1 << k for k in range(1, 13)):
         y = planar((37, n), gen)
         z = planar((3, 29, n), gen)
         wz = planar((29, n), gen)
+        wf = planar((3, 29, n), gen)
         yb = torch.stack(y)
         for inv in (False, True):
             check('fft_block', fft_block.fft_block(yb, inverse=inv),
@@ -351,7 +382,11 @@ def phase_kernels(gen) -> dict:
             check('fft_twiddle_transpose',
                   fft_fused.fft_twiddle_transpose(*z, *wz, inverse=inv),
                   fft_fused.fft_twiddle_transpose_plain(*z, *wz, inverse=inv),
-                  f"(3, 29, {n}) with twiddle")
+                  f"(3, 29, {n}) with a (29, {n}) twiddle")
+            check('fft_twiddle_transpose',
+                  fft_fused.fft_twiddle_transpose(*z, *wf, inverse=inv),
+                  fft_fused.fft_twiddle_transpose_plain(*z, *wf, inverse=inv),
+                  f"(3, 29, {n}) with a twiddle a slice")
     for name, r in rec.items():
         say('kernel', name=name, tol=KERNEL_RTOL,
             **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
@@ -394,6 +429,64 @@ def kernels_four_step(gen, n: int) -> dict:
                          plain_ms=time_ms(lambda: plain(False), 5), library_ms=lib,
                          bound_ms=b, bound_by=by, **tensor_core_extras(module, x, n, pencils))
     return rec
+
+
+def kernels_large1d(gen) -> None:
+    """The kernels at the rank-1 paths' shapes, each against its plain
+    version: ``fft_matmul`` on the 8 x 4096 pencils of 4096 (``large1d``'s
+    columns and rows) and of 2048 (``rlarge1d``'s r2c columns), with its
+    times and bound, and on ``rlarge1d``'s 8 x 2049 row pencils of 4096;
+    ``fft_twiddle_transpose`` on the (8, 4096, 4096) column superstep with
+    twiddle planes of (4096, 4096), with its times and bound, and without
+    them (``large1d_stockham``'s row superstep)."""
+    b = LARGE1D_BATCH[0] * 4096
+    for n in (4096, 2048):
+        x = planar((b, n), gen)
+        err = max(check('fft_matmul', fft_matmul.fft_matmul(*x, inverse=inv),
+                        fft_matmul.fft_matmul_plain(*x, inverse=inv),
+                        f"({b}, {n}) inverse={inv}") for inv in (False, True))
+        if n == 4096:
+            rows = LARGE1D_BATCH[0] * (2048 + 1)
+            err = max(err, *(check('fft_matmul',
+                                   fft_matmul.fft_matmul(*(p[:rows] for p in x), inverse=inv),
+                                   fft_matmul.fft_matmul_plain(*(p[:rows] for p in x),
+                                                               inverse=inv),
+                                   f"({rows}, {n}) inverse={inv}")
+                             for inv in (False, True)))
+        xc = torch.complex(*x)
+        bnd, by = bound(b * n, fft_flops(n, b))
+        say('kernel', name='fft_matmul', n=n, pencils=b, tol=KERNEL_RTOL,
+            max_abs_err=f"{err:.6g}",
+            ms=f"{time_ms(lambda: fft_matmul.fft_matmul(*x), 10):.6g}",
+            plain_ms=f"{time_ms(lambda: fft_matmul.fft_matmul_plain(*x), 3):.6g}",
+            library_ms=f"{time_ms(lambda: torch.fft.fft(xc, dim=-1), 10):.6g}",
+            bound_ms=f"{bnd:.6g}", bound_by=by, **fft_matmul.launch_info(n, b))
+        del x, xc
+    z = planar(LARGE1D_BATCH + (4096, 4096), gen)
+    w = planar((4096, 4096), gen)
+    err = max(check('fft_twiddle_transpose',
+                    fft_fused.fft_twiddle_transpose(*z, *w, inverse=inv),
+                    fft_fused.fft_twiddle_transpose_plain(*z, *w, inverse=inv),
+                    f"{tuple(z[0].shape)} with twiddle, inverse={inv}")
+              for inv in (False, True))
+    err = max(err, *(check('fft_twiddle_transpose',
+                           fft_fused.fft_twiddle_transpose(*z, inverse=inv),
+                           fft_fused.fft_twiddle_transpose_plain(*z, inverse=inv),
+                           f"{tuple(z[0].shape)} inverse={inv}")
+                     for inv in (False, True)))
+    zc = torch.complex(*z)
+    # the (4096, 4096) twiddle planes, shared by the 8 signals, are read
+    # once: 8 bytes a twiddle entry, half an element's 16
+    bnd, by = bound(z[0].numel() + w[0].numel() // 2, fft_flops(4096, b))
+    P, threads, smem = fft_fused.tile_layout(4096, 4096)
+    ms = time_ms(lambda: fft_fused.fft_twiddle_transpose(*z, *w), 10)
+    plain = time_ms(lambda: fft_fused.fft_twiddle_transpose_plain(*z, *w), 3)
+    lib = time_ms(lambda: torch.fft.fft(zc, dim=-1).transpose(-1, -2).contiguous(), 10)
+    say('kernel', name='fft_twiddle_transpose', n=4096, pencils=b, twiddle=True,
+        tol=KERNEL_RTOL, max_abs_err=f"{err:.6g}", ms=f"{ms:.6g}", plain_ms=f"{plain:.6g}",
+        library_ms=f"{lib:.6g}", bound_ms=f"{bnd:.6g}", bound_by=by,
+        variant=fft_fused.variant(4096), pencils_per_block=P, threads=threads,
+        smem_bytes=smem)
 
 
 def kernel_unaligned(gen) -> None:
@@ -441,43 +534,58 @@ def profile(fn) -> dict:
 
 
 def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = False,
-               chunks: int = 1, unchunked_rtol: float = 0.0, **plan_kw) -> dict:
+               chunks: int = 1, unchunked_rtol: float = 0.0, shape=(N, N, N),
+               batch: tuple = (), tensor_cores: bool = True, twiddled: int = 0,
+               **plan_kw) -> dict:
     """One main path: plan, forward, inverse; returns the launch counts.
     A real path (``rplan``) takes a real operand and is held against
-    ``torch.fft.rfftn``; a complex one against ``torch.fft.fftn``. A
-    pipelined path (``chunks`` > 1) is also held against its unchunked
-    plan's forward: bitwise, or within ``unchunked_rtol`` of its largest
-    magnitude."""
-    p = (fft.rplan if real else fft.plan)((N, N, N), make_fft_mesh(1, 1), **plan_kw)
+    ``torch.fft.rfftn``; a complex one against ``torch.fft.fftn``, over
+    the planned axes of each of the ``batch`` signals (relative L2, the
+    largest). Every ``fft_matmul``/``fft_block`` launch must be on the
+    tensor-core body, or with ``tensor_cores=False`` (pencils outside
+    64..1024) none; every ``fft_pencil``/``fft_fused`` launch on the
+    radix-8 body; ``twiddled`` ``fft_fused`` launches a direction must
+    apply twiddle planes. A pipelined path (``chunks`` > 1) is also held
+    against its unchunked plan's forward: bitwise, or within
+    ``unchunked_rtol`` of its largest magnitude."""
+    p = (fft.rplan if real else fft.plan)(shape, make_fft_mesh(1, 1), **plan_kw)
     got = (p.method, p.comm, p.overlap_chunks, p.resolved_kernel)
     if got != (expect_method, 'all_to_all', chunks, 'pallas'):
         raise AssertionError(f"{label}: resolved to {got}")
     if real:
-        if p.spectrum_shape != (N, N, N // 2 + 1):
+        if p.spectrum_shape != shape[:-1] + (shape[-1] // 2 + 1,):
             raise AssertionError(f"{label}: spectrum shape {p.spectrum_shape}")
-        x = torch.randn((N, N, N), generator=gen, device='cuda')
+        x = torch.randn(batch + shape, generator=gen, device='cuda')
     else:
-        xr, xi = planar((N, N, N), gen)
+        xr, xi = planar(batch + shape, gen)
         x = torch.complex(xr, xi)
+    dims = tuple(range(len(batch), len(batch) + len(shape)))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     y = p.forward(x)
     fwd = kernels.launch_counts()
+    fwd_twiddle = fft_fused.launches_twiddle
     x2 = p.inverse(y)
     torch.cuda.synchronize()
     total = kernels.launch_counts()
     on_mma = {'fft_block': fft_block.launches_mma, 'fft_matmul': fft_matmul.launches_mma}
     on_radix8 = {'fft_fused': fft_fused.launches_radix8,
                  'fft_pencil': fft_pencil.launches_radix8}
+    twiddle = {'fwd': fwd_twiddle, 'total': fft_fused.launches_twiddle}
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    ref = torch.fft.rfftn(x) if real else torch.fft.fftn(x)
+    ref = torch.fft.rfftn(x, dim=dims) if real else torch.fft.fftn(x, dim=dims)
     if y.shape != ref.shape or y.dtype != torch.complex64:
         raise AssertionError(f"{label}: forward gave {y.dtype}{tuple(y.shape)}")
-    fwd_err = float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref))
+
+    def rel_l2(a, b):
+        a, b = a.reshape(len(a) if batch else 1, -1), b.reshape(len(b) if batch else 1, -1)
+        return float((torch.linalg.vector_norm(a - b, dim=-1)
+                      / torch.linalg.vector_norm(b, dim=-1)).max())
+    fwd_err = rel_l2(y, ref)
     del ref
-    rt_err = float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x))
+    rt_err = rel_l2(x2, x)
     for k, per_dir in expect.items():
         if fwd[k] != per_dir or total[k] != 2 * per_dir:
             raise AssertionError(f"{label}: {k} launched {fwd[k]} forward / {total[k]} "
@@ -486,13 +594,16 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
         if k not in expect and total[k]:
             raise AssertionError(f"{label}: unexpected {k} launches {total[k]}")
     for k, mma in on_mma.items():
-        if mma != total[k]:
+        if mma != (total[k] if tensor_cores else 0):
             raise AssertionError(f"{label}: {mma} of {total[k]} {k} launches on the "
                                  "tensor-core body")
     for k, r8 in on_radix8.items():
         if r8 != total[k]:
             raise AssertionError(f"{label}: {r8} of {total[k]} {k} launches on the "
                                  "radix-8 body")
+    if twiddle != {'fwd': twiddled, 'total': 2 * twiddled}:
+        raise AssertionError(f"{label}: fft_fused launches with twiddle planes {twiddle}, "
+                             f"expected {twiddled} per direction")
     if not (fwd_err <= PATH_RTOL and rt_err <= PATH_RTOL):
         raise AssertionError(f"{label}: forward rel L2 {fwd_err:.3e}, round trip "
                              f"{rt_err:.3e}, limit {PATH_RTOL}")
@@ -508,25 +619,27 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     del y, x2
     ms = time_ms(lambda: p.inverse(p.forward(x)), 5)
     if real:
-        lib = time_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x), s=x.shape), 5)
+        lib = time_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x, dim=dims), s=shape,
+                                               dim=dims), 5)
         extra['spectrum'] = json.dumps(list(p.spectrum_shape))
     else:
         extra['planar_fwd_inv_ms'] = (
             f"{time_ms(lambda: p.inverse(p.forward((xr, xi))), 5):.6g}")
-        lib = time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), 5)
-    say('path', label=label, method=p.method, comm=p.comm, chunks=p.overlap_chunks,
-        kernel=p.resolved_kernel,
+        lib = time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x, dim=dims), dim=dims), 5)
+    say('path', label=label, shape=json.dumps(list(batch + shape)), method=p.method,
+        comm=p.comm, chunks=p.overlap_chunks, kernel=p.resolved_kernel,
         fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
         launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
         launches_mma=json.dumps(on_mma), launches_radix8=json.dumps(on_radix8),
-        fwd_inv_ms=f"{ms:.6g}",
+        launches_twiddle=json.dumps(twiddle), fwd_inv_ms=f"{ms:.6g}",
         library_ms=f"{lib:.6g}", **extra)
     say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
     return total
 
 
 def phase_cost() -> None:
-    """The cost model on the host: reports and the selector's picks."""
+    """The cost model on the host: reports and the selector's picks,
+    each of which must plan."""
     t0 = time.perf_counter()
     for rows, cols in ((512, 512), (2, 2)):
         report = fft.plan((N, N, N), abstract_fft_mesh(rows, cols)).cost_report()
@@ -542,16 +655,20 @@ def phase_cost() -> None:
                 raise AssertionError(f"cost: {n}^3 on {mesh} real={real} picked "
                                      f"{sel.strategy}/{sel.overlap_chunks}/{sel.method}, "
                                      f"the reference picks {pick}")
-            try:
-                p = make((n,) * 3, am)
-            except NotImplementedError:
-                if pick[0] == 'all_to_all':
-                    raise
-                continue
+            p = make((n,) * 3, am)
             if (p.comm, p.overlap_chunks, p.method) != pick:
                 raise AssertionError(f"cost: {n}^3 on {mesh} real={real} planned "
                                      f"{p.comm}/{p.overlap_chunks}/{p.method}, not {pick}")
-    say('cost', picks=len(PICKS) * 2, ms=f"{(time.perf_counter() - t0) * 1e3:.3f}")
+    for (n, mesh), want in PICKS_1D.items():
+        am = abstract_fft_mesh(*mesh)
+        for make, pick in zip((fft.plan, fft.rplan), want):
+            p = make((n,), am)
+            if (p.comm, p.overlap_chunks, p.method) != pick:
+                raise AssertionError(f"cost: rank 1 n={n} on {mesh} real={p.real} planned "
+                                     f"{p.comm}/{p.overlap_chunks}/{p.method}, the "
+                                     f"reference picks {pick}")
+    say('cost', picks=2 * (len(PICKS) + len(PICKS_1D)),
+        ms=f"{(time.perf_counter() - t0) * 1e3:.3f}")
 
 
 def main() -> None:
@@ -578,6 +695,14 @@ def main() -> None:
         # r2c: 8 chunks; middle pair serial (257 bins); last fft; mirrored
         phase_path('real_overlap', gen, 'four_step', {'fft_matmul': 10}, real=True,
                    chunks=8, overlap_chunks=8),
+        # rank 1, 4096 x 4096: columns (with the twiddle), then rows
+        phase_path('large1d', gen, 'four_step', {'fft_matmul': 2}, shape=LARGE1D,
+                   batch=LARGE1D_BATCH, tensor_cores=False),
+        phase_path('large1d_stockham', gen, 'stockham', {'fft_fused': 2}, shape=LARGE1D,
+                   batch=LARGE1D_BATCH, twiddled=1, method='stockham'),
+        # r2c columns at 2048, rows at 4096
+        phase_path('rlarge1d', gen, 'four_step', {'fft_matmul': 2}, real=True,
+                   shape=LARGE1D, batch=LARGE1D_BATCH, tensor_cores=False),
     ]
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []

@@ -20,8 +20,7 @@ JAX package's ``BENCH_redistribute.json``; absent, the analytic model
 prices every swap.
 
 Not here yet: ``ScheduleTable`` and its persistence (ROADMAP queue 1,
-'FFT serving'), ``large1d_plan_cost`` ('Rank 1') and
-``spectral_op_cost`` ('Operator plans').
+'FFT serving') and ``spectral_op_cost`` ('Operator plans').
 """
 from __future__ import annotations
 
@@ -430,6 +429,65 @@ def pencil_plan_cost(shape: Sequence[int], layout: Layout,
             wm.swap_cycles_a2a(p, elems, precision)))
     return PlanCost(tuple(out), strategy, method, precision, overlap_chunks,
                     wire_dtype, kernel)
+
+
+def large1d_plan_cost(n1: int, n2: int, mesh_axes,
+                      mesh_shape: Mapping[str, int], *,
+                      precision: wm.Precision = 'fp32',
+                      method: str = 'auto', strategy: str = 'all_to_all',
+                      natural_order: bool = True,
+                      overlap_chunks: int = 1, real: bool = False,
+                      measured='auto', wire_dtype: str = 'native',
+                      kernel: str = 'reference', backend: str = 'wse',
+                      axis_bw: Optional[Mapping[str, float]] = None
+                      ) -> PlanCost:
+    """Cost the distributed four-step 1-D schedule: swap, n1-DFT,
+    twiddle, swap, n2-DFT (+ the natural-order content transpose).
+    ``overlap_chunks`` pipelines over a batch axis at execution time, so
+    the pipelined total is the batched operand's estimate.
+
+    ``real=True`` prices the rows-halved real four-step: the first swap
+    moves ONE real array (half the planar complex wire), the column DFT
+    is r2c (n1 -> padded n1//2 + 1 rows) and everything after runs on
+    the half plane; the trailing 'reorder' is the facade's Hermitian
+    half-plane -> ``np.fft.rfft``-order assembly."""
+    ax = mesh_axes if isinstance(mesh_axes, tuple) else (mesh_axes,)
+    mesh_axis = ax if len(ax) > 1 else ax[0]
+    tbl = _resolve_measured(measured)
+    p = strat.static_group_size(mesh_axis, mesh_shape)
+    elems = n1 * n2 // p
+    swap_kw = dict(wire_dtype=wire_dtype, axis_bw=axis_bw)
+    fft_kw = dict(kernel=kernel, backend=backend)
+    if real:
+        nh1p = -(-(n1 // 2 + 1) // p) * p
+        half = nh1p * n2 // p
+        steps = [
+            # ONE real f32 array on the wire: half the planar complex
+            # cycles analytically, one elems-sized transfer measured
+            _swap_step(mesh_axis, mesh_shape, elems / 2.0, strategy, precision, tbl,
+                       measured_arrays=1, measured_elems=float(elems), **swap_kw),
+            _rfft_step(n1, 0, elems, method, precision, **fft_kw),
+            StepCost('twiddle', f'W[j1,k2] x{half}', TWIDDLE_FLOPS_PER_ELEM * half),
+            _swap_step(mesh_axis, mesh_shape, half, strategy, precision, tbl, **swap_kw),
+            _fft_step(n2, 1, half, method, precision, **fft_kw),
+            StepCost('reorder', f'half-plane assembly x{half}',
+                     wm.LOCAL_REORDER_CPE * half),
+        ]
+        return PlanCost(tuple(steps), strategy, method, precision,
+                        overlap_chunks, wire_dtype, kernel)
+    steps = [
+        _swap_step(mesh_axis, mesh_shape, elems, strategy, precision, tbl, **swap_kw),
+        _fft_step(n1, 0, elems, method, precision, **fft_kw),
+        StepCost('twiddle', f'W[j1,k2] x{elems}', TWIDDLE_FLOPS_PER_ELEM * elems),
+        _swap_step(mesh_axis, mesh_shape, elems, strategy, precision, tbl, **swap_kw),
+        _fft_step(n2, 1, elems, method, precision, **fft_kw),
+    ]
+    if natural_order:
+        steps.append(_swap_step(mesh_axis, mesh_shape, elems, strategy, precision, tbl,
+                                **swap_kw))
+        steps.append(StepCost('reorder', f'local T x{elems}', wm.LOCAL_REORDER_CPE * elems))
+    return PlanCost(tuple(steps), strategy, method, precision,
+                    overlap_chunks, wire_dtype, kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,20 @@
-"""The redistribution strategies: prices for all, the all-to-all swap.
+"""The redistribution strategies: their prices and their swaps.
 
 Port of ``repro.comm.strategies``. Every strategy of the reference is
 registered with its cost (``Strategy.cost``, the hook the ``comm='auto'``
-selector ranks with), so the port's selector sees the reference's
-candidates and makes the reference's pick. Only ``'all_to_all'`` can
-swap yet; ``'ppermute'``, ``'hierarchical'`` and ``'pod_tree:<spec>'``
-price and raise (:func:`check_runnable`, ROADMAP queue 1, 'Other
-strategies').
+selector ranks with) and its swap:
+
+* ``'all_to_all'``: one ``dist.all_to_all_single`` on the axis group;
+* ``'ppermute'``: a ring of p-1 point-to-point rounds
+  (``dist.batch_isend_irecv``), round s sending each rank's block for
+  its s-th successor; a tuple group runs one ring an axis, then one
+  local reorder (:func:`_phased_swap_start`);
+* ``'hierarchical'`` and ``'pod_tree:<spec>'``: one exchange a level of
+  a factorization of each axis, an ``all_to_all`` where the level covers
+  its whole axis and a digit ring (:func:`_digit_ring_start`) where it
+  is a proper factor, then the same local digit reversal.
+
+Every swap is pure data movement, so all of them give the same bits.
 
 A swap runs on each rank's LOCAL block, with the semantics of
 ``lax.all_to_all(x, axis, split_axis=mem_pos, concat_axis=shard_pos,
@@ -14,23 +22,21 @@ tiled=True)``: split local axis ``mem_pos`` into one block per group
 member, send block i to member i, and concatenate the received blocks
 along ``shard_pos`` in member order. It comes in two halves, so that a
 pipeline can queue compute while a swap is in flight:
-``swap_start`` packs the blocks and starts an asynchronous collective,
-and the returned :class:`PendingSwap`'s ``wait`` finishes it and
-unpacks; a synchronous swap is the one followed by the other.
+``swap_start`` packs the blocks and starts the asynchronous exchange
+(a phased swap finishes its earlier phases first), and the returned
+:class:`PendingSwap`'s ``wait`` finishes it and unpacks; a synchronous
+swap is the one followed by the other.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core import wse_model as wm
 from repro_torch.core.plan import WIRE_DTYPES, MeshAxis
-
-#: what a plan whose strategy cannot swap yet raises with
-NOT_PORTED = "ROADMAP queue 1, 'Other strategies'"
 
 
 def axis_tuple(mesh_axis: MeshAxis) -> Tuple[str, ...]:
@@ -165,14 +171,13 @@ def format_tree_spec(tree: Mapping[str, Tuple[int, ...]]) -> str:
 class Strategy:
     """One registered redistribution schedule: ``swap_start`` moves the
     bytes, ``cost`` prices one swap in the paper's cycle model for the
-    selector. A strategy the port can run overrides ``swap_start``
-    (:func:`check_runnable`)."""
+    selector."""
     name: str = ''
     description: str = ''
 
     def swap_start(self, x: torch.Tensor, mesh, mesh_axis: MeshAxis, *,
                    shard_pos: int, mem_pos: int) -> PendingSwap:
-        raise _not_ported(self.name)
+        raise NotImplementedError
 
     def cost(self, mesh_axis: MeshAxis, mesh_shape, elems: float,
              precision: wm.Precision, *,
@@ -184,6 +189,19 @@ class Strategy:
         raise NotImplementedError
 
 
+def _done(x: torch.Tensor) -> PendingSwap:
+    return PendingSwap(lambda: x)
+
+
+def _blocks(x: torch.Tensor, mem_pos: int, p: int, what: str) -> int:
+    """The block length of ``x``'s mem axis split p ways; raises where p
+    does not divide it (a swap never truncates)."""
+    m = x.shape[mem_pos]
+    if m % p:
+        raise ValueError(f"{what}: mem axis size {m} not divisible by group size {p}")
+    return m // p
+
+
 class AllToAllStrategy(Strategy):
     name = 'all_to_all'
     description = 'one dist.all_to_all_single on the mesh-axis group'
@@ -191,12 +209,8 @@ class AllToAllStrategy(Strategy):
     def swap_start(self, x, mesh, mesh_axis, *, shard_pos, mem_pos):
         p = static_group_size(mesh_axis, mesh.shape)
         if p == 1:
-            return PendingSwap(lambda: x)
-        m = x.shape[mem_pos]
-        if m % p:
-            raise ValueError(
-                f"swap: mem axis size {m} not divisible by group size {p} "
-                f"of {mesh_axis!r}")
+            return _done(x)
+        blk = _blocks(x, mem_pos, p, f"swap over {mesh_axis!r}")
         pg, members = mesh.group(mesh_axis)
         # the collective orders blocks by group rank; the swap orders
         # them by row-major position in the (tuple) axis group. The
@@ -205,12 +219,12 @@ class AllToAllStrategy(Strategy):
         # card has drained its queue, twice a swap.
         by_rank = dist.get_process_group_ranks(pg)
         pos = [members.index(r) for r in by_rank]
-        blocks = x.movedim(mem_pos, 0).reshape((p, m // p) + _rest(x, mem_pos))
+        blocks = x.movedim(mem_pos, 0).reshape((p, blk) + _rest(x, mem_pos))
         send = torch.cat([blocks[i:i + 1] for i in pos])
         recv = torch.empty_like(send)
         work = dist.all_to_all_single(recv, send, group=pg, async_op=True)
         shape = list(x.shape)
-        shape[mem_pos] = m // p
+        shape[mem_pos] = blk
         shape[shard_pos] *= p
 
         def finish(send=send) -> torch.Tensor:
@@ -234,10 +248,102 @@ def _rest(x: torch.Tensor, skip: int) -> Tuple[int, ...]:
     return tuple(s for i, s in enumerate(x.shape) if i != skip)
 
 
+def _p2p_swap_start(x: torch.Tensor, pg, ranks: Sequence[int], me: int, *,
+                    shard_pos: int, mem_pos: int, what: str) -> PendingSwap:
+    """The tiled all-to-all among ``ranks`` (global ranks, in block
+    order; this rank is ``ranks[me]``) as f-1 point-to-point rounds:
+    round s sends the block for the s-th successor and receives the s-th
+    predecessor's, one ``dist.batch_isend_irecv`` a round. Every round
+    is started here; the own block keeps its slot."""
+    f = len(ranks)
+    blk = _blocks(x, mem_pos, f, what)
+    got = [None] * f
+    got[me] = x.narrow(mem_pos, me * blk, blk)
+    sends, works = [], []
+    for s in range(1, f):
+        dst, src = (me + s) % f, (me - s) % f
+        send = x.narrow(mem_pos, dst * blk, blk).contiguous()
+        got[src] = torch.empty_like(send)
+        works += dist.batch_isend_irecv([dist.P2POp(dist.isend, send, ranks[dst], pg),
+                                         dist.P2POp(dist.irecv, got[src], ranks[src], pg)])
+        sends.append(send)
+
+    def finish(sends=sends) -> torch.Tensor:
+        # ``sends`` is bound here so the buffers outlive their rounds
+        for w in works:
+            w.wait()
+        return torch.cat(got, dim=shard_pos)
+    return PendingSwap(finish)
+
+
+def _digit_ring_start(x: torch.Tensor, mesh, axis: str, factor: int, stride: int, *,
+                      shard_pos: int, mem_pos: int) -> PendingSwap:
+    """One level of a phased swap as a ring: the swap within the
+    ``factor`` members of ``axis`` that agree on every digit but the one
+    of place value ``stride`` (axis index i has digit
+    ``(i // stride) % factor``), as factor-1 point-to-point rounds; the
+    round-s peer of index i is ``i + (((d_i + s) % factor) - d_i) * stride``.
+    The received blocks land in digit order along ``shard_pos``. With
+    ``factor`` the axis's extent (stride 1) it is the ring over the
+    whole axis."""
+    pg, members = mesh.group(axis)
+    i = mesh.group_index(axis)
+    d = (i // stride) % factor
+    ranks = [members[i + (e - d) * stride] for e in range(factor)]
+    return _p2p_swap_start(x, pg, ranks, d, shard_pos=shard_pos, mem_pos=mem_pos,
+                           what=f"ring swap over factor {factor} of axis {axis!r}")
+
+
+def _phased_swap_start(x: torch.Tensor, mesh, levels, *, shard_pos: int, mem_pos: int,
+                       rings_only: bool) -> PendingSwap:
+    """A swap over an axis group as one exchange a level.
+
+    ``levels`` are ``(axis, factor, stride)`` phases in digit
+    significance order, each factor > 1. A level that covers its whole
+    axis is an ``all_to_all`` over it unless ``rings_only``; every other
+    level is a ring (:func:`_digit_ring_start`). Earlier levels finish
+    before the last starts. The flat group order is row-major, so the
+    received shard order is (last level, ..., first level, seg); one
+    local digit reversal restores it: the same bits as one exchange over
+    the whole group."""
+    if not levels:
+        return _done(x)          # extent-1 group: nothing moves
+    seg = x.shape[shard_pos]
+
+    def start(t, a, f, stride):
+        if f == mesh.shape[a] and not rings_only:
+            return _A2A.swap_start(t, mesh, a, shard_pos=shard_pos, mem_pos=mem_pos)
+        return _digit_ring_start(t, mesh, a, f, stride, shard_pos=shard_pos,
+                                 mem_pos=mem_pos)
+    for lv in levels[:-1]:
+        x = start(x, *lv).wait()
+    h = start(x, *levels[-1])
+    if len(levels) == 1:
+        return h
+    fs = tuple(f for _, f, _ in levels)
+    k = len(fs)
+
+    def finish() -> torch.Tensor:
+        y = h.wait()
+        shp = y.shape
+        y = y.reshape(shp[:shard_pos] + fs[::-1] + (seg,) + shp[shard_pos + 1:])
+        perm = (tuple(range(shard_pos))
+                + tuple(shard_pos + k - 1 - i for i in range(k))
+                + tuple(range(shard_pos + k, y.ndim)))
+        return y.permute(perm).reshape(shp).contiguous()
+    return PendingSwap(finish)
+
+
 class PpermuteStrategy(Strategy):
-    """Pairwise ring (p-1 rounds of point-to-point sends); priced only."""
     name = 'ppermute'
-    description = 'p-1 pairwise rounds per axis (ring schedule); not ported'
+    description = ('p-1 pairwise rounds per axis (ring schedule; '
+                   'point-to-point only)')
+
+    def swap_start(self, x, mesh, mesh_axis, *, shard_pos, mem_pos):
+        # one ring an axis, outer axis first
+        levels = [(a, mesh.shape[a], 1) for a in axis_tuple(mesh_axis) if mesh.shape[a] > 1]
+        return _phased_swap_start(x, mesh, levels, shard_pos=shard_pos, mem_pos=mem_pos,
+                                  rings_only=True)
 
     def cost(self, mesh_axis, mesh_shape, elems, precision, *, axis_bw=None):
         p = static_group_size(mesh_axis, mesh_shape)
@@ -247,11 +353,15 @@ class PpermuteStrategy(Strategy):
 
 
 class PodTreeStrategy(Strategy):
-    """Phased pod-tree exchange over a factorization; priced only.
+    """Phased pod-tree exchange over a factorization.
 
     ``tree`` maps axis name -> factor sequence (most significant digit
     first); axes of the swap group it does not name get one full-extent
-    level. ``tree=None`` is the two-phase 'hierarchical' split."""
+    level. The swap runs one exchange a level in digit-significance
+    order (the group's axis order, then each axis's factors), then one
+    local reorder restores the row-major group order
+    (:func:`_phased_swap_start`). ``tree=None`` is the two-phase
+    'hierarchical' split (one level per axis)."""
 
     def __init__(self, tree: Optional[Mapping[str, Tuple[int, ...]]] = None):
         self.tree: Optional[Tree] = (
@@ -260,11 +370,13 @@ class PodTreeStrategy(Strategy):
         if self.tree is not None:
             spec = format_tree_spec(self.tree)
             self.name = POD_TREE_PREFIX + spec
-            self.description = f'phased pod-tree exchange over {spec}; not ported'
+            self.description = (f'phased pod-tree exchange over factorization {spec} '
+                                 f'(grouped sub-swaps + one local reorder)')
 
     def _levels(self, mesh_axis, mesh_shape):
         """The tree as ``(axis, factor, stride)`` phases in digit
-        significance order; ``stride`` is the digit's place value."""
+        significance order; ``stride`` is the digit's place value. Tree
+        axes outside the swap group are ignored."""
         levels = []
         for a in axis_tuple(mesh_axis):
             extent = mesh_shape[a]
@@ -282,6 +394,11 @@ class PodTreeStrategy(Strategy):
                 levels.append((a, int(f), stride))
         return levels
 
+    def swap_start(self, x, mesh, mesh_axis, *, shard_pos, mem_pos):
+        levels = [lv for lv in self._levels(mesh_axis, mesh.shape) if lv[1] > 1]
+        return _phased_swap_start(x, mesh, levels, shard_pos=shard_pos, mem_pos=mem_pos,
+                                  rings_only=False)
+
     def cost(self, mesh_axis, mesh_shape, elems, precision, *, axis_bw=None):
         wm_levels = []
         for a, f, stride in self._levels(mesh_axis, mesh_shape):
@@ -297,7 +414,8 @@ class PodTreeStrategy(Strategy):
 
 class HierarchicalStrategy(PodTreeStrategy):
     name = 'hierarchical'
-    description = 'two-phase pod split (outer, then inner all_to_all); not ported'
+    description = ('two-phase pod-split exchange (outer-axis all_to_all, '
+                   'inner-axis all_to_all, local reorder)')
 
     def __init__(self):
         super().__init__(None)
@@ -308,13 +426,14 @@ def _pod_tree_strategy(name: str) -> Strategy:
     return PodTreeStrategy(parse_tree_spec(name[len(POD_TREE_PREFIX):]))
 
 
+_A2A = AllToAllStrategy()
 _REGISTRY: Dict[str, Strategy] = {
-    s.name: s for s in (AllToAllStrategy(), PpermuteStrategy(), HierarchicalStrategy())}
+    s.name: s for s in (_A2A, PpermuteStrategy(), HierarchicalStrategy())}
 
 
 def names() -> Tuple[str, ...]:
-    """Registered strategy names, runnable or not (the selector's
-    candidates; excludes the 'auto' alias and pod trees)."""
+    """Registered strategy names (the selector's candidates; excludes
+    the 'auto' alias and pod trees)."""
     return tuple(_REGISTRY)
 
 
@@ -338,16 +457,11 @@ def validate(name: str) -> str:
 
 
 def check_runnable(name: str) -> str:
-    """``name`` if the port can run its swap, else NotImplementedError
-    naming the ROADMAP item."""
+    """``name`` if its strategy has a swap, else NotImplementedError:
+    a plan never runs a strategy that can only be priced."""
     if type(get(name)).swap_start is Strategy.swap_start:
-        raise _not_ported(name)
+        raise NotImplementedError(f"comm strategy {name!r} is priced but has no swap")
     return name
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"comm strategy {name!r} is priced but cannot swap yet: {NOT_PORTED}")
 
 
 def resolve(name: str) -> Strategy:

@@ -9,10 +9,12 @@
 //    (src/repro/kernels/fft_fused.py:58): the same FFT on rows of
 //    (nl, b, n), an optional planar twiddle, and a transposed emit,
 //    out[l, k, j] = (W * FFT(x))[l, j, k], which feeds the swap directly.
+//    The twiddle's leading slices lie `wstride` floats apart: 0 for one
+//    (b, n) plane that every slice shares, b * n for one plane a slice.
 //
 // Bound: memory. Each kernel reads and writes every element once (16
-// bytes an element, 24 with the fused kernel's twiddle) against
-// 5 n log2 n flop a pencil.
+// bytes an element, plus 8 bytes a twiddle entry) against 5 n log2 n
+// flop a pencil.
 //
 // The radix-8 body (radix8_pencil_kernel<log2 n>, radix8_fused_kernel<log2 n>,
 // every n = 2..4096) keeps the data in registers. n splits into passes
@@ -149,8 +151,8 @@ __global__ void fused_kernel(const float* __restrict__ xr, const float* __restri
                              const float* __restrict__ wr, const float* __restrict__ wi,
                              float* __restrict__ yr, float* __restrict__ yi,
                              const float* __restrict__ twr, const float* __restrict__ twi,
-                             long long b, int n, int log2n, int P, int ld,
-                             long long tiles, float scale) {
+                             long long b, long long wstride, int n, int log2n, int P,
+                             int ld, long long tiles, float scale) {
   extern __shared__ float smem[];
   float *tw_re, *tw_im, *a_re, *a_im, *b_re, *b_im;
   carve(smem, n, P, ld, &tw_re, &tw_im, &a_re, &a_im, &b_re, &b_im);
@@ -169,7 +171,7 @@ __global__ void fused_kernel(const float* __restrict__ xr, const float* __restri
     float vr = res_re[p * ld + k] * scale;
     float vi = res_im[p * ld + k] * scale;
     if (wr != nullptr) {
-      const long long w = in_base + (long long)p * n + k;
+      const long long w = l * wstride + (j0 + p) * n + k;
       const float tr = wr[w], ti = wi[w];
       const float ur = vr * tr - vi * ti;
       vi = vr * ti + vi * tr;
@@ -378,7 +380,8 @@ radix8_fused_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     const float* __restrict__ wr, const float* __restrict__ wi,
                     float* __restrict__ yr, float* __restrict__ yi,
                     const float* __restrict__ twr, const float* __restrict__ twi,
-                    long long b, int P, int log2P, long long tiles, float s, float scale) {
+                    long long b, long long wstride, int P, int log2P, long long tiles,
+                    float s, float scale) {
   using L = Radix8<LOG2N>;
   constexpr int N = L::N, T = L::T;
   extern __shared__ float smem[];
@@ -405,7 +408,8 @@ radix8_fused_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   for (int j = 0; j < L::R0; ++j) {
     float ur = vr[j] * scale, ui = vi[j] * scale;
     if (wr != nullptr && live) {
-      const float tr = wr[in + T * j], ti = wi[in + T * j];
+      const long long w = l * wstride + (j0 + p) * N + t + T * j;
+      const float tr = wr[w], ti = wi[w];
       const float u = ur * tr - ui * ti;
       ui = ur * ti + ui * tr;
       ur = u;
@@ -444,8 +448,8 @@ int launch_radix8_pencil(const float* xr, const float* xi, float* yr, float* yi,
 template <int LOG2N>
 int launch_radix8_fused(const float* xr, const float* xi, const float* wr, const float* wi,
                         float* yr, float* yi, const float* twr, const float* twi,
-                        long long nl, long long b, int P, long long smem, float s,
-                        float scale, cudaStream_t stream) {
+                        long long nl, long long b, long long wstride, int P,
+                        long long smem, float s, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       radix8_fused_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -453,8 +457,8 @@ int launch_radix8_fused(const float* xr, const float* xi, const float* wr, const
   while ((1 << log2P) < P) ++log2P;
   const long long tiles = (b + P - 1) / P;
   radix8_fused_kernel<LOG2N><<<(unsigned)(nl * tiles), P * Radix8<LOG2N>::T, (size_t)smem,
-                               stream>>>(xr, xi, wr, wi, yr, yi, twr, twi, b, P, log2P,
-                                         tiles, s, scale);
+                               stream>>>(xr, xi, wr, wi, yr, yi, twr, twi, b, wstride, P,
+                                         log2P, tiles, s, scale);
   return (int)cudaGetLastError();
 }
 
@@ -492,15 +496,15 @@ int fft_pencil_launch(const float* xr, const float* xi, float* yr, float* yi,
 
 int fft_fused_launch(const float* xr, const float* xi, const float* wr, const float* wi,
                      float* yr, float* yi, const float* twr, const float* twi,
-                     long long nl, long long b, int n, int P, int ld, float scale,
-                     void* stream) {
+                     long long nl, long long b, long long wstride, int n, int P, int ld,
+                     float scale, void* stream) {
   const long long tiles = (b + P - 1) / P;
   const long long smem = stockham_smem_bytes(n, P, ld);
   cudaError_t err = cudaFuncSetAttribute(
       fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   fused_kernel<<<(unsigned)(nl * tiles), kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      xr, xi, wr, wi, yr, yi, twr, twi, b, n, log2_of(n), P, ld, tiles, scale);
+      xr, xi, wr, wi, yr, yi, twr, twi, b, wstride, n, log2_of(n), P, ld, tiles, scale);
   return (int)cudaGetLastError();
 }
 
@@ -529,15 +533,15 @@ int fft_pencil_radix8_launch(const float* xr, const float* xi, float* yr, float*
 
 int fft_fused_radix8_launch(const float* xr, const float* xi, const float* wr,
                             const float* wi, float* yr, float* yi, const float* twr,
-                            const float* twi, long long nl, long long b, int n, int P,
-                            float s, float scale, void* stream) {
+                            const float* twi, long long nl, long long b, long long wstride,
+                            int n, int P, float s, float scale, void* stream) {
   if (!radix8_takes(n, P, true)) return (int)cudaErrorInvalidValue;
   const long long smem = radix8_smem_bytes(n, P, 1);
   switch (log2_of(n)) {
 #define X(L)                                                                         \
   case L:                                                                            \
-    return launch_radix8_fused<L>(xr, xi, wr, wi, yr, yi, twr, twi, nl, b, P, smem, s, \
-                                  scale, (cudaStream_t)stream);
+    return launch_radix8_fused<L>(xr, xi, wr, wi, yr, yi, twr, twi, nl, b, wstride, P, smem, \
+                                  s, scale, (cudaStream_t)stream);
     RADIX8_LENGTHS(X)
 #undef X
     default:

@@ -11,6 +11,14 @@
     r = fft.rplan((n, n, n), make_fft_mesh(1, 1))
     s = r.forward(xr)                  # float32 in -> complex64 (n, n, n//2 + 1)
     xr2 = r.inverse(s)
+
+    q = fft.plan((1 << 24,), make_fft_mesh(1, 1))   # rank 1: the four-step
+    y = q.forward(x)                   # (..., n) complex64, np.fft.fft
+    s = fft.rplan((1 << 24,), make_fft_mesh(1, 1)).forward(xr)  # np.fft.rfft
+
+Local pencil algorithms live in the registry :mod:`repro_torch.fft.methods`;
+the swaps dispatch through :mod:`repro_torch.comm.strategies`
+(``plan(..., comm='auto')`` picks one with the cost model).
 """
 from repro_torch.fft import methods
 from repro_torch.fft.api import FFT, plan, plan_op, rplan

@@ -1,0 +1,178 @@
+"""Large 1-D FFT: the four-step algorithm distributed over the mesh.
+
+Port of ``repro.fft.large1d`` (the transform path). The length-n
+transform is factored n = n1 * n2 and viewed as the 2-D array A[k1, k2]
+(k = k1*n2 + k2) with rows sharded over the flattened mesh axes: column
+DFT -> inter-factor twiddle -> row DFT, with one ownership swap on each
+side, the 1-D analogue of the paper's pencil supersteps. The swaps go
+through the :mod:`repro_torch.comm.strategies` registry; with a batch
+of more than one signal, ``overlap_chunks`` pipelines the whole
+four-step over chunks of the batch (:func:`repro_torch.comm.overlap.pipelined`).
+
+Each factory returns the per-rank function on this rank's block with
+ONE leading batch axis, as :func:`repro_torch.fft.pencil.make_fft` does.
+The column DFT, the twiddle and the orientation restore run as one
+fused superstep (``methods.apply_fused`` with the twiddle planes: on the
+kernel tier with ``method='stockham'`` one ``fft_twiddle_transpose``
+launch), and the natural-order row DFT emits its own transpose.
+
+Users go through ``repro_torch.fft.plan((n,), mesh)``, which owns the
+(n,) <-> (n1, n2) views and the real spectrum's assembly. The operator
+bodies (``_complex_fourstep``, ``make_fourstep_op``) are ROADMAP queue 1,
+'Operator plans'.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+from repro_torch.comm import overlap as ov
+from repro_torch.comm import strategies
+from repro_torch.core import twiddle as tw
+from repro_torch.core.twiddle import Planar
+from repro_torch.fft import methods
+
+
+def twiddle(n: int, rows: int, k2_first: int, m2: int, *, transposed: bool = False,
+            conj: bool = False, device=None) -> Planar:
+    """The inter-factor twiddle W[j1, k2] = w_n^(j1*k2) for j1 < ``rows``
+    and this rank's k2 chunk ``[k2_first, k2_first + m2)``, planar fp32 of
+    (rows, m2), or (m2, rows) when ``transposed``. Each angle is taken in
+    float64 from the integer product j1*k2 mod n, so the two
+    orientations hold the same bits. ``conj`` negates the imaginary
+    plane (the inverse's rotation)."""
+    j1 = torch.arange(rows, dtype=torch.int64, device=device)
+    k2 = k2_first + torch.arange(m2, dtype=torch.int64, device=device)
+    jk = k2[:, None] * j1[None, :] if transposed else j1[:, None] * k2[None, :]
+    ang = (jk % n).to(torch.float64) * (-2.0 * math.pi / n)
+    wr, wi = torch.cos(ang).float(), torch.sin(ang).float()
+    return (wr, -wi) if conj else (wr, wi)
+
+
+def _group(n1: int, n2: int, mesh, mesh_axes, comm: str, wire_dtype: str):
+    """(mesh_axis, p, this rank's index in the group, swap) of a plan over
+    ``mesh_axes`` flattened. ``swap(*arrays, shard_pos=, mem_pos=)``
+    starts every array's swap, then finishes them in order."""
+    ax = tuple(mesh_axes) if isinstance(mesh_axes, (tuple, list)) else (mesh_axes,)
+    mesh_axis = ax if len(ax) > 1 else ax[0]
+    p = strategies.static_group_size(mesh_axis, mesh.shape)
+    if n1 % p or n2 % p:
+        raise ValueError(f"{p} devices must divide both factors ({n1},{n2})")
+    strategy = strategies.resolve(comm)
+    strategies.validate_wire_dtype(wire_dtype)
+    idx = mesh.group_index(mesh_axis) if p > 1 else 0
+
+    def swap(*arrays, shard_pos: int, mem_pos: int):
+        started = [strategies.swap_start_wire(strategy, a, mesh, mesh_axis,
+                                              shard_pos=shard_pos, mem_pos=mem_pos,
+                                              wire_dtype=wire_dtype) for a in arrays]
+        out = tuple(h.wait() for h in started)
+        return out if len(out) > 1 else out[0]
+    return mesh_axis, p, idx, swap
+
+
+def _batched(fn: Callable, overlap_chunks: int) -> Callable:
+    """``fn`` pipelined over chunks of the leading batch axis where it
+    divides into ``overlap_chunks``, else unchunked."""
+    def run(*arrays):
+        ck = ov.pick_chunk_axis(arrays[0].shape[:1], (), overlap_chunks)
+        if ck is not None:
+            return ov.pipelined(overlap_chunks, ck, fn, *arrays)
+        return fn(*arrays)
+    return run
+
+
+def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
+                     inverse: bool = False, method: str = 'auto', kernel: str = 'auto',
+                     comm: str = 'all_to_all', overlap_chunks: int = 1,
+                     wire_dtype: str = 'native') -> Callable:
+    """1-D FFT of length n = n1*n2 as a distributed four-step, in natural
+    order (the reference's ``natural_order=True``).
+
+    ``fn(ar, ai)`` takes this rank's planar block (B, n1/p, n2) of the
+    row-major view A[k1, k2] and returns its rows of the natural-order
+    (n2, n1) matrix, y[j1 + n1*j2] at [j2, j1]: (B, n2/p, n1)."""
+    methods.validate(method)
+    methods.validate_kernel(kernel)
+    mesh_axis, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
+    n, m2 = n1 * n2, n2 // p
+    # (m2, n1): the orientation of the fused superstep's pre-transpose output
+    wr, wi = twiddle(n, n1, idx * m2, m2, transposed=True, conj=inverse,
+                     device=mesh.device)
+    kw = dict(inverse=inverse, method=method, kernel=kernel)
+
+    def body(ar, ai):
+        ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, m2)
+        # column DFT over k1, twiddle and orientation restore in one pass
+        ar, ai = methods.apply_fused(ar.transpose(1, 2), ai.transpose(1, 2),
+                                     wr=wr, wi=wi, **kw)
+        ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)                 # (B, n1/p, n2)
+        # row DFT over k2 with transposed emit: (B, n2, n1/p) is the
+        # natural order's local transpose, so only the exchange remains
+        ar, ai = methods.apply_fused(ar, ai, **kw)
+        return swap(ar, ai, shard_pos=2, mem_pos=1)                   # (B, n2/p, n1)
+
+    return _batched(body, overlap_chunks)
+
+
+def _real_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: str,
+                   comm: str, wire_dtype: str):
+    """The real four-step bodies on this rank's block with one leading
+    batch axis: ``(body_fwd, body_inv)``.
+
+    ``body_fwd(x)`` takes the real rows (B, n1/p, n2) and returns the
+    planar half plane D[j1, j2], j1 <= n1//2, its rows padded to a
+    multiple of p and sharded, (B, nh1p/p, n2). The column DFT is r2c
+    (``methods.apply_real``), so the first swap moves one real array and
+    the second the halved rows. ``body_inv`` is its mirror.
+
+    The reference also makes the bins of rows 0 and n1/2 past the middle
+    the exact conjugates of their partners, for its operator plans; the
+    ``np.fft.rfft`` assembly drops those bins, so the transform does not
+    need it (ROADMAP queue 1, 'Operator plans')."""
+    methods.validate(method)
+    methods.validate_kernel(kernel)
+    mesh_axis, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
+    n, m2 = n1 * n2, n2 // p
+    nh1 = n1 // 2 + 1
+    nh1p = -(-nh1 // p) * p
+    # (nh1p, m2); the pad rows carry zeros, whatever their phase
+    wr, wi = twiddle(n, nh1p, idx * m2, m2, device=mesh.device)
+    kw = dict(method=method, kernel=kernel)
+
+    def body_fwd(x):
+        x = swap(x, shard_pos=1, mem_pos=2)                           # (B, n1, m2)
+        ar, ai = methods.apply_real(x, axis=1, **kw)                  # (B, nh1, m2)
+        pad = (0, 0, 0, nh1p - nh1)
+        ar, ai = torch.nn.functional.pad(ar, pad), torch.nn.functional.pad(ai, pad)
+        ar, ai = tw.cmul(ar, ai, wr, wi)
+        ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)                 # (B, nh1p/p, n2)
+        return methods.apply(ar, ai, axis=2, **kw)
+
+    def body_inv(ar, ai):
+        ar, ai = methods.apply(ar, ai, axis=2, inverse=True, **kw)    # row IDFT
+        ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, nh1p, m2)
+        ar, ai = tw.cmul(ar, ai, wr, -wi)
+        # drop the pad rows, c2r column IDFT -> (B, n1, m2) real
+        x = methods.apply_real(ar[:, :nh1], ai[:, :nh1], axis=1, inverse=True, **kw)
+        return swap(x, shard_pos=2, mem_pos=1)                        # (B, n1/p, n2)
+
+    return body_fwd, body_inv
+
+
+def make_rfft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
+                      inverse: bool = False, method: str = 'auto',
+                      kernel: str = 'auto', comm: str = 'all_to_all',
+                      overlap_chunks: int = 1, wire_dtype: str = 'native') -> Callable:
+    """Rank-1 REAL four-step in the rows-halved half-plane form: the
+    forward ``fn(x)`` maps this rank's real rows (B, n1/p, n2) of A[k1, k2]
+    to its rows of the planar half plane D[j1, j2], j1 <= n1//2 padded to
+    a multiple of p, (B, nh1p/p, n2); the inverse ``fn(re, im)`` maps
+    them back. The assembly of ``np.fft.rfft``'s order lives in the
+    facade."""
+    body_fwd, body_inv = _real_fourstep(n1, n2, mesh, mesh_axes, method=method,
+                                        kernel=kernel, comm=comm, wire_dtype=wire_dtype)
+    return _batched(body_inv if inverse else body_fwd, overlap_chunks)
+

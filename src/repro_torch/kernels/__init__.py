@@ -13,7 +13,8 @@ module's ``launches`` integer (``fft_matmul`` and ``fft_block`` also
 count those of their tensor-core body, the four-step of
 ``csrc/four_step_mma.cuh`` that both run, in ``launches_mma``;
 ``fft_pencil`` and ``fft_fused`` those of their radix-8 Stockham body
-in ``launches_radix8``).
+in ``launches_radix8``; ``fft_fused`` those that applied twiddle planes
+in ``launches_twiddle``).
 """
 from __future__ import annotations
 

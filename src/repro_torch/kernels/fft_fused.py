@@ -13,7 +13,9 @@ bodies, chosen as :mod:`.fft_pencil`'s are (:func:`variant`):
 * ``'radix2'`` (``fused_kernel``, every other n): the radix-2 body.
 
 Memory-bound: one read and one write of every element, 16 bytes an
-element, plus one read of the twiddle when there is one (24 bytes).
+element, plus one read of the twiddle when there is one: a (b, n) plane
+broadcast over the leading axes is read in place, 8 bytes a twiddle
+entry, by every leading slice (the kernel's ``wstride`` = 0).
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ RUN = 8
 launches = 0
 #: of those, launches of the radix-8 body
 launches_radix8 = 0
+#: of those, launches that applied twiddle planes
+launches_twiddle = 0
 
 
 def tile_layout(n: int, b: int):
@@ -58,10 +62,25 @@ def _radix2_layout(n: int, b: int):
 
 
 def _twiddle(re: torch.Tensor, w: Optional[torch.Tensor]):
+    """The twiddle plane expanded to the input's shape (the plain version)."""
     if w is None:
         return None
     w = torch.as_tensor(w, dtype=torch.float32, device=re.device)
     return w.expand(re.shape).contiguous()
+
+
+def _twiddle_planes(re: torch.Tensor, wr, wi):
+    """``(twr, twi, wstride)`` as the kernel reads them: a twiddle with no
+    leading axes past (b, n) (or only axes of 1) stays one contiguous
+    (b, n) plane that every leading slice reads (``wstride`` 0); any
+    other is expanded to the input's shape (``wstride`` b * n)."""
+    if wr is None:
+        return None, None, 0
+    b, n = re.shape[-2:]
+    ws = [torch.as_tensor(w, dtype=torch.float32, device=re.device) for w in (wr, wi)]
+    if all(all(d == 1 for d in w.shape[:-2]) for w in ws):
+        return (*(w.reshape(w.shape[-2:]).expand(b, n).contiguous() for w in ws), 0)
+    return (*(w.expand(re.shape).contiguous() for w in ws), b * n)
 
 
 def fft_twiddle_transpose_plain(re: torch.Tensor, im: torch.Tensor,
@@ -78,26 +97,27 @@ def fft_twiddle_transpose_plain(re: torch.Tensor, im: torch.Tensor,
 def _lib():
     lib = _build.load('fft_pencil')
     _build.declare(lib, 'fft_fused_launch', 8,
-                   (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_float))
     _build.declare(lib, 'fft_fused_radix8_launch', 8,
-                   (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_float, ctypes.c_float))
+                   (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_float, ctypes.c_float))
     lib.stockham_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.stockham_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _launch(re: torch.Tensor, im: torch.Tensor, twr, twi, yr: torch.Tensor,
+def _launch(re: torch.Tensor, im: torch.Tensor, wr, wi, yr: torch.Tensor,
             yi: torch.Tensor, inverse: bool, _body: str | None = None) -> None:
     """Run the kernel on contiguous fp32 planes (..., b, n), the twiddle
-    planes ``twr``/``twi`` of the same shape or None, into (yr, yi) of
+    planes ``wr``/``wi`` broadcastable to them or None, into (yr, yi) of
     (..., n, b). The body is :func:`variant` of n; ``_body`` overrides it
     only to time the radix-2 body beside the radix-8 one."""
-    global launches, launches_radix8
+    global launches, launches_radix8, launches_twiddle
     b, n = re.shape[-2:]
     if re.numel() == 0:
         return
+    twr, twi, wstride = _twiddle_planes(re, wr, wi)
     nl = re.numel() // (b * n)
     body = _body or variant(n)
     scale = (1.0 / n) if inverse else 1.0
@@ -111,20 +131,21 @@ def _launch(re: torch.Tensor, im: torch.Tensor, twr, twi, yr: torch.Tensor,
             P, _, smem = tile_layout(n, b)
             mr, mi = radix8_tables(n, inverse, re.device)
             err = lib.fft_fused_radix8_launch(*ptrs, mr.data_ptr(), mi.data_ptr(), nl, b,
-                                              n, P, -1.0 if inverse else 1.0, scale,
-                                              stream_of(re))
+                                              wstride, n, P, -1.0 if inverse else 1.0,
+                                              scale, stream_of(re))
         else:
             P, ld = _radix2_layout(n, b)
             smem = lib.stockham_smem_bytes(n, P, ld)
             mr, mi = master_table(n, inverse, re.device)
-            err = lib.fft_fused_launch(*ptrs, mr.data_ptr(), mi.data_ptr(), nl, b, n, P, ld,
-                                       scale, stream_of(re))
+            err = lib.fft_fused_launch(*ptrs, mr.data_ptr(), mi.data_ptr(), nl, b, wstride, n,
+                                       P, ld, scale, stream_of(re))
     if err:
         raise RuntimeError(f"fft_twiddle_transpose: {body} launch failed with CUDA error "
                            f"{err} (n={n}, {P} pencils per block, {smem} bytes of shared "
                            "memory)")
     launches += 1
     launches_radix8 += body == 'radix8'
+    launches_twiddle += twr is not None
 
 
 def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
@@ -144,5 +165,5 @@ def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
     b = re.shape[-2]
     yr = torch.empty(tuple(re.shape[:-2]) + (n, b), dtype=re.dtype, device=re.device)
     yi = torch.empty_like(yr)
-    _launch(re, im, _twiddle(re, wr), _twiddle(re, wi), yr, yi, inverse)
+    _launch(re, im, wr, wi, yr, yi, inverse)
     return yr, yi

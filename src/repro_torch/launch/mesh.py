@@ -139,6 +139,9 @@ class AbstractFFTMesh:
     def __repr__(self) -> str:
         return f"AbstractFFTMesh(x={self.shape['x']}, y={self.shape['y']})"
 
+    def group(self, mesh_axis: MeshAxis):
+        raise RuntimeError(f"{self} prices plans and has no process groups to swap over")
+
 
 def abstract_fft_mesh(rows: int, cols: int) -> AbstractFFTMesh:
     """A ``rows x cols`` ('x', 'y') mesh for cost-only plans:

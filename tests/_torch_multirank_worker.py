@@ -1,36 +1,51 @@
-"""Worker: the port's distributed FFT on 4 gloo CPU ranks (2 x 2 mesh).
+"""Worker: the port's distributed FFT on gloo CPU ranks (or NCCL cards).
 
 Run in a subprocess so the test process never initialises a process
 group:
 
     python tests/_torch_multirank_worker.py OUT.json PORT [cpu|cuda]
+        [--mesh 2x2] [--suite base|strategies]
 
-``cpu`` (the default) runs 4 gloo ranks on the CPU with the plain
-PyTorch versions; ``cuda`` runs 4 NCCL ranks on 4 cards with the CUDA
-kernels.
+``cpu`` (the default) runs one gloo rank a mesh position on the CPU with
+the plain PyTorch versions; ``cuda`` runs NCCL ranks, one card each,
+with the CUDA kernels. ``--mesh`` is the ('x', 'y') mesh (2 x 2 by
+default; 1 x 4 and 2 x 4 too).
 
 Every rank makes the same global operand from a seed, takes its block
-under the plan's input layout, runs forward and inverse with
-``comm='all_to_all'``, and compares its blocks with the same blocks of
-the port's single-process result (1 x 1 mesh), of ``np.fft.fftn``, and,
-for a 16-bit wire, of the native-wire result. Rank 0 writes one record
-per case: the largest gaps over all ranks, each divided by the largest
-magnitude of its reference.
+under the plan's input layout, runs forward and inverse, and compares
+its blocks with the same blocks of the port's single-process result
+(1 x 1 mesh), of ``np.fft.fftn``, and, for a 16-bit wire, of the
+native-wire result. Rank 0 writes one record per case: the largest gaps
+over all ranks, each divided by the largest magnitude of its reference.
 
-The overlap cases (``OVERLAP_CASES``, ``REAL_OVERLAP_CASES``) run at
-64^3, where every pencil reaches the tensor-core bodies on the card,
-with a batch of one so the chunks split a mesh-local axis. Those with no
-options plan as a user would (``comm='auto'``, the selector's strategy,
-overlap depth and method; ``resolved`` records the pick); the others ask
-for ``overlap_chunks=2``. Each is also held against the same plan with
-``overlap_chunks=1``, forward and inverse (``*_vs_unchunked``).
+Suite ``base`` (2 x 2):
 
-Real plans (``REAL_CASES``) take a real operand. Their half axis travels
+* ``CASES`` and ``REAL_CASES`` with ``comm='all_to_all'``;
+* the overlap cases (``OVERLAP_CASES``, ``REAL_OVERLAP_CASES``) at 64^3,
+  where every pencil reaches the tensor-core bodies on the card, with a
+  batch of one so the chunks split a mesh-local axis. Those with no
+  options plan as a user would (``comm='auto'``, the selector's
+  strategy, overlap depth and method; ``resolved`` records the pick);
+  the others ask for ``overlap_chunks=2``. Each is also held against
+  the same plan with ``overlap_chunks=1`` (``*_vs_unchunked``);
+* the rank-1 cases (``RANK1_CASES``, n = 4096 = 64 x 64), planned
+  without ``comm``: the default plan resolves to ``hierarchical``.
+
+Suite ``strategies`` (``STRATEGY_PLANS`` under each of ``ppermute``,
+``hierarchical`` and the mesh's pod tree, ``POD_TREES``): every plan is
+also run with ``comm='all_to_all'`` and held against it, forward and
+inverse (``*_vs_all_to_all``); and ``SWAPS`` holds each strategy's bare
+swap against the all-to-all's on random blocks for every mesh-axis
+group and a few (shard_pos, mem_pos) pairs.
+
+Real plans take a real operand. A rank-2/3 plan's half axis travels
 zero-padded to ``nh_pad`` bins; a rank's block of the spectrum is held
-against the bins of ``np.fft.rfftn`` (and of the single-process spectrum,
-zero-padded) that its padded block covers, those below n//2 + 1 only
-when ``padded_spectrum`` is off.
+against the bins of ``np.fft.rfftn`` (and of the single-process
+spectrum, zero-padded) that its padded block covers, those below
+n//2 + 1 only when ``padded_spectrum`` is off. A rank-1 real plan's
+spectrum is whole on every rank.
 """
+import argparse
 import json
 import os
 import sys
@@ -45,7 +60,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'
 import repro_torch.fft as fft  # noqa: E402
 from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
 
-WORLD = 4
 BATCH = 2
 
 #: (name, shape, plan options)
@@ -80,6 +94,40 @@ REAL_OVERLAP_CASES = [
     ('real_ovl_default', (64, 64, 64), dict()),
     ('real_ovl_four_step', (64, 64, 64), dict(method='four_step', overlap_chunks=2)),
 ]
+
+#: (name, shape, plan options), n = 4096 = 64 x 64, planned without ``comm``
+RANK1_CASES = [
+    ('r1_default', (4096,), dict()),
+    ('r1_stockham', (4096,), dict(method='stockham')),
+    ('r1_overlap', (4096,), dict(method='stockham', overlap_chunks=2)),
+    ('r1_fp16', (4096,), dict(method='stockham', wire_dtype='fp16')),
+    ('r1_real_default', (4096,), dict(real=True)),
+    ('r1_real_stockham', (4096,), dict(real=True, method='stockham')),
+]
+
+#: (name, shape, plan options) run under every strategy of ``strategies_for``
+STRATEGY_PLANS = [
+    ('r3', (16, 16, 16), dict(method='stockham')),
+    ('r3_real', (16, 16, 16), dict(real=True, method='stockham')),
+    ('r2', (16, 32), dict(method='stockham')),
+    ('r1', (4096,), dict(method='stockham')),
+    ('r1_real', (4096,), dict(real=True, method='stockham')),
+    ('r3_overlap', (16, 16, 16), dict(method='stockham', overlap_chunks=2)),
+    ('r1_overlap', (4096,), dict(method='stockham', overlap_chunks=2)),
+    ('r3_fp16', (16, 16, 16), dict(method='stockham', wire_dtype='fp16')),
+]
+
+#: the pod tree each mesh runs beside 'ppermute' and 'hierarchical'
+POD_TREES = {'2x2': 'pod_tree:x.2*y.2', '1x4': 'pod_tree:y.2*y.2',
+             '2x4': 'pod_tree:x.2*y.2*y.2'}
+
+
+def strategies_for(mesh: str):
+    return ('ppermute', 'hierarchical', POD_TREES[mesh])
+
+
+#: (shard_pos, mem_pos) of the bare swaps, on blocks of (8, 8, 16, 8)
+SWAPS = [(0, 1), (1, 0), (2, 3), (3, 1)]
 
 #: (name, shape, rplan options)
 REAL_CASES = [
@@ -135,7 +183,18 @@ def _case(mesh, single, shape, kw, batch=BATCH, comm='all_to_all'):
         rec['fwd_vs_native_wire'] = _gap(y, native.forward(mesh.shard(xt, p.in_layout, 1)))
     if p.overlap_chunks > 1:
         rec.update(_vs_unchunked(p, x_in, y, x2))
+    rec.update(_vs_all_to_all(p, x_in, y, x2))
     return rec
+
+
+def _vs_all_to_all(p, x_in, y, x2):
+    """A plan on another strategy against the same plan on all_to_all,
+    forward on the same block and inverse on the same spectrum."""
+    if p.comm == 'all_to_all':
+        return {}
+    q = p.with_options(comm='all_to_all')
+    return {'fwd_vs_all_to_all': _gap(y, q.forward(x_in)),
+            'inv_vs_all_to_all': _gap(x2, q.inverse(y))}
 
 
 def _real_case(mesh, single, shape, kw, batch=BATCH, comm='all_to_all'):
@@ -175,10 +234,88 @@ def _real_case(mesh, single, shape, kw, batch=BATCH, comm='all_to_all'):
     }
     if p.overlap_chunks > 1:
         rec.update(_vs_unchunked(p, x_in, y, x2))
+    rec.update(_vs_all_to_all(p, x_in, y, x2))
     return rec
 
 
-def run(rank: int, port: int, out: str, device: str) -> None:
+def _real1d_case(mesh, single, shape, kw, batch=BATCH, comm='all_to_all'):
+    """A rank-1 rplan: the spectrum is whole on every rank."""
+    rng = np.random.default_rng(list(shape) + [1])
+    x = rng.standard_normal((batch,) + shape)
+    xt = torch.as_tensor(x.astype(np.float32), device=mesh.device)
+    p = fft.rplan(shape, mesh, **(dict(comm=comm) if comm else {}), **kw)
+    single_kw = {k: v for k, v in kw.items() if k not in ('wire_dtype', 'overlap_chunks')}
+    p1 = fft.rplan(shape, single, comm='all_to_all', **dict(single_kw, method=p.method))
+    want_np = torch.as_tensor(np.fft.rfft(x).astype(np.complex64), device=mesh.device)
+    x_in = mesh.shard(xt, p.in_layout, batch_ndim=1)
+    y = p.forward(x_in)
+    x2 = p.inverse(y)
+    rec = {
+        'fwd_vs_single': _gap(y, p1.forward(xt)),
+        'fwd_vs_numpy': _gap(y, want_np),
+        'roundtrip': _gap(x2, x_in),
+        'shape_ok': (tuple(y.shape) == (batch, shape[0] // 2 + 1)
+                     and tuple(x2.shape) == tuple(x_in.shape)),
+        'resolved': [p.comm, p.overlap_chunks, p.method],
+    }
+    if p.overlap_chunks > 1:
+        rec.update(_vs_unchunked(p, x_in, y, x2))
+    rec.update(_vs_all_to_all(p, x_in, y, x2))
+    return rec
+
+
+def _any_case(mesh, single, shape, kw, comm=None):
+    kw = dict(kw)
+    if not kw.pop('real', False):
+        return _case(mesh, single, shape, kw, comm=comm)
+    if len(shape) == 1:
+        return _real1d_case(mesh, single, shape, kw, comm=comm)
+    return _real_case(mesh, single, shape, kw, comm=comm)
+
+
+def _swaps(mesh, names):
+    """Each strategy's bare swap against all_to_all's on the same random
+    block, for every mesh-axis group and (shard_pos, mem_pos) of
+    ``SWAPS``: name -> True where every one is bitwise equal."""
+    from repro_torch.comm import strategies
+    gen = torch.Generator().manual_seed(dist.get_rank())
+    x = torch.randn((8, 8, 16, 8), generator=gen).to(mesh.device)
+    a2a = strategies.get('all_to_all')
+    out = {}
+    for name in names:
+        same = True
+        for axis in ('x', 'y', ('x', 'y')):
+            for sp, mp in SWAPS:
+                kw = dict(shard_pos=sp, mem_pos=mp)
+                want = a2a.swap_start(x, mesh, axis, **kw).wait()
+                got = strategies.get(name).swap_start(x, mesh, axis, **kw).wait()
+                same = same and got.shape == want.shape and torch.equal(got, want)
+        out[name] = same
+    return out
+
+
+def _suite(mesh, single, mesh_name: str, suite: str) -> dict:
+    if suite == 'base':
+        mine = {name: _case(mesh, single, shape, kw) for name, shape, kw in CASES}
+        mine.update({name: _real_case(mesh, single, shape, kw)
+                     for name, shape, kw in REAL_CASES})
+        mine.update({name: _case(mesh, single, shape, kw, batch=1, comm=None)
+                     for name, shape, kw in OVERLAP_CASES})
+        mine.update({name: _real_case(mesh, single, shape, kw, batch=1, comm=None)
+                     for name, shape, kw in REAL_OVERLAP_CASES})
+        mine.update({name: _any_case(mesh, single, shape, kw)
+                     for name, shape, kw in RANK1_CASES})
+        return mine
+    mine = {}
+    for comm in strategies_for(mesh_name):
+        for name, shape, kw in STRATEGY_PLANS:
+            mine[f'{comm}/{name}'] = _any_case(mesh, single, shape, kw, comm=comm)
+    return mine
+
+
+def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str) -> None:
+    rows, cols = (int(v) for v in mesh_name.split('x'))
+    world = rows * cols
     if device == 'cuda':
         torch.cuda.set_device(rank)
     else:
@@ -187,23 +324,18 @@ def run(rank: int, port: int, out: str, device: str) -> None:
         torch.set_num_threads(1)
     dist.init_process_group('nccl' if device == 'cuda' else 'gloo',
                             init_method=f'tcp://localhost:{port}',
-                            rank=rank, world_size=WORLD)
+                            rank=rank, world_size=world)
     try:
-        mesh = make_fft_mesh(2, 2, device=device)
+        mesh = make_fft_mesh(rows, cols, device=device)
         single = make_fft_mesh(1, 1, device=device)
-        mine = {name: _case(mesh, single, shape, kw) for name, shape, kw in CASES}
-        mine.update({name: _real_case(mesh, single, shape, kw)
-                     for name, shape, kw in REAL_CASES})
-        mine.update({name: _case(mesh, single, shape, kw, batch=1, comm=None)
-                     for name, shape, kw in OVERLAP_CASES})
-        mine.update({name: _real_case(mesh, single, shape, kw, batch=1, comm=None)
-                     for name, shape, kw in REAL_OVERLAP_CASES})
-        every = [None] * WORLD
-        dist.all_gather_object(every, mine)
+        mine = _suite(mesh, single, mesh_name, suite)
+        swaps = _swaps(mesh, strategies_for(mesh_name)) if suite == 'strategies' else {}
+        every = [None] * world
+        dist.all_gather_object(every, (mine, swaps))
         if rank == 0:
             merged = {}
-            for name, _, _ in CASES + REAL_CASES + OVERLAP_CASES + REAL_OVERLAP_CASES:
-                recs = [r[name] for r in every]
+            for name in mine:
+                recs = [r[0][name] for r in every]
                 m = {'shape_ok': all(r['shape_ok'] for r in recs),
                      'resolved': recs[0]['resolved']}
                 for key in recs[0]:
@@ -212,6 +344,8 @@ def run(rank: int, port: int, out: str, device: str) -> None:
                         ref = max(r[key][1] for r in recs)
                         m[key] = err / ref
                 merged[name] = m
+            for name in swaps:
+                merged[f'swap/{name}'] = all(r[1][name] for r in every)
             with open(out, 'w') as fh:
                 json.dump(merged, fh)
     finally:
@@ -219,5 +353,13 @@ def run(rank: int, port: int, out: str, device: str) -> None:
 
 
 if __name__ == '__main__':
-    device = sys.argv[3] if len(sys.argv) > 3 else 'cpu'
-    mp.spawn(run, args=(int(sys.argv[2]), sys.argv[1], device), nprocs=WORLD, join=True)
+    ap = argparse.ArgumentParser()
+    ap.add_argument('out')
+    ap.add_argument('port', type=int)
+    ap.add_argument('device', nargs='?', default='cpu', choices=('cpu', 'cuda'))
+    ap.add_argument('--mesh', default='2x2', choices=sorted(POD_TREES))
+    ap.add_argument('--suite', default='base', choices=('base', 'strategies'))
+    args = ap.parse_args()
+    rows, cols = (int(v) for v in args.mesh.split('x'))
+    mp.spawn(run, args=(args.port, args.out, args.device, args.mesh, args.suite),
+             nprocs=rows * cols, join=True)

@@ -140,7 +140,10 @@ def emulate_pencil(re: torch.Tensor, im: torch.Tensor, inverse: bool = False):
 def emulate_fused(re: torch.Tensor, im: torch.Tensor, wr=None, wi=None,
                   inverse: bool = False):
     """``radix8_fused_kernel`` on planar fp32 (..., b, n) -> (..., n, b),
-    with an optional twiddle of the input's shape."""
+    with an optional twiddle broadcastable to the input, read as the
+    kernel reads it: the flat planes and slice stride the wrapper passes
+    (``fft_fused._twiddle_planes``), element (l, j, k) at
+    ``l * wstride + j * n + k``."""
     *lead, b, n = re.shape
     nl = math.prod(lead)
     P = tkf.tile_layout(n, b)[0]
@@ -150,7 +153,8 @@ def emulate_fused(re: torch.Tensor, im: torch.Tensor, wr=None, wi=None,
     lds = n + 32 // P
     out = [torch.full((nl, n, b), math.nan) for _ in range(2)]
     x = [a.reshape(nl, b, n) for a in (re, im)]
-    w = None if wr is None else [a.reshape(nl, b, n) for a in (wr, wi)]
+    twr, twi, wstride = tkf._twiddle_planes(re, wr, wi)
+    w = None if twr is None else [a.reshape(-1) for a in (twr, twi)]
     scale = torch.tensor(1.0 / n if inverse else 1.0, dtype=torch.float32)
     t = torch.arange(T)
     for tile in range(tiles):               # one block per (slice, tile)
@@ -170,8 +174,10 @@ def emulate_fused(re: torch.Tensor, im: torch.Tensor, wr=None, wi=None,
             ur, ui = v[j][0] * scale, v[j][1] * scale
             if w is not None:
                 tr, ti = torch.zeros(nl, P, T), torch.zeros(nl, P, T)
-                tr[:, :rows] = w[0][:, j0:j0 + rows, t + T * j]
-                ti[:, :rows] = w[1][:, j0:j0 + rows, t + T * j]
+                at = (torch.arange(nl)[:, None, None] * wstride
+                      + ((j0 + torch.arange(rows)) * n)[None, :, None] + (t + T * j))
+                tr[:, :rows] = w[0][at]
+                ti[:, :rows] = w[1][at]
                 ur, ui = ur * tr - ui * ti, ur * ti + ui * tr
             addr = (torch.arange(P) * lds)[:, None] + t + T * j
             stage[0][:, addr], stage[1][:, addr] = ur, ui

@@ -115,17 +115,13 @@ PICKS = {
 @pytest.mark.parametrize("shape, mesh", list(PICKS), ids=lambda v: str(v))
 def test_default_plans_resolve_to_the_pick(shape, mesh):
     """``plan``/``rplan`` with no options on an abstract mesh resolve to
-    the selector's pick, or raise naming 'Other strategies' where the
-    pick is a strategy the port cannot run; nothing falls back."""
+    the selector's pick and plan it, ppermute on 1 x 4 included; a plan
+    on an abstract mesh prices and cannot run."""
     am = abstract_fft_mesh(*mesh)
     for make, want in zip((tfft.plan, tfft.rplan), PICKS[(shape, mesh)]):
         sel = rcost.select(shape, _layout(shape), dict(am.shape), measured=None,
                            real=make is tfft.rplan)
         assert (sel.strategy, sel.overlap_chunks, sel.method) == want
-        if want[0] != 'all_to_all':
-            with pytest.raises(NotImplementedError, match='Other strategies'):
-                make(shape, am)
-            continue
         p = make(shape, am)
         assert (p.comm, p.overlap_chunks, p.method) == want
         with pytest.raises(RuntimeError, match='cannot run'):
@@ -300,11 +296,12 @@ def test_strategy_costs_match_reference():
 
 
 def test_only_all_to_all_can_swap():
-    assert tstrat.check_runnable('all_to_all') == 'all_to_all'
-    for name in ('ppermute', 'hierarchical', 'pod_tree:x.2*y.2'):
-        with pytest.raises(NotImplementedError, match='Other strategies'):
-            tstrat.check_runnable(name)
-        with pytest.raises(NotImplementedError, match='Other strategies'):
+    """Every strategy swaps now, not all_to_all alone: ``check_runnable``
+    passes each registered name and pod tree, and a swap on an abstract
+    mesh (no process group) raises rather than falling back."""
+    for name in ('all_to_all', 'ppermute', 'hierarchical', 'pod_tree:x.2*y.2'):
+        assert tstrat.check_runnable(name) == name
+        with pytest.raises(RuntimeError):
             tstrat.get(name).swap_start(torch.zeros(4, 4), abstract_fft_mesh(2, 2), 'x',
                                         shard_pos=0, mem_pos=1)
     with pytest.raises(ValueError, match='unknown comm strategy'):

@@ -154,3 +154,31 @@ def test_rplan_on_the_card(gen, method, counts):
     assert y.shape == ref.shape
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
     assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5
+
+
+@pytest.mark.parametrize("real", [False, True], ids=['complex', 'real'])
+def test_rank1_stockham_plan_on_the_card(gen, real):
+    """A rank-1 plan of n = 2^16 (256 x 256) with method='stockham': the
+    complex four-step runs 2 ``fft_fused`` launches a direction, the
+    column superstep's with the twiddle planes; the real one runs r2c
+    columns and rows on ``fft_pencil``. Forward against torch.fft.fft /
+    rfft of each signal and the round trip, relative L2 <= 1e-5."""
+    n = 1 << 16
+    p = (fft.rplan if real else fft.plan)((n,), make_fft_mesh(1, 1), method='stockham')
+    x = (torch.randn((3, n), generator=gen, device='cuda') if real
+         else torch.complex(*_planar((3, n), gen)))
+    kernels.reset_launch_counts()
+    y = p.forward(x)
+    fwd = (kernels.launch_counts(), fft_fused.launches_twiddle)
+    x2 = p.inverse(y)
+    if real:
+        assert fwd[0] == {'fft_pencil': 2, 'fft_fused': 0, 'fft_matmul': 0, 'fft_block': 0}
+        assert kernels.launch_counts()['fft_pencil'] == 4
+    else:
+        assert fwd == ({'fft_pencil': 0, 'fft_fused': 2, 'fft_matmul': 0, 'fft_block': 0}, 1)
+        assert (fft_fused.launches, fft_fused.launches_twiddle) == (4, 2)
+        assert fft_fused.launches_radix8 == 4
+    ref = torch.fft.rfft(x) if real else torch.fft.fft(x)
+    assert y.shape == ref.shape
+    assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+    assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5

@@ -1,6 +1,7 @@
 """The port's distributed FFT on 4 gloo CPU ranks (a 2 x 2 mesh, 16^3
 and 16 x 32 with comm='all_to_all'; 64^3 planned by the selector or with
-overlap_chunks=2), run by ``_torch_multirank_worker.py`` in a subprocess.
+overlap_chunks=2; rank 1 at n = 4096, complex and real, planned by the
+selector), run by ``_torch_multirank_worker.py`` in a subprocess.
 
 Tolerances, each a max gap over all ranks divided by the largest
 magnitude of its reference:
@@ -16,7 +17,9 @@ magnitude of its reference:
   cast per swap);
 * a pipelined plan against the same plan with overlap_chunks=1, forward
   and inverse: 0 (bitwise), for every method and wire: chunking only
-  regroups pencils whose arithmetic is independent of one another.
+  regroups pencils whose arithmetic is independent of one another;
+* a plan on another strategy against the same plan on all_to_all: 0
+  (bitwise), the swaps being pure data movement.
 """
 import json
 import os
@@ -30,7 +33,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from _torch_multirank_worker import (  # noqa: E402
-    CASES, OVERLAP_CASES, REAL_CASES, REAL_OVERLAP_CASES)
+    CASES, OVERLAP_CASES, RANK1_CASES, REAL_CASES, REAL_OVERLAP_CASES)
 
 WIRE_BOUNDS = {'fp16': 1.5e-3, 'bf16': 1.2e-2}
 
@@ -41,13 +44,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope='module')
-def results(tmp_path_factory):
-    out = tmp_path_factory.mktemp('multirank') / 'results.json'
+def run_worker(out, *args) -> dict:
+    """``_torch_multirank_worker.py`` on gloo CPU ranks with ``args``
+    (``--mesh``, ``--suite``); its records by case name."""
     subprocess.run([sys.executable, os.path.join(HERE, '_torch_multirank_worker.py'),
-                    str(out), str(_free_port())], check=True, timeout=300)
+                    str(out), str(_free_port()), *args], check=True, timeout=300)
     with open(out) as fh:
         return json.load(fh)
+
+
+@pytest.fixture(scope='module')
+def results(tmp_path_factory):
+    return run_worker(tmp_path_factory.mktemp('multirank') / 'results.json')
 
 
 @pytest.mark.parametrize("name, shape, kw", CASES, ids=[c[0] for c in CASES])
@@ -117,3 +125,67 @@ def test_multirank_overlap_case(results, name, shape, kw):
         assert r['fwd_vs_single'] == 0.0
     else:
         assert r['fwd_vs_single'] <= 1e-6
+
+
+#: the reference's rank-1 picks at n = 4096 on 2 x 2 (``repro.fft.api.
+#: _resolve_comm_1d``, no measured table): (strategy, chunks, method)
+RANK1_PICKS = {
+    'r1_default': ['hierarchical', 1, 'four_step'],
+    'r1_stockham': ['hierarchical', 1, 'stockham'],
+    'r1_overlap': ['hierarchical', 2, 'stockham'],
+    'r1_fp16': ['all_to_all', 1, 'stockham'],
+    'r1_real_default': ['hierarchical', 1, 'auto'],
+    'r1_real_stockham': ['hierarchical', 1, 'stockham'],
+}
+
+
+@pytest.mark.parametrize("name, shape, kw", RANK1_CASES, ids=[c[0] for c in RANK1_CASES])
+def test_multirank_rank1_case(results, name, shape, kw):
+    """Rank-1 plans on the 2 x 2 mesh resolve to the reference's pick
+    (the default one to ``hierarchical``) and run it: each rank's run of
+    the signal (or, real, the whole spectrum on every rank) against
+    np.fft.fft / rfft and the single-process result, bitwise where the
+    method is Stockham; bitwise equal to the same plan on all_to_all and
+    to its own unchunked self."""
+    check_rank1(results[name], kw, RANK1_PICKS[name])
+
+
+def check_rank1(r, kw, pick):
+    assert r['shape_ok']
+    assert r['resolved'] == pick
+    if pick[0] != 'all_to_all':
+        assert r['fwd_vs_all_to_all'] == 0.0 and r['inv_vs_all_to_all'] == 0.0
+    if pick[1] > 1:
+        assert r['fwd_vs_unchunked'] == 0.0 and r['inv_vs_unchunked'] == 0.0
+    wire = kw.get('wire_dtype', 'native')
+    if wire != 'native':
+        for key in ('fwd_vs_native_wire', 'fwd_vs_numpy', 'roundtrip'):
+            assert r[key] <= WIRE_BOUNDS[wire], key
+        assert r['fwd_vs_native_wire'] > 0
+        return
+    assert r['fwd_vs_numpy'] <= 1e-5
+    assert r['roundtrip'] <= 1e-5
+    if pick[2] in ('stockham', 'block'):
+        assert r['fwd_vs_single'] == 0.0
+    else:
+        assert r['fwd_vs_single'] <= 1e-6
+
+
+def check_strategy_plan(r, kw, comm):
+    """A plan of the strategies suite (``STRATEGY_PLANS``, Stockham) on
+    ``comm``: bitwise equal to all_to_all's, to its unchunked self and to
+    one process; within 1e-5 of numpy (a 16-bit wire within its bound)."""
+    assert r['shape_ok']
+    assert r['resolved'][:2] == [comm, kw.get('overlap_chunks', 1)]
+    assert r['fwd_vs_all_to_all'] == 0.0 and r['inv_vs_all_to_all'] == 0.0
+    if r['resolved'][1] > 1:
+        assert r['fwd_vs_unchunked'] == 0.0 and r['inv_vs_unchunked'] == 0.0
+    wire = kw.get('wire_dtype', 'native')
+    if wire != 'native':
+        for key in ('fwd_vs_native_wire', 'fwd_vs_numpy', 'roundtrip'):
+            assert r[key] <= WIRE_BOUNDS[wire], key
+        assert r['fwd_vs_native_wire'] > 0
+        return
+    assert r['fwd_vs_numpy'] <= 1e-5
+    assert r['roundtrip'] <= 1e-5
+    assert r['fwd_vs_single'] == 0.0

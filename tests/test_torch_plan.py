@@ -183,23 +183,29 @@ def test_operand_checks(meshes):
     (dict(shape=(512,) * 3, mesh=(1, 4), real=True), 'Other strategies'),
 ])
 def test_later_slices_raise_with_their_roadmap_item(meshes, kw, item):
-    """Rank 1, operator plans, and a default plan whose selector pick is
-    a strategy the port cannot swap yet (ppermute on a 1 x 4 mesh): each
-    raises at plan time, naming its ROADMAP item."""
+    """Rank 1 ('Rank 1/2') and a default plan whose pick is ppermute (on
+    a 1 x 4 mesh, 'Other strategies') are ported and now plan, to the
+    reference's pick; operator plans still raise at plan time, naming
+    their ROADMAP item."""
     _, tmesh = meshes
     kw = dict(kw)
     shape = kw.pop('shape')
     mesh = abstract_fft_mesh(*kw.pop('mesh')) if 'mesh' in kw else tmesh
-    with pytest.raises(NotImplementedError, match=item):
-        tfft.plan(shape, mesh, **kw)
+    p = tfft.plan(shape, mesh, **kw)
+    if item == 'Rank 1/2':
+        assert (p.rank, p.comm, p.in_layout) == (1, 'all_to_all', (('x', 'y'),))
+        assert p.out_layout == ((None,) if p.real else p.in_layout)
+    else:
+        assert (p.comm, p.overlap_chunks, p.method) == (
+            ('ppermute', 1, 'four_step') if p.real else ('ppermute', 8, 'four_step'))
     with pytest.raises(NotImplementedError, match='Operator plans'):
         tfft.plan_op(shape, mesh, **kw)
 
 
 def test_multirank_auto_comm_needs_the_selector():
     """On a 2 x 2 mesh the default plan resolves through the ported
-    selector to the reference's pick; an explicit strategy the port
-    cannot swap raises at plan time, naming its ROADMAP item."""
+    selector to the reference's pick; an explicit strategy other than
+    all_to_all (ppermute here) plans as asked, with one overlap chunk."""
     four = abstract_fft_mesh(2, 2)
     for shape, real in [((16,) * 3, False), ((64,) * 3, False), ((64,) * 3, True)]:
         sel = rcost.select(shape, ('x', 'y', None), dict(four.shape), real=real,
@@ -209,8 +215,8 @@ def test_multirank_auto_comm_needs_the_selector():
             sel.strategy, sel.overlap_chunks, sel.method)
     assert (p.comm, p.overlap_chunks) == ('all_to_all', 1)
     assert api.plan((64,) * 3, four).overlap_chunks == 8
-    with pytest.raises(NotImplementedError, match='Other strategies'):
-        api.plan((16, 16, 16), four, comm='ppermute')
+    p = api.plan((16, 16, 16), four, comm='ppermute')
+    assert (p.comm, p.overlap_chunks, p.method) == ('ppermute', 1, 'auto')
     p = api.plan((16, 16, 16), four, comm='all_to_all')
     assert (p.comm, p.overlap_chunks, p.method) == ('all_to_all', 1, 'auto')
     assert p.local_shape(p.in_layout) == (8, 8, 16)

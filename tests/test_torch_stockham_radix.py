@@ -164,14 +164,19 @@ def test_pencil_emulation_matches_plain_and_pallas(n):
         assert _rel(got, want) <= RTOL
 
 
-@pytest.mark.parametrize("twiddle", [False, True])
+@pytest.mark.parametrize("twiddle", [False, True, 'shared'])
 @pytest.mark.parametrize("n", LENGTHS)
 def test_fused_emulation_matches_plain_and_pallas(n, twiddle):
-    """Rows (3, 29, n): the last tile of each slice is ragged."""
+    """Rows (3, 29, n): the last tile of each slice is ragged. The
+    twiddle is one a slice (3, 29, n), or one (29, n) plane that the 3
+    slices share, as rank 1's is, which the wrapper passes in place at
+    a slice stride of 0."""
     x = _planar((3, 29, n))
-    w = _planar((3, 29, n)) if twiddle else [None, None]
+    w = {False: [None, None], True: _planar((3, 29, n)), 'shared': _planar((29, n))}[twiddle]
     xt = [torch.from_numpy(a) for a in x]
     wt = [None if a is None else torch.from_numpy(a) for a in w]
+    if twiddle:
+        assert tkf._twiddle_planes(xt[0], *wt)[2] == (0 if twiddle == 'shared' else 29 * n)
     for inverse in (False, True):
         got = emulate_fused(*xt, *wt, inverse=inverse)
         assert got[0].shape == (3, n, 29)
