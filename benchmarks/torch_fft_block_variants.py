@@ -5,8 +5,8 @@ Run from the root of a checkout, on the machine with the card:
     python3 benchmarks/torch_fft_block_variants.py
 
 Each variant is ``src/repro_torch/csrc/fft_block.cu`` and the header it
-includes, ``csrc/four_step_mma.cuh`` (the tensor-core body, shared with
-``fft_matmul``), with exact text edits: an edit applies to whichever of
+includes, ``csrc/four_step_mma.cuh`` (the tensor-core body, both its
+splits, shared with ``fft_matmul``), with exact text edits: an edit applies to whichever of
 the two files holds its text (today every edit lands in the header), and
 an edit that matches neither fails the run. Each variant's two files are
 written to ``build/variants/<variant>/``, the header beside the source
@@ -16,7 +16,8 @@ where its quoted include finds it, and built with the port's own
 * ``committed``: the source as it is;
 * ``chained``: every mma of a k-step accumulates straight into the
   running sum (no fresh accumulator per k-step), the plain 3xTF32 order;
-* ``unrolled``: every k-loop unrolled in full at every length;
+* ``unrolled``: every k-loop unrolled in full at every length (the
+  committed unrolling of each length is the fastest without spills);
 * ``cvt_rna``: the data rounded to TF32 by ``cvt.rna.tf32.f32`` in place
   of the two integer operations that round the same way;
 * ``no_products``: no mma (the accumulators stay 0): the tile loads, the
@@ -26,8 +27,9 @@ where its quoted include finds it, and built with the port's own
   the products alone, on whatever shared memory holds.
 
 For each it prints ``ptxas``'s registers and spill bytes of each
-``block_mma_kernel`` instance, then at every length the body takes
-(262,144 pencils; 131,072 at n = 1024) the median of 20 launches by CUDA
+``block_mma_kernel`` and ``block_mma3_kernel`` instance, then at every
+length the body takes (262,144 pencils up to n = 512, then 2^27 / n) the
+median of 20 launches by CUDA
 events, queued back to back, the variants taken in turns (in order, then
 in reverse), and the relative L2 error of the first 8,192 pencils
 against ``torch.fft.fft`` in float64 (meaningless for the last two). The
@@ -48,12 +50,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / 'src'))
 
-from repro_torch.core.twiddle import four_step_factors  # noqa: E402
 from repro_torch.kernels import _build, fft_block  # noqa: E402
 
 OUT = ROOT / 'build' / 'variants'
 HEADER = 'four_step_mma.cuh'
-SHAPES = ((64, 262144), (128, 262144), (256, 262144), (512, 262144), (1024, 131072))
+SHAPES = ((64, 262144), (128, 262144), (256, 262144), (512, 262144), (1024, 131072),
+          (2048, 65536), (4096, 32768))
 CHECKED = 8192
 
 VARIANTS = {
@@ -61,7 +63,8 @@ VARIANTS = {
     'chained': [('  float d[4] = {0.f, 0.f, 0.f, 0.f};\n', '  float (&d)[4] = acc;\n'),
                 ('#pragma unroll\n  for (int e = 0; e < 4; ++e) acc[e] += d[e];\n', '')],
     'unrolled': [(f'MmaShape<{a}, {b}, {u}, {v}>', f'MmaShape<{a}, {b}, 0, 0>')
-                 for a, b, u, v in ((16, 8, 1, 1), (16, 16, 0, 1), (32, 16, 1, 1))],
+                 for a, b, u, v in ((16, 8, 1, 1), (16, 16, 0, 1), (32, 16, 1, 1))]
+                + [('Mma3Shape<16, 16, 16, 1, 1>', 'Mma3Shape<16, 16, 16, 0, 0>')],
     'cvt_rna': [('  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;\n',
                  '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n'
                  '  return r;\n')],
@@ -69,7 +72,9 @@ VARIANTS = {
                     ('add_3xtf32(acc[i][j], ab[i], as[i], bb, bs);', '{}')],
     'no_memory': [('load_tile<S>(', 'if (scale == 0.f) load_tile<S>('),
                   ('        y[0] = acc', '        if (scale == 0.f) y[0] = acc'),
-                  ('        y[S::N1] = acc', '        if (scale == 0.f) y[S::N1] = acc')],
+                  ('        y[S::N1] = acc', '        if (scale == 0.f) y[S::N1] = acc'),
+                  ('        y[S::N1 * S::N2] = acc',
+                   '        if (scale == 0.f) y[S::N1 * S::N2] = acc')],
 }
 
 
@@ -94,7 +99,7 @@ def build(name: str, edits) -> tuple:
 def ptxas(log: str) -> list:
     out = []
     for ln in log.splitlines():
-        m = re.search(r'block_mma_kernelI((?:Li\d+E)+)E', ln)
+        m = re.search(r'block_mma3?_kernelI((?:Li\d+E)+)E', ln)
         if 'Compiling entry function' in ln:
             out.append(['<' + ','.join(re.findall(r'Li(\d+)E', m.group(1))) + '>' if m else None])
         elif out and 'spill stores' in ln:
@@ -133,21 +138,20 @@ def main() -> None:
         print(json.dumps({'variant': name, 'ptxas': ptxas(log)}), flush=True)
         libs[name] = ctypes.CDLL(str(path))
         _build.declare(libs[name], 'fft_block_mma_launch', 7,
-                       (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float))
+                       (ctypes.c_longlong, ctypes.c_int, ctypes.c_float))
     gen = torch.Generator(device='cuda').manual_seed(0)
     rows = {name: {} for name in VARIANTS}
     for n, batch in SHAPES:
-        n1, n2 = four_step_factors(n)
         x = torch.randn((2, batch, n), generator=gen, device='cuda')
         ref = torch.fft.fft(torch.complex(x[0, :CHECKED].double(), x[1, :CHECKED].double()))
         ref = torch.stack([ref.real, ref.imag])
         y = torch.empty_like(x)
-        fa, fb, w = fft_block.mma_tables(n1, n2, False, x.device)
+        fa, fb, w = fft_block.mma_tables_for(n, False, x.device)
         for name in list(VARIANTS) + list(VARIANTS)[::-1]:
             def call(lib=libs[name]):
                 err = lib.fft_block_mma_launch(
                     x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(),
-                    fa.data_ptr(), fb.data_ptr(), w.data_ptr(), batch, n1, n2, 1.0,
+                    fa.data_ptr(), fb.data_ptr(), w.data_ptr(), batch, n, 1.0,
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err} at n={n}")

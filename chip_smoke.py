@@ -17,20 +17,23 @@ Phases, each printing one line and raising on any failure:
    ``fft_block`` also at the real path's 262,144 half pencils of 256),
    plus ragged batches of every length 2..4096, the fused kernel with
    a random twiddle, both tensor-core kernels on planes one float
-   past a 16-byte boundary, and the rank-1 paths' shapes (``fft_matmul``
-   on 32,768 pencils of 4096 and of 2048 and on 16,392 of 4096,
-   ``fft_twiddle_transpose`` on (8, 4096, 4096) with twiddle planes of
-   (4096, 4096) and without); with its median time, the plain version's,
+   past a 16-byte boundary (at 512 and 4096), and the rank-1 paths'
+   shapes (``fft_matmul`` and ``fft_block`` on 32,768 pencils of 4096
+   and of 2048 and on 16,392 of 4096, ``fft_twiddle_transpose`` on
+   (8, 4096, 4096) with twiddle planes of (4096, 4096) and without);
+   with its median time, the plain version's,
    one PyTorch library call's (``torch.fft.fft``, a yardstick the port
    never calls) and its bound. ``fft_pencil`` and
    ``fft_twiddle_transpose`` also print the body their launches run
    (``variant``: 'radix8', the register-resident body, for
    2 <= n <= 4096), its block, and the radix-2 body's time on the same
    input (``radix2_ms``). ``fft_matmul`` and ``fft_block`` print theirs
-   (``variant``: 'mma', the shared tensor-core four-step of
-   ``csrc/four_step_mma.cuh``, for 64 <= n <= 1024, else 'fma'), its
-   shared bytes and blocks an SM (``fft_matmul`` its registers too),
-   and the CUDA-core body's time on the same input (``fma_ms``);
+   (``variant``: 'mma', the shared tensor-core body of
+   ``csrc/four_step_mma.cuh``, for 64 <= n <= 4096, else 'fma'), the
+   split it runs (``factors``: two at n <= 1024, 16x16xn3 at 2048 and
+   4096), its shared bytes and blocks an SM (``fft_matmul`` its
+   registers too), and the CUDA-core body's time on the same input
+   (``fma_ms``);
 3. the main path with the default plan, ``plan((512,)*3, make_fft_mesh(1, 1))``
    (resolves to four_step / all_to_all): forward against ``torch.fft.fftn``,
    the round trip, and 3 ``fft_matmul`` launches per direction, all of
@@ -66,14 +69,18 @@ Phases, each printing one line and raising on any failure:
 9. the rank-1 paths on a batch of 8 signals of n = 2^24 (the 1 GiB of
    the 512^3 paths), each a four-step of 4096 x 4096: ``large1d``
    (``plan((1 << 24,), mesh)``, four_step: 2 ``fft_matmul`` a direction,
-   on the CUDA-core body, n = 4096), ``large1d_stockham``
+   on the tensor-core three-factor body, n = 4096), ``large1d_stockham``
    (``method='stockham'``: 2 ``fft_fused`` a direction, the column
    superstep's with the twiddle planes, ``launches_twiddle``) and
    ``rlarge1d`` (``rplan((1 << 24,), mesh)``, four_step: 2
    ``fft_matmul`` a direction, the r2c columns at 2048 and the rows at
-   4096), each held against ``torch.fft.fft`` / ``rfft`` of each signal
-   (the largest relative L2 of the 8);
-10. a ``kernels`` JSON line, the card line and, last, the result line.
+   4096, both on the three-factor body), each held against
+   ``torch.fft.fft`` / ``rfft`` of each signal (the largest relative L2
+   of the 8);
+10. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
+   their rank-1 shapes under ``rank1``: the instance each ran, its
+   registers and spills, and its times), the card line and, last, the
+   result line.
 
 The five serial paths resolve through the cost-model selector, as a
 user's default plan does, to one overlap chunk. Each path prints its
@@ -177,6 +184,9 @@ COUNTER = {'fft_pencil': 'fft_pencil', 'fft_twiddle_transpose': 'fft_fused',
 
 #: the measured keys of each kernel's record in the ``kernels`` JSON line
 JSON_KEYS = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+#: and of each rank-1 shape listed under a four-step kernel's ``rank1``
+RANK1_KEYS = ('n', 'pencils', 'instance', 'registers', 'spill_bytes', 'smem_bytes',
+              'blocks_per_sm') + JSON_KEYS + ('fma_ms',)
 
 
 def say(phase: str, **kw) -> None:
@@ -236,7 +246,14 @@ def check(name, got, want, where) -> float:
     return err
 
 
-def phase_card() -> str:
+#: the kernels whose spills fail the run: the tensor-core bodies (both
+#: splits) and the radix-8 Stockham bodies
+NO_SPILLS = re.compile(r'_mma3?_kernel|radix8_')
+
+
+def phase_card() -> tuple:
+    """The card line, after building the kernels; and each kernel's
+    ptxas entry (registers, spill bytes) by its name."""
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader', '-i', '0'],
         check=True, capture_output=True, text=True).stdout.strip()
@@ -244,15 +261,17 @@ def phase_card() -> str:
         device=repr(torch.cuda.get_device_name(0)))
     t0 = time.perf_counter()
     _build.build()
+    report = {}
     for name in _build.SOURCES:
         for entry in ptxas_report(_build.build_log(name)):
             entry.update(radix8_shared(entry['kernel']))
             say('build', source=name, **entry)
-            if ('_mma_kernel' in entry['kernel'] or 'radix8_' in entry['kernel']) and (
-                    entry['spill_stores'] or entry['spill_loads']):
+            if NO_SPILLS.search(entry['kernel']) and (entry['spill_stores']
+                                                     or entry['spill_loads']):
                 raise AssertionError(f"{entry['kernel']} spills: {entry}")
+            report[entry['kernel']] = entry
     say('build', seconds=f"{time.perf_counter() - t0:.1f}")
-    return card
+    return card, report
 
 
 def radix8_shared(kernel: str) -> dict:
@@ -308,7 +327,7 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def phase_kernels(gen) -> dict:
+def phase_kernels(gen, ptxas: dict) -> dict:
     """Each kernel against its plain version; returns name -> record."""
     rec = {}
     x = planar((N, N, N), gen)
@@ -363,7 +382,9 @@ def phase_kernels(gen) -> dict:
         say('kernel', name=name, n=N // 2, pencils=N * N, tol=KERNEL_RTOL,
             **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
     kernel_unaligned(gen)
-    kernels_large1d(gen)
+    rank1 = kernels_large1d(gen, ptxas)
+    for name in rank1:
+        rec[name]['rank1'] = rank1[name]
 
     # ragged tiles and other lengths: every n the kernels take
     for n in (1 << k for k in range(1, 13)):
@@ -389,7 +410,8 @@ def phase_kernels(gen) -> dict:
                   f"(3, 29, {n}) with a twiddle a slice")
     for name, r in rec.items():
         say('kernel', name=name, tol=KERNEL_RTOL,
-            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()
+               if k != 'rank1'})
     return rec
 
 
@@ -397,12 +419,14 @@ def tensor_core_extras(module, x: tuple, n: int, pencils: int) -> dict:
     """What ``fft_matmul`` and ``fft_block`` print beside their times: the
     CUDA-core body's time on the same planes (``fma_ms``), a yardstick in
     the same run, the dense products' time at the fp32 CUDA-core peak
-    (``dense_flop_ms``) and what the launch runs (``launch_info``: body,
-    pencils a tile, shared bytes, blocks an SM; registers for fft_matmul)."""
-    n1, n2 = four_step_factors(n)
+    (``dense_flop_ms``: 8 n flop an element for each factor of the split
+    the launch runs) and what the launch runs (``launch_info``: body,
+    split, pencils a tile, shared bytes, blocks an SM; registers for
+    fft_matmul)."""
+    factors = fft_block.mma_factors(n) if module.variant(n) == 'mma' else four_step_factors(n)
     y = tuple(torch.empty_like(p) for p in x)
     return dict(fma_ms=time_ms(lambda: module._launch(*x, *y, n, False, _body='fma'), 20),
-                dense_flop_ms=8.0 * n * (n1 + n2) * pencils / FP32_FLOP_PER_S * 1e3,
+                dense_flop_ms=8.0 * n * sum(factors) * pencils / FP32_FLOP_PER_S * 1e3,
                 **module.launch_info(n, pencils))
 
 
@@ -431,36 +455,53 @@ def kernels_four_step(gen, n: int) -> dict:
     return rec
 
 
-def kernels_large1d(gen) -> None:
+def kernels_large1d(gen, ptxas: dict) -> dict:
     """The kernels at the rank-1 paths' shapes, each against its plain
-    version: ``fft_matmul`` on the 8 x 4096 pencils of 4096 (``large1d``'s
-    columns and rows) and of 2048 (``rlarge1d``'s r2c columns), with its
-    times and bound, and on ``rlarge1d``'s 8 x 2049 row pencils of 4096;
-    ``fft_twiddle_transpose`` on the (8, 4096, 4096) column superstep with
-    twiddle planes of (4096, 4096), with its times and bound, and without
-    them (``large1d_stockham``'s row superstep)."""
+    version: ``fft_matmul`` and ``fft_block`` (planar, as the paths call
+    both) on the 8 x 4096 pencils of 4096 (``large1d``'s columns and rows)
+    and of 2048 (``rlarge1d``'s r2c columns), both on the three-factor
+    tensor-core body, with their times, the CUDA-core body's
+    (``fma_ms``), the library's and the bound, and on ``rlarge1d``'s 8 x
+    2049 row pencils of 4096; ``fft_twiddle_transpose`` on the (8, 4096, 4096) column
+    superstep with twiddle planes of (4096, 4096), with its times and
+    bound, and without them (``large1d_stockham``'s row superstep).
+    Returns name -> the records of ``fft_matmul`` and ``fft_block``, each
+    with the instance it ran and that instance's registers and spills."""
     b = LARGE1D_BATCH[0] * 4096
+    rows = LARGE1D_BATCH[0] * (2048 + 1)
+    out = {'fft_matmul': [], 'fft_block': []}
     for n in (4096, 2048):
         x = planar((b, n), gen)
-        err = max(check('fft_matmul', fft_matmul.fft_matmul(*x, inverse=inv),
-                        fft_matmul.fft_matmul_plain(*x, inverse=inv),
-                        f"({b}, {n}) inverse={inv}") for inv in (False, True))
-        if n == 4096:
-            rows = LARGE1D_BATCH[0] * (2048 + 1)
-            err = max(err, *(check('fft_matmul',
-                                   fft_matmul.fft_matmul(*(p[:rows] for p in x), inverse=inv),
-                                   fft_matmul.fft_matmul_plain(*(p[:rows] for p in x),
-                                                               inverse=inv),
-                                   f"({rows}, {n}) inverse={inv}")
-                             for inv in (False, True)))
         xc = torch.complex(*x)
+        lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 10)
         bnd, by = bound(b * n, fft_flops(n, b))
-        say('kernel', name='fft_matmul', n=n, pencils=b, tol=KERNEL_RTOL,
-            max_abs_err=f"{err:.6g}",
-            ms=f"{time_ms(lambda: fft_matmul.fft_matmul(*x), 10):.6g}",
-            plain_ms=f"{time_ms(lambda: fft_matmul.fft_matmul_plain(*x), 3):.6g}",
-            library_ms=f"{time_ms(lambda: torch.fft.fft(xc, dim=-1), 10):.6g}",
-            bound_ms=f"{bnd:.6g}", bound_by=by, **fft_matmul.launch_info(n, b))
+        runs = (('fft_matmul', fft_matmul, 'matmul', lambda v, inv: fft_matmul.fft_matmul(
+                    *v, inverse=inv), lambda v, inv: fft_matmul.fft_matmul_plain(*v, inverse=inv)),
+                ('fft_block', fft_block, 'block', lambda v, inv: fft_block.fft_block_planar(
+                    *v, inverse=inv), lambda v, inv: fft_block.fft_block_plain(
+                    torch.stack(v), inverse=inv)))
+        for name, module, stem, run, plain in runs:
+            err = max(check(name, run(x, inv), plain(x, inv), f"({b}, {n}) inverse={inv}")
+                      for inv in (False, True))
+            if n == 4096:
+                part = tuple(p[:rows] for p in x)
+                err = max(err, *(check(name, run(part, inv), plain(part, inv),
+                                       f"({rows}, {n}) inverse={inv}")
+                                 for inv in (False, True)))
+            info = tensor_core_extras(module, x, n, b)
+            if info['variant'] != 'mma':
+                raise AssertionError(f"{name}: n={n} runs the {info['variant']} body")
+            instance = next(k for k in ptxas if k.startswith(
+                f"{stem}_mma3_kernel<{info['factors'].replace('x', ',')},"))
+            r = dict(n=n, pencils=b, max_abs_err=err,
+                     ms=time_ms(lambda: run(x, False), 10),
+                     plain_ms=time_ms(lambda: plain(x, False), 3), library_ms=lib,
+                     bound_ms=bnd, bound_by=by, **info, instance=instance)
+            r.update(registers=ptxas[instance]['registers'],
+                     spill_bytes=ptxas[instance]['spill_stores'] + ptxas[instance]['spill_loads'])
+            say('kernel', name=name, tol=KERNEL_RTOL,
+                **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in r.items()})
+            out[name].append(r)
         del x, xc
     z = planar(LARGE1D_BATCH + (4096, 4096), gen)
     w = planar((4096, 4096), gen)
@@ -487,27 +528,29 @@ def kernels_large1d(gen) -> None:
         library_ms=f"{lib:.6g}", bound_ms=f"{bnd:.6g}", bound_by=by,
         variant=fft_fused.variant(4096), pencils_per_block=P, threads=threads,
         smem_bytes=smem)
+    return out
 
 
 def kernel_unaligned(gen) -> None:
-    """Both tensor-core kernels at n = 512 on planes one float past a
-    16-byte boundary: the body's tile loads take 4-byte copies (``vec``
-    = 0), which no path's allocations reach."""
-    n, batch = N, 37
-    flat = planar((batch * n + 1,), gen)
-    re_, im_ = (t[1:].view(batch, n) for t in flat)
-    if not (re_.data_ptr() % 16 and im_.data_ptr() % 16):
-        raise AssertionError("unaligned check: the planes are 16-byte aligned")
-    xs = torch.stack([re_, im_])
-    for inv in (False, True):
-        err = check('fft_matmul', fft_matmul.fft_matmul(re_, im_, inverse=inv),
-                    fft_matmul.fft_matmul_plain(re_, im_, inverse=inv),
-                    f"({batch}, {n}) at an offset of one float, inverse={inv}")
-        err = max(err, check('fft_block', fft_block.fft_block_planar(re_, im_, inverse=inv),
-                             fft_block.fft_block_plain(xs, inverse=inv),
-                             f"({batch}, {n}) at an offset of one float, inverse={inv}"))
-    say('kernel', check='planes at an offset of one float', n=n, batch=batch,
-        variant=fft_matmul.variant(n), max_abs_err=f"{err:.6g}", tol=KERNEL_RTOL)
+    """Both tensor-core kernels at n = 512 and 4096 (the two splits) on
+    planes one float past a 16-byte boundary: the body's tile loads take
+    4-byte copies (``vec`` = 0), which no path's allocations reach."""
+    batch = 37
+    for n in (N, 4096):
+        flat = planar((batch * n + 1,), gen)
+        re_, im_ = (t[1:].view(batch, n) for t in flat)
+        if not (re_.data_ptr() % 16 and im_.data_ptr() % 16):
+            raise AssertionError("unaligned check: the planes are 16-byte aligned")
+        xs = torch.stack([re_, im_])
+        for inv in (False, True):
+            err = check('fft_matmul', fft_matmul.fft_matmul(re_, im_, inverse=inv),
+                        fft_matmul.fft_matmul_plain(re_, im_, inverse=inv),
+                        f"({batch}, {n}) at an offset of one float, inverse={inv}")
+            err = max(err, check('fft_block', fft_block.fft_block_planar(re_, im_, inverse=inv),
+                                 fft_block.fft_block_plain(xs, inverse=inv),
+                                 f"({batch}, {n}) at an offset of one float, inverse={inv}"))
+        say('kernel', check='planes at an offset of one float', n=n, batch=batch,
+            variant=fft_matmul.variant(n), max_abs_err=f"{err:.6g}", tol=KERNEL_RTOL)
 
 
 def profile(fn) -> dict:
@@ -535,15 +578,14 @@ def profile(fn) -> dict:
 
 def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = False,
                chunks: int = 1, unchunked_rtol: float = 0.0, shape=(N, N, N),
-               batch: tuple = (), tensor_cores: bool = True, twiddled: int = 0,
+               batch: tuple = (), twiddled: int = 0,
                **plan_kw) -> dict:
     """One main path: plan, forward, inverse; returns the launch counts.
     A real path (``rplan``) takes a real operand and is held against
     ``torch.fft.rfftn``; a complex one against ``torch.fft.fftn``, over
     the planned axes of each of the ``batch`` signals (relative L2, the
     largest). Every ``fft_matmul``/``fft_block`` launch must be on the
-    tensor-core body, or with ``tensor_cores=False`` (pencils outside
-    64..1024) none; every ``fft_pencil``/``fft_fused`` launch on the
+    tensor-core body; every ``fft_pencil``/``fft_fused`` launch on the
     radix-8 body; ``twiddled`` ``fft_fused`` launches a direction must
     apply twiddle planes. A pipelined path (``chunks`` > 1) is also held
     against its unchunked plan's forward: bitwise, or within
@@ -594,7 +636,7 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
         if k not in expect and total[k]:
             raise AssertionError(f"{label}: unexpected {k} launches {total[k]}")
     for k, mma in on_mma.items():
-        if mma != (total[k] if tensor_cores else 0):
+        if mma != total[k]:
             raise AssertionError(f"{label}: {mma} of {total[k]} {k} launches on the "
                                  "tensor-core body")
     for k, r8 in on_radix8.items():
@@ -672,9 +714,9 @@ def phase_cost() -> None:
 
 
 def main() -> None:
-    card = phase_card()
+    card, ptxas = phase_card()
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    rec = phase_kernels(gen)
+    rec = phase_kernels(gen, ptxas)
     phase_cost()
     # each path runs its own kernels and no other, so a kernel's count is
     # the one from the path that launched it
@@ -697,12 +739,12 @@ def main() -> None:
                    chunks=8, overlap_chunks=8),
         # rank 1, 4096 x 4096: columns (with the twiddle), then rows
         phase_path('large1d', gen, 'four_step', {'fft_matmul': 2}, shape=LARGE1D,
-                   batch=LARGE1D_BATCH, tensor_cores=False),
+                   batch=LARGE1D_BATCH),
         phase_path('large1d_stockham', gen, 'stockham', {'fft_fused': 2}, shape=LARGE1D,
                    batch=LARGE1D_BATCH, twiddled=1, method='stockham'),
         # r2c columns at 2048, rows at 4096
         phase_path('rlarge1d', gen, 'four_step', {'fft_matmul': 2}, real=True,
-                   shape=LARGE1D, batch=LARGE1D_BATCH, tensor_cores=False),
+                   shape=LARGE1D, batch=LARGE1D_BATCH),
     ]
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []
@@ -712,6 +754,8 @@ def main() -> None:
             raise AssertionError(f"{name} was not launched on the main path")
         out.append(dict(name=name, route='cuda', **meta, launches=n_launch,
                         **{k: rec[name][k] for k in JSON_KEYS}))
+        if 'rank1' in rec[name]:
+            out[-1]['rank1'] = [{k: r[k] for k in RANK1_KEYS} for r in rec[name]['rank1']]
     print(json.dumps({'kernels': out}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

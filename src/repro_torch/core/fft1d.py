@@ -195,6 +195,21 @@ def block_mma_tables(n1: int, n2: int, inverse: bool, device: torch.device):
             tw.table(np.stack(tf32_split(f2b)), device), tw.table(w, device))
 
 
+@functools.lru_cache(maxsize=None)
+def block_mma3_tables(n3: int, inverse: bool, device: torch.device):
+    """The three-factor tensor-core body's tables for n = 16 * 16 * n3 on
+    ``device``: F1b of 16 points and the block F of n3 points as their
+    3xTF32 pairs and W2 (2, 16, n3) = w_{16 n3}^{j2 k3}, all three
+    :func:`block_mma_tables` of (16, n3), then W1 (2, 16, 16 n3) =
+    w_n^{j1 q}, q = k2 n3 + k3, in plain fp32. With
+    b[j1, q] = (F16 x[k1, q])[j1] W1[j1, q], c[j1, j2, k3] = (F16
+    b[j1, k2, k3])[j2] W2[j2, k3] and y[j1 + 16 j2 + 256 j3] = (c F_n3)
+    [j1, j2, j3], y is the DFT of x viewed as (16, 16, n3)."""
+    f1b, f3b, w2 = block_mma_tables(16, n3, inverse, device)
+    w1 = tw.table(np.stack(tw.four_step_twiddle_np(16, 16 * n3, inverse=inverse)), device)
+    return f1b, f3b, w2, w1
+
+
 def fft_four_step_block(x: torch.Tensor, axis: int, *,
                         inverse: bool = False) -> torch.Tensor:
     """Block-complex four-step FFT along ``axis`` of ``x``, whose leading

@@ -16,15 +16,19 @@
 //
 // block_mma_kernel, for 64 <= n <= 1024: the tensor-core four-step of
 // four_step_mma.cuh (3xTF32 mma.sync, cp.async tile loads, persistent
-// blocks), which fft_matmul.cu's matmul_mma_kernel runs too.
+// blocks), which fft_matmul.cu's matmul_mma_kernel runs too;
+// block_mma3_kernel, for n = 2048 and 4096, its three-factor form
+// 16 * 16 * (n / 256) (four_step_mma3, as matmul_mma3_kernel).
 //
-// block_kernel, for every other n (2..32, 2048, 4096): fp32 FMA on the
-// CUDA cores against the TPU kernel's two constants F1b and G
-// (core/fft1d.py:_block_consts_np), of whose c = 1 rows, which repeat the
-// c = 0 rows, it reads the c = 0 half. It keeps F1b, a tile of P pencils,
-// the step-2 result and (for n <= 512) G in shared memory; above that Jc of
-// G's j1-slices are staged at a time for each tile. A ragged last tile is
-// masked in both bodies.
+// block_kernel, for every other n (2..32, and the lengths above 4096 that
+// fit a block), and timed beside the tensor-core body at 2048 and 4096
+// (_launch(..., _body='fma')): fp32 FMA on the CUDA cores against the TPU
+// kernel's two constants F1b and G (core/fft1d.py:_block_consts_np), of
+// whose c = 1 rows, which repeat the c = 0 rows, it reads the c = 0 half.
+// It keeps F1b, a tile of P pencils, the step-2 result and (for n <= 512)
+// G in shared memory; above that Jc of G's j1-slices are staged at a time
+// for each tile. A ragged last tile is masked in block_kernel and
+// block_mma_kernel; block_mma3_kernel's tile is one pencil.
 
 #include "four_step_mma.cuh"
 
@@ -179,6 +183,27 @@ block_mma_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   four_step_mma<MmaShape<N1, N2, U2, U3>>(smem, xr, xi, yr, yi, fa, fb, w, batch, scale, vec);
 }
 
+template <int N1, int N2, int N3, int U12, int U3>
+__global__ void __launch_bounds__(kThreads, 2)
+block_mma3_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* __restrict__ yr, float* __restrict__ yi,
+                  const float* __restrict__ fa, const float* __restrict__ fb,
+                  const float* __restrict__ w, long long batch, float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  four_step_mma3<Mma3Shape<N1, N2, N3, U12, U3>>(smem, xr, xi, yr, yi, fa, fb, w, batch, scale,
+                                                 vec);
+}
+
+// The kernel of this file that runs the tensor-core shape S.
+template <int N1, int N2, int U2, int U3>
+auto mma_kernel_of(MmaShape<N1, N2, U2, U3>) {
+  return block_mma_kernel<N1, N2, U2, U3>;
+}
+template <int N1, int N2, int N3, int U12, int U3>
+auto mma_kernel_of(Mma3Shape<N1, N2, N3, U12, U3>) {
+  return block_mma3_kernel<N1, N2, N3, U12, U3>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -212,37 +237,38 @@ int fft_block_launch(const float* xr, const float* xi, float* yr, float* yi,
   return (int)cudaGetLastError();
 }
 
-// Pencils a tile of the mma body; -1 where it does not take (n1, n2).
-int fft_block_mma_pencils(int n1, int n2) {
-  return (int)with_mma_shape(n1, n2, [](auto s) { return (long long)decltype(s)::P; });
+// Pencils a tile of the tensor-core body for pencils of n; -1 where it does
+// not take n.
+int fft_block_mma_pencils(int n) {
+  return (int)with_any_mma_shape(n, [](auto s) { return (long long)decltype(s)::P; });
 }
 
-// Shared bytes a block of the mma body takes; -1 where it does not take (n1, n2).
-long long fft_block_mma_smem_bytes(int n1, int n2) {
-  return with_mma_shape(n1, n2, [](auto s) {
+// Shared bytes a block of the tensor-core body takes for pencils of n; -1
+// where it does not take n.
+long long fft_block_mma_smem_bytes(int n) {
+  return with_any_mma_shape(n, [](auto s) {
     return (long long)decltype(s)::FLOATS * (long long)sizeof(float);
   });
 }
 
-// Blocks an SM holds: of the mma body (mma != 0) for (n1, n2), else of the
-// fma body with `smem` bytes; the CUDA error, or -1 for an unknown shape.
-int fft_block_blocks_per_sm(int mma, int n1, int n2, long long smem, int* out) {
+// Blocks an SM holds: of the tensor-core body (mma != 0) for pencils of n,
+// else of the fma body with `smem` bytes; the CUDA error, or -1 for a
+// length the tensor-core body does not take.
+int fft_block_blocks_per_sm(int mma, int n, long long smem, int* out) {
   int sms = 0;
   if (!mma) return (int)resident_blocks(block_kernel, smem, out, &sms);
-  return (int)with_mma_shape(n1, n2, [&](auto s) {
-    using S = decltype(s);
-    return (long long)resident_blocks(block_mma_kernel<S::N1, S::N2, S::U2, S::U3>,
-                                      (long long)S::FLOATS * sizeof(float), out, &sms);
+  return (int)with_any_mma_shape(n, [&](auto s) {
+    return (long long)resident_blocks(mma_kernel_of(s),
+                                      (long long)decltype(s)::FLOATS * sizeof(float), out, &sms);
   });
 }
 
 int fft_block_mma_launch(const float* xr, const float* xi, float* yr, float* yi,
                          const float* fa, const float* fb, const float* w, long long batch,
-                         int n1, int n2, float scale, void* stream) {
-  return (int)with_mma_shape(n1, n2, [&](auto s) {
-    using S = decltype(s);
-    return launch_mma<S>(block_mma_kernel<S::N1, S::N2, S::U2, S::U3>, xr, xi, yr, yi, fa,
-                         fb, w, batch, scale, stream);
+                         int n, float scale, void* stream) {
+  return (int)with_any_mma_shape(n, [&](auto s) {
+    return launch_mma<decltype(s)>(mma_kernel_of(s), xr, xi, yr, yi, fa, fb, w, batch, scale,
+                                   stream);
   });
 }
 

@@ -24,9 +24,13 @@
 // are the rows of the block product [[F1r, -F1i], [F1i, F1r]] [Ar; Ai], and
 // C F2 is C times the block [[F2r, F2i], [-F2i, F2r]]: the same numbers as
 // fft_block's tables, so the host passes those (kernels/fft_matmul.py).
+// matmul_mma3_kernel, for n = 2048 and 4096: the same products over three
+// factors 16 * 16 * (n / 256) (four_step_mma3, as block_mma3_kernel).
 //
-// four_step_kernel, for every other n (2..32, 2048, 4096): fp32 FMA on the
-// CUDA cores. A block keeps everything it needs in shared memory: the three
+// four_step_kernel, for every other n (2..32; above 4096 it needs more
+// shared memory than a block has): fp32 FMA on the CUDA cores, and the
+// body _launch(..., _body='fma') times beside the tensor-core one at 2048
+// and 4096. A block keeps everything it needs in shared memory: the three
 // tables, a tile of P pencils and the twiddled intermediate C. Device memory
 // is read once and written once. Step 2 walks k2 fastest (A reads
 // contiguous, F1 reads broadcast); step 4 walks j1 fastest, so the
@@ -151,6 +155,27 @@ matmul_mma_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   four_step_mma<MmaShape<N1, N2, U2, U3>>(smem, xr, xi, yr, yi, fa, fb, w, batch, scale, vec);
 }
 
+template <int N1, int N2, int N3, int U12, int U3>
+__global__ void __launch_bounds__(kThreads, 2)
+matmul_mma3_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                   float* __restrict__ yr, float* __restrict__ yi,
+                   const float* __restrict__ fa, const float* __restrict__ fb,
+                   const float* __restrict__ w, long long batch, float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  four_step_mma3<Mma3Shape<N1, N2, N3, U12, U3>>(smem, xr, xi, yr, yi, fa, fb, w, batch, scale,
+                                                 vec);
+}
+
+// The kernel of this file that runs the tensor-core shape S.
+template <int N1, int N2, int U2, int U3>
+auto mma_kernel_of(MmaShape<N1, N2, U2, U3>) {
+  return matmul_mma_kernel<N1, N2, U2, U3>;
+}
+template <int N1, int N2, int N3, int U12, int U3>
+auto mma_kernel_of(Mma3Shape<N1, N2, N3, U12, U3>) {
+  return matmul_mma3_kernel<N1, N2, N3, U12, U3>;
+}
+
 // Registers a thread and blocks an SM of `kern` with `smem` dynamic bytes.
 template <class K>
 cudaError_t occupancy(K kern, long long smem, int* per_sm, int* regs) {
@@ -186,38 +211,37 @@ int fft_matmul_launch(const float* xr, const float* xi, float* yr, float* yi,
   return (int)cudaGetLastError();
 }
 
-// Pencils a tile of the mma body; -1 where it does not take (n1, n2).
-int fft_matmul_mma_pencils(int n1, int n2) {
-  return (int)with_mma_shape(n1, n2, [](auto s) { return (long long)decltype(s)::P; });
+// Pencils a tile of the tensor-core body for pencils of n; -1 where it does
+// not take n.
+int fft_matmul_mma_pencils(int n) {
+  return (int)with_any_mma_shape(n, [](auto s) { return (long long)decltype(s)::P; });
 }
 
-// Shared bytes a block of the mma body takes; -1 where it does not take (n1, n2).
-long long fft_matmul_mma_smem_bytes(int n1, int n2) {
-  return with_mma_shape(n1, n2, [](auto s) {
+// Shared bytes a block of the tensor-core body takes for pencils of n; -1
+// where it does not take n.
+long long fft_matmul_mma_smem_bytes(int n) {
+  return with_any_mma_shape(n, [](auto s) {
     return (long long)decltype(s)::FLOATS * (long long)sizeof(float);
   });
 }
 
-// Blocks an SM holds and registers a thread: of the mma body (mma != 0) for
-// (n1, n2), else of four_step_kernel with `smem` bytes; the CUDA error, or -1
-// for an unknown shape.
-int fft_matmul_blocks_per_sm(int mma, int n1, int n2, long long smem, int* per_sm,
-                             int* regs) {
+// Blocks an SM holds and registers a thread: of the tensor-core body (mma !=
+// 0) for pencils of n, else of four_step_kernel with `smem` bytes; the CUDA
+// error, or -1 for a length the tensor-core body does not take.
+int fft_matmul_blocks_per_sm(int mma, int n, long long smem, int* per_sm, int* regs) {
   if (!mma) return (int)occupancy(four_step_kernel, smem, per_sm, regs);
-  return (int)with_mma_shape(n1, n2, [&](auto s) {
-    using S = decltype(s);
-    return (long long)occupancy(matmul_mma_kernel<S::N1, S::N2, S::U2, S::U3>,
-                                (long long)S::FLOATS * sizeof(float), per_sm, regs);
+  return (int)with_any_mma_shape(n, [&](auto s) {
+    return (long long)occupancy(mma_kernel_of(s),
+                                (long long)decltype(s)::FLOATS * sizeof(float), per_sm, regs);
   });
 }
 
 int fft_matmul_mma_launch(const float* xr, const float* xi, float* yr, float* yi,
                           const float* fa, const float* fb, const float* w, long long batch,
-                          int n1, int n2, float scale, void* stream) {
-  return (int)with_mma_shape(n1, n2, [&](auto s) {
-    using S = decltype(s);
-    return launch_mma<S>(matmul_mma_kernel<S::N1, S::N2, S::U2, S::U3>, xr, xi, yr, yi, fa,
-                         fb, w, batch, scale, stream);
+                          int n, float scale, void* stream) {
+  return (int)with_any_mma_shape(n, [&](auto s) {
+    return launch_mma<decltype(s)>(mma_kernel_of(s), xr, xi, yr, yi, fa, fb, w, batch, scale,
+                                   stream);
   });
 }
 

@@ -49,6 +49,23 @@
 // flight during step 3 (and the other block's products). Blocks are
 // persistent (one per resident slot) and stage the split tables once; at
 // n = 512 a block takes 112,640 bytes, two an SM.
+//
+// four_step_mma3, for n = 2048 and 4096: the two-factor split would take
+// 64 x 64 tables (256 KiB split, over a block's 227 KB) and 8 n (64 + 64)
+// dense flop an element. This body splits n = 16 * 16 * n3 (n3 = 8, 16),
+// viewing a pencil as x[k1, k2, k3], and runs three 3xTF32 products, 384
+// flop an element at 4096 (the n = 512 body's): stage 1 F1b (the 16-point
+// table of the two-factor body, 8 KiB split) times the (d, k1) rows, then
+// W1[j1, k2 n3 + k3] in registers; stage 2 the same table over (d, k2),
+// then W2[j2, k3]; stage 3 the rows (j2, j1) times the block F of n3
+// points, stored as y[j1 + 16 j2 + 256 j3] in 32-byte sectors as step 3
+// does. A tile is one pencil, kept in shared memory between the stages and
+// overwritten in place (a warp owns whole columns of stages 1 and 2), in an
+// unpadded layout whose XOR swizzle (Mma3Shape::at) keeps every fragment
+// access on 32 banks. Two tile buffers: the next pencil's cp.async load runs
+// during all three stages. At 4096 a block takes 81,920 bytes, at 2048
+// 43,008; two an SM, by the 128 registers (two pencils a tile at 2048
+// spilled).
 
 #pragma once
 
@@ -128,6 +145,10 @@ struct MmaShape {
   static constexpr int XS = 2 * XPLANE;       // the tile, both planes
   static constexpr int CS = P * N1 * LDC;
   static constexpr int FLOATS = FA + FB + XS + CS;
+  // where element q of pencil p, plane d, of a tile lands in X
+  static __device__ __forceinline__ int tile_at(int d, int p, int q) {
+    return d * XPLANE + (q / N2) * LDX + p * N2 + q % N2;
+  }
   static_assert(N2 >= 8 && N1 >= N2, "mma body needs 8 <= n2 <= n1");
   static_assert(MT2 % WM2 == 0 && NT2 % WN2 == 0 && (MT2 / WM2) * GN2 == kWarps, "step 2");
   static_assert(MT3 % WM3 == 0 && NT3 % WN3 == 0 && (MT3 / WM3) * GN3 == kWarps, "step 3");
@@ -151,7 +172,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Start the copy of a tile's two planes into X[d][k1][p N2 + k2]; pencils past
+// Start the copy of a tile's two planes into X (at S::tile_at); pencils past
 // `rows` are zeros. With 16-byte aligned planes (vec) the copy is cp.async and
 // lands while the caller computes; else it is done here, 4 bytes at a time.
 template <class S>
@@ -163,14 +184,14 @@ __device__ __forceinline__ void load_tile(float* X, const float* __restrict__ xr
   for (int r = 0; r < 2 * Q / kThreads; ++r) {
     const int i = r * kThreads + threadIdx.x;
     const int d = i / Q, e = 4 * (i % Q);
-    const int p = e / S::N, q = e % S::N;
     const float* src = (d ? xi : xr) + e;
-    float* dst = X + d * S::XPLANE + (q / S::N2) * S::LDX + p * S::N2 + q % S::N2;
+    float* dst = X + S::tile_at(d, e / S::N, e % S::N);
+    const bool valid = e / S::N < rows;
     if (vec) {
-      cp_async16(dst, p < rows ? src : xr, p < rows);
+      cp_async16(dst, valid ? src : xr, valid);
     } else {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dst[c] = p < rows ? src[c] : 0.f;
+      for (int c = 0; c < 4; ++c) dst[c] = valid ? src[c] : 0.f;
     }
   }
   cp_async_commit();
@@ -327,6 +348,216 @@ __device__ __forceinline__ void four_step_mma(float* smem, const float* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// four_step_mma3: n = 2048 and 4096 in three factors of at most 16
+// ---------------------------------------------------------------------------
+
+// A length of the three-factor body, n = N1 N2 N3 = 16 * 16 * N3, with the
+// k-steps of the two left products and of the right product unrolled at a
+// time (U12_, U3_; 0 for all of them). A tile is one pencil.
+template <int N1_, int N2_, int N3_, int U12_, int U3_>
+struct Mma3Shape {
+  static constexpr int N1 = N1_, N2 = N2_, N3 = N3_, N = N1 * N2 * N3;
+  static constexpr int NQ = N2 * N3;          // a row k1 of a pencil plane: (k2, k3)
+  static constexpr int NC = N / N1;           // columns of the left products
+  static constexpr int TILE = N, P = 1;       // floats a plane of a tile, pencils a tile
+  static constexpr int BUF = 2 * TILE;        // a tile, both planes; two buffers
+  // stages 1 and 2: (2 N1 x 2 N1) times (2 N1 x NC); a warp owns 2 x WN tiles
+  static constexpr int KS = N1 / 4, WN = NC / 8 / kWarps;
+  // stage 3: (N1 N2 x 2 N3) times (2 N3 x 2 N3); a warp owns 2 x NT3 tiles
+  static constexpr int NT3 = N3 / 4, KS3 = N3 / 4;
+  static constexpr int U12 = U12_ ? U12_ : KS, U3 = U3_ ? U3_ : KS3;
+  // shared memory, in floats
+  static constexpr int FA = 2 * 4 * N1 * N1;  // the N1-point left table, big and small
+  static constexpr int FB = 2 * 4 * N3 * N3;  // the N3-point right table, big and small
+  static constexpr int FLOATS = FA + FB + 2 * BUF;
+  static_assert(N1 == 16 && N2 == 16 && (N3 == 8 || N3 == 16), "16 x 16 x (8 or 16)");
+  static_assert(WN * 8 * kWarps == NC && 2 * 16 * kWarps == N1 * N2, "whole tiles a warp");
+  static_assert(KS % U12 == 0 && KS3 % U3 == 0, "whole unrolled rounds");
+
+  // Where (k1, q), q = k2 N3 + k3, of a pencil plane lies: rows k1 of NQ
+  // floats, unpadded, q XOR-swizzled within its 32-float block by k1 (and at
+  // N3 = 16 by bit 5 of q), so that every fragment load, every float2 store
+  // of a half warp and every 16-byte copy of a tile hits 32 banks.
+  static __device__ __forceinline__ int at(int k1, int q) {
+    const int f = ((k1 & 3) << 1) | ((k1 >> 2) & 1);
+    return k1 * NQ + (q ^ (4 * f ^ (N3 == 16 ? (q >> 2) & 8 : 0)));
+  }
+  static __device__ __forceinline__ int tile_at(int d, int p, int q) {
+    return d * TILE + at(q / NQ, q % NQ);
+  }
+  // Element r (the contracted index) of column m of the left product of
+  // stage 1 (columns (k2, k3), r = k1) or stage 2 (columns (j1, k3), r = k2).
+  template <int STAGE>
+  static __device__ __forceinline__ int left_at(int r, int m) {
+    return STAGE == 1 ? at(r, m) : at(m / N3, r * N3 + m % N3);
+  }
+};
+
+// Stages 1 and 2, in place on the tile X: F1b (2 N1 x 2 N1, rows (c, j) in
+// mma_rows order, cols (d, k)) times the tile viewed as 2 N1 rows (d, k) of
+// NC columns, then the twiddle in fp32 as the result is stored back where it
+// was read. Stage 1 contracts k1 (the twiddle W1[j1, k2 N3 + k3]), stage 2
+// k2 (W2[j2, k3]); N1 = N2, so both take the same table. A warp owns whole
+// columns, so it writes only what it alone has read.
+template <class S, int STAGE>
+__device__ __forceinline__ void left_stage(const float* FA, float* X,
+                                           const float* __restrict__ wr,
+                                           const float* __restrict__ wi, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float4* fab = reinterpret_cast<const float4*>(FA);
+  const float4* fas = reinterpret_cast<const float4*>(FA + S::FA / 2);
+  float acc[2][S::WN][4] = {};
+#pragma unroll 1
+  for (int s0 = 0; s0 < S::KS; s0 += S::U12)
+#pragma unroll
+  for (int s = s0; s < s0 + S::U12; ++s) {
+    const int d = (8 * s) / S::N1, k = (8 * s) % S::N1 + t;
+    const float* xd = X + d * S::TILE;
+    uint32_t bb[S::WN][2], bs[S::WN][2];
+#pragma unroll
+    for (int j = 0; j < S::WN; ++j) {
+      const int m = (warp * S::WN + j) * 8 + g;
+      split_tf32(xd[S::template left_at<STAGE>(k, m)], bb[j][0], bs[j][0]);
+      split_tf32(xd[S::template left_at<STAGE>(k + 4, m)], bb[j][1], bs[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int f = (i * S::KS + s) * 32 + lane;
+      const float4 b4 = fab[f], s4 = fas[f];
+      const uint32_t ab[4] = {__float_as_uint(b4.x), __float_as_uint(b4.y),
+                              __float_as_uint(b4.z), __float_as_uint(b4.w)};
+      const uint32_t as[4] = {__float_as_uint(s4.x), __float_as_uint(s4.y),
+                              __float_as_uint(s4.z), __float_as_uint(s4.w)};
+#pragma unroll
+      for (int j = 0; j < S::WN; ++j) add_3xtf32(acc[i][j], ab, as, bb[j], bs[j]);
+    }
+  }
+  __syncwarp();
+  // rows g and g + 8 of m-tile i are (c = 0, j) and (c = 1, j), j = 8 i + g
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j_ = 8 * i + g;
+#pragma unroll
+    for (int j = 0; j < S::WN; ++j) {
+      const int m = (warp * S::WN + j) * 8 + 2 * t;
+      const int tw = STAGE == 1 ? j_ * S::NQ + m : j_ * S::N3 + m % S::N3;
+      const float2 w_r = __ldg(reinterpret_cast<const float2*>(wr + tw));
+      const float2 w_i = __ldg(reinterpret_cast<const float2*>(wi + tw));
+      const float* a = acc[i][j];
+      float* o = X + S::template left_at<STAGE>(j_, m);
+      *reinterpret_cast<float2*>(o) =
+          make_float2(a[0] * w_r.x - a[2] * w_i.x, a[1] * w_r.y - a[3] * w_i.y);
+      *reinterpret_cast<float2*>(o + S::TILE) =
+          make_float2(a[0] * w_i.x + a[2] * w_r.x, a[1] * w_i.y + a[3] * w_r.y);
+    }
+  }
+}
+
+// Stage 3: y_e[j1 + N1 j2 + N1 N2 j3] = scale (X F3b)[(j2, j1), (e, j3)], X
+// read as rows (j2, j1) of columns (d, k3), F3b = [[F3r, F3i], [-F3i,
+// F3r]]; straight from the accumulators: the 8 lanes of one t write 8
+// consecutive j1, one whole 32-byte sector. Warp w owns j2 = 2 w, 2 w + 1.
+template <class S>
+__device__ __forceinline__ void right_stage(const float* FB, const float* X,
+                                            float* __restrict__ yr, float* __restrict__ yi,
+                                            float scale, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float2* fbb = reinterpret_cast<const float2*>(FB);
+  const float2* fbs = reinterpret_cast<const float2*>(FB + S::FB / 2);
+  float acc[2][S::NT3][4] = {};
+#pragma unroll 1
+  for (int s0 = 0; s0 < S::KS3; s0 += S::U3)
+#pragma unroll
+  for (int s = s0; s < s0 + S::U3; ++s) {
+    const int d = (8 * s) / S::N3, k3 = (8 * s) % S::N3 + t;
+    const float* x = X + d * S::TILE;
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = (2 * warp + i) * S::N3 + k3;
+      split_tf32(x[S::at(g, q)], ab[i][0], as[i][0]);
+      split_tf32(x[S::at(g + 8, q)], ab[i][1], as[i][1]);
+      split_tf32(x[S::at(g, q + 4)], ab[i][2], as[i][2]);
+      split_tf32(x[S::at(g + 8, q + 4)], ab[i][3], as[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < S::NT3; ++j) {
+      const int f = (s * S::NT3 + j) * 32 + lane;
+      const float2 b2 = fbb[f], s2 = fbs[f];
+      const uint32_t bb[2] = {__float_as_uint(b2.x), __float_as_uint(b2.y)};
+      const uint32_t bs[2] = {__float_as_uint(s2.x), __float_as_uint(s2.y)};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) add_3xtf32(acc[i][j], ab[i], as[i], bb, bs);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = S::N1 * (2 * warp + i) + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < S::NT3; ++j) {
+        const int col = j * 8 + 2 * t;
+        float* y = (col / S::N3 ? yi : yr) + o + (col % S::N3) * S::N1 * S::N2;
+        y[0] = acc[i][j][2 * h] * scale;
+        y[S::N1 * S::N2] = acc[i][j][2 * h + 1] * scale;
+      }
+    }
+  }
+}
+
+// The persistent tile loop of the three-factor body, as four_step_mma's: a
+// kernel of 256 threads calls it with its dynamic shared memory (S::FLOATS
+// floats, 16-byte aligned). w holds W2 (2, N2, N3), then W1 (2, N1, NQ). Two
+// tile buffers: the next pencil's load starts as soon as the current one has
+// landed and runs during all three stages.
+template <class S>
+__device__ __forceinline__ void four_step_mma3(float* smem, const float* __restrict__ xr,
+                                               const float* __restrict__ xi,
+                                               float* __restrict__ yr, float* __restrict__ yi,
+                                               const float* __restrict__ fa,
+                                               const float* __restrict__ fb,
+                                               const float* __restrict__ w, long long batch,
+                                               float scale, int vec) {
+  float* FA = smem;
+  float* FB = FA + S::FA;
+  float* X0 = FB + S::FB;
+  const float* w2 = w;
+  const float* w1 = w + 2 * S::N2 * S::N3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < S::FA / 4; i += kThreads)
+    reinterpret_cast<float4*>(FA)[i] = __ldg(reinterpret_cast<const float4*>(fa) + i);
+  for (int i = threadIdx.x; i < S::FB / 4; i += kThreads)
+    reinterpret_cast<float4*>(FB)[i] = __ldg(reinterpret_cast<const float4*>(fb) + i);
+
+  // 32-bit pencil indices keep the loop within the registers: a card's
+  // memory holds fewer than 2^31 pencils of 2048
+  const int pencils = (int)batch;
+  int cur = 0;
+  if ((int)blockIdx.x < pencils)
+    load_tile<S>(X0, xr + (long long)blockIdx.x * S::N, xi + (long long)blockIdx.x * S::N, 1,
+                 vec);
+  for (int pencil = blockIdx.x; pencil < pencils; pencil += gridDim.x, cur ^= 1) {
+    const long long base = (long long)pencil * S::N;
+    const int next = pencil + gridDim.x;
+    float* X = X0 + cur * S::BUF;
+    // the barrier orders this pencil's load before its stages, and the last
+    // pencil's stage 3 (which read the other buffer) before the next load
+    cp_async_wait_all();
+    __syncthreads();
+    if (next < pencils)
+      load_tile<S>(X0 + (cur ^ 1) * S::BUF, xr + (long long)next * S::N,
+                   xi + (long long)next * S::N, 1, vec);
+    left_stage<S, 1>(FA, X, w1, w1 + S::N1 * S::NQ, warp, lane);
+    __syncthreads();
+    left_stage<S, 2>(FA, X, w2, w2 + S::N2 * S::N3, warp, lane);
+    __syncthreads();
+    right_stage<S>(FB, X, yr + base, yi + base, scale, warp, lane);
+  }
+}
+
 // Call f with the MmaShape of (n1, n2); -1 for a shape the mma body does not
 // take. The unrolling of each is the fastest measured on an H100 that keeps
 // within the 128 registers of two blocks an SM without spilling
@@ -339,6 +570,20 @@ long long with_mma_shape(int n1, int n2, F&& f) {
   if (n1 == 32 && n2 == 16) return f(MmaShape<32, 16, 1, 1>{});
   if (n1 == 32 && n2 == 32) return f(MmaShape<32, 32, 0, 0>{});
   return -1;
+}
+
+// Call f with the shape of the tensor-core body for pencils of n: the
+// three-factor Mma3Shape for n = 2048 and 4096, else the two-factor MmaShape
+// of n's four-step factors (n1 >= n2, as square as possible); -1 for a
+// length neither takes.
+template <class F>
+long long with_any_mma_shape(int n, F&& f) {
+  if (n == 2048) return f(Mma3Shape<16, 16, 8, 0, 0>{});
+  if (n == 4096) return f(Mma3Shape<16, 16, 16, 1, 1>{});
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  if (n < 1 || (1 << k) != n) return -1;
+  return with_mma_shape(1 << ((k + 1) / 2), 1 << (k / 2), f);
 }
 
 // Blocks a slot for `kern` with `smem` dynamic bytes, after raising its limit.

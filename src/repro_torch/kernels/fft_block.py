@@ -4,12 +4,16 @@ Replaces ``repro.kernels.fft_block.fft_block``
 (src/repro/kernels/fft_block.py:49). ``csrc/fft_block.cu`` holds two
 bodies, chosen by the pencil length alone (:func:`variant`):
 
-* ``'mma'`` (``block_mma_kernel``, 64 <= n <= 1024): both dense products
-  of the four-step on the tensor cores, ``mma.sync`` m16n8k8 in 3xTF32,
-  against F1b and the block F2 with the twiddle W applied between them
-  in registers (``core/fft1d.py:block_mma_tables``); the split tables
-  go to the card in the mma fragment order (:func:`frag_a`,
-  :func:`frag_b`);
+* ``'mma'`` (64 <= n <= 4096): the dense products on the tensor cores,
+  ``mma.sync`` m16n8k8 in 3xTF32, with the twiddles applied between them
+  in registers; the split tables go to the card in the mma fragment
+  order (:func:`frag_a`, :func:`frag_b`). For 64 <= n <= 1024
+  ``block_mma_kernel`` runs the two-factor four-step n = n1 * n2 against
+  F1b and the block F2 (``core/fft1d.py:block_mma_tables``); for
+  n = 2048 and 4096 ``block_mma3_kernel`` runs three products against
+  the 16-point F1b (twice) and the block F of n3 = n / 256 points
+  (``core/fft1d.py:block_mma3_tables``). :func:`mma_factors` names the
+  split;
 * ``'fma'`` (``block_kernel``, every other n): fp32 FMA on the CUDA
   cores against the TPU kernel's F1b and G (the twiddle folded into F2).
 
@@ -37,14 +41,23 @@ launches = 0
 #: of those, launches of the tensor-core body
 launches_mma = 0
 
-#: the pencil lengths the tensor-core body takes (n2 >= 8), inclusive
-MMA_LENGTHS = (64, 1024)
+#: the pencil lengths the tensor-core body takes, inclusive: the two-factor
+#: split (n2 >= 8) up to 1024, the three-factor one above
+MMA_LENGTHS = (64, 4096)
+#: the lengths on the three-factor split 16 * 16 * n3
+MMA3_LENGTHS = (2048, 4096)
 
 
 def variant(n: int) -> str:
     """The body a CUDA launch of length-n pencils runs: ``'mma'`` for
-    64 <= n <= 1024, else ``'fma'``."""
+    64 <= n <= 4096, else ``'fma'``."""
     return 'mma' if MMA_LENGTHS[0] <= n <= MMA_LENGTHS[1] else 'fma'
+
+
+def mma_factors(n: int) -> tuple:
+    """The split the tensor-core body runs for pencils of n: (16, 16,
+    n / 256) for :data:`MMA3_LENGTHS`, else the four-step's (n1, n2)."""
+    return (16, 16, n // 256) if n in MMA3_LENGTHS else tw.four_step_factors(n)
 
 
 def fft_block_plain(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
@@ -97,6 +110,25 @@ def mma_tables(n1: int, n2: int, inverse: bool, device: torch.device):
     return fa, frag_b(f2b).contiguous(), w
 
 
+@functools.lru_cache(maxsize=None)
+def mma3_tables(n3: int, inverse: bool, device: torch.device):
+    """(F1b, F3b, W) as the three-factor body reads them for n = 16 * 16 *
+    n3: :func:`mma_tables` of (16, n3), the 16-point F1b (both left
+    products) and the n3-point block F, and W2 (2, 16, n3) followed by
+    W1 (2, 16, 16 n3) of ``core/fft1d.py:block_mma3_tables`` in one flat
+    fp32 table."""
+    fa, fb, w2 = mma_tables(16, n3, inverse, device)
+    w1 = f1.block_mma3_tables(n3, inverse, device)[3]
+    return fa, fb, torch.cat([w2.reshape(-1), w1.reshape(-1)])
+
+
+def mma_tables_for(n: int, inverse: bool, device: torch.device):
+    """What the tensor-core body reads for pencils of n: (fa, fb, w) of
+    :func:`mma3_tables` or :func:`mma_tables`, by :func:`mma_factors`."""
+    f = mma_factors(n)
+    return mma3_tables(f[2], inverse, device) if len(f) == 3 else mma_tables(*f, inverse, device)
+
+
 # ---------------------------------------------------------------------------
 # Launch
 # ---------------------------------------------------------------------------
@@ -108,16 +140,16 @@ def _lib():
                    (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_float))
     _build.declare(lib, 'fft_block_mma_launch', 7,
-                   (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float))
+                   (ctypes.c_longlong, ctypes.c_int, ctypes.c_float))
     lib.fft_block_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.fft_block_smem_bytes.restype = ctypes.c_longlong
     lib.fft_block_slices.argtypes = [ctypes.c_int] * 3
     lib.fft_block_slices.restype = ctypes.c_int
-    lib.fft_block_mma_pencils.argtypes = [ctypes.c_int] * 2
+    lib.fft_block_mma_pencils.argtypes = [ctypes.c_int]
     lib.fft_block_mma_pencils.restype = ctypes.c_int
-    lib.fft_block_mma_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.fft_block_mma_smem_bytes.argtypes = [ctypes.c_int]
     lib.fft_block_mma_smem_bytes.restype = ctypes.c_longlong
-    lib.fft_block_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
+    lib.fft_block_blocks_per_sm.argtypes = [ctypes.c_int] * 2 + [
         ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
     lib.fft_block_blocks_per_sm.restype = ctypes.c_int
     return lib
@@ -129,8 +161,7 @@ def _shape(n: int, batch: int, body: str):
     n1, n2 = tw.four_step_factors(n)
     lib = _lib()
     if body == 'mma':
-        return (n1, n2, lib.fft_block_mma_pencils(n1, n2), 0,
-                lib.fft_block_mma_smem_bytes(n1, n2))
+        return n1, n2, lib.fft_block_mma_pencils(n), 0, lib.fft_block_mma_smem_bytes(n)
     P = tile_pencils(n, batch)
     jc = lib.fft_block_slices(n1, n2, P)
     if jc == 0:
@@ -142,16 +173,17 @@ def _shape(n: int, batch: int, body: str):
 
 def launch_info(n: int, batch: int) -> dict:
     """What a launch on ``batch`` pencils of n runs on the current card:
-    its body, pencils a tile, shared bytes a block and blocks an SM."""
+    its body, the factors of n it runs, pencils a tile, shared bytes a
+    block and blocks an SM."""
     body = variant(n)
     n1, n2, P, _, smem = _shape(n, batch, body)
     per_sm = ctypes.c_int(0)
-    err = _lib().fft_block_blocks_per_sm(int(body == 'mma'), n1, n2, smem,
-                                         ctypes.byref(per_sm))
+    err = _lib().fft_block_blocks_per_sm(int(body == 'mma'), n, smem, ctypes.byref(per_sm))
     if err:
         raise RuntimeError(f"fft_block: occupancy query failed with CUDA error {err}")
-    return dict(variant=body, pencils_per_tile=P, smem_bytes=smem,
-                blocks_per_sm=per_sm.value)
+    factors = mma_factors(n) if body == 'mma' else (n1, n2)
+    return dict(variant=body, factors='x'.join(map(str, factors)), pencils_per_tile=P,
+                smem_bytes=smem, blocks_per_sm=per_sm.value)
 
 
 def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tensor,
@@ -169,10 +201,9 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
     with torch.cuda.device(re.device):
         if body == 'mma':
-            fa, fb, w = mma_tables(n1, n2, inverse, re.device)
+            fa, fb, w = mma_tables_for(n, inverse, re.device)
             err = _lib().fft_block_mma_launch(*ptrs, fa.data_ptr(), fb.data_ptr(),
-                                              w.data_ptr(), batch, n1, n2, scale,
-                                              stream_of(re))
+                                              w.data_ptr(), batch, n, scale, stream_of(re))
         else:
             f1b, g = f1.block_tables(n1, n2, inverse, re.device)
             err = _lib().fft_block_launch(*ptrs, f1b.data_ptr(), g.data_ptr(), batch,

@@ -21,7 +21,14 @@
   another order; the observed gap is below 5e-7), and one pass is not;
 * with the tensor cores' addition modelled (sums rounded toward zero),
   a fresh accumulator per k-step keeps fp32's accuracy where chaining
-  every k-step into one accumulator does not.
+  every k-step into one accumulator does not;
+* at n = 2048 and 4096, the three-factor body (``block_mma3_kernel``,
+  16 x 16 x n3): its 16-point and n3-point tables are, bit for bit,
+  ``block_mma_tables(16, n3)``'s and its twiddles ``core/twiddle.py``'s;
+  its emulation on a batch of 5 (one pencil a tile), forward and
+  inverse, is within
+  1e-5 * max|plain| of ``fft_block_plain`` and of the Pallas
+  ``fft_block`` in interpret mode, and one pass is not.
 
 Inputs come from a numpy seed.
 """
@@ -40,6 +47,7 @@ from _torch_mma_emulation import emulate as _emulate, rna as _rna
 
 KERNEL_RTOL = 1e-5
 MMA_NS = [64, 128, 256, 512, 1024]
+MMA3_NS = [2048, 4096]
 RNG = np.random.default_rng(14)
 
 
@@ -197,14 +205,55 @@ def test_three_passes_match_the_pallas_kernel(n):
 
 
 # ---------------------------------------------------------------------------
+# The three-factor body, n = 2048 and 4096
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", MMA3_NS)
+def test_three_factor_tables_are_block_mma_tables_and_twiddles(n, inverse):
+    """The 16-point F1b (both left products), the n3-point block F and W2
+    are ``block_mma_tables(16, n3)``'s objects; W1 and W2 are the fp32 of
+    ``core/twiddle.py:four_step_twiddle_np`` of (16, 16 n3) and (16, n3)."""
+    n3 = n // 256
+    cpu = torch.device('cpu')
+    f1b, f3b, w2, w1 = tf.block_mma3_tables(n3, inverse, cpu)
+    assert all(a is b for a, b in zip((f1b, f3b, w2), tf.block_mma_tables(16, n3, inverse, cpu)))
+    for got, (a, b) in ((w1, (16, 16 * n3)), (w2, (16, n3))):
+        want = np.stack(ttw.four_step_twiddle_np(a, b, inverse=inverse)).astype(np.float32)
+        assert np.array_equal(got.numpy(), want)
+    assert (f1b.shape, f3b.shape) == ((2, 32, 32), (2, 2 * n3, 2 * n3))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", MMA3_NS)
+def test_three_factor_body_matches_plain_and_pallas(n, inverse):
+    """Batch 5, ragged for the Pallas block; the body's tile is one
+    pencil."""
+    x = RNG.standard_normal((2, 5, n)).astype(np.float32)
+    got = _emulate(torch.from_numpy(x), inverse)
+    assert _rel(got, tkb.fft_block_plain(torch.from_numpy(x), inverse=inverse)) <= KERNEL_RTOL
+    want = np.asarray(jkb.fft_block(jnp.asarray(x), inverse=inverse, interpret=True))
+    assert _rel(got, want) <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("n", MMA3_NS)
+def test_one_pass_is_not_enough_on_three_factors(n):
+    x = torch.from_numpy(RNG.standard_normal((2, 5, n)).astype(np.float32))
+    want = tkb.fft_block_plain(x).numpy()
+    assert _rel(_emulate(x, False, passes=1), want) > KERNEL_RTOL
+
+
+# ---------------------------------------------------------------------------
 # The choice of body and its counter
 # ---------------------------------------------------------------------------
 
 def test_variant_is_chosen_by_length_alone():
-    assert [tkb.variant(1 << k) for k in range(1, 13)] == (
-        ['fma'] * 5 + ['mma'] * 5 + ['fma'] * 2)
+    assert [tkb.variant(1 << k) for k in range(1, 14)] == (
+        ['fma'] * 5 + ['mma'] * 7 + ['fma'])
     for n in range(6, 11):
-        assert ttw.four_step_factors(1 << n)[1] >= 8    # the mma body's n2 >= 8
+        assert ttw.four_step_factors(1 << n)[1] >= 8    # the two-factor split's n2 >= 8
+        assert tkb.mma_factors(1 << n) == ttw.four_step_factors(1 << n)
+    assert [tkb.mma_factors(n) for n in MMA3_NS] == [(16, 16, 8), (16, 16, 16)]
 
 
 def test_reset_clears_the_mma_counter():

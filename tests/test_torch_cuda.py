@@ -94,8 +94,9 @@ def test_radix2_body_matches_plain_version(gen, n):
 def test_fft_block_matches_plain_version(gen, n):
     """A ragged batch of 37 in both forms: stacked (2, 37, n) and the
     planar pair the method registry passes, on both sides of the
-    tensor-core body's range (64 <= n <= 1024)."""
-    assert fft_block.variant(n) == ('mma' if 64 <= n <= 1024 else 'fma')
+    tensor-core body's range (64 <= n <= 4096; three factors at 2048 and
+    4096)."""
+    assert fft_block.variant(n) == ('mma' if 64 <= n <= 4096 else 'fma')
     x = torch.stack(_planar((37, n), gen))
     for inverse in (False, True):
         want = fft_block.fft_block_plain(x, inverse=inverse)
@@ -103,7 +104,7 @@ def test_fft_block_matches_plain_version(gen, n):
         assert _rel(fft_block.fft_block_planar(x[0], x[1], inverse=inverse), want) <= 1e-5
 
 
-@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("n", [64, 512, 4096])
 def test_fft_block_takes_planes_that_are_not_16_byte_aligned(gen, n):
     """Contiguous planes 4 bytes past an aligned address: the tensor-core
     body's tile loads take 4-byte copies in place of 16-byte ones."""
@@ -114,7 +115,7 @@ def test_fft_block_takes_planes_that_are_not_16_byte_aligned(gen, n):
     assert _rel(fft_block.fft_block_planar(re, im, inverse=True), want) <= 1e-5
 
 
-@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048, 4096])
 def test_fft_matmul_on_the_tensor_core_body_matches_plain_version(gen, n):
     """A ragged batch of 37 (not a multiple of the body's tile) and
     planes 4 bytes past an aligned address (the tile loads' 4-byte
