@@ -7,9 +7,11 @@ Run from the root of a checkout, on a machine with four cards:
 It builds the CUDA kernels once, runs ``tests/_torch_multirank_worker.py``
 with ``cuda`` (four NCCL ranks, one card each, so every pencil runs the
 hand-written kernels on a mesh): the ``base`` suite on 2 x 2 (the
-pencil, real, overlap and rank-1 cases) and the ``strategies`` suite on
+pencil, real, overlap and rank-1 cases), the ``strategies`` suite on
 2 x 2 and 1 x 4 (every plan on ppermute, hierarchical and the mesh's pod
-tree, held against all_to_all; the bare swaps). Each case's record is
+tree, held against all_to_all; the bare swaps), the ``pod`` suite on
+1 x 2 x 2 pods (``batch_spec='pod'``) and the ``op`` suite (``plan_op``)
+on 2 x 2 and 1 x 4. Each case's record is
 held to the checks of ``tests/test_torch_multirank.py`` (the same
 functions, the same bounds: bitwise where they are bitwise). Printed:
 the cards' names and power limits, one line per case, and a last line
@@ -54,14 +56,16 @@ def main() -> None:
     _build.build()           # once, before the ranks start
     os.makedirs(args.out, exist_ok=True)
     passed = total = 0
-    for mesh, suite in (('2x2', 'base'), ('2x2', 'strategies'), ('1x4', 'strategies')):
+    runs = (('2x2', 'base', 1), ('2x2', 'strategies', 1), ('1x4', 'strategies', 1),
+            ('1x2', 'pod', 2), ('2x2', 'op', 1), ('1x4', 'op', 1))
+    for mesh, suite, pods in runs:
         out = os.path.join(args.out, f'{suite}_{mesh}.json')
         with socket.socket() as s:
             s.bind(('localhost', 0))
             port = s.getsockname()[1]
         subprocess.run([sys.executable, os.path.join(TESTS, '_torch_multirank_worker.py'),
-                        out, str(port), 'cuda', '--mesh', mesh, '--suite', suite],
-                       check=True, timeout=900)
+                        out, str(port), 'cuda', '--mesh', mesh, '--suite', suite,
+                        '--pods', str(pods)], check=True, timeout=900)
         with open(out) as fh:
             results = json.load(fh)
         for name, check in _checks(mesh, suite):
@@ -81,6 +85,14 @@ def main() -> None:
 
 def _checks(mesh: str, suite: str):
     """(case name, check of its record) of one worker run."""
+    if suite == 'pod':
+        for name, _, _ in worker.POD_CASES:
+            yield name, checks.check_pod
+        return
+    if suite == 'op':
+        for name, _, _ in worker.OP_CASES[mesh]:
+            yield name, checks.check_op
+        return
     if suite == 'strategies':
         for comm in worker.strategies_for(mesh):
             for name, _, kw in worker.STRATEGY_PLANS:

@@ -77,7 +77,24 @@ Phases, each printing one line and raising on any failure:
    4096, both on the three-factor body), each held against
    ``torch.fft.fft`` / ``rfft`` of each signal (the largest relative L2
    of the 8);
-10. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
+10. the operator plans through ``fft.plan_op`` (``[op]`` and
+   ``[profile]`` lines): ``op_solver``, the spectral solver's step at
+   512^3 (``real=True``, the integrating factor of
+   ``examples/spectral_solver.py`` baked in the 'spectrum' form: 6
+   ``fft_matmul`` an apply, the bake transforming nothing),
+   ``op_conv`` (complex 512^3 with one runtime factor: 9 an apply, three
+   for each forward chain and three for the inverse) and
+   ``op_fftconv1d`` (the 8 signals of 2^24 against one baked real
+   kernel: 4 an apply, the r2c columns at 2048 and rows at 4096 and
+   their mirror, and 2 more once to bake the kernel), each against the
+   library's composition (relative L2 <= 1e-5), bitwise against its
+   unfused composition (forward, ``spectral_mul``, inverse), every
+   launch on the tensor-core body and the bake once in three applies;
+   with its apply time, the unfused and the library's; then
+   ``compute_dtype=bfloat16``, refused on the kernel tier and run at
+   64^3 on the reference tier (its error against ``torch.fft.fftn``
+   printed, above 1e-4);
+11. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
    registers and spills, and its times), the card line and, last, the
    result line.
@@ -679,6 +696,169 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     return total
 
 
+def spectral_factor(kx, ky, kz, c, nu, dt):
+    """exp((nu*lap + i*adv)*dt) on the given wavenumber grid: the
+    integrating factor of ``examples/spectral_solver.py``, on tensors."""
+    lap = -(kx ** 2 + ky ** 2 + kz ** 2)
+    adv = -(c[0] * kx + c[1] * ky + c[2] * kz)
+    g = torch.exp(nu * lap * dt)
+    return torch.complex(g * torch.cos(adv * dt), g * torch.sin(adv * dt)).to(torch.complex64)
+
+
+def greens(n: int) -> torch.Tensor:
+    """The solver's step factor in ``np.fft.rfftn`` order, (n, n, n//2 + 1),
+    with the example's velocity, viscosity and time step."""
+    k = torch.fft.fftfreq(n, d=1.0 / n, dtype=torch.float64, device='cuda')
+    kh = torch.fft.rfftfreq(n, d=1.0 / n, dtype=torch.float64, device='cuda')
+    return spectral_factor(k[:, None, None], k[None, :, None], kh[None, None, :],
+                           (1.0, -0.5, 0.25), 0.02, 0.01)
+
+
+def op_path(label: str, op, operands: tuple, library_fn, unfused_fn,
+            per_apply: int, bake: int, dims: tuple) -> dict:
+    """One operator path: ``op.apply(*operands)`` once with the launch
+    counts set to 0 (the bake and the first apply), then twice more; the
+    result against the ``torch.fft`` composition ``library_fn()``
+    (relative L2 over ``dims``, the largest of a batch) and bitwise
+    against ``unfused_fn()``; ``per_apply``
+    ``fft_matmul`` launches an apply, ``bake`` more in the first, all on
+    the tensor-core body, and the bake once. Returns the first apply's
+    launch counts."""
+    if (op.method, op.comm, op.overlap_chunks, op.resolved_kernel) != (
+            'four_step', 'all_to_all', 1, 'pallas'):
+        raise AssertionError(f"{label}: resolved to {op.method}/{op.comm}/"
+                             f"{op.overlap_chunks}/{op.resolved_kernel}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    y = op.apply(*operands)
+    torch.cuda.synchronize()
+    first = kernels.launch_counts()
+    first_mma = fft_matmul.launches_mma
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        again = op.apply(*operands)
+    torch.cuda.synchronize()
+    steady = {k: v // 2 for k, v in kernels.launch_counts().items()}
+    want = {k: 0 for k in steady}
+    want['fft_matmul'] = per_apply
+    if steady != want or first != dict(want, fft_matmul=per_apply + bake):
+        raise AssertionError(f"{label}: launches {first} in the first apply, {steady} an "
+                             f"apply after it; expected {per_apply} fft_matmul an apply and "
+                             f"{bake} more to bake")
+    if first_mma != first['fft_matmul'] or fft_matmul.launches_mma != 2 * per_apply:
+        raise AssertionError(f"{label}: fft_matmul launches not all on the tensor-core body")
+    if op.bake_count != 1 or not torch.equal(again, y):
+        raise AssertionError(f"{label}: bake_count {op.bake_count} after three applies, "
+                             f"repeat equal {torch.equal(again, y)}")
+    del again
+    ref = library_fn()
+    lead = y.shape[:len(y.shape) - len(dims)]
+    a, b = (t.reshape(math.prod(lead), -1) for t in (y, ref))
+    err = float((torch.linalg.vector_norm(a - b, dim=-1)
+                 / torch.linalg.vector_norm(b, dim=-1)).max())
+    del ref, a, b
+    unfused = unfused_fn()
+    same = torch.equal(y, unfused)
+    del unfused
+    if not (err <= PATH_RTOL and same):
+        raise AssertionError(f"{label}: rel L2 {err:.3e} (limit {PATH_RTOL}) against the "
+                             f"library, bitwise equal to the unfused composition: {same}")
+    del y
+    apply_ms = time_ms(lambda: op.apply(*operands), 5)
+    unfused_ms = time_ms(unfused_fn, 5)
+    library_ms = time_ms(library_fn, 5)
+    say('op', label=label, shape=json.dumps(list(operands[0].shape)), method=op.method,
+        comm=op.comm, chunks=op.overlap_chunks, kernel=op.resolved_kernel,
+        rel_l2_vs_library=f"{err:.3e}", tol=PATH_RTOL, bitwise_vs_unfused=same,
+        bake_count=op.bake_count, launches=json.dumps(first),
+        launches_per_apply=json.dumps(steady), peak_gib_over_operand=f"{peak_gib:.4g}",
+        apply_ms=f"{apply_ms:.6g}", unfused_ms=f"{unfused_ms:.6g}",
+        library_ms=f"{library_ms:.6g}")
+    say('profile', label=label, **profile(lambda: op.apply(*operands)))
+    return first
+
+
+def phase_op(gen) -> list:
+    """The fused spectral-operator plans through ``fft.plan_op`` on one
+    card, then the ``compute_dtype`` rule on the kernel tier; returns
+    each path's launch counts."""
+    mesh = make_fft_mesh(1, 1)
+    shape = (N, N, N)
+    dims = (-3, -2, -1)
+    out = []
+
+    # the spectral solver's step: rfft -> Green's function -> irfft. The
+    # factor's Nyquist planes are not Hermitian, so the port's c2r and
+    # cuFFT's may read them differently; at 512 it damps them by exp(-13)
+    g = greens(N)
+    op = fft.plan_op(shape, mesh, op=fft.spectral_mul, op_name='greens', real=True,
+                     spectra=(g,), spectra_form='spectrum')
+    x = torch.randn(shape, generator=gen, device='cuda')
+    rp = fft.rplan(shape, mesh, padded_spectrum=True)
+
+    def solver_unfused():
+        s = rp.forward(x)
+        return rp.inverse(torch.complex(*fft.spectral_mul(s.real, s.imag, (g.real, g.imag))))
+    out.append(op_path('op_solver', op, (x,),
+                       lambda: torch.fft.irfftn(torch.fft.rfftn(x) * g, s=shape),
+                       solver_unfused, per_apply=6, bake=0, dims=dims))
+    del op, x, g, rp
+
+    # a complex operator with one runtime factor (the training-time path)
+    op = fft.plan_op(shape, mesh, op=fft.spectral_mul, real=False, n_spectra=1)
+    x, k = (torch.complex(*planar(shape, gen)) for _ in range(2))
+    p = fft.plan(shape, mesh)
+
+    def conv_unfused():
+        s, sk = p.forward(x), p.forward(k)
+        return p.inverse(torch.complex(*fft.spectral_mul(s.real, s.imag, (sk.real, sk.imag))))
+
+    def conv_library():
+        return torch.fft.ifftn(torch.fft.fftn(x) * torch.fft.fftn(k))
+    out.append(op_path('op_conv', op, (x, k), conv_library, conv_unfused,
+                       per_apply=9, bake=0, dims=dims))
+    del op, x, k, p
+
+    # the FFT-convolution mixer at full length: 8 signals, one baked kernel
+    n = LARGE1D[0]
+    kern = torch.randn(LARGE1D, generator=gen, device='cuda')
+    op = fft.plan_op(LARGE1D, mesh, op=fft.spectral_mul, real=True, spectra=(kern,))
+    x = torch.randn(LARGE1D_BATCH + LARGE1D, generator=gen, device='cuda')
+    rp = fft.rplan(LARGE1D, mesh)
+    kf, sk = torch.fft.rfft(kern), rp.forward(kern)   # the baked spectra, once
+
+    def conv1d_unfused():
+        s = rp.forward(x)
+        return rp.inverse(torch.complex(*fft.spectral_mul(s.real, s.imag, (sk.real, sk.imag))))
+    out.append(op_path('op_fftconv1d', op, (x,),
+                       lambda: torch.fft.irfft(torch.fft.rfft(x) * kf, n=n), conv1d_unfused,
+                       per_apply=4, bake=2, dims=(-1,)))
+    del op, x, rp, kf, sk
+
+    # compute_dtype: the tensor-core bodies take fp32 only; the plain
+    # versions round their products' operands
+    try:
+        fft.plan(shape, mesh, compute_dtype=torch.bfloat16)
+    except ValueError as e:
+        refused = str(e).split(';')[0]
+    else:
+        raise AssertionError("compute_dtype=bfloat16 planned on the kernel tier")
+    m = 64
+    xb = torch.complex(*planar((m, m, m), gen))
+    pb = fft.plan((m, m, m), mesh, compute_dtype=torch.bfloat16, kernel='reference')
+    yb, ref = pb.forward(xb), torch.fft.fftn(xb)
+    bf16_err = float(torch.linalg.vector_norm(yb - ref) / torch.linalg.vector_norm(ref))
+    if not bf16_err > 1e-4:
+        raise AssertionError(f"compute_dtype=bfloat16 on the reference tier: rel L2 "
+                             f"{bf16_err:.3e} from torch.fft.fftn, no sign of the cast")
+    say('op', label='compute_dtype', kernel_tier=repr(refused), reference_tier_shape=m,
+        method=pb.method, bf16_rel_l2_vs_fftn=f"{bf16_err:.3e}")
+    return out
+
+
 def phase_cost() -> None:
     """The cost model on the host: reports and the selector's picks,
     each of which must plan."""
@@ -746,6 +926,7 @@ def main() -> None:
         phase_path('rlarge1d', gen, 'four_step', {'fft_matmul': 2}, real=True,
                    shape=LARGE1D, batch=LARGE1D_BATCH),
     ]
+    paths += phase_op(gen)
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []
     for name, meta in KERNELS.items():

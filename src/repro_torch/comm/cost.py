@@ -490,6 +490,79 @@ def large1d_plan_cost(n1: int, n2: int, mesh_axes,
                     overlap_chunks, wire_dtype, kernel)
 
 
+def spectral_op_cost(shape: Sequence[int], layout, mesh_shape: Mapping[str, int], *,
+                     factors: Optional[Tuple[int, int]] = None,
+                     precision: wm.Precision = 'fp32',
+                     method: str = 'auto', strategy: str = 'all_to_all',
+                     overlap_chunks: int = 1, real: bool = True,
+                     n_spectra: int = 0, n_baked: int = 0,
+                     measured='auto', wire_dtype: str = 'native',
+                     kernel: str = 'reference', backend: str = 'wse',
+                     axis_bw: Optional[Mapping[str, float]] = None) -> PlanCost:
+    """Cost a fused forward -> pointwise -> inverse operator as one
+    schedule: the forward supersteps, one more forward chain a runtime
+    spectrum (``n_spectra``; baked spectra, ``n_baked``, add pointwise
+    operands only), the 'pointwise' stage at ``POINTWISE_CPE`` cycles a
+    local spectrum element and operand, then the mirrored inverse. The
+    boundary work two back-to-back plans would pay (a real pencil plan's
+    gather of the truncated axis, the rank-1 half-plane or natural-order
+    reassembly) shows as a zero-cycle 'elided' step. ``layout`` is the
+    pencil layout of ranks 2/3, or the flattened mesh axes of rank 1 with
+    ``factors`` its four-step split."""
+    kw = dict(precision=precision, method=method, strategy=strategy,
+              overlap_chunks=overlap_chunks, real=real, measured=measured,
+              wire_dtype=wire_dtype, kernel=kernel, backend=backend, axis_bw=axis_bw)
+    elide = None
+    if factors is not None:
+        n1, n2 = factors
+        fwd = list(large1d_plan_cost(n1, n2, layout, mesh_shape, natural_order=False,
+                                     **kw).steps)
+        ax = layout if isinstance(layout, tuple) else (layout,)
+        p = strat.static_group_size(ax if len(ax) > 1 else ax[0], mesh_shape)
+        if real:
+            # the real cost ends with the facade's half-plane assembly,
+            # which the operator never makes
+            fwd, assembly = fwd[:-1], fwd[-1]
+            spec_elems = (-(-(n1 // 2 + 1) // p) * p) * n2 // p
+            elide = StepCost('elided', f'{assembly.detail} (x2, fused)', 0.0)
+        else:
+            spec_elems = n1 * n2 // p
+            elide = StepCost('elided', f'natural-order swap+T x{spec_elems} (x2, fused)', 0.0)
+    else:
+        from repro_torch.fft import pencil as _pencil   # lazy: import cycle
+        fwd = list(pencil_plan_cost(shape, layout, mesh_shape, padded_spectrum=True,
+                                    **kw).steps)
+        p_total = 1
+        for o in layout:
+            p_total *= strat.static_group_size(o, mesh_shape)
+        if real:
+            nh_pad = _pencil.real_padded_extent(shape, layout, mesh_shape)
+            spec_elems = (math.prod(shape[:-1]) * nh_pad) // p_total
+            ra = len(shape) - 1
+            final_lay = _pencil.forward_schedule(tuple(layout), ra)[1]
+            if final_lay[ra] is not None:
+                pg = strat.static_group_size(final_lay[ra], mesh_shape)
+                axn = '*'.join(strat.axis_tuple(final_lay[ra]))
+                would = wm.swap_cycles_a2a(pg, spec_elems, precision)
+                elide = StepCost('elided', f'{axn} p={pg} x{spec_elems} (np-layout '
+                                 f'gather+scatter, ~{2 * would:.0f}cyc saved)', 0.0)
+        else:
+            spec_elems = math.prod(shape) // p_total
+    steps = list(fwd)
+    for _ in range(max(int(n_spectra), 0)):
+        steps += fwd
+    n_ops = 1 + max(int(n_spectra), 0) + max(int(n_baked), 0)
+    steps.append(StepCost('pointwise', f'op x{spec_elems} ({n_ops} spectra)',
+                          wm.POINTWISE_CPE * spec_elems * n_ops))
+    if elide is not None:
+        steps.append(elide)
+    # the inverse mirrors the forward step by step, so the overlap
+    # pipeline pairs its (fft, swap) steps as the executor does
+    steps += list(reversed(fwd))
+    return PlanCost(tuple(steps), strategy, method, precision, overlap_chunks,
+                    wire_dtype, kernel)
+
+
 # ---------------------------------------------------------------------------
 # Overlap feasibility (mirror of the executor's chunk-axis rule)
 # ---------------------------------------------------------------------------

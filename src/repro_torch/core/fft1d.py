@@ -13,7 +13,9 @@ the same functions.
   matrices. It runs in full fp32 (the reference uses
   ``Precision.HIGHEST``): on a CUDA tensor it sets
   ``torch.backends.cuda.matmul.allow_tf32 = False`` before its
-  products, so no TF32 rounding enters.
+  products, so no TF32 rounding enters. With ``compute_dtype`` (e.g.
+  ``torch.bfloat16``) its matrices and operands are rounded to that
+  type first, the accumulation and the twiddle staying fp32.
 * ``fft_four_step_block`` — the block-complex four-step: the complex
   axis carried as a leading size-2 axis, two real contractions per
   pencil against ``_block_consts_np``, full fp32 like the four-step.
@@ -37,6 +39,17 @@ def _stage_tables(n: int, inverse: bool, device: torch.device):
                  for r, i in tw.stage_twiddles_np(n, inverse=inverse))
 
 
+def narrow(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``t`` rounded to ``compute_dtype`` and widened back to its own
+    type (the identity for None). A product of two bf16 values is exact
+    in fp32, so an fp32 product of narrowed operands is the reference's
+    bf16 product with ``preferred_element_type=float32``, up to the
+    order of its sums."""
+    if compute_dtype is None or compute_dtype == t.dtype:
+        return t
+    return t.to(compute_dtype).to(t.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def four_step_tables(n1: int, n2: int, inverse: bool, device: torch.device):
     f1 = tuple(tw.table(a, device) for a in tw.dft_matrix_np(n1, inverse=inverse))
@@ -57,8 +70,11 @@ def full_fp32_matmul(device: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 def fft_stockham(re: torch.Tensor, im: torch.Tensor, *,
-                 inverse: bool = False) -> Planar:
+                 inverse: bool = False, compute_dtype=None) -> Planar:
     """Batched radix-2 Stockham FFT along the last axis.
+
+    It has no matrix operands, so it ignores ``compute_dtype`` (the
+    reference raises there).
 
     After the stage with subproblem size L the array viewed as (c, L)
     rows holds X[k, :] = DFT_L(x[k::c]), c = n / L; natural order in,
@@ -88,7 +104,7 @@ def fft_stockham(re: torch.Tensor, im: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def fft_four_step(re: torch.Tensor, im: torch.Tensor, *,
-                  inverse: bool = False) -> Planar:
+                  inverse: bool = False, compute_dtype=None) -> Planar:
     """Batched four-step FFT along the last axis.
 
     x[k], k = n2*k1 + k2  ->  y[j], j = j1 + n1*j2:
@@ -97,17 +113,23 @@ def fft_four_step(re: torch.Tensor, im: torch.Tensor, *,
       3. C = B * W, W[j1, k2] = w_n^{j1 k2}
       4. D = C @ F_{n2}
       5. y = D.T.reshape(n)
+
+    With ``compute_dtype`` the DFT matrices, A and C are rounded to it
+    before their products (:func:`narrow`); B, the twiddle and D stay
+    fp32, as in the reference.
     """
     n = re.shape[-1]
     n1, n2 = tw.four_step_factors(n)
     batch = tuple(re.shape[:-1])
     full_fp32_matmul(re.device)
     (f1r, f1i), (f2r, f2i), (wr, wi) = four_step_tables(n1, n2, inverse, re.device)
-    ar = re.reshape(batch + (n1, n2))
-    ai = im.reshape(batch + (n1, n2))
+    f1r, f1i, f2r, f2i = (narrow(f, compute_dtype) for f in (f1r, f1i, f2r, f2i))
+    ar = narrow(re.reshape(batch + (n1, n2)), compute_dtype)
+    ai = narrow(im.reshape(batch + (n1, n2)), compute_dtype)
     br = f1r @ ar - f1i @ ai
     bi = f1r @ ai + f1i @ ar
     cr, ci = tw.cmul(br, bi, wr, wi)
+    cr, ci = narrow(cr, compute_dtype), narrow(ci, compute_dtype)
     dr = cr @ f2r - ci @ f2i
     di = cr @ f2i + ci @ f2r
     yr = dr.transpose(-1, -2).reshape(batch + (n,))
@@ -211,22 +233,24 @@ def block_mma3_tables(n3: int, inverse: bool, device: torch.device):
 
 
 def fft_four_step_block(x: torch.Tensor, axis: int, *,
-                        inverse: bool = False) -> torch.Tensor:
+                        inverse: bool = False, compute_dtype=None) -> torch.Tensor:
     """Block-complex four-step FFT along ``axis`` of ``x``, whose leading
     axis of size 2 holds (re, im). Natural-order output, full fp32.
 
       b[c, j1, k2] = sum_{d, k1} F1b[c, j1, d, k1] a[d, k1, k2]
       y[c, m n1 + j1] = sum_{d, l} G[c, m, j1, d, l] b[d, j1, l]
-    with a[d] = x[d] viewed as (n1, n2)."""
+    with a[d] = x[d] viewed as (n1, n2). With ``compute_dtype`` F1b, G
+    (the twiddle folded in), a and b are rounded to it before their
+    products, as in the reference."""
     axis = axis % x.ndim
     n = x.shape[axis]
     n1, n2 = tw.four_step_factors(n)
     full_fp32_matmul(x.device)
-    f1b, g = block_tables(n1, n2, inverse, x.device)
+    f1b, g = (narrow(t, compute_dtype) for t in block_tables(n1, n2, inverse, x.device))
     a = x.movedim(axis, -1)
     lead = tuple(a.shape[1:-1])
-    a = a.reshape(2, -1, n1, n2)
-    b = torch.einsum('cjdk,dakl->cajl', f1b, a)
+    a = narrow(a.reshape(2, -1, n1, n2), compute_dtype)
+    b = narrow(torch.einsum('cjdk,dakl->cajl', f1b, a), compute_dtype)
     d = torch.einsum('cmjdl,dajl->camj', g, b)
     y = d.reshape((2,) + lead + (n,))
     if inverse:
@@ -240,14 +264,14 @@ def fft_four_step_block(x: torch.Tensor, axis: int, *,
 
 def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
                           wr=None, wi=None, *, inverse: bool = False,
-                          fft_fn=None) -> Planar:
+                          fft_fn=None, compute_dtype=None) -> Planar:
     """FFT along the LAST axis, optional planar twiddle multiply, and
     the last two axes exchanged:
     ``out[..., k, j] = (W * FFT(x))[..., j, k]``. ``wr``/``wi``
     broadcast against the pre-transpose output (..., b, n). Returns
     transposed views; a consumer that needs contiguous storage copies."""
     fft_fn = fft_stockham if fft_fn is None else fft_fn
-    yr, yi = fft_fn(re, im, inverse=inverse)
+    yr, yi = fft_fn(re, im, inverse=inverse, compute_dtype=compute_dtype)
     if wr is not None:
         yr, yi = tw.cmul(yr, yi, wr, wi)
     return yr.transpose(-1, -2), yi.transpose(-1, -2)
@@ -312,14 +336,16 @@ def irfft_pencil(re: torch.Tensor, im: torch.Tensor, *, cifft) -> torch.Tensor:
 
 
 def rfft_via(pencil_fn):
-    """A ``real_fn`` from a complex pencil ``(re, im, *, inverse)``: the
-    forward maps a real tensor to the planar half spectrum, the inverse
-    (``real_fn(re, im, inverse=True)``) maps it back."""
-    def real_fn(x, im=None, *, inverse=False):
+    """A ``real_fn`` from a complex pencil ``(re, im, *, inverse,
+    compute_dtype)``: the forward maps a real tensor to the planar half
+    spectrum, the inverse (``real_fn(re, im, inverse=True)``) maps it
+    back; ``compute_dtype`` passes through to the pencil."""
+    def real_fn(x, im=None, *, inverse=False, compute_dtype=None):
         if inverse:
-            return irfft_pencil(
-                x, im, cifft=lambda r, i: pencil_fn(r, i, inverse=True))
-        return rfft_pencil(x, cfft=lambda r, i: pencil_fn(r, i, inverse=False))
+            return irfft_pencil(x, im, cifft=lambda r, i: pencil_fn(
+                r, i, inverse=True, compute_dtype=compute_dtype))
+        return rfft_pencil(x, cfft=lambda r, i: pencil_fn(
+            r, i, inverse=False, compute_dtype=compute_dtype))
     return real_fn
 
 
@@ -333,13 +359,14 @@ DIRECT_ROWS = 16384
 
 
 def dft_direct(re: torch.Tensor, im: torch.Tensor, *,
-               inverse: bool = False) -> Planar:
+               inverse: bool = False, compute_dtype=None) -> Planar:
     """The dense DFT, y = x @ F.T, as four real matrix products in full
-    fp32, run on blocks of ``DIRECT_ROWS`` pencils with the last block
-    zero-padded. A product's kernel (and its summation order) may change
-    with the number of rows it is given; with one shape for every block a
-    pencil's bits depend on its own values only, so a chunked plan gives
-    the bits of the unchunked one."""
+    fp32 (it ignores ``compute_dtype``, as the reference does), run on
+    blocks of ``DIRECT_ROWS`` pencils with the last block zero-padded. A
+    product's kernel (and its summation order) may change with the
+    number of rows it is given; with one shape for every block a pencil's
+    bits depend on its own values only, so a chunked plan gives the bits
+    of the unchunked one."""
     n = re.shape[-1]
     batch = tuple(re.shape[:-1])
     full_fp32_matmul(re.device)

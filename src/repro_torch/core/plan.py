@@ -82,6 +82,9 @@ class PencilPlan:
                 superstep sees its half spectrum (n -> n//2 + 1 bins,
                 padded for even sharding)
     wire_dtype  swap wire format ('native'|'fp16'|'bf16')
+    compute_dtype  operand type of the matmul-form pencils' products
+                (e.g. ``torch.bfloat16``; None keeps fp32), reference tier
+                only (:func:`repro_torch.fft.methods.check_compute_dtype`)
     """
     shape: Tuple[int, ...]
     mesh: object
@@ -91,6 +94,7 @@ class PencilPlan:
     comm: str = 'all_to_all'
     real: bool = False
     wire_dtype: str = 'native'
+    compute_dtype: object = None
 
     @property
     def real_axis(self) -> Optional[int]:

@@ -16,11 +16,15 @@
     y = q.forward(x)                   # (..., n) complex64, np.fft.fft
     s = fft.rplan((1 << 24,), make_fft_mesh(1, 1)).forward(xr)  # np.fft.rfft
 
+    op = fft.plan_op((n, n, n), make_fft_mesh(1, 1), op=fft.spectral_mul,
+                     spectra=(g,), spectra_form='spectrum')   # g in rfftn order
+    u = op.apply(u)                    # irfftn(rfftn(u) * g), one plan
+
 Local pencil algorithms live in the registry :mod:`repro_torch.fft.methods`;
 the swaps dispatch through :mod:`repro_torch.comm.strategies`
 (``plan(..., comm='auto')`` picks one with the cost model).
 """
 from repro_torch.fft import methods
-from repro_torch.fft.api import FFT, plan, plan_op, rplan
+from repro_torch.fft.api import FFT, SpectralOp, plan, plan_op, rplan, spectral_mul
 
-__all__ = ['FFT', 'plan', 'rplan', 'plan_op', 'methods']
+__all__ = ['FFT', 'SpectralOp', 'plan', 'rplan', 'plan_op', 'spectral_mul', 'methods']

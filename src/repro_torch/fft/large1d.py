@@ -17,9 +17,9 @@ kernel tier with ``method='stockham'`` one ``fft_twiddle_transpose``
 launch), and the natural-order row DFT emits its own transpose.
 
 Users go through ``repro_torch.fft.plan((n,), mesh)``, which owns the
-(n,) <-> (n1, n2) views and the real spectrum's assembly. The operator
-bodies (``_complex_fourstep``, ``make_fourstep_op``) are ROADMAP queue 1,
-'Operator plans'.
+(n,) <-> (n1, n2) views and the real spectrum's assembly, or
+``plan_op((n,), mesh, ...)``, whose operator (:func:`make_fourstep_op`)
+keeps the spectrum in the four-step's own form and never assembles it.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from repro_torch.comm import strategies
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
 from repro_torch.fft import methods
+from repro_torch.fft.pencil import splice_op
 
 
 def twiddle(n: int, rows: int, k2_first: int, m2: int, *, transposed: bool = False,
@@ -87,7 +88,7 @@ def _batched(fn: Callable, overlap_chunks: int) -> Callable:
 def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
                      inverse: bool = False, method: str = 'auto', kernel: str = 'auto',
                      comm: str = 'all_to_all', overlap_chunks: int = 1,
-                     wire_dtype: str = 'native') -> Callable:
+                     wire_dtype: str = 'native', compute_dtype=None) -> Callable:
     """1-D FFT of length n = n1*n2 as a distributed four-step, in natural
     order (the reference's ``natural_order=True``).
 
@@ -101,7 +102,7 @@ def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
     # (m2, n1): the orientation of the fused superstep's pre-transpose output
     wr, wi = twiddle(n, n1, idx * m2, m2, transposed=True, conj=inverse,
                      device=mesh.device)
-    kw = dict(inverse=inverse, method=method, kernel=kernel)
+    kw = dict(inverse=inverse, method=method, kernel=kernel, compute_dtype=compute_dtype)
 
     def body(ar, ai):
         ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, m2)
@@ -118,7 +119,7 @@ def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
 
 
 def _real_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: str,
-                   comm: str, wire_dtype: str):
+                   comm: str, wire_dtype: str, compute_dtype=None):
     """The real four-step bodies on this rank's block with one leading
     batch axis: ``(body_fwd, body_inv)``.
 
@@ -128,10 +129,10 @@ def _real_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: st
     (``methods.apply_real``), so the first swap moves one real array and
     the second the halved rows. ``body_inv`` is its mirror.
 
-    The reference also makes the bins of rows 0 and n1/2 past the middle
-    the exact conjugates of their partners, for its operator plans; the
-    ``np.fft.rfft`` assembly drops those bins, so the transform does not
-    need it (ROADMAP queue 1, 'Operator plans')."""
+    The ``np.fft.rfft`` assembly keeps one bin of each conjugate pair in
+    rows 0 and n1/2, so the transform leaves their other halves as the
+    butterflies computed them; the operator plans canonicalize them
+    (:func:`_canon`)."""
     methods.validate(method)
     methods.validate_kernel(kernel)
     mesh_axis, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
@@ -140,7 +141,7 @@ def _real_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: st
     nh1p = -(-nh1 // p) * p
     # (nh1p, m2); the pad rows carry zeros, whatever their phase
     wr, wi = twiddle(n, nh1p, idx * m2, m2, device=mesh.device)
-    kw = dict(method=method, kernel=kernel)
+    kw = dict(method=method, kernel=kernel, compute_dtype=compute_dtype)
 
     def body_fwd(x):
         x = swap(x, shard_pos=1, mem_pos=2)                           # (B, n1, m2)
@@ -165,7 +166,8 @@ def _real_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: st
 def make_rfft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
                       inverse: bool = False, method: str = 'auto',
                       kernel: str = 'auto', comm: str = 'all_to_all',
-                      overlap_chunks: int = 1, wire_dtype: str = 'native') -> Callable:
+                      overlap_chunks: int = 1, wire_dtype: str = 'native',
+                      compute_dtype=None) -> Callable:
     """Rank-1 REAL four-step in the rows-halved half-plane form: the
     forward ``fn(x)`` maps this rank's real rows (B, n1/p, n2) of A[k1, k2]
     to its rows of the planar half plane D[j1, j2], j1 <= n1//2 padded to
@@ -173,6 +175,137 @@ def make_rfft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
     them back. The assembly of ``np.fft.rfft``'s order lives in the
     facade."""
     body_fwd, body_inv = _real_fourstep(n1, n2, mesh, mesh_axes, method=method,
-                                        kernel=kernel, comm=comm, wire_dtype=wire_dtype)
+                                        kernel=kernel, comm=comm, wire_dtype=wire_dtype,
+                                        compute_dtype=compute_dtype)
     return _batched(body_inv if inverse else body_fwd, overlap_chunks)
 
+
+
+# ---------------------------------------------------------------------------
+# Operator bodies: the spectrum in the four-step's own form
+# ---------------------------------------------------------------------------
+
+def _canon(ar: torch.Tensor, ai: torch.Tensor, n1: int, n2: int,
+           first_row: int) -> Planar:
+    """Hermitian-canonicalize rows 0 and n1/2 of this rank's rows of the
+    real half plane D (global rows from ``first_row``), in place.
+
+    Those two rows hold conjugate pairs inside themselves (row 0: (0, j2)
+    with (0, n2 - j2); row n1/2: (n1/2, j2) with (n1/2, n2-1-j2)), which
+    the butterflies compute along different paths, so they are not exact
+    conjugates. The ``np.fft.rfft`` order keeps the j2 < n2/2 member of
+    each pair and its inverse rebuilds the other as its conjugate; this
+    does the same here (a sign flip, no rounding), so an operator's
+    pointwise sees the bins the unfused forward -> pointwise -> inverse
+    composition sees. The other rows survive that round trip bit for
+    bit already. The tensors are the body's fresh outputs."""
+    h = n2 // 2
+    for row, dst, src in ((0, slice(h + 1, None), slice(1, h)),
+                          (n1 // 2, slice(h, None), slice(0, h))):
+        r = row - first_row
+        if 0 <= r < ar.shape[-2]:
+            ar[..., r, dst] = ar[..., r, src].flip(-1)
+            ai[..., r, dst] = ai[..., r, src].flip(-1).neg()
+    return ar, ai
+
+
+def _complex_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: str,
+                      comm: str, wire_dtype: str, compute_dtype=None, fused: bool = True):
+    """The complex four-step bodies in the factor-transposed D-form, on
+    this rank's block with one leading batch axis: ``(body_fwd,
+    body_inv)``.
+
+    ``body_fwd(ar, ai)`` is :func:`make_fft1d_large`'s body without the
+    natural-order epilogue: it maps the rows (B, n1/p, n2) of A[k1, k2]
+    to the rows (B, n1/p, n2) of D[j1, j2] = y[j1 + n1*j2], every bin
+    once. ``body_inv`` maps them back: row IDFT over j2, the conjugate
+    twiddle, column IDFT over j1. D's rows are what the natural-order
+    inverse holds after its first swap, so with ``fused`` the inverse is
+    that inverse's remaining supersteps (the row IDFT, twiddle and
+    transposed emit as one ``apply_fused`` with its own planes): the
+    same kernels on the same pencils, so an operator gives the bits of
+    the natural-order forward and inverse. Without ``fused`` each
+    direction runs its DFTs and twiddle as separate steps."""
+    methods.validate(method)
+    methods.validate_kernel(kernel)
+    mesh_axis, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
+    n, m2, m1 = n1 * n2, n2 // p, n1 // p
+    kw = dict(method=method, kernel=kernel, compute_dtype=compute_dtype)
+    wr, wi = twiddle(n, n1, idx * m2, m2, device=mesh.device)              # (n1, m2)
+    wtr, wti = twiddle(n, n1, idx * m2, m2, transposed=True, device=mesh.device)
+    wci = -wi
+    # (m1, n2): the natural-order inverse's planes (its factors swapped)
+    wir, wii = twiddle(n, n2, idx * m1, m1, transposed=True, conj=True, device=mesh.device)
+
+    def body_fwd(ar, ai):
+        ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, m2)
+        if fused:
+            ar, ai = methods.apply_fused(ar.transpose(1, 2), ai.transpose(1, 2),
+                                         wr=wtr, wi=wti, **kw)
+        else:
+            ar, ai = methods.apply(ar, ai, axis=1, **kw)
+            ar, ai = tw.cmul(ar, ai, wr, wi)
+        ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)                 # (B, n1/p, n2)
+        return methods.apply(ar, ai, axis=2, **kw)
+
+    def body_inv(ar, ai):
+        if fused:
+            ar, ai = methods.apply_fused(ar, ai, wr=wir, wi=wii, inverse=True, **kw)
+            ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)             # (B, n2/p, n1)
+            ar, ai = methods.apply_fused(ar, ai, inverse=True, **kw)  # (B, n1, n2/p)
+        else:
+            ar, ai = methods.apply(ar, ai, axis=2, inverse=True, **kw)
+            ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)             # (B, n1, m2)
+            ar, ai = tw.cmul(ar, ai, wr, wci)
+            ar, ai = methods.apply(ar, ai, axis=1, inverse=True, **kw)
+        return swap(ar, ai, shard_pos=2, mem_pos=1)                   # (B, n1/p, n2)
+
+    return body_fwd, body_inv
+
+
+def fourstep_bodies(n1: int, n2: int, mesh, mesh_axes, *, real: bool, method: str = 'auto',
+                    kernel: str = 'auto', comm: str = 'all_to_all',
+                    wire_dtype: str = 'native', compute_dtype=None, fused: bool = True):
+    """``(fwd, inv)`` of a rank-1 operator on this rank's block with one
+    leading batch axis, the spectrum in its native form: for a real plan
+    the rows (B, nh1p/p, n2) of the half plane D[j1 <= n1//2, j2], rows
+    0 and n1/2 canonicalized (:func:`_canon`), pad rows past n1//2
+    dropped by ``inv``; for a complex plan the D-form
+    (:func:`_complex_fourstep`). ``fwd`` is also what bakes an
+    operator's spectra given in operand space."""
+    kw = dict(method=method, kernel=kernel, comm=comm, wire_dtype=wire_dtype,
+              compute_dtype=compute_dtype)
+    if not real:
+        return _complex_fourstep(n1, n2, mesh, mesh_axes, fused=fused, **kw)
+    body_fwd, body_inv = _real_fourstep(n1, n2, mesh, mesh_axes, **kw)
+    _, p, idx, _ = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
+    rows = -(-(n1 // 2 + 1) // p)
+
+    def fwd(x):
+        ar, ai = body_fwd(x)
+        return _canon(ar, ai, n1, n2, idx * rows)
+
+    return fwd, body_inv
+
+
+def make_fourstep_op(n1: int, n2: int, mesh, mesh_axes, pointwise: Callable, *,
+                     real: bool = True, batch_ndims=(0,), baked_batch_ndims=(),
+                     method: str = 'auto', kernel: str = 'auto', compute_dtype=None,
+                     comm: str = 'all_to_all', wire_dtype: str = 'native',
+                     fused: bool = True) -> Callable:
+    """The rank-1 fused spectral operator: the four-step forward,
+    ``pointwise`` on this rank's rows of the spectrum in its native form
+    (:func:`fourstep_bodies`), then the mirrored inverse. The
+    half-plane / natural-order assembly that ``plan((n,), ...)`` makes
+    never happens. ``pointwise`` must be elementwise in the bins and,
+    for a real plan, conjugation-equivariant (any multiplicative factor
+    is). Operands are this rank's rows of the (n1, n2) row-major view,
+    (..., n1/p, n2); a real plan takes ``fn(x, *extras, *baked) -> y``,
+    a complex one planar pairs. ``batch_ndims`` / ``baked_batch_ndims``
+    as in :func:`repro_torch.fft.pencil.make_fused_op`."""
+    fwd, inv = fourstep_bodies(n1, n2, mesh, mesh_axes, real=real, method=method,
+                               kernel=kernel, comm=comm, wire_dtype=wire_dtype,
+                               compute_dtype=compute_dtype, fused=fused)
+    return splice_op(fwd, inv, pointwise, per_operand=1 if real else 2, core_rank=2,
+                     batch_ndims=tuple(batch_ndims),
+                     baked_batch_ndims=tuple(baked_batch_ndims))

@@ -21,6 +21,10 @@ every tier, as in the reference. ``'block'`` (the block-complex
 four-step) runs on planar pairs like the others: its plain version
 stacks (re, im) on a leading size-2 axis inside the pencil, its kernel
 takes the planes.
+
+``compute_dtype`` (e.g. ``torch.bfloat16``) rounds the operands of the
+matmul-form pencils (``four_step``, ``block``) on the reference tier;
+:func:`check_compute_dtype` is the one rule for every tier.
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ class Method:
     kernel_fn: Optional[Callable] = None
     real_fn: Optional[Callable] = None
     pow2_only: bool = True
+    #: its plain version rounds its products' operands to ``compute_dtype``
+    casts_operands: bool = False
     description: str = ''
 
 
@@ -115,6 +121,43 @@ def resolve_kernel(kernel: str, method: Optional[Method] = None,
     return 'pallas' if on_cuda else 'reference'
 
 
+def _merge_kernel_arg(kernel: str, use_kernel: bool) -> str:
+    """Fold the deprecated ``use_kernel`` boolean into the tier option:
+    True means 'pallas' where ``kernel`` was left at 'auto'."""
+    if use_kernel and kernel == 'auto':
+        return 'pallas'
+    return kernel
+
+
+def check_compute_dtype(m: Method, tier: str, compute_dtype) -> None:
+    """The rule for ``compute_dtype`` on method ``m`` run on ``tier``.
+
+    ``stockham`` and ``direct`` have no matrix operands and ignore it on
+    every tier. ``four_step`` and ``block`` honour it on the reference
+    tier; on the kernel tier their tensor-core bodies take fp32 only, so
+    any type other than None or float32 raises rather than running fp32
+    where a narrower product was asked for."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return
+    if tier == 'pallas' and m.casts_operands:
+        raise ValueError(
+            f"compute_dtype={compute_dtype} is not supported by the CUDA kernels of "
+            f"method {m.name!r} (fp32 operands only); plan with kernel='reference' "
+            "to round the products' operands, or leave compute_dtype unset")
+
+
+def check_plan_compute_dtype(method: str, kernel: str, lengths, device,
+                             compute_dtype) -> None:
+    """:func:`check_compute_dtype` for every pencil length a plan runs,
+    at plan time (``device`` None answers for the card)."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return
+    device = 'cuda' if device is None else device
+    for n in lengths:
+        m = resolve(method, n)
+        check_compute_dtype(m, resolve_kernel(kernel, m, device), compute_dtype)
+
+
 def _checked(method: str, n: int) -> Method:
     m = resolve(method, n)
     if m.pow2_only and not tw.is_pow2(n):
@@ -126,7 +169,7 @@ def _checked(method: str, n: int) -> Method:
 
 def apply(re: torch.Tensor, im: torch.Tensor, *, axis: int = -1,
           inverse: bool = False, method: str = 'auto',
-          kernel: str = 'auto') -> Planar:
+          kernel: str = 'auto', compute_dtype=None) -> Planar:
     """Run a registered pencil method along ``axis`` of planar (re, im).
 
     The kernel tier needs the pencil axis last and contiguous: a
@@ -137,12 +180,13 @@ def apply(re: torch.Tensor, im: torch.Tensor, *, axis: int = -1,
     m = _checked(method, re.shape[axis])
     last = axis == re.ndim - 1
     tier = resolve_kernel(kernel, m, re.device)
+    check_compute_dtype(m, tier, compute_dtype)
     if not last:
         re, im = re.movedim(axis, -1), im.movedim(axis, -1)
     if tier == 'pallas':
         yr, yi = m.kernel_fn(re.contiguous(), im.contiguous(), inverse=inverse)
     else:
-        yr, yi = m.pencil_fn(re, im, inverse=inverse)
+        yr, yi = m.pencil_fn(re, im, inverse=inverse, compute_dtype=compute_dtype)
     if not last:
         yr, yi = yr.movedim(-1, axis), yi.movedim(-1, axis)
     return yr, yi
@@ -150,7 +194,7 @@ def apply(re: torch.Tensor, im: torch.Tensor, *, axis: int = -1,
 
 def apply_fused(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
                 method: str = 'auto', kernel: str = 'auto',
-                wr=None, wi=None) -> Planar:
+                wr=None, wi=None, compute_dtype=None) -> Planar:
     """One fused superstep: FFT along the LAST axis, an optional planar
     twiddle, and the last two axes exchanged,
     ``out[..., k, j] = (W * FFT(x))[..., j, k]``.
@@ -161,7 +205,9 @@ def apply_fused(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
         raise ValueError("apply_fused needs a batch axis next to the "
                          f"pencil axis, got shape {tuple(re.shape)}")
     m = _checked(method, re.shape[-1])
-    if resolve_kernel(kernel, m, re.device) == 'pallas':
+    tier = resolve_kernel(kernel, m, re.device)
+    check_compute_dtype(m, tier, compute_dtype)
+    if tier == 'pallas':
         re, im = re.contiguous(), im.contiguous()
         if m.name == 'stockham':
             return fft_fused.fft_twiddle_transpose(re, im, wr, wi, inverse=inverse)
@@ -170,12 +216,12 @@ def apply_fused(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
             yr, yi = tw.cmul(yr, yi, wr, wi)
         return yr.transpose(-1, -2), yi.transpose(-1, -2)
     return f1.fft_twiddle_transpose(re, im, wr, wi, inverse=inverse,
-                                    fft_fn=m.pencil_fn)
+                                    fft_fn=m.pencil_fn, compute_dtype=compute_dtype)
 
 
 def apply_real(x: torch.Tensor, im: Optional[torch.Tensor] = None, *,
                axis: int = -1, inverse: bool = False, method: str = 'auto',
-               kernel: str = 'auto'):
+               kernel: str = 'auto', compute_dtype=None):
     """Run a method's real-input transform along ``axis``.
 
     Forward (``im is None``): real tensor -> planar half spectrum, the
@@ -200,9 +246,11 @@ def apply_real(x: torch.Tensor, im: Optional[torch.Tensor] = None, *,
     if n % 2:
         raise ValueError(f"real transforms need an even length, got {n}")
     m = _checked(method, max(n // 2, 1))
-    if resolve_kernel(kernel, m, x.device) == 'pallas':
+    tier = resolve_kernel(kernel, m, x.device)
+    check_compute_dtype(m, tier, compute_dtype)
+    if tier == 'pallas':
         # the pack reads every other element: the kernel takes contiguous planes
-        real_fn = f1.rfft_via(lambda r, i, *, inverse: m.kernel_fn(
+        real_fn = f1.rfft_via(lambda r, i, *, inverse, compute_dtype: m.kernel_fn(
             r.contiguous(), i.contiguous(), inverse=inverse))
     else:
         real_fn = m.real_fn
@@ -211,16 +259,17 @@ def apply_real(x: torch.Tensor, im: Optional[torch.Tensor] = None, *,
         x = x.movedim(axis, -1)
         im = None if im is None else im.movedim(axis, -1)
     if inverse:
-        y = real_fn(x, im, inverse=True)
+        y = real_fn(x, im, inverse=True, compute_dtype=compute_dtype)
         return y if last else y.movedim(-1, axis)
-    yr, yi = real_fn(x)
+    yr, yi = real_fn(x, compute_dtype=compute_dtype)
     if not last:
         yr, yi = yr.movedim(-1, axis), yi.movedim(-1, axis)
     return yr, yi
 
 
-def _block_pencil(re, im, *, inverse=False) -> Planar:
-    y = f1.fft_four_step_block(torch.stack([re, im]), -1, inverse=inverse)
+def _block_pencil(re, im, *, inverse=False, compute_dtype=None) -> Planar:
+    y = f1.fft_four_step_block(torch.stack([re, im]), -1, inverse=inverse,
+                               compute_dtype=compute_dtype)
     return y[0], y[1]
 
 
@@ -236,6 +285,7 @@ register(Method(
     pencil_fn=f1.fft_four_step,
     kernel_fn=fft_matmul.fft_matmul,
     real_fn=f1.rfft_via(f1.fft_four_step),
+    casts_operands=True,
     description='Bailey four-step as dense DFT products'))
 
 register(Method(
@@ -243,6 +293,7 @@ register(Method(
     pencil_fn=_block_pencil,
     kernel_fn=fft_block.fft_block_planar,
     real_fn=f1.rfft_via(_block_pencil),
+    casts_operands=True,
     description='block-complex four-step: two real contractions, folded twiddle'))
 
 register(Method(

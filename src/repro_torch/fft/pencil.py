@@ -137,8 +137,8 @@ def packed_plan(plan: PencilPlan, nh_pad: int) -> PencilPlan:
 # ---------------------------------------------------------------------------
 
 def _fft_along(re, im, axis: int, *, inverse: bool, plan: PencilPlan) -> Planar:
-    return methods.apply(re, im, axis=axis, inverse=inverse,
-                         method=plan.method, kernel=plan.kernel)
+    return methods.apply(re, im, axis=axis, inverse=inverse, method=plan.method,
+                         kernel=plan.kernel, compute_dtype=plan.compute_dtype)
 
 
 def _swap_start(x, mesh_axis, *, shard_pos: int, mem_pos: int,
@@ -163,7 +163,7 @@ def _fused_pair(re, im, *, a: int, s: int, mesh_axis, inverse: bool,
     nd = re.ndim
     fr, fi = methods.apply_fused(re.movedim(a, -1), im.movedim(a, -1),
                                  inverse=inverse, method=plan.method,
-                                 kernel=plan.kernel)
+                                 kernel=plan.kernel, compute_dtype=plan.compute_dtype)
     # net arrange+emit permutation: order[i] = original axis at new pos i
     order = [p for p in range(nd) if p != a]
     order = order[:-1] + [a] + order[-1:]
@@ -299,7 +299,7 @@ def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
 
     def r2c(x: torch.Tensor) -> Planar:
         re, im = methods.apply_real(x, axis=off + ra, method=plan.method,
-                                    kernel=plan.kernel)
+                                    kernel=plan.kernel, compute_dtype=plan.compute_dtype)
         if nh_pad != nh:      # the real axis is the last one
             re = torch.nn.functional.pad(re, (0, nh_pad - nh))
             im = torch.nn.functional.pad(im, (0, nh_pad - nh))
@@ -308,7 +308,8 @@ def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
     def c2r(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         re, im = re.narrow(off + ra, 0, nh), im.narrow(off + ra, 0, nh)
         return methods.apply_real(re, im, axis=off + ra, inverse=True,
-                                  method=plan.method, kernel=plan.kernel)
+                                  method=plan.method, kernel=plan.kernel,
+                                  compute_dtype=plan.compute_dtype)
 
     def chunked_swap(shape, lay: Layout, swap_step):
         """(chunk axis or None, start function) of the swap that pairs
@@ -363,3 +364,88 @@ def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
         return c2r(re, im)
 
     return inverse_ if inverse else forward
+
+
+# ---------------------------------------------------------------------------
+# Fused spectral operators
+# ---------------------------------------------------------------------------
+
+def splice_op(fwd: Callable, inv: Callable, pointwise: Callable, *, per_operand: int,
+              core_rank: int, batch_ndims: Tuple[int, ...],
+              baked_batch_ndims: Tuple[int, ...]) -> Callable:
+    """The operator ``fn(*operands, *baked)``: each operand through
+    ``fwd``, ``pointwise`` on the spectra, the result through ``inv``.
+
+    ``fwd`` and ``inv`` take and return blocks with ONE leading batch
+    axis, ``per_operand`` tensors an operand (1 real, 2 planar) and
+    ``core_rank`` trailing dims. Operands may have different batch ranks
+    (``batch_ndims``, e.g. a (B, d, n) signal and a (d, n) kernel): each
+    chain runs on its own batch flattened to one axis, and ``pointwise``
+    sees every spectrum with its own batch shape restored, so it
+    broadcasts them numpy-style. ``baked`` are planar spectra already in
+    the native form (``baked_batch_ndims`` leading dims each). The chains
+    run one after another; eager PyTorch rounds every product on its own,
+    so each chain gives the bits its standalone transform gives."""
+    n_main = len(batch_ndims)
+
+    def lead(t: torch.Tensor, nb: int, what: str) -> Tuple[int, ...]:
+        if t.ndim != nb + core_rank:
+            raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {nb} "
+                             f"batch dims before {core_rank} transform dims")
+        return tuple(t.shape[:nb])
+
+    def run(chain, parts, batch):
+        flat = [p.reshape((math.prod(batch),) + tuple(p.shape[len(batch):])) for p in parts]
+        out = chain(*flat)
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(o.reshape(batch + tuple(o.shape[1:])) for o in out)
+
+    def fn(*args):
+        if len(args) != per_operand * n_main + 2 * len(baked_batch_ndims):
+            raise ValueError(f"operator takes {n_main} operands of {per_operand} tensors "
+                             f"and {len(baked_batch_ndims)} baked pairs, got {len(args)} "
+                             "tensors")
+        specs = []
+        for i, nb in enumerate(batch_ndims):
+            parts = args[per_operand * i:per_operand * (i + 1)]
+            specs.append(run(fwd, parts, lead(parts[0], nb, f"operand {i}")))
+        baked = args[per_operand * n_main:]
+        pairs = [(baked[2 * j], baked[2 * j + 1]) for j in range(len(baked) // 2)]
+        for (br, _), nb in zip(pairs, baked_batch_ndims):
+            lead(br, nb, "a baked spectrum")
+        re, im = pointwise(*specs[0], *specs[1:], *pairs)
+        y = run(inv, (re, im), tuple(re.shape[:re.ndim - core_rank]))
+        return y[0] if len(y) == 1 else y
+
+    return fn
+
+
+def make_fused_op(plan: PencilPlan, pointwise: Callable, *,
+                  batch_ndims: Tuple[int, ...] = (0,),
+                  baked_batch_ndims: Tuple[int, ...] = (),
+                  overlap_chunks: int = 1) -> Tuple[Callable, Layout, Layout]:
+    """The per-rank fused spectral operator of a rank-2/3 plan: the
+    forward schedule spliced to the reversed inverse schedule at the
+    spectrum, ``pointwise`` applied to this rank's block of it in
+    whatever layout the forward left it (the native one: for a real
+    plan the padded half spectrum, so no boundary gather or scatter).
+
+    ``pointwise(re, im, *extras)`` gets this rank's planar spectrum, then
+    one planar pair an extra operand and a baked spectrum, and must be
+    elementwise in the bins. Real plans: ``fn(x, *extras, *baked) -> y``
+    (real blocks under the plan's layout); complex plans take a planar
+    pair an operand, ``fn(re, im, *extra_pairs, *baked) -> (re, im)``.
+    ``batch_ndims`` are the operands' batch ranks (the main one first),
+    ``baked_batch_ndims`` those of the baked pairs (see
+    :func:`splice_op`). The r2c/c2r ends run on the packed (padded) plan
+    and ``overlap_chunks`` pipelines every (fft, swap) pair, as in the
+    plan's own forward and inverse, so the operator gives the bits of
+    forward -> pointwise -> inverse run one by one.
+
+    Returns ``(fn, in_layout, spec_layout)``."""
+    fwd, in_layout, spec_layout = make_fft(plan, overlap_chunks=overlap_chunks)
+    inv, _, _ = make_fft(plan, inverse=True, overlap_chunks=overlap_chunks)
+    fn = splice_op(fwd, inv, pointwise, per_operand=1 if plan.real else 2,
+                   core_rank=len(plan.shape), batch_ndims=tuple(batch_ndims),
+                   baked_batch_ndims=tuple(baked_batch_ndims))
+    return fn, in_layout, spec_layout

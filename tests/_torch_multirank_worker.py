@@ -4,12 +4,13 @@ Run in a subprocess so the test process never initialises a process
 group:
 
     python tests/_torch_multirank_worker.py OUT.json PORT [cpu|cuda]
-        [--mesh 2x2] [--suite base|strategies]
+        [--mesh 2x2] [--pods 1] [--suite base|strategies|pod|op] [--ref REF.npz]
 
 ``cpu`` (the default) runs one gloo rank a mesh position on the CPU with
 the plain PyTorch versions; ``cuda`` runs NCCL ranks, one card each,
 with the CUDA kernels. ``--mesh`` is the ('x', 'y') mesh (2 x 2 by
-default; 1 x 4 and 2 x 4 too).
+default; 1 x 2, 1 x 4 and 2 x 4 too); ``--pods 2`` makes it a
+('pod', 'x', 'y') mesh of that many pods.
 
 Every rank makes the same global operand from a seed, takes its block
 under the plan's input layout, runs forward and inverse, and compares
@@ -37,6 +38,26 @@ also run with ``comm='all_to_all'`` and held against it, forward and
 inverse (``*_vs_all_to_all``); and ``SWAPS`` holds each strategy's bare
 swap against the all-to-all's on random blocks for every mesh-axis
 group and a few (shard_pos, mem_pos) pairs.
+
+Suite ``pod`` (``POD_CASES``, ``--mesh 1x2 --pods 2``): plans with
+``batch_spec='pod'``, rank 3 and rank 1, complex and real (the padded
+spectrum). Every rank passes its pod's slice of a batch of 4, its block
+of it; its blocks are held against the same blocks of the global
+results: numpy's, the single-process plan's on the whole batch and,
+with ``--ref``, the JAX package's on a 2 x 1 x 2 mesh.
+
+Suite ``op`` (``OP_CASES`` of the mesh: rank 3 on 2 x 2, rank 1 on
+1 x 4): ``plan_op(..., op=spectral_mul)`` with one runtime factor, held
+against the single-process operator, its own unfused composition
+(forward, ``spectral_mul``, inverse, all on the mesh), numpy and, with
+``--ref``, the JAX package's executors on the same mesh; the factor
+baked ('plan' form, a global array) and, given the single-process
+plan's own spectrum of it, in the 'spectrum' form, against the runtime
+operator.
+
+``--ref`` names an ``.npz`` of global reference results by case name
+(``tests/_torch_jax_reference.py`` writes it); the worker itself never
+imports jax.
 
 Real plans take a real operand. A rank-2/3 plan's half axis travels
 zero-padded to ``nh_pad`` bins; a rank's block of the spectrum is held
@@ -128,6 +149,36 @@ def strategies_for(mesh: str):
 
 #: (shard_pos, mem_pos) of the bare swaps, on blocks of (8, 8, 16, 8)
 SWAPS = [(0, 1), (1, 0), (2, 3), (3, 1)]
+
+#: (name, shape, plan options) of suite 'pod': a batch of 4 sharded over 'pod'
+POD_BATCH = 4
+POD_CASES = [
+    ('pod_r3', (16, 16, 16), dict(method='stockham')),
+    ('pod_r3_real', (16, 16, 16), dict(method='stockham', real=True, padded_spectrum=True)),
+    ('pod_r1', (4096,), dict(method='stockham')),
+    ('pod_r1_real', (4096,), dict(method='stockham', real=True)),
+]
+
+#: (name, shape, plan_op options) of suite 'op', by mesh; each with one
+#: runtime factor on a batch of 2
+OP_CASES = {
+    '2x2': [('op_r3_real', (16, 16, 16), dict(real=True, method='stockham')),
+            ('op_r3', (16, 16, 16), dict(real=False, method='stockham'))],
+    '1x4': [('op_r1_real', (4096,), dict(real=True, method='stockham')),
+            ('op_r1', (4096,), dict(real=False, method='stockham'))],
+}
+
+
+def operands(shape, real: bool, batch: int, seed: int):
+    """The global numpy operand of a case (``batch=0``: no batch dim),
+    the same on every rank and in the reference."""
+    rng = np.random.default_rng(list(shape) + [seed])
+    full = ((batch,) if batch else ()) + tuple(shape)
+    x = rng.standard_normal(full)
+    if not real:
+        x = x + 1j * rng.standard_normal(full)
+    return x.astype(np.float32 if real else np.complex64)
+
 
 #: (name, shape, rplan options)
 REAL_CASES = [
@@ -294,7 +345,101 @@ def _swaps(mesh, names):
     return out
 
 
-def _suite(mesh, single, mesh_name: str, suite: str) -> dict:
+def _pod_case(mesh, single, shape, kw, ref):
+    """A plan with ``batch_spec='pod'``: this rank's block of its pod's
+    slice of the batch."""
+    kw = dict(kw)
+    real = kw.pop('real', False)
+    x = operands(shape, real, POD_BATCH, 3)
+    xt = torch.as_tensor(x, device=mesh.device)
+    make = fft.rplan if real else fft.plan
+    p = make(shape, mesh, batch_spec='pod', **kw)
+    axes = tuple(range(1, len(shape) + 1))
+    want = torch.as_tensor(
+        (np.fft.rfftn(x, axes=axes) if real else np.fft.fftn(x, axes=axes)).astype(np.complex64))
+    # a padded half spectrum is as long as the mesh's plan pads it
+    pad = (0, p.spectrum_shape[-1] - want.shape[-1])
+    y1 = torch.nn.functional.pad(make(shape, single, comm='all_to_all', **kw).forward(xt), pad)
+    want = torch.nn.functional.pad(want, pad)
+
+    def block(g, layout):
+        g = torch.as_tensor(g).to(mesh.device)
+        return mesh.shard(g, layout, batch_ndim=1, batch_spec='pod')
+
+    x_in = block(xt, p.in_layout)
+    y = p.forward(x_in)
+    x2 = p.inverse(y)
+    rec = {
+        'fwd_vs_single': _gap(y, block(y1, p.out_layout)),
+        'fwd_vs_numpy': _gap(y, block(want, p.out_layout)),
+        'roundtrip': _gap(x2, x_in),
+        'shape_ok': (tuple(y.shape) == (POD_BATCH // mesh.shape['pod'],)
+                     + p.spectrum_local_shape()
+                     and tuple(x2.shape) == tuple(x_in.shape)),
+        'resolved': [p.comm, p.overlap_chunks, p.method],
+    }
+    if ref is not None:
+        rec['fwd_vs_reference'] = _gap(y, block(ref.astype(np.complex64), p.out_layout))
+    return rec
+
+
+def _op_case(mesh, single, shape, kw, ref):
+    """``plan_op`` with one runtime factor, against the single-process
+    operator, its unfused composition on the mesh, numpy and the
+    reference; the factor baked in both forms against it."""
+    kw = dict(kw)
+    real = kw.pop('real')
+    x, k = operands(shape, real, BATCH, 5), operands(shape, real, 0, 6)
+    xt, kt = (torch.as_tensor(a, device=mesh.device) for a in (x, k))
+    op = fft.plan_op(shape, mesh, op=fft.spectral_mul, real=real, n_spectra=1, **kw)
+    op1 = fft.plan_op(shape, single, op=fft.spectral_mul, real=real, n_spectra=1,
+                      **dict(kw, method=op.method, comm='all_to_all'))
+    lay = op.in_layout
+    x_in, k_in = mesh.shard(xt, lay, batch_ndim=1), mesh.shard(kt, lay)
+    y = op.apply(x_in, k_in)
+    # the unfused composition on the mesh: the plain plan of the same
+    # resolved options (the padded spectrum of a real rank-2/3 plan)
+    p = fft.plan(shape, mesh, real=real, padded_spectrum=op.padded_spectrum,
+                 method=op.method, comm=op.comm, overlap_chunks=op.overlap_chunks)
+    s, sk = p.forward(x_in), p.forward(k_in)
+    unfused = p.inverse(torch.complex(*fft.spectral_mul(s.real, s.imag, (sk.real, sk.imag))))
+    axes, kaxes = tuple(range(1, len(shape) + 1)), tuple(range(len(shape)))
+    if real:
+        want = np.fft.irfftn(np.fft.rfftn(x, axes=axes) * np.fft.rfftn(k, axes=kaxes),
+                             s=shape, axes=axes)
+    else:
+        want = np.fft.ifftn(np.fft.fftn(x, axes=axes) * np.fft.fftn(k, axes=kaxes), axes=axes)
+    want = torch.as_tensor(want.astype(x.dtype), device=mesh.device)
+    baked = fft.plan_op(shape, mesh, op=fft.spectral_mul, real=real, spectra=(k,), **kw)
+    for _ in range(3):
+        yb = baked.apply(x_in)
+    # the single-process plan's own spectrum of the factor, np.fft order
+    own = (fft.rplan if real else fft.plan)(shape, single, method=op.method).forward(kt)
+    spec = fft.plan_op(shape, mesh, op=fft.spectral_mul, real=real, spectra=(own.cpu(),),
+                       spectra_form='spectrum', **kw)
+    rec = {
+        'vs_single': _gap(y, mesh.shard(op1.apply(xt, kt), lay, batch_ndim=1)),
+        'vs_unfused': _gap(y, unfused),
+        'vs_numpy': _gap(y, mesh.shard(want, lay, batch_ndim=1)),
+        'baked_vs_runtime': _gap(yb, y),
+        'spectrum_vs_runtime': _gap(spec.apply(x_in), y),
+        'shape_ok': tuple(y.shape) == tuple(x_in.shape) and y.dtype == x_in.dtype,
+        'resolved': [op.comm, op.overlap_chunks, op.method, baked.bake_count],
+    }
+    if ref is not None:
+        g = torch.as_tensor(ref.astype(x.dtype), device=mesh.device)
+        rec['vs_reference'] = _gap(y, mesh.shard(g, lay, batch_ndim=1))
+    return rec
+
+
+def _suite(mesh, single, mesh_name: str, suite: str, refs=None) -> dict:
+    refs = {} if refs is None else refs
+    if suite == 'pod':
+        return {name: _pod_case(mesh, single, shape, kw, refs.get(name))
+                for name, shape, kw in POD_CASES}
+    if suite == 'op':
+        return {name: _op_case(mesh, single, shape, kw, refs.get(name))
+                for name, shape, kw in OP_CASES[mesh_name]}
     if suite == 'base':
         mine = {name: _case(mesh, single, shape, kw) for name, shape, kw in CASES}
         mine.update({name: _real_case(mesh, single, shape, kw)
@@ -313,9 +458,10 @@ def _suite(mesh, single, mesh_name: str, suite: str) -> dict:
     return mine
 
 
-def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str) -> None:
+def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str,
+        pods: int = 1, ref=None) -> None:
     rows, cols = (int(v) for v in mesh_name.split('x'))
-    world = rows * cols
+    world = rows * cols * pods
     if device == 'cuda':
         torch.cuda.set_device(rank)
     else:
@@ -326,9 +472,10 @@ def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str)
                             init_method=f'tcp://localhost:{port}',
                             rank=rank, world_size=world)
     try:
-        mesh = make_fft_mesh(rows, cols, device=device)
+        mesh = make_fft_mesh(rows, cols, pods=pods, device=device)
         single = make_fft_mesh(1, 1, device=device)
-        mine = _suite(mesh, single, mesh_name, suite)
+        refs = dict(np.load(ref)) if ref else None
+        mine = _suite(mesh, single, mesh_name, suite, refs)
         swaps = _swaps(mesh, strategies_for(mesh_name)) if suite == 'strategies' else {}
         every = [None] * world
         dist.all_gather_object(every, (mine, swaps))
@@ -357,9 +504,12 @@ if __name__ == '__main__':
     ap.add_argument('out')
     ap.add_argument('port', type=int)
     ap.add_argument('device', nargs='?', default='cpu', choices=('cpu', 'cuda'))
-    ap.add_argument('--mesh', default='2x2', choices=sorted(POD_TREES))
-    ap.add_argument('--suite', default='base', choices=('base', 'strategies'))
+    ap.add_argument('--mesh', default='2x2', choices=sorted(POD_TREES) + ['1x2'])
+    ap.add_argument('--pods', type=int, default=1)
+    ap.add_argument('--suite', default='base', choices=('base', 'strategies', 'pod', 'op'))
+    ap.add_argument('--ref', default=None, help='.npz of global reference results by case')
     args = ap.parse_args()
     rows, cols = (int(v) for v in args.mesh.split('x'))
-    mp.spawn(run, args=(args.port, args.out, args.device, args.mesh, args.suite),
-             nprocs=rows * cols, join=True)
+    mp.spawn(run, args=(args.port, args.out, args.device, args.mesh, args.suite, args.pods,
+                        args.ref),
+             nprocs=rows * cols * args.pods, join=True)

@@ -183,3 +183,70 @@ def test_rank1_stockham_plan_on_the_card(gen, real):
     assert y.shape == ref.shape
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
     assert float(torch.linalg.vector_norm(x2 - x) / torch.linalg.vector_norm(x)) <= 1e-5
+
+
+def _unfused(p, x, k):
+    """forward -> spectral_mul -> inverse through the plain plan ``p``."""
+    s, sk = p.forward(x), p.forward(k)
+    return p.inverse(torch.complex(*fft.spectral_mul(s.real, s.imag, (sk.real, sk.imag))))
+
+
+@pytest.mark.parametrize("case", ['solver', 'conv', 'fftconv1d', 'conv1d_stockham'])
+def test_op_paths_on_the_card(gen, case):
+    """The three operator paths of ``chip_smoke.py`` at 64^3 and 2^16
+    (256 x 256): the spectral solver's step (real, a factor baked in the
+    'spectrum' form), a complex operator with one runtime factor, and a
+    rank-1 real operator with a baked kernel; and a rank-1 complex
+    operator with method='stockham', whose inverse must run the fused
+    kernel's twiddle as the natural-order inverse does. Each bitwise
+    equal to its unfused composition on the card, within 1e-5 of the
+    library's, the bake once in three applies, and at 64^3 its launches
+    an apply: the real one 4 ``fft_matmul`` and, for its half pencils of
+    32, 2 ``fft_pencil``; the complex one 9 ``fft_matmul``; every
+    ``fft_matmul`` on the tensor-core body."""
+    mesh = make_fft_mesh(1, 1)
+    kw = {}
+    if case == 'fftconv1d':
+        shape, real, batch = (1 << 16,), True, (3,)
+    elif case == 'conv1d_stockham':
+        shape, real, batch, kw = (1 << 16,), False, (3,), dict(method='stockham')
+    else:
+        shape, real, batch = (64, 64, 64), case == 'solver', ()
+    x = (torch.randn(batch + shape, generator=gen, device='cuda') if real
+         else torch.complex(*_planar(batch + shape, gen)))
+    k = (torch.randn(shape, generator=gen, device='cuda') if real
+         else torch.complex(*_planar(shape, gen)))
+    p = (fft.rplan if real else fft.plan)(shape, mesh, padded_spectrum=len(shape) > 1 and real,
+                                          **kw)
+    if case == 'solver':
+        g = p.forward(k)      # any rfftn-order factor: here a transformed field
+        op = fft.plan_op(shape, mesh, op=fft.spectral_mul, spectra=(g,),
+                         spectra_form='spectrum')
+        args = (x,)
+        want_unfused = p.inverse(torch.complex(*fft.spectral_mul(
+            p.forward(x).real, p.forward(x).imag, (g.real, g.imag))))
+        want = torch.fft.irfftn(torch.fft.rfftn(x) * torch.fft.rfftn(k), s=shape)
+    elif not real:
+        op = fft.plan_op(shape, mesh, op=fft.spectral_mul, real=False, n_spectra=1, **kw)
+        args = (x, k)
+        want_unfused = _unfused(p, x, k)
+        dims = tuple(range(-len(shape), 0))
+        want = torch.fft.ifftn(torch.fft.fftn(x, dim=dims) * torch.fft.fftn(k, dim=dims),
+                               dim=dims)
+    else:
+        op = fft.plan_op(shape, mesh, op=fft.spectral_mul, spectra=(k,))
+        args = (x,)
+        want_unfused = _unfused(p, x, k)
+        want = torch.fft.irfft(torch.fft.rfft(x) * torch.fft.rfft(k), n=shape[0])
+    op.apply(*args)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        y = op.apply(*args)
+    assert op.bake_count == 1
+    if len(shape) == 3:
+        per_apply = ({'fft_pencil': 2, 'fft_fused': 0, 'fft_matmul': 4, 'fft_block': 0} if real
+                     else {'fft_pencil': 0, 'fft_fused': 0, 'fft_matmul': 9, 'fft_block': 0})
+        assert kernels.launch_counts() == {k: 2 * v for k, v in per_apply.items()}
+        assert fft_matmul.launches_mma == 2 * per_apply['fft_matmul']
+    assert torch.equal(y, want_unfused)
+    assert float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want)) <= 1e-5

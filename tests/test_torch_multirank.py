@@ -1,7 +1,12 @@
 """The port's distributed FFT on 4 gloo CPU ranks (a 2 x 2 mesh, 16^3
 and 16 x 32 with comm='all_to_all'; 64^3 planned by the selector or with
 overlap_chunks=2; rank 1 at n = 4096, complex and real, planned by the
-selector), run by ``_torch_multirank_worker.py`` in a subprocess.
+selector), run by ``_torch_multirank_worker.py`` in a subprocess; and
+its suites 'pod' (``batch_spec='pod'`` on a 1 x 2 x 2-pod mesh, rank 3
+and rank 1, complex and real) and 'op' (``plan_op`` on 2 x 2 at rank 3
+and on 1 x 4 at rank 1, real and complex), each also held against the
+JAX package's results of ``_torch_jax_reference.py`` (four fake devices,
+Auto axes).
 
 Tolerances, each a max gap over all ranks divided by the largest
 magnitude of its reference:
@@ -19,7 +24,11 @@ magnitude of its reference:
   and inverse: 0 (bitwise), for every method and wire: chunking only
   regroups pencils whose arithmetic is independent of one another;
 * a plan on another strategy against the same plan on all_to_all: 0
-  (bitwise), the swaps being pure data movement.
+  (bitwise), the swaps being pure data movement;
+* a pod plan's or an operator's blocks against the JAX package's: <=
+  1e-6 (XLA contracts products into FMAs); an operator against its
+  unfused composition on the mesh, and a baked factor against the
+  runtime one: 0 (bitwise).
 """
 import json
 import os
@@ -33,7 +42,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from _torch_multirank_worker import (  # noqa: E402
-    CASES, OVERLAP_CASES, RANK1_CASES, REAL_CASES, REAL_OVERLAP_CASES)
+    CASES, OP_CASES, OVERLAP_CASES, POD_CASES, RANK1_CASES, REAL_CASES, REAL_OVERLAP_CASES)
 
 WIRE_BOUNDS = {'fp16': 1.5e-3, 'bf16': 1.2e-2}
 
@@ -46,7 +55,8 @@ def _free_port() -> int:
 
 def run_worker(out, *args) -> dict:
     """``_torch_multirank_worker.py`` on gloo CPU ranks with ``args``
-    (``--mesh``, ``--suite``); its records by case name."""
+    (``--mesh``, ``--pods``, ``--suite``, ``--ref``); its records by case
+    name."""
     subprocess.run([sys.executable, os.path.join(HERE, '_torch_multirank_worker.py'),
                     str(out), str(_free_port()), *args], check=True, timeout=300)
     with open(out) as fh:
@@ -56,6 +66,29 @@ def run_worker(out, *args) -> dict:
 @pytest.fixture(scope='module')
 def results(tmp_path_factory):
     return run_worker(tmp_path_factory.mktemp('multirank') / 'results.json')
+
+
+@pytest.fixture(scope='module')
+def reference(tmp_path_factory):
+    """The JAX package's global results of the pod and op cases, from
+    ``_torch_jax_reference.py`` on four fake devices (a subprocess)."""
+    out = tmp_path_factory.mktemp('reference') / 'reference.npz'
+    subprocess.run([sys.executable, os.path.join(HERE, '_torch_jax_reference.py'), str(out)],
+                   check=True, timeout=300)
+    return out
+
+
+@pytest.fixture(scope='module')
+def mesh_suites(tmp_path_factory, reference):
+    """Suite 'pod' on 1 x 2 x 2 pods and suite 'op' on 2 x 2 and 1 x 4,
+    each held against the reference's results."""
+    tmp = tmp_path_factory.mktemp('mesh_suites')
+    merged = run_worker(tmp / 'pod.json', '--mesh', '1x2', '--pods', '2', '--suite', 'pod',
+                        '--ref', str(reference))
+    for mesh in OP_CASES:
+        merged.update(run_worker(tmp / f'op_{mesh}.json', '--mesh', mesh, '--suite', 'op',
+                                 '--ref', str(reference)))
+    return merged
 
 
 @pytest.mark.parametrize("name, shape, kw", CASES, ids=[c[0] for c in CASES])
@@ -189,3 +222,46 @@ def check_strategy_plan(r, kw, comm):
     assert r['fwd_vs_numpy'] <= 1e-5
     assert r['roundtrip'] <= 1e-5
     assert r['fwd_vs_single'] == 0.0
+
+
+def check_pod(r):
+    """A ``batch_spec='pod'`` plan's blocks: bitwise equal to the single
+    process's (Stockham), within 1e-5 of numpy and for the round trip,
+    and within 1e-6 of the JAX package's where it ran."""
+    assert r['shape_ok']
+    assert r['fwd_vs_single'] == 0.0
+    assert r['fwd_vs_numpy'] <= 1e-5 and r['roundtrip'] <= 1e-5
+    if 'fwd_vs_reference' in r:
+        assert r['fwd_vs_reference'] <= 1e-6
+
+
+def check_op(r):
+    """An operator plan's blocks: bitwise equal to the single-process
+    operator, to its unfused composition on the mesh and, baked in either
+    form (transformed once), to the runtime factor; within 1e-5 of numpy
+    and within 1e-6 of the JAX package's executors where they ran."""
+    assert r['shape_ok']
+    assert r['resolved'][3] == 1
+    for key in ('vs_single', 'vs_unfused', 'baked_vs_runtime', 'spectrum_vs_runtime'):
+        assert r[key] == 0.0, key
+    assert r['vs_numpy'] <= 1e-5
+    if 'vs_reference' in r:
+        assert r['vs_reference'] <= 1e-6
+
+
+@pytest.mark.parametrize("name, shape, kw", POD_CASES, ids=[c[0] for c in POD_CASES])
+def test_pod_batch_spec_case(mesh_suites, name, shape, kw):
+    """``batch_spec='pod'`` on ``make_fft_mesh(1, 2, pods=2)``: each pod
+    transforms its half of a batch of 4 over its own ('x', 'y') group."""
+    assert 'fwd_vs_reference' in mesh_suites[name]
+    check_pod(mesh_suites[name])
+
+
+OP_CASE_LIST = [c for cases in OP_CASES.values() for c in cases]
+
+
+@pytest.mark.parametrize("name, shape, kw", OP_CASE_LIST, ids=[c[0] for c in OP_CASE_LIST])
+def test_op_case(mesh_suites, name, shape, kw):
+    """``plan_op`` on 2 x 2 (rank 3) and 1 x 4 (rank 1), real and complex."""
+    assert 'vs_reference' in mesh_suites[name]
+    check_op(mesh_suites[name])

@@ -184,9 +184,10 @@ def test_operand_checks(meshes):
 ])
 def test_later_slices_raise_with_their_roadmap_item(meshes, kw, item):
     """Rank 1 ('Rank 1/2') and a default plan whose pick is ppermute (on
-    a 1 x 4 mesh, 'Other strategies') are ported and now plan, to the
-    reference's pick; operator plans still raise at plan time, naming
-    their ROADMAP item."""
+    a 1 x 4 mesh, 'Other strategies') are ported and plan, to the
+    reference's pick; so are operator plans ('Operator plans'), which
+    resolve as the plain plan of the same options and price their fused
+    chain."""
     _, tmesh = meshes
     kw = dict(kw)
     shape = kw.pop('shape')
@@ -198,8 +199,9 @@ def test_later_slices_raise_with_their_roadmap_item(meshes, kw, item):
     else:
         assert (p.comm, p.overlap_chunks, p.method) == (
             ('ppermute', 1, 'four_step') if p.real else ('ppermute', 8, 'four_step'))
-    with pytest.raises(NotImplementedError, match='Operator plans'):
-        tfft.plan_op(shape, mesh, **kw)
+    op = tfft.plan_op(shape, mesh, op=tfft.spectral_mul, **dict(kw, real=p.real))
+    assert (op.comm, op.overlap_chunks, op.method) == (p.comm, p.overlap_chunks, p.method)
+    assert 'pointwise' in [s.kind for s in op.plan_cost(measured=None).steps]
 
 
 def test_multirank_auto_comm_needs_the_selector():
