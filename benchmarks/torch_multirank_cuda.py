@@ -3,6 +3,7 @@
 Run from the root of a checkout, on a machine with four cards:
 
     python3 benchmarks/torch_multirank_cuda.py [--out build/multirank_cuda]
+        [--suite base|strategies|pod|op|serve ...]
 
 It builds the CUDA kernels once, runs ``tests/_torch_multirank_worker.py``
 with ``cuda`` (four NCCL ranks, one card each, so every pencil runs the
@@ -10,8 +11,12 @@ hand-written kernels on a mesh): the ``base`` suite on 2 x 2 (the
 pencil, real, overlap and rank-1 cases), the ``strategies`` suite on
 2 x 2 and 1 x 4 (every plan on ppermute, hierarchical and the mesh's pod
 tree, held against all_to_all; the bare swaps), the ``pod`` suite on
-1 x 2 x 2 pods (``batch_spec='pod'``) and the ``op`` suite (``plan_op``)
-on 2 x 2 and 1 x 4. Each case's record is
+1 x 2 x 2 pods (``batch_spec='pod'``), the ``op`` suite (``plan_op``)
+on 2 x 2 and 1 x 4, and the ``serve`` suite on 2 x 2 at 512^3 (one
+``FFTEngine`` a rank, 8 complex requests, ``flush()``: every result
+bitwise equal to the rank's per-request ``plan.forward``, and the
+slowest rank's time a request, the engine's beside the sequential
+calls'). ``--suite`` runs only the named suites. Each case's record is
 held to the checks of ``tests/test_torch_multirank.py`` (the same
 functions, the same bounds: bitwise where they are bitwise). Printed:
 the cards' names and power limits, one line per case, and a last line
@@ -39,12 +44,17 @@ import test_torch_multirank as checks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 WORLD = 4
+#: the serve suite's transform: 8 complex SERVE_N^3 requests
+SERVE_N = 512
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=os.path.join(ROOT, 'build', 'multirank_cuda'),
                     help='directory of the per-run JSON records')
+    ap.add_argument('--suite', nargs='+', default=None,
+                    choices=('base', 'strategies', 'pod', 'op', 'serve'),
+                    help='run only these suites')
     args = ap.parse_args()
     if not torch.cuda.is_available() or torch.cuda.device_count() < WORLD:
         sys.exit(f"torch_multirank_cuda: needs {WORLD} CUDA devices")
@@ -57,15 +67,18 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     passed = total = 0
     runs = (('2x2', 'base', 1), ('2x2', 'strategies', 1), ('1x4', 'strategies', 1),
-            ('1x2', 'pod', 2), ('2x2', 'op', 1), ('1x4', 'op', 1))
+            ('1x2', 'pod', 2), ('2x2', 'op', 1), ('1x4', 'op', 1), ('2x2', 'serve', 1))
     for mesh, suite, pods in runs:
+        if args.suite and suite not in args.suite:
+            continue
         out = os.path.join(args.out, f'{suite}_{mesh}.json')
         with socket.socket() as s:
             s.bind(('localhost', 0))
             port = s.getsockname()[1]
+        extra = ['--serve-n', str(SERVE_N)] if suite == 'serve' else []
         subprocess.run([sys.executable, os.path.join(TESTS, '_torch_multirank_worker.py'),
                         out, str(port), 'cuda', '--mesh', mesh, '--suite', suite,
-                        '--pods', str(pods)], check=True, timeout=900)
+                        '--pods', str(pods), *extra], check=True, timeout=900)
         with open(out) as fh:
             results = json.load(fh)
         for name, check in _checks(mesh, suite):
@@ -93,6 +106,9 @@ def _checks(mesh: str, suite: str):
         for name, _, _ in worker.OP_CASES[mesh]:
             yield name, checks.check_op
         return
+    if suite == 'serve':
+        yield f'serve_{SERVE_N}', check_serve
+        return
     if suite == 'strategies':
         for comm in worker.strategies_for(mesh):
             for name, _, kw in worker.STRATEGY_PLANS:
@@ -109,6 +125,15 @@ def _checks(mesh: str, suite: str):
             yield name, lambda r, c=check, n=name, s=shape, k=kw: c({n: r}, n, s, k)
     for name, _, kw in checks.RANK1_CASES:
         yield name, lambda r, n=name, k=kw: checks.check_rank1(r, k, checks.RANK1_PICKS[n])
+
+
+def check_serve(r):
+    """The timed serve suite: every coalesced result on every rank
+    bitwise equal to its per-request call, groups of 4 (the model's pick
+    under the cap) in 2 groups."""
+    assert r['bitwise'] is True and r['shape_ok']
+    (w, _), _, _, groups = r['resolved']
+    assert w == 4 and groups == 2
 
 
 def _true(r):

@@ -859,6 +859,238 @@ def phase_op(gen) -> list:
     return out
 
 
+#: the serving phase's stream: (kind, transform shape, requests, op)
+SERVE_KINDS = (('complex', (N, N, N), 8, None), ('real', (N, N, N), 4, None),
+               ('complex_256', (N // 2,) * 3, 4, None), ('op_solver', (N, N, N), 4, 'op_solver'))
+SERVE_COALESCE = 4
+
+
+def _serve_stream(eng, xs, op=None, wait=False):
+    """Submit ``xs``, run them (``flush()``, or the drainer when
+    ``wait``), read every result; returns the results and the wall time
+    a request in microseconds, the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [eng.submit(x, op=op) for x in xs]
+    if not wait:
+        eng.flush()
+    ys = [t.result(timeout=600) for t in tickets]
+    torch.cuda.synchronize()
+    return ys, (time.perf_counter() - t0) / len(xs) * 1e6
+
+
+def _median3(fn) -> float:
+    times = sorted(fn() for _ in range(3))
+    return times[1]
+
+
+def _serve_kind(label, eng, xs, one, op=None, model=None, modules=('fft_matmul',)):
+    """One kind through ``eng``: its launches a group (counts set to 0
+    just before, read just after; every launch on the tensor-core or
+    radix-8 body), each result bitwise against ``one(x)``, the per-request
+    call, and the engine's and the sequential calls' time a request;
+    prints the ``[serve]`` line and returns the launch counts."""
+    w, c = eng.schedule(op=op) if op else eng.schedule(not xs[0].is_complex(),
+                                                      shape=tuple(xs[0].shape))
+    groups = -(-len(xs) // w)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ys, _ = _serve_stream(eng, xs, op)
+    counts = kernels.launch_counts()
+    body = {'fft_matmul': fft_matmul.launches_mma, 'fft_block': fft_block.launches_mma,
+            'fft_pencil': fft_pencil.launches_radix8, 'fft_fused': fft_fused.launches_radix8}
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in counts.items():
+        if body[k] != v or (v and k not in modules) or v % groups:
+            raise AssertionError(f"serve {label}: {k} launched {v} times ({body[k]} on the "
+                                 f"hand-written body) in {groups} groups")
+    bitwise = all(torch.equal(y, one(x)) for x, y in zip(xs, ys))
+    if not bitwise:
+        raise AssertionError(f"serve {label}: a coalesced result differs from its "
+                             "per-request call")
+    del ys
+    us = _median3(lambda: _serve_stream(eng, xs, op)[1])
+
+    def sequential():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in xs:
+            one(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(xs) * 1e6
+    seq = _median3(sequential)
+    say('serve', label=label, shape=json.dumps(list(xs[0].shape)), requests=len(xs),
+        width=w, chunks=c, model_pick_capped_uncapped=json.dumps(model), groups=groups,
+        us_per_request=f"{us:.6g}", sequential_us_per_request=f"{seq:.6g}",
+        bitwise_vs_per_request=bitwise,
+        launches_per_group=json.dumps({k: v // groups for k, v in counts.items() if v}),
+        peak_gib=f"{peak / 2**30:.4g}", base_gib=f"{base / 2**30:.4g}")
+    return counts
+
+
+def phase_serve(gen) -> list:
+    """The FFT serving engine on one card (``[serve]`` lines): a mixed
+    stream (8 complex and 4 real 512^3 requests, 4 complex 256^3 and 4
+    ``op_solver`` requests through ``register_op``) on one engine with
+    ``max_coalesce=4``, every kind set to groups of 4 (the model's pick,
+    printed beside, is 1 on one rank): once with ``flush()`` and once
+    with the drainer on (``max_wait_ms=2``, read by ``result()``), every
+    result bitwise equal to its per-request call; each kind alone, timed
+    beside its per-request calls; a ``method='stockham'`` engine on 4
+    complex 256^3 requests; ``autotune`` at 512^3 into a temporary
+    schedule table, which a fresh engine must then pick. Returns the
+    launch counts of the mixed stream and of the Stockham engine."""
+    import tempfile
+    from repro_torch.serve import FFTEngine
+    mesh = make_fft_mesh(1, 1)
+    g = greens(N)
+    op_plan = fft.plan_op((N, N, N), mesh, op=fft.spectral_mul, op_name='greens', real=True,
+                          spectra=(g,), spectra_form='spectrum')
+    reqs = {}
+    for kind, shape, n, _ in SERVE_KINDS:
+        real = kind in ('real', 'op_solver')
+        reqs[kind] = [torch.randn(shape, generator=gen, device='cuda') if real
+                      else torch.complex(*planar(shape, gen)) for _ in range(n)]
+    # the model's picks, capped and not (16 requests of 512^3 with their
+    # temporaries would pass the card's memory): on one rank it prices no
+    # swap, so batching gains it nothing and it keeps one request a group
+    model = {}
+    for cap in (SERVE_COALESCE, 16):
+        e = FFTEngine(mesh=mesh, max_coalesce=cap, schedule_table=None)
+        e.register_op('op_solver', op_plan)
+        model[cap] = {kind: list(e.schedule(op=o) if o else e.schedule(
+            kind == 'real', shape=shape)) for kind, shape, _, o in SERVE_KINDS}
+
+    def serving(**kw):
+        """An engine of the phase: every kind coalesced SERVE_COALESCE
+        wide, one chunk, whatever the model picked."""
+        e = FFTEngine(mesh=mesh, max_coalesce=SERVE_COALESCE, schedule_table=None, **kw)
+        op = e.register_op('op_solver', op_plan)
+        for kind, shape, _, o in SERVE_KINDS:
+            e.set_schedule(SERVE_COALESCE, 1, op=o, **({} if o else dict(
+                real=kind == 'real', shape=shape)))
+        return e, op
+    eng, op = serving()
+
+    def one(kind):
+        if kind == 'op_solver':
+            return op.apply
+        p = eng.plan_for(kind == 'real', shape=tuple(reqs[kind][0].shape))
+        return p.forward
+
+    # the kinds interleaved, request by request
+    mixed = [(reqs[kind][j], o) for j in range(max(n for _, _, n, _ in SERVE_KINDS))
+             for kind, _, n, o in SERVE_KINDS if j < n]
+    out = []
+    for label, engine, wait in (('mixed', eng, False),
+                                ('mixed_drainer', serving(max_wait_ms=2.0)[0], True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [engine.submit(x, op=o) for x, o in mixed]
+        if not wait:
+            engine.flush()
+        ys = [t.result(timeout=600) for t in tickets]
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / len(mixed) * 1e6
+        counts = kernels.launch_counts()
+        on_mma = fft_matmul.launches_mma
+        peak = torch.cuda.max_memory_allocated()
+        refs = {id(x): (op.apply if o else eng.plan_for(not x.is_complex(),
+                                                          shape=tuple(x.shape)).forward)
+                for x, o in mixed}
+        bitwise = all(torch.equal(y, refs[id(x)](x)) for (x, _), y in zip(mixed, ys))
+        del ys
+        if not bitwise or on_mma != counts['fft_matmul'] or any(
+                v for k, v in counts.items() if k != 'fft_matmul'):
+            raise AssertionError(f"serve {label}: bitwise {bitwise}, launches {counts}, "
+                                 f"{on_mma} on the tensor-core body")
+        say('serve', label=label, requests=len(mixed), kinds=len(SERVE_KINDS),
+            us_per_request=f"{wall_us:.6g}", bitwise_vs_per_request=bitwise,
+            groups=engine.dispatch_stats()['groups'],
+            width_hist=json.dumps(engine.dispatch_stats()['width_hist']),
+            launches=json.dumps(counts), peak_gib=f"{peak / 2**30:.4g}")
+        if wait:
+            engine.close()
+        else:
+            out.append(counts)
+    for kind, _, _, o in SERVE_KINDS:
+        _serve_kind(kind, eng, reqs[kind], one(kind), op=o,
+                    model=[model[SERVE_COALESCE][kind], model[16][kind]])
+    del reqs, mixed, op, op_plan, eng
+
+    # Stockham: fft_pencil and fft_twiddle_transpose under the engine
+    st = FFTEngine(mesh=mesh, max_coalesce=SERVE_COALESCE, method='stockham',
+                   schedule_table=None)
+    xs = [torch.complex(*planar((N // 2,) * 3, gen)) for _ in range(4)]
+    model = list(st.schedule(False, shape=(N // 2,) * 3))
+    st.set_schedule(SERVE_COALESCE, 1, shape=(N // 2,) * 3)
+    p = st.plan_for(False, shape=(N // 2,) * 3)
+    if p.method != 'stockham' or p.resolved_kernel != 'pallas':
+        raise AssertionError(f"serve stockham: planned {p.method}/{p.resolved_kernel}")
+    out.append(_serve_kind('stockham_256', st, xs, p.forward, model=[model],
+                           modules=('fft_pencil', 'fft_fused')))
+    del xs, st
+
+    # autotune at 512^3 into a temporary table; a fresh engine picks its row
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'BENCH_torch_serve_schedule.json')
+        old = os.environ.get(costlib.SCHEDULE_ENV)
+        os.environ[costlib.SCHEDULE_ENV] = path
+        try:
+            tuner = FFTEngine((N, N, N), mesh, max_coalesce=SERVE_COALESCE)
+            sample = [torch.complex(*planar((N, N, N), gen)) for _ in range(SERVE_COALESCE)]
+            t0 = time.perf_counter()
+            w, c = tuner.autotune(sample, repeats=1, widths=(1, 2, 4), chunks=(1, 2),
+                                  persist=True)
+            tune_s = time.perf_counter() - t0
+            row = costlib.schedule_table().lookup(
+                dict(mesh.shape), (N, N, N), 'complex', tuner.plan_for(False).comm,
+                backend='cuda', kernel='pallas', dtype='complex64')
+            fresh = FFTEngine((N, N, N), mesh, max_coalesce=SERVE_COALESCE).schedule(False)
+        finally:
+            if old is None:
+                os.environ.pop(costlib.SCHEDULE_ENV)
+            else:
+                os.environ[costlib.SCHEDULE_ENV] = old
+        del sample, tuner
+    if fresh != (w, c) or (row['coalesce_width'], row['overlap_chunks']) != (w, c):
+        raise AssertionError(f"serve autotune: tuned {(w, c)}, table row {row}, a fresh "
+                             f"engine picked {fresh}")
+    say('serve', label='autotune', shape=json.dumps([N] * 3), width=w, chunks=c,
+        us_per_request=f"{row['us_per_request']:.6g}", fresh_engine_pick=json.dumps(fresh),
+        table_row_kernel=row.get('kernel'), seconds=f"{tune_s:.3g}")
+    return out
+
+
+def phase_grad() -> None:
+    """Every CUDA kernel refuses an operand that requires grad (the
+    reference's ``pallas_call`` has no backward either); the plain
+    versions differentiate."""
+    x = torch.randn((4, 64), device='cuda', requires_grad=True)
+    y = torch.randn((4, 64), device='cuda')
+    calls = {'fft_matmul': lambda: fft_matmul.fft_matmul(x, y),
+             'fft_pencil': lambda: fft_pencil.fft_pencil(x, y),
+             'fft_twiddle_transpose': lambda: fft_fused.fft_twiddle_transpose(x, y),
+             'fft_block': lambda: fft_block.fft_block_planar(x, y)}
+    kernels.reset_launch_counts()
+    refused = []
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if 'no backward' in str(e):
+                refused.append(name)
+    if refused != list(calls) or any(kernels.launch_counts().values()):
+        raise AssertionError(f"grad: refused by {refused}, launched "
+                             f"{kernels.launch_counts()}")
+    g, = torch.autograd.grad(fft_matmul.fft_matmul_plain(x, y)[0].sum(), x)
+    say('grad', refused=json.dumps(refused), plain_grad_finite=bool(torch.isfinite(g).all()))
+
+
 def phase_cost() -> None:
     """The cost model on the host: reports and the selector's picks,
     each of which must plan."""
@@ -927,6 +1159,8 @@ def main() -> None:
                    shape=LARGE1D, batch=LARGE1D_BATCH),
     ]
     paths += phase_op(gen)
+    paths += phase_serve(gen)
+    phase_grad()
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []
     for name, meta in KERNELS.items():

@@ -19,8 +19,9 @@ root, or the file named by ``REPRO_TORCH_MEASURED_COSTS``), never the
 JAX package's ``BENCH_redistribute.json``; absent, the analytic model
 prices every swap.
 
-Not here yet: ``ScheduleTable`` and its persistence (ROADMAP queue 1,
-'FFT serving') and ``spectral_op_cost`` ('Operator plans').
+The FFT engine's measured serving schedules live here too
+(:class:`ScheduleTable`), in the port's own
+``BENCH_torch_serve_schedule.json`` (or ``REPRO_TORCH_SERVE_SCHEDULES``).
 """
 from __future__ import annotations
 
@@ -205,6 +206,221 @@ def measured_table(path: Optional[str] = None) -> Optional[MeasuredTable]:
 def _resolve_measured(measured):
     """'auto' -> the default table; None -> disabled; else as given."""
     return measured_table() if measured == 'auto' else measured
+
+
+# ---------------------------------------------------------------------------
+# Persisted serving schedules (FFTEngine.autotune results)
+#
+# ``FFTEngine.autotune`` times candidate (coalesce width, overlap
+# chunks) serving schedules on real operands; the port's own
+# BENCH_torch_serve_schedule.json persists the winners so the NEXT engine
+# construction on this host seeds its schedule pick from the measurement
+# instead of the analytic throughput model. It never reads or writes the
+# JAX package's BENCH_serve_schedule.json. Keyed like :class:`MeasuredTable`: (mesh, shape,
+# kind, strategy) with a dtype tag per row — a measured row at the
+# queried dtype beats a dtype-less/any-dtype row, which beats the
+# model. Merge semantics mirror ``bench_redistribute.py --refresh``:
+# same-key rows are replaced, everything else is kept.
+# ---------------------------------------------------------------------------
+
+#: environment override for the serving-schedule table ('' disables it).
+SCHEDULE_ENV = 'REPRO_TORCH_SERVE_SCHEDULES'
+
+
+def _default_schedule_path() -> str:
+    return os.path.join(os.path.dirname(__file__), '..', '..', '..',
+                        'BENCH_torch_serve_schedule.json')
+
+
+class ScheduleTable:
+    """Measured serving schedules: (mesh, shape, kind, strategy) ->
+    rows of (dtype, coalesce_width, overlap_chunks, us_per_request).
+
+    ``kind`` is ``'real'`` or ``'complex'`` (the engine's plan kinds);
+    ``dtype`` is the canonical operand dtype name the schedule was
+    measured at (``None`` on rows that predate the tag). A searched
+    pod tree is simply a distinct ``strategy`` string
+    (``'pod_tree:<spec>'``), so tree schedules never collide with the
+    fixed strategies'. Rows measured under a compact wire format carry
+    a ``wire`` tag (``'fp16'``/``'bf16'``); untagged rows are
+    native-wire measurements and only answer native-wire lookups. Rows
+    measured on the CUDA kernel tier carry a ``kernel`` tag (the plan's
+    resolved tier, ``'pallas'``) the same way; untagged rows measured
+    the plain versions (``kernel='reference'``), and only answer
+    reference lookups. ``backend`` is the device type the row was
+    measured on, ``'cuda'`` or ``'cpu'``.
+    Rows measured for a fused spectral-operator plan carry an ``op``
+    tag (the plan's ``op_name``); untagged rows describe plain
+    transforms and only answer op-less lookups — a convolution's best
+    coalesce width need not match the bare rfft's.
+
+    Rows may additionally carry a ``load`` tag — an integer load level
+    from an adaptive drainer policy (the reference's
+    ``repro.serve.policy``; not ported yet), where
+    level k means ~2**k expected arrivals per drainer window. Load-
+    tagged rows describe *drainer* settings observed under that traffic
+    level, not a plan's intrinsic best schedule, so they only answer a
+    ``lookup(load=...)`` that asks for them — the engine's load-less
+    schedule pick never sees them."""
+
+    @staticmethod
+    def make_key(mesh_shape: Mapping[str, int], shape: Sequence[int],
+                 kind: str, strategy: str) -> Tuple[str, str, str, str]:
+        mesh_key = 'x'.join(str(v) for v in mesh_shape.values())
+        shape_key = 'x'.join(str(int(s)) for s in shape)
+        return (mesh_key, shape_key, str(kind), str(strategy))
+
+    @staticmethod
+    def _row_key(r):
+        # backend is part of the merge identity: a CPU refresh must not
+        # overwrite a GPU host's persisted measurement (lookup() filters
+        # by backend, so the clobbered row would just vanish)
+        dt, be, ld = r.get('dtype'), r.get('backend'), r.get('load')
+        wr, kn, op = r.get('wire'), r.get('kernel'), r.get('op')
+        return (str(r['mesh']), str(r['shape']), str(r['kind']),
+                str(r['strategy']), None if dt is None else str(dt),
+                None if be is None else str(be),
+                None if ld is None else int(ld),
+                None if wr is None else str(wr),
+                None if kn is None else str(kn),
+                None if op is None else str(op))
+
+    def __init__(self, rows=()):
+        # keyed by _row_key:
+        # (mesh, shape, kind, strategy, dtype, backend, load, wire,
+        #  kernel, op)
+        self._rows: Dict[tuple, dict] = {}
+        self.merge(rows)
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+    def merge(self, rows) -> 'ScheduleTable':
+        """Replace same-key rows, keep everything else (the
+        ``--refresh`` contract of the measured tables)."""
+        for r in rows:
+            row = dict(r)
+            row['coalesce_width'] = int(row['coalesce_width'])
+            row['overlap_chunks'] = int(row['overlap_chunks'])
+            self._rows[self._row_key(row)] = row
+        return self
+
+    def rows(self) -> list:
+        """Rows in a stable order, ready for ``json.dump``."""
+        return [self._rows[k] for k in sorted(self._rows, key=str)]
+
+    def lookup(self, mesh_shape: Mapping[str, int], shape: Sequence[int],
+               kind: str, strategy: str, *, dtype: Optional[str] = None,
+               backend: Optional[str] = None,
+               load: Optional[int] = None,
+               wire: Optional[str] = None,
+               kernel: Optional[str] = None,
+               op: Optional[str] = None) -> Optional[dict]:
+        """The measured row for this serving config, or None. Rows
+        measured on a DIFFERENT backend (device type) never answer (the
+        per-backend dispatch overhead is the whole reason the table
+        exists; untagged rows answer anywhere). Within the backend, a
+        row measured at exactly ``dtype`` wins; otherwise the fastest
+        row of any dtype for the key answers (a schedule pick transfers
+        across dtypes far better than a wall time does).
+
+        ``load=None`` (the default) answers only from load-less rows —
+        the engine's intrinsic schedule pick must never adopt a
+        drainer-policy row tuned for some traffic level. With ``load``
+        given, the load-tagged rows nearest that level answer (exact
+        level first); when no tagged row exists the load-less rows
+        answer as a fallback, so a policy restarting on a fresh table
+        still warms from whatever was measured.
+
+        ``wire=None`` (native) answers only from untagged rows; a
+        compact wire format (``wire='fp16'``/``'bf16'``) answers only
+        from rows measured under exactly that format. ``kernel`` works
+        the same way: ``None`` (the reference tier) answers only from
+        kernel-less rows (measured on the plain versions) and
+        ``kernel='pallas'`` only from rows measured on the CUDA kernels. ``op`` is
+        exact-match the same way: ``None`` answers only from rows of
+        plain transform plans, an op name only from rows measured for
+        that fused operator."""
+        base = self.make_key(mesh_shape, shape, kind, strategy)
+        cands = [r for k, r in self._rows.items()
+                 if k[:4] == base
+                 and r.get('wire') == wire
+                 and r.get('kernel') == kernel
+                 and r.get('op') == op
+                 and (backend is None or r.get('backend') in (None, backend))]
+        tagged = [r for r in cands if r.get('load') is not None]
+        if load is None:
+            cands = [r for r in cands if r.get('load') is None]
+        elif tagged:
+            dist = min(abs(int(r['load']) - int(load)) for r in tagged)
+            cands = [r for r in tagged
+                     if abs(int(r['load']) - int(load)) == dist]
+        else:
+            cands = [r for r in cands if r.get('load') is None]
+        if not cands:
+            return None
+        if dtype is not None:
+            exact = [r for r in cands if r.get('dtype') == str(dtype)]
+            if exact:
+                cands = exact
+        return min(cands, key=lambda r: float(r.get('us_per_request',
+                                                    math.inf)))
+
+    @classmethod
+    def load(cls, path: str) -> Optional['ScheduleTable']:
+        """The table at ``path``, or None when unreadable/empty."""
+        try:
+            with open(path) as f:
+                data = json.load(f)
+            tbl = cls(data.get('results', ()))
+            return tbl if len(tbl) else None
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+
+    def save(self, path: str) -> None:
+        """Atomic write (temp file + rename): a concurrent reader never
+        sees a torn table, and a failed write leaves the old one."""
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, 'w') as f:
+            json.dump(dict(benchmark='torch_serve_schedule',
+                           results=self.rows()), f, indent=1)
+        os.replace(tmp, path)
+
+
+def schedule_table_path(path: Optional[str] = None) -> Optional[str]:
+    """Resolve the active serving-schedule table path: explicit
+    ``path``, else ``REPRO_TORCH_SERVE_SCHEDULES``, else the repo root's
+    ``BENCH_torch_serve_schedule.json``. ``''`` — explicit or via the env var —
+    disables (returns None)."""
+    if path is None:
+        path = os.environ.get(SCHEDULE_ENV)
+        if path is None:
+            path = _default_schedule_path()
+    if path == '':
+        return None
+    return os.path.abspath(path)
+
+
+def schedule_table(path: Optional[str] = None) -> Optional[ScheduleTable]:
+    """The active serving-schedule table, or None when disabled or
+    absent. Never cached: autotune appends rows at run time, and the
+    table is tiny."""
+    path = schedule_table_path(path)
+    return None if path is None else ScheduleTable.load(path)
+
+
+def persist_schedule_rows(rows, path: Optional[str] = None) -> Optional[str]:
+    """Merge ``rows`` into the active schedule table on disk (creating
+    it if absent) and return the path written, or None when persistence
+    is disabled. This is the merge-don't-overwrite write path shared by
+    ``FFTEngine.autotune(persist=True)`` and any benchmark script."""
+    path = schedule_table_path(path)
+    if path is None:
+        return None
+    tbl = ScheduleTable.load(path) or ScheduleTable()
+    tbl.merge(rows)
+    tbl.save(path)
+    return path
 
 
 # ---------------------------------------------------------------------------

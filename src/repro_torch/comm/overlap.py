@@ -16,8 +16,8 @@ same code runs on CPU tensors; on one rank the swaps are local.
 
 Two granularities live here:
 
-* :func:`pipelined` and :func:`overlapped_fft_swap` chunk ONE call's
-  work on a rank's local block;
+* :func:`pipelined` and :func:`pipelined_pair` chunk ONE call's work
+  on a rank's local block;
 * :class:`StreamPipeline` / :func:`pipelined_stream` keep a bounded
   window of whole calls in flight on the host (a server's
   cross-request double buffer).
@@ -25,11 +25,9 @@ Two granularities live here:
 from __future__ import annotations
 
 from collections import deque
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
-
-from repro_torch.comm import strategies as strat
 
 
 def pick_chunk_axis(local_shape: Sequence[int], exclude: Sequence[int],
@@ -86,24 +84,6 @@ def pipelined_pair(n_chunks: int, axis: int, *, compute: Callable,
         started = [[swap_start(t) for t in compute(*chunk)] for chunk in parts]
         outs = [tuple(h.wait() for h in hs) for hs in started]
     return _join(outs, axis)
-
-
-def overlapped_fft_swap(re: torch.Tensor, im: torch.Tensor, *,
-                        fft_fn: Callable, swap_start: Callable,
-                        chunk_axis: int, n_chunks: int,
-                        wire_dtype: str = 'native'
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pencil superstep pair, ``fft`` then ``swap``, pipelined over
-    ``n_chunks`` slices of ``chunk_axis``. ``fft_fn(re, im)`` runs on a
-    chunk; ``swap_start(x)`` starts a chunk's swap. A 16-bit
-    ``wire_dtype`` casts each chunk right before its swap starts and
-    restores it when the swap finishes."""
-    def start(x):
-        w, restore = strat.wire_cast(x, wire_dtype)
-        h = swap_start(w)
-        return strat.PendingSwap(lambda: strat.wire_restore(h.wait(), restore))
-    return pipelined_pair(n_chunks, chunk_axis, compute=fft_fn, swap_start=start,
-                          arrays=(re, im))
 
 
 class StreamPipeline:

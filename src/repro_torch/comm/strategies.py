@@ -127,10 +127,43 @@ def swap_start_wire(strategy: 'Strategy', x: torch.Tensor, mesh, mesh_axis: Mesh
     the restore happens in ``wait``. A group of one rank runs no
     collective but still takes the cast and the restore, as the
     reference does, so a 16-bit wire rounds the same on one rank as on
-    many."""
-    w, restore = wire_cast(x, wire_dtype)
+    many.
+
+    Every swap of a plan starts here, so this is where it becomes
+    differentiable: when ``x`` requires grad, the swap runs on a detached
+    operand and its result is handed to autograd by :class:`_Swapped`,
+    whose backward is the reverse swap. Otherwise no node is added."""
+    track = torch.is_grad_enabled() and x.requires_grad
+    w, restore = wire_cast(x.detach() if track else x, wire_dtype)
     h = strategy.swap_start(w, mesh, mesh_axis, shard_pos=shard_pos, mem_pos=mem_pos)
-    return PendingSwap(lambda: wire_restore(h.wait(), restore))
+    if not track:
+        return PendingSwap(lambda: wire_restore(h.wait(), restore))
+
+    def reverse(g: torch.Tensor) -> torch.Tensor:
+        return swap_start_wire(strategy, g.contiguous(), mesh, mesh_axis, shard_pos=mem_pos,
+                               mem_pos=shard_pos, wire_dtype=wire_dtype).wait()
+    return PendingSwap(lambda: _Swapped.apply(x, wire_restore(h.wait(), restore), reverse))
+
+
+class _Swapped(torch.autograd.Function):
+    """A finished swap as autograd sees it: ``apply(x, y, reverse)``
+    returns ``y``, the swap of ``x`` computed outside autograd, and the
+    backward maps the cotangent of ``y`` to that of ``x`` by
+    ``reverse``: the same strategy over the same group with ``shard_pos``
+    and ``mem_pos`` exchanged (the adjoint of the tiled all-to-all), under
+    the same wire format (the reference's cast transposes to a cast).
+    The reverse swap blocks inside its own backward and starts nothing
+    asynchronously, so a chunked plan's swaps run one node at a time, in
+    the order autograd walks the graph, the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, y, reverse):
+        ctx.reverse = reverse
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.reverse(g), None, None
 
 
 # ---------------------------------------------------------------------------

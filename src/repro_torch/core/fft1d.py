@@ -232,6 +232,15 @@ def block_mma3_tables(n3: int, inverse: bool, device: torch.device):
     return f1b, f3b, w2, w1
 
 
+#: elements of one plane the block four-step's products take at once:
+#: ``BLOCK_ELEMS // n`` pencils, the last block zero-padded. A contraction
+#: that folds the batch into its columns may round differently for
+#: another batch size (the CPU's BLAS does); with one shape for every
+#: block a pencil's bits depend on its own values only, as in
+#: :func:`dft_direct`, so a batch of requests gives each request's bits
+BLOCK_ELEMS = 1 << 20
+
+
 def fft_four_step_block(x: torch.Tensor, axis: int, *,
                         inverse: bool = False, compute_dtype=None) -> torch.Tensor:
     """Block-complex four-step FFT along ``axis`` of ``x``, whose leading
@@ -239,9 +248,9 @@ def fft_four_step_block(x: torch.Tensor, axis: int, *,
 
       b[c, j1, k2] = sum_{d, k1} F1b[c, j1, d, k1] a[d, k1, k2]
       y[c, m n1 + j1] = sum_{d, l} G[c, m, j1, d, l] b[d, j1, l]
-    with a[d] = x[d] viewed as (n1, n2). With ``compute_dtype`` F1b, G
-    (the twiddle folded in), a and b are rounded to it before their
-    products, as in the reference."""
+    with a[d] = x[d] viewed as (n1, n2), on blocks of ``BLOCK_ELEMS // n``
+    pencils. With ``compute_dtype`` F1b, G (the twiddle folded in), a and
+    b are rounded to it before their products, as in the reference."""
     axis = axis % x.ndim
     n = x.shape[axis]
     n1, n2 = tw.four_step_factors(n)
@@ -250,8 +259,16 @@ def fft_four_step_block(x: torch.Tensor, axis: int, *,
     a = x.movedim(axis, -1)
     lead = tuple(a.shape[1:-1])
     a = narrow(a.reshape(2, -1, n1, n2), compute_dtype)
-    b = narrow(torch.einsum('cjdk,dakl->cajl', f1b, a), compute_dtype)
-    d = torch.einsum('cmjdl,dajl->camj', g, b)
+    rows, m = a.shape[1], max(1, BLOCK_ELEMS // n)
+    parts = []
+    for b0 in range(0, rows or 1, m):
+        blk = a[:, b0:b0 + m]
+        k = blk.shape[1]
+        if k < m:
+            blk = torch.cat([blk, blk.new_zeros((2, m - k, n1, n2))], 1)
+        b = narrow(torch.einsum('cjdk,dakl->cajl', f1b, blk), compute_dtype)
+        parts.append(torch.einsum('cmjdl,dajl->camj', g, b)[:, :k])
+    d = torch.cat(parts, 1) if len(parts) > 1 else parts[0]
     y = d.reshape((2,) + lead + (n,))
     if inverse:
         y = y * (1.0 / n)

@@ -199,15 +199,13 @@ def _execute(re, im, layout: Layout, steps, *, inverse: bool,
             ck = ov.pick_chunk_axis(re.shape, (off + mem, off + mem_pos, off + sp),
                                     overlap_chunks)
             if ck is not None:
-                re, im = ov.overlapped_fft_swap(
-                    re, im,
-                    fft_fn=lambda r, i_, m=mem: _fft_along(
+                re, im = ov.pipelined_pair(
+                    overlap_chunks, ck,
+                    compute=lambda r, i_, m=mem: _fft_along(
                         r, i_, off + m, inverse=inverse, plan=plan),
-                    swap_start=lambda a, ma=mesh_axis, s=sp, mp=mem_pos:
-                        strategies.resolve(plan.comm).swap_start(
-                            a, plan.mesh, ma, shard_pos=off + s, mem_pos=off + mp),
-                    chunk_axis=ck, n_chunks=overlap_chunks,
-                    wire_dtype=plan.wire_dtype)
+                    swap_start=lambda a, ma=mesh_axis, s=sp, mp=mem_pos: _swap_start(
+                        a, ma, shard_pos=off + s, mem_pos=off + mp, plan=plan),
+                    arrays=(re, im))
                 lay = planlib.swap(lay, mesh_axis, mem_pos)
                 i += 2
                 continue

@@ -70,6 +70,20 @@ def check_planar(name: str, re: torch.Tensor, im: torch.Tensor,
     return n
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a CUDA kernel is asked for a gradient. A kernel
+    writes into buffers autograd does not record, so its output would
+    carry no gradient without a word; the reference's kernel tier cannot
+    be differentiated either (``jax.grad`` through its ``pallas_call``
+    raises). The plain versions, ``kernel='reference'``, differentiate."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, as the reference's Pallas kernel "
+            "has none (jax.grad through its pallas_call raises); plan with "
+            "kernel='reference' to differentiate")
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

@@ -33,7 +33,7 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
 from repro_torch.kernels.fft_pencil import tile_pencils
 
 #: launches of either CUDA body (plain-version calls do not count)
@@ -227,6 +227,7 @@ def fft_block(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     n = check_planar('fft_block', x[0], x[1])
     if x.device.type == 'cpu':
         return fft_block_plain(x, inverse=inverse)
+    refuse_grad('fft_block', x)
     y = torch.empty_like(x)
     _launch(x[0], x[1], y[0], y[1], n, inverse)
     return y
@@ -241,6 +242,7 @@ def fft_block_planar(re: torch.Tensor, im: torch.Tensor, *,
     if re.device.type == 'cpu':
         y = fft_block_plain(torch.stack([re, im]), inverse=inverse)
         return y[0], y[1]
+    refuse_grad('fft_block', re, im)
     yr, yi = torch.empty_like(re), torch.empty_like(im)
     _launch(re, im, yr, yi, n, inverse)
     return yr, yi

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import fft1d as f1
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
 from repro_torch.kernels.fft_pencil import (MAX_THREADS, _pow2_at_least, master_table,
                                             radix8_smem_bytes, radix8_tables, radix8_threads,
                                             tile_pencils, variant)
@@ -162,6 +162,7 @@ def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
         raise ValueError("fft_twiddle_transpose: give both twiddle planes or neither")
     if re.device.type == 'cpu':
         return fft_twiddle_transpose_plain(re, im, wr, wi, inverse=inverse)
+    refuse_grad('fft_twiddle_transpose', re, im, wr, wi)
     b = re.shape[-2]
     yr = torch.empty(tuple(re.shape[:-2]) + (n, b), dtype=re.dtype, device=re.device)
     yi = torch.empty_like(yr)

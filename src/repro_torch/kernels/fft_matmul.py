@@ -32,7 +32,7 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
 from repro_torch.kernels.fft_block import MMA_LENGTHS, mma_factors, mma_tables_for
 from repro_torch.kernels.fft_pencil import tile_pencils
 
@@ -143,6 +143,7 @@ def fft_matmul(re: torch.Tensor, im: torch.Tensor, *,
     n = check_planar('fft_matmul', re, im)
     if re.device.type == 'cpu':
         return fft_matmul_plain(re, im, inverse=inverse)
+    refuse_grad('fft_matmul', re, im)
     yr, yi = torch.empty_like(re), torch.empty_like(im)
     _launch(re, im, yr, yi, n, inverse)
     return yr, yi

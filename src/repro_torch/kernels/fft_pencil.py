@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
 
 #: pencils per block are chosen so a tile holds about this many elements
 TILE_ELEMS = 2048
@@ -198,6 +198,7 @@ def fft_pencil(re: torch.Tensor, im: torch.Tensor, *,
     n = check_planar('fft_pencil', re, im)
     if re.device.type == 'cpu':
         return fft_pencil_plain(re, im, inverse=inverse)
+    refuse_grad('fft_pencil', re, im)
     yr, yi = torch.empty_like(re), torch.empty_like(im)
     _launch(re, im, yr, yi, n, inverse)
     return yr, yi

@@ -4,7 +4,8 @@ Run in a subprocess so the test process never initialises a process
 group:
 
     python tests/_torch_multirank_worker.py OUT.json PORT [cpu|cuda]
-        [--mesh 2x2] [--pods 1] [--suite base|strategies|pod|op] [--ref REF.npz]
+        [--mesh 2x2] [--pods 1] [--suite base|strategies|pod|op|grad|serve]
+        [--ref REF.npz] [--serve-n N]
 
 ``cpu`` (the default) runs one gloo rank a mesh position on the CPU with
 the plain PyTorch versions; ``cuda`` runs NCCL ranks, one card each,
@@ -54,6 +55,29 @@ against the single-process operator, its own unfused composition
 baked ('plan' form, a global array) and, given the single-process
 plan's own spectrum of it, in the 'spectrum' form, against the runtime
 operator.
+
+Suite ``grad`` (``GRAD_CASES``, 2 x 2, needs ``--ref``): the gradient
+of a global loss, ``sum(c * |y|^2)`` with fixed random weights ``c``,
+through ``plan.forward`` (complex, planar) and through a real
+``plan_op`` apply with one runtime factor, each rank calling
+``torch.autograd.grad`` on its own part of the loss; the swaps' backward
+exchanges the cotangents. Each rank's block of the gradient is held
+against the same block of the JAX package's ``jax.grad`` on one device
+(the gradient of a global loss does not depend on the mesh or the
+strategy), as a relative L2 over all ranks (keys ``l2_*``).
+
+Suite ``serve`` (2 x 2): one ``repro_torch.serve.FFTEngine`` a rank,
+``flush()`` only (a multi-rank mesh refuses the drainer, checked too),
+serving ``SERVE_SHAPE`` from global numpy operands (``serve_operands``):
+complex, real and planar forwards, the inverses of the complex results
+and ``register_op`` requests (a baked factor), each rank passing its
+blocks. Every result is held bitwise against the same rank's
+per-request ``plan.forward``/``inverse``/``apply`` and, with ``--ref``,
+against the JAX package's engine (its fused-operator executor for the
+op requests) as a relative L2 over all ranks. With ``--serve-n N`` it
+serves 8 complex N^3 requests instead, made on each rank's device, and
+times the stream (``us_per_request``, the slowest rank's, median of 3)
+beside the same requests through ``plan.forward`` one at a time.
 
 ``--ref`` names an ``.npz`` of global reference results by case name
 (``tests/_torch_jax_reference.py`` writes it); the worker itself never
@@ -432,8 +456,225 @@ def _op_case(mesh, single, shape, kw, ref):
     return rec
 
 
-def _suite(mesh, single, mesh_name: str, suite: str, refs=None) -> dict:
+#: (name, options of both plans) of suite 'grad', 16^3 four_step, batch 2
+GRAD_SHAPE = (16, 16, 16)
+GRAD_CASES = [
+    ('grad_all_to_all', dict(comm='all_to_all')),
+    ('grad_ppermute', dict(comm='ppermute')),
+    ('grad_hierarchical', dict(comm='hierarchical')),
+    ('grad_fp16', dict(comm='all_to_all', wire_dtype='fp16')),
+    ('grad_overlap', dict(comm='all_to_all', overlap_chunks=2)),
+]
+
+
+def grad_operands():
+    """The grad suite's global numpy operands: the complex plan's input,
+    the real operator's input and factor, and the loss weights of each."""
+    x = operands(GRAD_SHAPE, False, BATCH, 7)
+    xr, k = operands(GRAD_SHAPE, True, BATCH, 8), operands(GRAD_SHAPE, True, 0, 9)
+    rng = np.random.default_rng(10)
+    c, cr = (rng.random((BATCH,) + GRAD_SHAPE).astype(np.float32) for _ in range(2))
+    return x, xr, k, c, cr
+
+
+def _l2(got, want):
+    """(squared L2 error, squared L2 norm of ``want``) of this rank's block."""
+    return float(((got - want) ** 2).sum()), float((want ** 2).sum())
+
+
+def _grad_case(mesh, kw, ref):
+    x, xr, k, c, cr = grad_operands()
+    dev = mesh.device
+    p = fft.plan(GRAD_SHAPE, mesh, method='four_step', **kw)
+    re, im = (mesh.shard(torch.as_tensor(a, device=dev), p.in_layout, batch_ndim=1)
+              .requires_grad_() for a in (x.real.copy(), x.imag.copy()))
+    cy = mesh.shard(torch.as_tensor(c, device=dev), p.out_layout, batch_ndim=1)
+    yr, yi = p.forward((re, im))
+    gr, gi = torch.autograd.grad((cy * (yr ** 2 + yi ** 2)).sum(), (re, im))
+    wire = kw.get('wire_dtype', 'native')
+    want = ref[f'grad_plan_{wire}']
+    wr, wi = (mesh.shard(torch.as_tensor(np.ascontiguousarray(a), device=dev), p.in_layout,
+                         batch_ndim=1) for a in (want.real, want.imag))
+    op = fft.plan_op(GRAD_SHAPE, mesh, op=fft.spectral_mul, real=True, n_spectra=1,
+                     method='four_step', **kw)
+    lay = op.in_layout
+    x_in = mesh.shard(torch.as_tensor(xr, device=dev), lay, batch_ndim=1).requires_grad_()
+    k_in = mesh.shard(torch.as_tensor(k, device=dev), lay)
+    cx = mesh.shard(torch.as_tensor(cr, device=dev), lay, batch_ndim=1)
+    y = op.apply(x_in, k_in)
+    g, = torch.autograd.grad((cx * y ** 2).sum(), x_in)
+    want_op = mesh.shard(torch.as_tensor(ref[f'grad_op_{wire}'], device=dev), lay,
+                         batch_ndim=1)
+    e_re, n_re = _l2(gr, wr)
+    e_im, n_im = _l2(gi, wi)
+    return {'l2_plan': (e_re + e_im, n_re + n_im), 'l2_op': _l2(g, want_op),
+            'shape_ok': gr.shape == re.shape and g.shape == x_in.shape,
+            'resolved': [p.comm, p.overlap_chunks, p.method, op.comm, op.overlap_chunks]}
+
+
+#: the serve suite's transform and its stream: (kind, requests)
+SERVE_SHAPE = (16, 16, 16)
+SERVE_STREAM = (('complex', 5), ('real', 3), ('planar', 2), ('op', 3))
+#: requests of the timed stream (``--serve-n``)
+SERVE_BENCH_REQUESTS = 8
+
+
+def serve_operands():
+    """The serve suite's global numpy requests by kind, and the op's
+    baked factor ('k')."""
+    ops = {'k': operands(SERVE_SHAPE, True, 0, 20)}
+    for i, (kind, n) in enumerate(SERVE_STREAM):
+        if kind == 'planar':
+            ops[kind] = [tuple(operands(SERVE_SHAPE, True, 0, 100 * i + 2 * j + d)
+                               for d in range(2)) for j in range(n)]
+        else:
+            ops[kind] = [operands(SERVE_SHAPE, kind != 'complex', 0, 100 * i + j)
+                         for j in range(n)]
+    return ops
+
+
+def _spectrum_block(p, mesh, g):
+    """This rank's block of a real plan's global np-order spectrum ``g``:
+    the first bins of its padded block, as the plan's forward keeps."""
+    pp = p.with_options(padded_spectrum=True)
+    g = torch.nn.functional.pad(torch.as_tensor(g, device=mesh.device),
+                                (0, pp.spectrum_shape[-1] - g.shape[-1]))
+    return mesh.shard(g, pp.out_layout)[..., :p.spectrum_local_shape()[-1]]
+
+
+def _serve_case(mesh, ref):
+    from repro_torch.serve import FFTEngine
+    ops = serve_operands()
+    dev = mesh.device
+    try:
+        FFTEngine(SERVE_SHAPE, mesh, max_wait_ms=2.0)
+    except ValueError as e:
+        refused = 'multi-rank drainer' in str(e)
+    else:
+        refused = False
+    eng = FFTEngine(SERVE_SHAPE, mesh, max_coalesce=4, schedule_table=None)
+    pc, pr = eng.plan_for(False), eng.plan_for(True)
+    op = eng.register_op('conv', op=fft.spectral_mul, real=True, spectra=(ops['k'],))
+
+    def blk(g, lay):
+        return mesh.shard(torch.as_tensor(g, device=dev), lay)
+    xs = {'complex': [blk(x, pc.in_layout) for x in ops['complex']],
+          'real': [blk(x, pr.in_layout) for x in ops['real']],
+          'planar': [tuple(blk(a, pc.in_layout) for a in x) for x in ops['planar']],
+          'op': [blk(x, op.in_layout) for x in ops['op']]}
+    tickets = {k: [] for k in xs}
+    for j in range(max(len(v) for v in xs.values())):     # interleaved kinds
+        for kind, v in xs.items():
+            if j < len(v):
+                tickets[kind].append(eng.submit(v[j], op='conv' if kind == 'op' else None))
+    eng.flush()
+    got = {k: [t.result() for t in ts] for k, ts in tickets.items()}
+    got['inverse'] = eng.transform(got['complex'], direction='inv')
+    one = {'complex': [pc.forward(x) for x in xs['complex']],
+           'real': [pr.forward(x) for x in xs['real']],
+           'planar': [pc.forward(x) for x in xs['planar']],
+           'op': [op.apply(x) for x in xs['op']],
+           'inverse': [pc.inverse(y) for y in got['complex']]}
+    flat = [(a, b) for k in one for y, z in zip(got[k], one[k])
+            for a, b in (zip(y, z) if isinstance(y, tuple) else ((y, z),))]
+    rec = {'bitwise': all(torch.equal(a, b) for a, b in flat),
+           'drainer_refused': refused, 'shape_ok': True,
+           'resolved': [list(eng.schedule(False)), list(eng.schedule(True)),
+                        list(eng.schedule(op='conv')), eng.dispatch_stats()['groups']]}
+    if ref is not None:
+        for kind, ys in got.items():
+            err = nrm = 0.0
+            for j, y in enumerate(ys):
+                g = ref[f'serve_{kind}_{j}']
+                if kind == 'real':
+                    want = _spectrum_block(pr, mesh, g)
+                else:
+                    want = blk(g, {'complex': pc.out_layout, 'planar': pc.out_layout,
+                                   'inverse': pc.in_layout, 'op': op.in_layout}[kind])
+                if isinstance(y, tuple):
+                    y = torch.complex(*y)
+                e, r = _l2(torch.view_as_real(y) if y.is_complex() else y,
+                           torch.view_as_real(want) if want.is_complex() else want)
+                err, nrm = err + e, nrm + r
+            rec[f'l2_{kind}'] = (err, nrm)
+    return rec
+
+
+def _serve_bench(mesh, n):
+    """The timed stream: ``SERVE_BENCH_REQUESTS`` complex n^3 requests,
+    each rank's blocks made on its device, ``flush()``; the wall time of
+    the stream from the first submit to the last result, the card
+    synchronized, median of 3, a request; and of the same requests
+    through ``plan.forward`` one at a time."""
+    import statistics
+    import time
+    from repro_torch.serve import FFTEngine
+    eng = FFTEngine((n,) * 3, mesh, max_coalesce=4, schedule_table=None)
+    p = eng.plan_for(False)
+    gen = torch.Generator(device=mesh.device).manual_seed(1000 + dist.get_rank())
+    shape = p.local_shape(p.in_layout)
+    xs = [torch.complex(torch.randn(shape, generator=gen, device=mesh.device),
+                        torch.randn(shape, generator=gen, device=mesh.device))
+          for _ in range(SERVE_BENCH_REQUESTS)]
+
+    cuda = mesh.device.type == 'cuda'
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def wall(fn):
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            times.append((time.perf_counter() - t0) / len(xs) * 1e6)
+        return statistics.median(times), out
+
+    def stream():
+        tickets = [eng.submit(x) for x in xs]
+        eng.flush()
+        return [t.result() for t in tickets]
+    stream()                                              # warm
+    g0 = eng.dispatch_stats()['groups']
+    us, ys = wall(stream)
+    groups = (eng.dispatch_stats()['groups'] - g0) // 3   # a stream
+    seq_us, _ = wall(lambda: [p.forward(x) for x in xs])
+    bitwise = all(torch.equal(y, p.forward(x)) for x, y in zip(xs, ys))
+    return {'bitwise': bitwise, 'shape_ok': True, 'us_per_request': us,
+            'us_sequential_per_request': seq_us,
+            'peak_gib': torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+            'resolved': [list(eng.schedule(False)), p.comm, p.method, groups]}
+
+
+def _grad_gather(mesh):
+    """A real rank-1 plan's forward gathers the spectrum, which has no
+    backward: asked for a gradient, it raises."""
+    p = fft.rplan((4096,), mesh, method='four_step')
+    x = mesh.shard(torch.as_tensor(operands((4096,), True, BATCH, 11), device=mesh.device),
+                   p.in_layout, batch_ndim=1)
+    try:
+        p.forward(x.requires_grad_())
+    except RuntimeError as e:
+        refused = 'not differentiable' in str(e)
+    else:
+        refused = False
+    return {'refused': refused, 'shape_ok': True, 'resolved': [p.comm]}
+
+
+def _suite(mesh, single, mesh_name: str, suite: str, refs=None, serve_n=0) -> dict:
     refs = {} if refs is None else refs
+    if suite == 'serve':
+        if serve_n:
+            return {f'serve_{serve_n}': _serve_bench(mesh, serve_n)}
+        return {'serve': _serve_case(mesh, refs or None)}
+    if suite == 'grad':
+        mine = {name: _grad_case(mesh, kw, refs) for name, kw in GRAD_CASES}
+        mine['grad_gather'] = _grad_gather(mesh)
+        return mine
     if suite == 'pod':
         return {name: _pod_case(mesh, single, shape, kw, refs.get(name))
                 for name, shape, kw in POD_CASES}
@@ -459,7 +700,7 @@ def _suite(mesh, single, mesh_name: str, suite: str, refs=None) -> dict:
 
 
 def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str,
-        pods: int = 1, ref=None) -> None:
+        pods: int = 1, ref=None, serve_n: int = 0) -> None:
     rows, cols = (int(v) for v in mesh_name.split('x'))
     world = rows * cols * pods
     if device == 'cuda':
@@ -475,7 +716,7 @@ def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str,
         mesh = make_fft_mesh(rows, cols, pods=pods, device=device)
         single = make_fft_mesh(1, 1, device=device)
         refs = dict(np.load(ref)) if ref else None
-        mine = _suite(mesh, single, mesh_name, suite, refs)
+        mine = _suite(mesh, single, mesh_name, suite, refs, serve_n)
         swaps = _swaps(mesh, strategies_for(mesh_name)) if suite == 'strategies' else {}
         every = [None] * world
         dist.all_gather_object(every, (mine, swaps))
@@ -483,10 +724,16 @@ def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str,
             merged = {}
             for name in mine:
                 recs = [r[0][name] for r in every]
-                m = {'shape_ok': all(r['shape_ok'] for r in recs),
-                     'resolved': recs[0]['resolved']}
+                m = {'resolved': recs[0]['resolved']}
                 for key in recs[0]:
-                    if key not in ('shape_ok', 'resolved'):
+                    if isinstance(recs[0][key], bool):
+                        m[key] = all(r[key] for r in recs)
+                    elif key.startswith('us_') or key == 'peak_gib':
+                        m[key] = max(r[key] for r in recs)      # the slowest rank
+                    elif key.startswith('l2_'):
+                        err = sum(r[key][0] for r in recs)
+                        m[key] = (err / sum(r[key][1] for r in recs)) ** 0.5
+                    elif key != 'resolved':
                         err = max(r[key][0] for r in recs)
                         ref = max(r[key][1] for r in recs)
                         m[key] = err / ref
@@ -506,10 +753,13 @@ if __name__ == '__main__':
     ap.add_argument('device', nargs='?', default='cpu', choices=('cpu', 'cuda'))
     ap.add_argument('--mesh', default='2x2', choices=sorted(POD_TREES) + ['1x2'])
     ap.add_argument('--pods', type=int, default=1)
-    ap.add_argument('--suite', default='base', choices=('base', 'strategies', 'pod', 'op'))
+    ap.add_argument('--suite', default='base',
+                    choices=('base', 'strategies', 'pod', 'op', 'grad', 'serve'))
+    ap.add_argument('--serve-n', type=int, default=0,
+                    help='suite serve: time 8 complex N^3 requests instead')
     ap.add_argument('--ref', default=None, help='.npz of global reference results by case')
     args = ap.parse_args()
     rows, cols = (int(v) for v in args.mesh.split('x'))
     mp.spawn(run, args=(args.port, args.out, args.device, args.mesh, args.suite, args.pods,
-                        args.ref),
+                        args.ref, args.serve_n),
              nprocs=rows * cols * args.pods, join=True)

@@ -250,3 +250,47 @@ def test_op_paths_on_the_card(gen, case):
         assert fft_matmul.launches_mma == 2 * per_apply['fft_matmul']
     assert torch.equal(y, want_unfused)
     assert float(torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want)) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ['fft_matmul', 'fft_pencil', 'fft_twiddle_transpose',
+                                  'fft_block'])
+def test_kernels_refuse_gradients(gen, name):
+    """A CUDA kernel asked for a gradient raises, as the reference's
+    ``pallas_call`` (no backward) does, and launches nothing; without
+    grad the same call runs; the plain versions differentiate."""
+    x, y = _planar((4, 64), gen)
+    call = {'fft_matmul': fft_matmul.fft_matmul, 'fft_pencil': fft_pencil.fft_pencil,
+            'fft_twiddle_transpose': fft_fused.fft_twiddle_transpose,
+            'fft_block': fft_block.fft_block_planar}[name]
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward.*kernel='reference'"):
+        call(x.requires_grad_(), y)
+    assert not any(kernels.launch_counts().values())
+    with torch.no_grad():
+        call(x, y)
+    mesh = make_fft_mesh(1, 1)
+    xc = torch.complex(*_planar((16, 16, 16), gen)).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fft.plan((16, 16, 16), mesh).forward(xc)
+    g, = torch.autograd.grad(
+        (fft.plan((16, 16, 16), mesh, kernel='reference').forward(xc).abs() ** 2).sum(), xc)
+    assert float(torch.linalg.vector_norm(g - 2 * 4096 * xc.detach())
+                 / torch.linalg.vector_norm(g)) <= 1e-5
+
+
+def test_engine_serves_on_the_card(gen):
+    """The serving engine on the card: a coalesced group of 4 complex
+    64^3 requests, bitwise equal to per-request forwards, all on the
+    tensor-core body; the drainer serves from its own thread (at the
+    watermark, the group's width)."""
+    from repro_torch.serve import FFTEngine
+    mesh = make_fft_mesh(1, 1)
+    xs = [torch.complex(*_planar((64, 64, 64), gen)) for _ in range(4)]
+    with FFTEngine((64, 64, 64), mesh, max_coalesce=4, background=True,
+                   schedule_table=None) as eng:
+        eng.set_schedule(4, 1)
+        kernels.reset_launch_counts()
+        ys = [t.result(timeout=120) for t in [eng.submit(x) for x in xs]]
+        assert kernels.launch_counts()['fft_matmul'] == fft_matmul.launches_mma == 3
+        p = eng.plan_for(False)
+        assert all(torch.equal(y, p.forward(x)) for x, y in zip(xs, ys))

@@ -33,3 +33,23 @@ def test_no_jax_or_reference_imports(path):
 def test_the_check_sees_the_port():
     assert len(FILES) > 15
     assert 'torch' in set(m.split('.')[0] for m in _imported(ROOT / 'chip_smoke.py'))
+
+
+def test_the_check_sees_the_serving_engine():
+    serve = {p.name for p in FILES if p.parent.name == 'serve'
+             and p.parent.parent.name == 'repro_torch'}
+    assert serve == {'__init__.py', 'faults.py', 'fft_engine.py', 'plan_cache.py'}
+
+
+def test_importing_the_serving_engine_loads_no_jax():
+    """At run time too: a fresh interpreter that imports
+    ``repro_torch.serve`` (and so the whole port under it) has no jax
+    and no ``repro`` module loaded."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.path.insert(0, 'src'); import repro_torch.serve, "
+            "repro_torch.fft; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
