@@ -94,7 +94,21 @@ Phases, each printing one line and raising on any failure:
    ``compute_dtype=bfloat16``, refused on the kernel tier and run at
    64^3 on the reference tier (its error against ``torch.fft.fftn``
    printed, above 1e-4);
-11. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
+11. ``[serve]``: the serving engine (``FFTEngine``) at 512^3, a mixed
+   stream with ``flush()`` and with the drainer, each kind beside its
+   per-request calls, a Stockham engine, ``autotune``; every result
+   bitwise equal to its per-request call;
+12. ``[service]``: the multi-tenant service (``FFTService``) on a unix
+   socket, two ``FFTClient`` threads, one a tenant: real 512^3
+   forwards, their spectra back as planar inverses, ``op='solver'``
+   steps and complex 256^3 forwards, each result bitwise equal to the
+   engine's plan call alone, 3 ``fft_matmul`` a group (6 ``solver``);
+   a complex 512^3 submit refused on the client (over the frame cap);
+   the time a request at the client and through the engine in process,
+   the host split of one request (pack, unpack, socket, H2D, D2H), the
+   metrics, a drained close, and the launcher's ``--smoke``;
+13. ``[grad]``: every kernel refuses an operand that requires grad;
+14. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
    registers and spills, and its times), the card line and, last, the
    result line.
@@ -118,13 +132,15 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script "
              "needs an NVIDIA GPU")
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'src'))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, 'src'))
 
 import repro_torch.fft as fft  # noqa: E402
 from repro_torch import kernels  # noqa: E402
@@ -1066,6 +1082,266 @@ def phase_serve(gen) -> list:
     return out
 
 
+#: the service phase's traffic, in order: (kind, requests); real 512^3
+#: (complex 512^3 is 2^30 bytes, over the wire's frame cap, refused typed)
+SERVICE_KINDS = (('real', 4), ('inverse_planar', 4), ('solver', 4), ('complex_256', 4))
+SERVICE_TENANTS = (('alice', 'standard'), ('bob', 'batch'))
+
+
+def _host_split(eng, proto, x: np.ndarray) -> dict:
+    """The host's share of one real 512^3 request, each step timed alone
+    (ms): packing its SUBMIT frame, unpacking it, a unix socket pair's
+    trip of it (send, and ``recv_frame``'s join of the payload), the
+    copy to the card (``from_numpy``: the float32 copy and the pageable
+    H2D) and the result's copy back (the writer's ``Tensor.cpu()``)."""
+    import socket
+    import threading
+    from repro_torch.serve.service import _host_array
+    from repro_torch.weights import from_numpy
+    out = {}
+    t0 = time.perf_counter()
+    buf = proto.pack_frame(proto.SUBMIT, {'req_id': 1, 'direction': 'fwd'}, [x])
+    out['pack_ms'] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    proto.unpack_frame(buf)
+    out['unpack_ms'] = (time.perf_counter() - t0) * 1e3
+    a, b = socket.socketpair()
+    try:
+        got = []
+        reader = threading.Thread(target=lambda: got.append(proto.recv_frame(b)))
+        t0 = time.perf_counter()
+        reader.start()
+        a.sendall(buf)
+        reader.join(timeout=120)
+        out['socket_ms'] = (time.perf_counter() - t0) * 1e3
+        if not got or not np.array_equal(got[0][2][0], x):
+            raise AssertionError("service: the socket pair did not carry the frame")
+    finally:
+        a.close()
+        b.close()
+    del buf, got
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xt = from_numpy(x, 'cuda')
+    torch.cuda.synchronize()
+    out['h2d_ms'] = (time.perf_counter() - t0) * 1e3
+    y = eng.plan_for(True, shape=x.shape).forward(xt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _host_array(y)
+    out['d2h_ms'] = (time.perf_counter() - t0) * 1e3
+    return {k: f"{v:.6g}" for k, v in out.items()}
+
+
+def phase_service(gen) -> list:
+    """The multi-tenant service on one card (``[service]`` lines): one
+    ``FFTService`` over a background engine (every kind set to groups of
+    4, as ``[serve]`` sets them) on a unix socket, tenants ``alice``
+    (standard) and ``bob`` (batch), ``ops={'solver': op_solver}``. Two
+    ``FFTClient`` threads, one a tenant, each submit half of every kind:
+    4 real 512^3 forwards, the 4 spectra back in planar form, 4
+    ``op='solver'`` steps and 4 complex 256^3 forwards. Each kind's
+    stream is checked — every result bitwise equal to its request
+    through the engine's plan one at a time on the card, 3
+    ``fft_matmul`` launches a group (6 an ``op_solver`` group), all on
+    the tensor-core body — and timed (``stream_us_per_request``); then
+    three of its requests go one at a time, submit to result at the
+    client (``us_per_request``, the median). A complex 512^3 submit must
+    raise ``ProtocolError`` on the client with the service still
+    serving. Then the metrics (completed counts, no rejection), a
+    drained ``close()``, the same requests through ``FFTEngine.submit``
+    in process, the host split of one request, and the launcher's
+    ``--smoke`` in a subprocess. Returns the checked streams' launch
+    counts."""
+    import resource
+    import tempfile
+    import threading
+    from repro_torch.serve import FFTClient, FFTEngine, FFTService, TenantConfig
+    from repro_torch.serve import protocol as proto
+    from repro_torch.weights import from_numpy
+    mesh = make_fft_mesh(1, 1)
+    shape, shape_c = (N, N, N), (N // 2,) * 3
+    g = greens(N)
+    op_plan = fft.plan_op(shape, mesh, op=fft.spectral_mul, op_name='greens', real=True,
+                          spectra=(g,), spectra_form='spectrum')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = FFTEngine(mesh=mesh, max_coalesce=SERVE_COALESCE, background=True,
+                    schedule_table=None)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_service_')
+    path = os.path.join(tmp, 'fft.sock')
+    svc = FFTService(engine=eng, ops={'solver': op_plan}, persist_policy=False,
+                     tenants=[TenantConfig(n, slo=slo) for n, slo in SERVICE_TENANTS]).start(path)
+    for kw in (dict(real=True, shape=shape), dict(shape=shape_c), dict(op='solver')):
+        eng.set_schedule(SERVE_COALESCE, 1, **kw)
+    real_plan, cplx_plan = eng.plan_for(True, shape=shape), eng.plan_for(False, shape=shape_c)
+    solver = eng.plan_for(op='solver')
+
+    def host(shape_, complex_=False):
+        x = torch.randn(shape_, generator=gen, device='cuda')
+        if complex_:
+            x = torch.complex(x, torch.randn(shape_, generator=gen, device='cuda'))
+        return x.cpu().numpy()
+    reqs = {'real': [host(shape) for _ in range(4)],
+            'solver': [host(shape) for _ in range(4)],
+            'complex_256': [host(shape_c, True) for _ in range(4)]}
+
+    def one(kind, x):
+        """The request through the engine's plan alone, on the host."""
+        if kind == 'inverse_planar':
+            y = real_plan.inverse(tuple(from_numpy(a, 'cuda') for a in x))
+        else:
+            fn = {'real': real_plan.forward, 'solver': solver.apply,
+                  'complex_256': cplx_plan.forward}[kind]
+            y = fn(from_numpy(x, 'cuda'))
+        return y.cpu().numpy()
+
+    clients = [FFTClient(path, tenant=n) for n, _ in SERVICE_TENANTS]
+    sent = {n: 0 for n, _ in SERVICE_TENANTS}
+
+    def kind_kw(kind):
+        return (dict(op='solver') if kind == 'solver' else
+                dict(direction='inv', real=True) if kind == 'inverse_planar' else {})
+
+    def run(kind):
+        """Each client thread submits its half of the kind's requests
+        (request i goes to tenant i % 2), then reads its results; returns
+        the results in request order and the wall time a request (us)."""
+        xs = reqs[kind]
+        results, errors = [None] * len(xs), []
+
+        def drive(c, idx):
+            try:
+                tickets = [(i, c.submit(xs[i], **kind_kw(kind))) for i in idx]
+                for i, t in tickets:
+                    results[i] = t.result(timeout=600)
+            except BaseException as exc:
+                errors.append(exc)
+        threads = [threading.Thread(target=drive, args=(c, range(j, len(xs), 2)))
+                   for j, c in enumerate(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        us = (time.perf_counter() - t0) / len(xs) * 1e6
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"service {kind}: client errors {errors!r}")
+        for j, (n, _) in enumerate(SERVICE_TENANTS):
+            sent[n] += len(range(j, len(xs), 2))
+        return results, us
+
+    # complex 512^3 is one 2^30-byte array: over the frame cap, refused on
+    # the client before a byte is sent; the service keeps serving after it
+    big = np.zeros(shape, np.complex64)
+    try:
+        clients[0].submit(big)
+    except proto.ProtocolError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("service: a complex 512^3 submit was not refused")
+    del big
+
+    out, lines = [], []
+    for kind, _ in SERVICE_KINDS:
+        if kind == 'inverse_planar':
+            reqs[kind] = [(y.real.copy(), y.imag.copy()) for y in spectra]
+        refs = [one(kind, x) for x in reqs[kind]]
+        torch.cuda.synchronize()
+        groups0 = eng.dispatch_stats()['groups']
+        kernels.reset_launch_counts()
+        ys, us0 = run(kind)
+        counts = kernels.launch_counts()
+        groups = eng.dispatch_stats()['groups'] - groups0
+        per = 6 if kind == 'solver' else 3
+        if (counts['fft_matmul'] != per * groups or fft_matmul.launches_mma != counts['fft_matmul']
+                or any(v for k, v in counts.items() if k != 'fft_matmul')):
+            raise AssertionError(f"service {kind}: launches {counts} in {groups} groups, "
+                                 f"{fft_matmul.launches_mma} on the tensor-core body")
+        bitwise = all(y.dtype == r.dtype and np.array_equal(y, r) for y, r in zip(ys, refs))
+        if not bitwise:
+            raise AssertionError(f"service {kind}: a served result differs from its "
+                                 "per-request plan call")
+        if kind == 'real':
+            spectra = ys
+        del refs, ys
+
+        # a request's latency at the client, submit to result, one in flight
+        def latency(i):
+            c = clients[i % len(clients)]
+            t0 = time.perf_counter()
+            c.submit(reqs[kind][i], **kind_kw(kind)).result(timeout=600)
+            sent[SERVICE_TENANTS[i % len(clients)][0]] += 1
+            return (time.perf_counter() - t0) * 1e6
+        us = sorted(latency(i) for i in range(3))[1]
+        out.append(counts)
+        first = reqs[kind][0]
+        lines.append(dict(label=kind, shape=json.dumps(list(np.shape(
+            first[0] if isinstance(first, tuple) else first))), requests=len(reqs[kind]),
+            groups=groups, launches_per_group=json.dumps({'fft_matmul': per}),
+            bitwise_vs_per_request=bitwise, us_per_request=f"{us:.6g}",
+            stream_us_per_request=f"{us0:.6g}"))
+    del spectra
+
+    m = clients[0].metrics()
+    for n, _ in SERVICE_TENANTS:
+        tm = m['tenants'][n]
+        if tm['completed'] != sent[n] or tm['failed'] or tm['rejected'] or tm['inflight']:
+            raise AssertionError(f"service: tenant {n} metrics {tm}, {sent[n]} sent")
+    for c in clients:
+        c.close()
+    svc.close(drain=True)
+    if svc._inflight_total or os.path.exists(path) or eng.closed:
+        raise AssertionError("service: close() left requests, its socket or closed the "
+                             "engine it does not own")
+    os.rmdir(tmp)
+    dispatch = m['service']['dispatch']
+
+    # the same requests through the engine in process: numpy in, the
+    # result finished on the card, one at a time (median of 3) and the
+    # kind's 4 together; a lone request dispatches at once (watermark 1),
+    # whatever the service's policy left
+    eng.set_drainer(watermark=1, max_wait_ms=2.0)
+
+    def engine_us(kind, xs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in [eng.submit(x, **kind_kw(kind)) for x in xs]:
+            t.result(timeout=600)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(xs) * 1e6
+    for line in lines:
+        xs = reqs[line['label']]
+        line['engine_us_per_request'] = "%.6g" % sorted(
+            engine_us(line['label'], [x]) for x in xs[:3])[1]
+        line['engine_stream_us_per_request'] = f"{engine_us(line['label'], xs):.6g}"
+    split = _host_split(eng, proto, reqs['real'][0])
+    eng.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    for line in lines:
+        say('service', **line)
+    say('service', label='host_split', shape=json.dumps(list(shape)), **split)
+    say('service', label='summary', refused_complex_512=json.dumps(refused[:60]),
+        tenants=json.dumps({n: m['tenants'][n]['completed'] for n, _ in SERVICE_TENANTS}),
+        rejected=0, groups=dispatch['groups'], width_hist=json.dumps(dispatch['width_hist']),
+        policy=json.dumps(m['service']['policy']), peak_gib=f"{peak:.4g}",
+        peak_host_gib=f"{peak_host:.4g}")
+    del reqs
+
+    # the launcher's CI smoke, on the card, in its own process
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, 'src'))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', 'repro_torch.launch.fft_service', '--smoke'],
+                          capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    if proc.returncode != 0 or 'fft_service smoke OK' not in proc.stdout:
+        raise AssertionError(f"service: the launcher's --smoke exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    say('service', label='launcher_smoke', rc=proc.returncode,
+        seconds=f"{time.perf_counter() - t0:.3g}")
+    return out
+
+
 def phase_grad() -> None:
     """Every CUDA kernel refuses an operand that requires grad (the
     reference's ``pallas_call`` has no backward either); the plain
@@ -1160,6 +1436,7 @@ def main() -> None:
     ]
     paths += phase_op(gen)
     paths += phase_serve(gen)
+    paths += phase_service(gen)
     phase_grad()
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []

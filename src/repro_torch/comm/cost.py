@@ -255,8 +255,8 @@ class ScheduleTable:
     coalesce width need not match the bare rfft's.
 
     Rows may additionally carry a ``load`` tag — an integer load level
-    from an adaptive drainer policy (the reference's
-    ``repro.serve.policy``; not ported yet), where
+    from an adaptive drainer policy
+    (:class:`repro_torch.serve.policy.AdaptivePolicy`), where
     level k means ~2**k expected arrivals per drainer window. Load-
     tagged rows describe *drainer* settings observed under that traffic
     level, not a plan's intrinsic best schedule, so they only answer a

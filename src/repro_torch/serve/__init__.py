@@ -1,11 +1,13 @@
 """``repro_torch.serve`` — continuous FFT serving on the port.
 
-Port of the engine layer of ``repro.serve``: :class:`FFTEngine` (request
-coalescing, the background drainer, the stream pipeline, retries,
-``autotune`` and ``register_op``), its :class:`LRUPlanCache`, and the
-deterministic fault-injection plane (:class:`FaultPlan`). The service,
-its protocol and policy, and the language-model server are not ported
-yet.
+Port of ``repro.serve``'s FFT serving stack: :class:`FFTEngine`
+(request coalescing, the background drainer, the stream pipeline,
+retries, ``autotune`` and ``register_op``), its :class:`LRUPlanCache`,
+the deterministic fault-injection plane (:class:`FaultPlan`), and the
+multi-tenant service over it — the ``WFFT`` wire protocol
+(:mod:`repro_torch.serve.protocol`), the adaptive drainer policy
+(:class:`AdaptivePolicy`), :class:`FFTService` and :class:`FFTClient`.
+The language-model server is not ported yet.
 
     from repro_torch.serve import FFTEngine
     from repro_torch.launch.mesh import make_fft_mesh
@@ -14,10 +16,20 @@ yet.
                    max_wait_ms=2.0) as eng:
         tickets = [eng.submit(x) for x in requests]
         ys = [t.result() for t in tickets]
+
+    with FFTService(make_fft_mesh(1, 1), max_coalesce=4).start('/tmp/fft.sock'):
+        with FFTClient('/tmp/fft.sock', tenant='alice') as c:
+            ys = c.transform(requests)              # numpy in, numpy out
 """
 from repro_torch.serve.faults import FaultInjected, FaultPlan, FaultPoint
 from repro_torch.serve.fft_engine import FFTEngine, FFTTicket, ResultTimeout
 from repro_torch.serve.plan_cache import LRUPlanCache
+from repro_torch.serve.policy import AdaptivePolicy, DrainerDecision, RateEstimator
+from repro_torch.serve.service import (BrownoutBreaker, FFTClient, FFTService, RetryAfter,
+                                       SLOClass, ServiceUnavailable, TenantConfig,
+                                       default_slo_classes)
 
-__all__ = ['FaultInjected', 'FaultPlan', 'FaultPoint', 'FFTEngine', 'FFTTicket',
-           'LRUPlanCache', 'ResultTimeout']
+__all__ = ['AdaptivePolicy', 'BrownoutBreaker', 'DrainerDecision', 'FaultInjected',
+           'FaultPlan', 'FaultPoint', 'FFTClient', 'FFTEngine', 'FFTService', 'FFTTicket',
+           'LRUPlanCache', 'RateEstimator', 'ResultTimeout', 'RetryAfter', 'SLOClass',
+           'ServiceUnavailable', 'TenantConfig', 'default_slo_classes']

@@ -2,18 +2,25 @@
 
 Port of ``repro.serve.faults`` (standard library only; the port keeps
 its own copy). A :class:`FaultPlan` is threaded through the stack's
-*named sites*; the sites the port has so far are the engine's:
+*named sites*, the reference's names:
 
 ====================  =====================================================
 site                  where it fires
 ====================  =====================================================
+``protocol.send``     :func:`repro_torch.serve.protocol.send_frame` — before
+                      the bytes hit the socket (writer loops, client submits)
+``protocol.recv``     :func:`repro_torch.serve.protocol.recv_frame` — before
+                      the header read (reader loops)
+``service.accept``    :class:`repro_torch.serve.service.FFTService` accept
+                      loop, per accepted connection
+``service.reader``    per received frame in the service's connection loop
+``service.writer``    per outbound item in the service's writer loop
 ``engine.dispatch``   :meth:`repro_torch.serve.fft_engine.FFTEngine._run_group`
                       — one coalesced group's dispatch
 ``engine.drainer``    top of every drainer pass (stalls the serving loop)
+``policy.clock``      every :class:`repro_torch.serve.policy.AdaptivePolicy` /
+                      service clock read (skew accumulates)
 ====================  =====================================================
-
-The service's sites (``protocol.send``/``recv``, ``service.accept``/
-``reader``/``writer``, ``policy.clock``) come with the service.
 
 Each :class:`FaultPoint` names a site, an action and a *schedule*:
 either a per-hit probability ``p`` (drawn from a per-site

@@ -294,3 +294,39 @@ def test_engine_serves_on_the_card(gen):
         assert kernels.launch_counts()['fft_matmul'] == fft_matmul.launches_mma == 3
         p = eng.plan_for(False)
         assert all(torch.equal(y, p.forward(x)) for x, y in zip(xs, ys))
+
+
+@pytest.mark.parametrize("tcp", [False, True], ids=['unix', 'tcp'])
+def test_service_round_trip_on_the_card(gen, tmp_path, tcp):
+    """The multi-tenant service on the card: numpy requests in over a
+    socket (complex 128^3, real 128^3 and its spectrum back in planar
+    form; the real path's half-length pencils of 64 are the tensor-core
+    body's shortest), each result the host copy of the card's, bitwise
+    equal to the engine's plan one call at a time, every launch on the
+    tensor-core body; a keyed resubmit is re-delivered from the host,
+    no dispatch."""
+    import numpy as np
+    from repro_torch.serve import FFTClient, FFTService
+    from repro_torch.weights import from_numpy
+    mesh = make_fft_mesh(1, 1)
+    shape = (128, 128, 128)
+    xc = torch.complex(*_planar(shape, gen)).cpu().numpy()
+    xr = _planar(shape, gen)[0].cpu().numpy()
+    addr = ('127.0.0.1', 0) if tcp else str(tmp_path / 's.sock')
+    with FFTService(mesh, schedule_table=None, max_coalesce=4).start(addr) as svc:
+        with FFTClient(svc.address, tenant='card') as c:
+            kernels.reset_launch_counts()
+            yc, yr = c.transform([xc, xr])
+            yi = c.transform([(yr.real.copy(), yr.imag.copy())], direction='inv', real=True)[0]
+            groups = svc.engine.dispatch_stats()['groups']
+            assert kernels.launch_counts()['fft_matmul'] == fft_matmul.launches_mma == 3 * groups
+            pc, pr = (svc.engine.plan_for(r, shape=shape) for r in (False, True))
+            assert np.array_equal(yc, pc.forward(from_numpy(xc)).cpu().numpy())
+            assert np.array_equal(yr, pr.forward(from_numpy(xr)).cpu().numpy())
+            planes = tuple(from_numpy(a) for a in (yr.real.copy(), yr.imag.copy()))
+            assert np.array_equal(yi, pr.inverse(planes).cpu().numpy())
+            assert np.abs(yi - xr).max() <= 1e-4
+            again = c.submit(xc, key='k').result(timeout=120)
+            assert np.array_equal(c.submit(xc, key='k').result(timeout=120), again)
+            assert svc.engine.dispatch_stats()['groups'] == groups + 1
+            assert c.metrics()['service']['dedup']['redelivered'] == 1

@@ -38,18 +38,28 @@ def test_the_check_sees_the_port():
 def test_the_check_sees_the_serving_engine():
     serve = {p.name for p in FILES if p.parent.name == 'serve'
              and p.parent.parent.name == 'repro_torch'}
-    assert serve == {'__init__.py', 'faults.py', 'fft_engine.py', 'plan_cache.py'}
+    assert serve == {'__init__.py', 'faults.py', 'fft_engine.py', 'plan_cache.py',
+                     'policy.py', 'protocol.py', 'service.py'}
+
+
+def test_the_check_sees_the_service_launcher():
+    launch = {p.name for p in FILES if p.parent.name == 'launch'
+              and p.parent.parent.name == 'repro_torch'}
+    assert {'fft_service.py', 'mesh.py'} <= launch
 
 
 def test_importing_the_serving_engine_loads_no_jax():
     """At run time too: a fresh interpreter that imports
-    ``repro_torch.serve`` (and so the whole port under it) has no jax
-    and no ``repro`` module loaded."""
+    ``repro_torch.serve`` (and so the whole port under it: the engine,
+    the protocol, the policy and the service) and the service's launcher
+    has no jax and no ``repro`` module loaded."""
     import subprocess
     import sys
     code = ("import sys; sys.path.insert(0, 'src'); import repro_torch.serve, "
-            "repro_torch.fft; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
+            "repro_torch.serve.protocol, repro_torch.serve.policy, repro_torch.serve.service, "
+            "repro_torch.launch.fft_service, repro_torch.fft; bad = sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
