@@ -108,7 +108,25 @@ Phases, each printing one line and raising on any failure:
    the host split of one request (pack, unpack, socket, H2D, D2H), the
    metrics, a drained close, and the launcher's ``--smoke``;
 13. ``[grad]``: every kernel refuses an operand that requires grad;
-14. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
+14. ``[lm]``: the language-model server (``ServeEngine``) at full width
+   in fp32, internlm2-1.8b and mamba2-1.3b, parameters from a seeded
+   generator on the card, 8 prompts of 2048 tokens and 64 new tokens:
+   prefill and decode times (medians of 3, CUDA events), tokens a
+   second, peak memory (and what earlier phases still held before the
+   parameters, ``base_gib``), bounds, one decode step under the
+   profiler; the card against itself (its full forward over prompt +
+   generated tokens
+   on two rows against prefill's and every decode step's logits, the
+   reference's serve contract, and the tokens against its argmax where
+   the top-2 margin is wide), against the CPU (the same weights, a
+   16-token prompt and 4 decode steps, relative L2 <= 1e-4), fp32
+   products without TF32, and for internlm2 one layer's prefill
+   attention beside ``scaled_dot_product_attention`` (a yardstick the
+   path never calls); then ``python -m repro_torch.launch.serve
+   --no-smoke`` as a subprocess, which must exit 0 with the phase's
+   tokens. The path is plain PyTorch and launches none of the
+   hand-written kernels;
+15. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
    registers and spills, and its times), the card line and, last, the
    result line.
@@ -147,7 +165,12 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import _build, fft_block, fft_fused, fft_matmul, fft_pencil  # noqa: E402
 from repro_torch.comm import cost as costlib  # noqa: E402
 from repro_torch.core.twiddle import four_step_factors  # noqa: E402
-from repro_torch.launch.mesh import abstract_fft_mesh, make_fft_mesh  # noqa: E402
+from repro_torch.launch.mesh import abstract_fft_mesh, make_fft_mesh, make_host_mesh  # noqa: E402
+from repro_torch.configs import get_config, make_batch  # noqa: E402
+from repro_torch.models import attention as lm_attn, layers as lm_layers  # noqa: E402
+from repro_torch.models import model as lm_model, ssd as lm_ssd  # noqa: E402
+from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 N = 512
 SEED = 0
@@ -1367,6 +1390,222 @@ def phase_grad() -> None:
     say('grad', refused=json.dumps(refused), plain_grad_finite=bool(torch.isfinite(g).all()))
 
 
+#: the language-model server (``[lm]``): both configs at their published
+#: widths in fp32, 8 prompts of 2048 tokens and 64 new tokens each
+LM_ARCHS = ('internlm2-1.8b', 'mamba2-1.3b')
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 64
+#: the card against itself (two rows: the full-vocabulary logits of the
+#: forward over 2112 tokens are 1.56 GB a row for internlm2): the
+#: reference's serve contract (tests/test_serve.py), prefill and decode
+#: against the full forward, atol = rtol; generated tokens equal to the
+#: forward's argmax where its top-2 margin exceeds LM_MARGIN
+LM_ROWS, LM_PREFILL_TOL, LM_DECODE_TOL, LM_MARGIN = 2, 2e-3, 3e-3, 1e-3
+#: the card against the CPU, the same weights: a 16-token prompt and 4
+#: teacher-forced decode steps, logits relative L2 (fp32 products at full
+#: precision on both; sums in another order through 24 or 48 layers)
+LM_CPU_PROMPT, LM_CPU_STEPS, LM_CPU_REL = 16, 4, 1e-4
+
+
+def _lm_generate(eng, batch, rows: int):
+    """``ServeEngine.generate`` step by step under CUDA events: (tokens,
+    prefill ms, decode ms a token, wall s, rows' logits of every step)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    logits, caches = eng.prefill(batch)
+    ev[1].record()
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    out, kept = [tok], [logits[:rows, -1]]
+    for pos in range(LM_PROMPT, LM_PROMPT + LM_GEN - 1):
+        logits, caches = eng.decode(caches, tok, pos)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out.append(tok)
+        kept.append(logits[:rows, -1])
+    ev[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (torch.cat(out, dim=1), ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / (LM_GEN - 1), wall, torch.stack(kept, dim=1), caches)
+
+
+def _lm_bounds(cfg, params) -> dict:
+    """The least times the card could take: prefill's linear-layer
+    products (2 flop a weight a token, the embedding table excluded: it is
+    read for the last token only) over the fp32 rate; a decode step's
+    bytes (every weight and the caches read once) over the HBM rate."""
+    n = sum(t.numel() for t in tree_leaves(params))
+    tied = cfg.vocab_size * cfg.d_model
+    flops = 2.0 * (n - tied) * LM_BATCH * LM_PROMPT
+    cache = 0
+    for kind in cfg.block_pattern:
+        if kind == 'attn':
+            cache += 2 * LM_BATCH * (LM_PROMPT + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * 4
+        else:
+            di, H, P, Nst = lm_ssd.ssd_dims(cfg)
+            cache += LM_BATCH * H * Nst * P * 4
+    cache *= cfg.num_layers // len(cfg.block_pattern)
+    return dict(prefill_bound_ms=f"{flops / FP32_FLOP_PER_S * 1e3:.6g}",
+                decode_bound_ms=f"{(4 * n + cache) / HBM_BYTES_PER_S * 1e3:.6g}")
+
+
+def _lm_yardstick(cfg, params, batch) -> dict:
+    """One layer's prefill attention: the port's flash attention against
+    ``scaled_dot_product_attention`` on the same q/k/v (a yardstick; the
+    path never calls it)."""
+    p0 = lm_model._layer(params['blocks'], 0)['0_attn']
+    with torch.inference_mode():
+        x = lm_layers.embed_lookup(params['embed'], batch['tokens'])
+        h = lm_layers.apply_norm(p0['norm1'], x, cfg.norm_eps)
+        pos = torch.arange(LM_PROMPT, device='cuda')[None].expand(LM_BATCH, LM_PROMPT)
+        q, k, v = lm_attn.gqa_qkv(p0['attn'], cfg, h, pos)
+
+    @torch.inference_mode()
+    def flash():
+        return lm_attn.flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+
+    @torch.inference_mode()
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+    err = float((flash() - sdpa()).abs().max())
+    return dict(flash_ms=f"{time_ms(flash, 5):.6g}", sdpa_ms=f"{time_ms(sdpa, 5):.6g}",
+                flash_vs_sdpa_max_abs=f"{err:.3g}")
+
+
+def _lm_self_check(cfg, params, batch, toks, kept) -> dict:
+    """The card's full forward over prompt + generated tokens (LM_ROWS
+    rows) against prefill's and every decode step's logits, and the
+    generated tokens against its argmax where its top-2 margin is wide."""
+    seq = torch.cat([batch['tokens'][:LM_ROWS], toks[:LM_ROWS, :-1]], dim=1)
+    with torch.inference_mode():
+        full, _ = lm_model.forward(params, cfg, {'tokens': seq})
+    ref = full[:, LM_PROMPT - 1:]                          # the logits of each step
+    del full
+    diff = (kept - ref).abs()
+    for t in range(LM_GEN):
+        tol = LM_PREFILL_TOL if t == 0 else LM_DECODE_TOL
+        if bool((diff[:, t] > tol + tol * ref[:, t].abs()).any()):
+            raise AssertionError(f"lm {cfg.name}: step {t} logits differ from the full "
+                                 f"forward by more than atol = rtol = {tol}")
+    top2 = torch.topk(ref, 2, dim=-1).values
+    wide = (top2[..., 0] - top2[..., 1]) > LM_MARGIN
+    agree = toks[:LM_ROWS] == torch.argmax(ref, dim=-1).to(torch.int32)
+    if not bool(agree[wide].all()):
+        raise AssertionError(f"lm {cfg.name}: a generated token differs from the full "
+                             f"forward's argmax where its margin exceeds {LM_MARGIN}")
+    return dict(self_check='ok', self_max_abs=f"{float(diff.max()):.3g}",
+                steps_below_margin=int((~wide).sum()))
+
+
+def _lm_cpu_check(cfg, params) -> dict:
+    """The same weights on the CPU (the port's plain path) against the
+    card: prefill of a 16-token prompt and 4 teacher-forced decode steps."""
+    prompt = make_batch(cfg, batch=2, seq=LM_CPU_PROMPT + LM_CPU_STEPS, seed=SEED + 1,
+                        device='cpu')['tokens']
+    cap = LM_CPU_PROMPT + LM_CPU_STEPS
+    out = []
+    for p, dev in ((params, 'cuda'), (tree_map(lambda t: t.cpu(), params), 'cpu')):
+        with torch.inference_mode():
+            logits, caches = lm_model.prefill(
+                p, cfg, {'tokens': prompt[:, :LM_CPU_PROMPT].to(dev)}, cache_cap=cap)
+            steps = [logits]
+            for t in range(LM_CPU_STEPS):
+                tok = prompt[:, LM_CPU_PROMPT + t:LM_CPU_PROMPT + t + 1].to(dev)
+                logits, caches = lm_model.decode_step(p, cfg, caches, tok, LM_CPU_PROMPT + t)
+                steps.append(logits)
+        out.append(torch.cat(steps, dim=1).cpu())
+        del p, caches
+    rel = float(torch.linalg.vector_norm(out[0] - out[1]) / torch.linalg.vector_norm(out[1]))
+    if not rel <= LM_CPU_REL:
+        raise AssertionError(f"lm {cfg.name}: card vs CPU logits rel L2 {rel:.3e} > "
+                             f"{LM_CPU_REL}")
+    return dict(cpu_rel_l2=f"{rel:.3g}", cpu_tol=LM_CPU_REL)
+
+
+def lm_serve(arch: str) -> list:
+    """One config at full width: serve, check the card against itself and
+    against the CPU, profile one decode step, time the yardstick. Returns
+    the first row's generated tokens."""
+    cfg = get_config(arch)
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    params = lm_model.init_params(gen, cfg, torch.float32)
+    n = sum(t.numel() for t in tree_leaves(params))
+    if n != lm_model.param_count(cfg):
+        raise AssertionError(f"lm {arch}: {n} parameters, the plan counts "
+                             f"{lm_model.param_count(cfg)}")
+    batch = {'tokens': make_batch(cfg, batch=LM_BATCH, seq=LM_PROMPT, seed=SEED)['tokens']}
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, make_host_mesh(1, 1), params, batch=LM_BATCH,
+                      prompt_len=LM_PROMPT, max_len=LM_PROMPT + LM_GEN)
+    toks = eng.generate(batch, LM_GEN)
+    if tuple(toks.shape) != (LM_BATCH, LM_GEN) or toks.dtype != torch.int32:
+        raise AssertionError(f"lm {arch}: generate gave {tuple(toks.shape)} {toks.dtype}")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != 'highest'):
+        raise AssertionError("lm: fp32 products ran with TF32")
+    runs, caches = [], None
+    for _ in range(3):
+        caches = None                       # one run's caches alive at a time
+        *r, caches = _lm_generate(eng, batch, LM_ROWS)
+        if not torch.equal(r[0], toks):
+            raise AssertionError(f"lm {arch}: a timed run generated other tokens than "
+                                 "ServeEngine.generate")
+        runs.append(r)
+    med = [sorted(r[i] for r in runs)[1] for i in (1, 2, 3)]
+    peak = torch.cuda.max_memory_allocated()
+    last = toks[:, -1:]
+    prof = profile(lambda: eng.decode(caches, last, LM_PROMPT + LM_GEN - 1))
+    kept = runs[-1][4]
+    del runs, caches
+    say('lm', arch=arch, params=n, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+        prefill_ms=f"{med[0]:.6g}", decode_ms_per_token=f"{med[1]:.6g}",
+        tok_per_s=f"{LM_BATCH * LM_GEN / med[2]:.6g}", generate_s=f"{med[2]:.6g}",
+        peak_gib=f"{peak / 2**30:.4g}", base_gib=f"{base / 2**30:.4g}",
+        **_lm_bounds(cfg, params),
+        first_row=json.dumps(toks[0, :8].tolist()))
+    say('profile', path=f'lm_decode_{arch}', **prof)
+    checks = _lm_self_check(cfg, params, batch, toks, kept)
+    checks.update(_lm_cpu_check(cfg, params))
+    if cfg.block_pattern == ('attn',):
+        checks.update(_lm_yardstick(cfg, params, batch))
+    say('lm', arch=arch, **checks)
+    return toks[0].tolist()
+
+
+def phase_lm() -> None:
+    """``[lm]``: the language-model server at full width on the card, then
+    the launcher as a user runs it. The path runs plain PyTorch (its
+    products are matrix products outside any TPU kernel), so it must
+    launch none of the hand-written kernels."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    first_rows = {}
+    for arch in LM_ARCHS:
+        first_rows[arch] = lm_serve(arch)
+        torch.cuda.empty_cache()
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"lm: the LM path launched hand-written kernels {launched}")
+    t1 = time.perf_counter()
+    cmd = [sys.executable, '-m', 'repro_torch.launch.serve', '--arch', LM_ARCHS[0],
+           '--no-smoke', '--batch', str(LM_BATCH), '--prompt-len', str(LM_PROMPT),
+           '--gen', str(LM_GEN)]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, 'src')))
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"lm: the launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    # the same seed, parameters and prompts: the same tokens
+    if f"[serve] first row: {first_rows[LM_ARCHS[0]]}" not in proc.stdout.splitlines():
+        raise AssertionError("lm: the launcher's first row differs from the phase's")
+    say('lm', label='launcher', rc=proc.returncode, seconds=f"{time.perf_counter() - t1:.3g}",
+        fft_kernel_launches=0, phase_seconds=f"{time.perf_counter() - t0:.3g}")
+
+
 def phase_cost() -> None:
     """The cost model on the host: reports and the selector's picks,
     each of which must plan."""
@@ -1438,6 +1677,7 @@ def main() -> None:
     paths += phase_serve(gen)
     paths += phase_service(gen)
     phase_grad()
+    phase_lm()
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []
     for name, meta in KERNELS.items():

@@ -1,4 +1,5 @@
-"""The port's pencil-grid mesh: ('x', 'y'), or ('pod', 'x', 'y').
+"""The port's meshes: the pencil grid ('x', 'y') or ('pod', 'x', 'y'), and the
+language models' ('data', 'model').
 
 Port of ``repro.launch.mesh.make_fft_mesh``. A JAX ``Mesh`` names axes
 over devices and ``shard_map`` hands each device its block; here every
@@ -134,17 +135,28 @@ def make_fft_mesh(rows: int = 1, cols: int = 1, *, pods: int = 1,
     CPU. A mesh of more than one rank needs an initialised default
     process group of at least that many ranks (NCCL for 'cuda', gloo
     for 'cpu'); each rank uses ``cuda:<local index>``."""
+    return _make_mesh(_axes_of(rows, cols, pods), device, 'make_fft_mesh')
+
+
+def make_host_mesh(rows: int = 1, cols: int = 1, *, device: Optional[str] = None) -> FFTMesh:
+    """The language models' ('data', 'model') mesh, port of the
+    reference's ``make_host_mesh``; ``device`` and process groups as
+    :func:`make_fft_mesh`'s. The LM server runs on 1 x 1 only
+    (``repro_torch.serve.engine``)."""
+    return _make_mesh({'data': rows, 'model': cols}, device, 'make_host_mesh')
+
+
+def _make_mesh(shape: Dict[str, int], device: Optional[str], who: str) -> FFTMesh:
     dev_type = 'cuda' if device is None else torch.device(device).type
     if dev_type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
-            "make_fft_mesh: no CUDA device; pass device='cpu' to run the "
+            f"{who}: no CUDA device; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
-    shape = _axes_of(rows, cols, pods)
     dm = None
     if math.prod(shape.values()) > 1:
         if not dist.is_initialized():
             raise RuntimeError(
-                f"make_fft_mesh({_describe(shape)}) needs an initialised default "
+                f"{who}({_describe(shape)}) needs an initialised default "
                 "process group (torch.distributed.init_process_group)")
         from torch.distributed.device_mesh import init_device_mesh
         dm = init_device_mesh(dev_type, tuple(shape.values()),

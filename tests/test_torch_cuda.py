@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-a small plan end to end. Every test here is marked ``cuda`` and skips
-without an NVIDIA GPU (the kernels have no CPU mode). This file imports
+"""The port on the card: each CUDA kernel against its plain version, a
+small plan end to end, and the LM server against the CPU. Every test
+here is marked ``cuda`` and skips without an NVIDIA GPU (the kernels
+have no CPU mode). This file imports
 no jax, so it runs on the GPU machine as it is:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -330,3 +331,44 @@ def test_service_round_trip_on_the_card(gen, tmp_path, tcp):
             assert np.array_equal(c.submit(xc, key='k').result(timeout=120), again)
             assert svc.engine.dispatch_stats()['groups'] == groups + 1
             assert c.metrics()['service']['dedup']['redelivered'] == 1
+
+
+@pytest.mark.parametrize("arch", ['internlm2-1.8b', 'mamba2-1.3b'])
+def test_lm_server_on_the_card_matches_the_cpu(gen, arch):
+    """The LM server (smoke config, fp32) on the card against the same
+    parameters on the CPU: prefill and four teacher-forced decode steps,
+    logits within 1e-5 relative L2 (full fp32 products on the card, no
+    TF32), and greedy tokens equal wherever the CPU's top-2 margin
+    exceeds 1e-3. The LM path launches no hand-written kernel."""
+    from repro_torch.configs import get_config, make_batch, smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import ServeEngine
+    cfg = smoke_config(get_config(arch))
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    prompt = make_batch(cfg, batch=2, seq=20, seed=1, device='cpu')['tokens']
+    kernels.reset_launch_counts()
+    out = {}
+    for dev, p in (('cpu', params), ('cuda', on_card)):
+        eng = ServeEngine(cfg, make_host_mesh(1, 1, device=dev), p, batch=2, prompt_len=16,
+                          max_len=20)
+        logits, caches = eng.prefill({'tokens': prompt[:, :16]})
+        steps = [logits]
+        for t in range(4):
+            logits, caches = eng.decode(caches, prompt[:, 16 + t:17 + t].to(dev), 16 + t)
+            steps.append(logits)
+        toks = eng.generate({'tokens': prompt[:, :16]}, 5)
+        out[dev] = torch.cat(steps, dim=1).cpu(), toks.cpu()
+    assert not any(kernels.launch_counts().values())
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == 'highest'
+    (cpu, tok_cpu), (card, tok_card) = out['cpu'], out['cuda']
+    assert float(torch.linalg.vector_norm(card - cpu) / torch.linalg.vector_norm(cpu)) <= 1e-5
+    assert tok_card.dtype == torch.int32
+    # the first token's margin is read from the prefill; later ones follow
+    # the CPU's own tokens, so compare only up to the first narrow margin
+    top2 = torch.topk(cpu[:, 0], 2, dim=-1).values
+    wide = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(tok_card[wide, 0], tok_cpu[wide, 0])

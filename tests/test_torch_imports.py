@@ -38,26 +38,41 @@ def test_the_check_sees_the_port():
 def test_the_check_sees_the_serving_engine():
     serve = {p.name for p in FILES if p.parent.name == 'serve'
              and p.parent.parent.name == 'repro_torch'}
-    assert serve == {'__init__.py', 'faults.py', 'fft_engine.py', 'plan_cache.py',
-                     'policy.py', 'protocol.py', 'service.py'}
+    assert serve == {'__init__.py', 'engine.py', 'faults.py', 'fft_engine.py',
+                     'plan_cache.py', 'policy.py', 'protocol.py', 'service.py'}
 
 
 def test_the_check_sees_the_service_launcher():
     launch = {p.name for p in FILES if p.parent.name == 'launch'
               and p.parent.parent.name == 'repro_torch'}
-    assert {'fft_service.py', 'mesh.py'} <= launch
+    assert {'fft_service.py', 'mesh.py', 'serve.py'} <= launch
+
+
+def test_the_check_sees_the_language_models():
+    """The LM server's modules: configs, models, the engine, the
+    launcher and the parameter converter."""
+    port = ROOT / 'src' / 'repro_torch'
+    rel = {str(p.relative_to(port)) for p in FILES if port in p.parents}
+    assert {'configs/__init__.py', 'configs/base.py', 'configs/internlm2_1_8b.py',
+            'configs/mamba2_1_3b.py', 'models/__init__.py', 'models/layers.py',
+            'models/attention.py', 'models/ssd.py', 'models/model.py', 'serve/engine.py',
+            'launch/serve.py', 'weights.py'} <= rel
+    assert len([p for p in rel if p.startswith('configs/')]) == 12
 
 
 def test_importing_the_serving_engine_loads_no_jax():
     """At run time too: a fresh interpreter that imports
-    ``repro_torch.serve`` (and so the whole port under it: the engine,
-    the protocol, the policy and the service) and the service's launcher
-    has no jax and no ``repro`` module loaded."""
+    ``repro_torch.serve`` (and so the whole port under it: the engines,
+    the protocol, the policy and the service), both launchers, the
+    configs, the models and the parameter converter has no jax and no
+    ``repro`` module loaded."""
     import subprocess
     import sys
     code = ("import sys; sys.path.insert(0, 'src'); import repro_torch.serve, "
             "repro_torch.serve.protocol, repro_torch.serve.policy, repro_torch.serve.service, "
-            "repro_torch.launch.fft_service, repro_torch.fft; bad = sorted(m for m in "
+            "repro_torch.launch.fft_service, repro_torch.fft, repro_torch.launch.serve, "
+            "repro_torch.configs, repro_torch.models.model, repro_torch.weights; "
+            "bad = sorted(m for m in "
             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,

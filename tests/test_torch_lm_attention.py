@@ -1,0 +1,146 @@
+"""The port's flash attention and GQA block (``repro_torch.models.attention``)
+against the reference's (``repro.models.attention``).
+
+``flash_attention`` over its three blockings (one pass, KV chunks, query
+blocks over KV chunks; a length that no chunk divides runs one pass),
+GQA groups of 1, 2 and 4, and its masks (``causal``, ``window``,
+``q_offset``, ``kv_len``); the GQA block's prefill (output and caches)
+and decode. Tolerances: max abs <= 2e-6 and relative L2 <= 1e-6 (fp32;
+the exp and the sums are taken in another order by XLA).
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_config, smoke_config as ref_smoke
+from repro.models import attention as RA
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.models import attention as A
+from repro_torch.models.layers import init_from_plan
+from repro_torch.weights import params_to_reference
+
+ATOL, REL = 2e-6, 1e-6
+
+
+def _close(got, want, atol=ATOL, rel=REL):
+    got, want = got.numpy().astype(np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    rl2 = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err <= atol and rl2 <= rel, f'max abs {err:.3e}, rel L2 {rl2:.3e}'
+
+
+def _qkv(seed, B, Sq, Skv, H, KH, D=16):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+
+
+# (Sq, Skv, chunk, q_chunk): one pass; KV chunks; query blocks over KV
+# chunks; a length no chunk divides (one pass); a query length no block
+# divides over KV chunks
+BLOCKINGS = [(24, 24, 32, 32), (64, 64, 16, 64), (64, 64, 16, 16), (40, 40, 16, 16),
+             (24, 64, 16, 16)]
+
+
+@pytest.mark.parametrize('blocking', BLOCKINGS, ids=lambda b: 'x'.join(map(str, b)))
+@pytest.mark.parametrize('group', [1, 2, 4])
+def test_flash_attention_blockings_and_groups(blocking, group):
+    Sq, Skv, chunk, q_chunk = blocking
+    q, k, v = _qkv(0, 2, Sq, Skv, 4, 4 // group)
+    off = Skv - Sq
+    got = A.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                            q_offset=off, chunk=chunk, q_chunk=q_chunk)
+    want = RA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_offset=off,
+                              chunk=chunk, q_chunk=q_chunk)
+    assert got.dtype == torch.float32
+    _close(got, want)
+
+
+@pytest.mark.parametrize('case', [
+    dict(causal=False), dict(causal=True, window=8), dict(causal=False, window=5),
+    dict(causal=True, q_offset=7), dict(causal=True, kv_len=37, q_offset=36),
+    dict(causal=False, kv_len=20)], ids=lambda c: ','.join(f'{k}={v}' for k, v in c.items()))
+def test_flash_attention_masks(case):
+    Sq = 1 if 'kv_len' in case and case.get('causal') else 32
+    q, k, v = _qkv(1, 2, Sq, 48, 4, 2)
+    kw = dict(chunk=16, q_chunk=16, **case)
+    got = A.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), **kw)
+    want = RA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    _close(got, want)
+
+
+def test_flash_attention_output_has_qs_dtype():
+    q, k, v = _qkv(2, 1, 8, 8, 2, 1)
+    got = A.flash_attention(torch.as_tensor(q).bfloat16(), torch.as_tensor(k),
+                            torch.as_tensor(v))
+    want = RA.flash_attention(jnp.asarray(q).astype(jnp.bfloat16), jnp.asarray(k),
+                              jnp.asarray(v))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2 ** -7, rtol=2 ** -7)
+
+
+def _cfg(bias=False):
+    cfg = smoke_config(get_config('internlm2-1.8b'))
+    return dataclasses.replace(cfg, qkv_bias=bias)
+
+
+def _params(cfg, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    p = init_from_plan(gen, A.gqa_plan(cfg), torch.float32)
+    if cfg.qkv_bias:                        # non-zero biases, so they are exercised
+        for name in ('wq', 'wk', 'wv'):
+            p[name]['b'] = torch.randn(p[name]['b'].shape, generator=gen)
+    return p, {k: {n: jnp.asarray(a) for n, a in d.items()}
+               for k, d in params_to_reference(p).items()}
+
+
+def _ref_cfg(cfg):
+    return dataclasses.replace(ref_smoke(ref_config(cfg.name)), qkv_bias=cfg.qkv_bias)
+
+
+@pytest.mark.parametrize('bias', [False, True], ids=['nobias', 'qkv_bias'])
+def test_gqa_prefill_output_and_caches(bias):
+    cfg = _cfg(bias)
+    p, rp = _params(cfg)
+    x = np.random.default_rng(3).standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(24), (2, 24)).astype(np.int32)
+    out, cache = A.gqa_prefill(p, cfg, torch.as_tensor(x), torch.as_tensor(pos), cache_cap=32)
+    rout, rcache = RA.gqa_prefill(rp, _ref_cfg(cfg), jnp.asarray(x), jnp.asarray(pos),
+                                  cache_cap=32)
+    _close(out, rout, atol=1e-5)
+    for name in ('k', 'v'):
+        assert cache[name].dtype == torch.float32 and rcache[name].dtype == jnp.float32
+        _close(cache[name], rcache[name], atol=1e-5)
+    _close(A.gqa_apply(p, cfg, torch.as_tensor(x), torch.as_tensor(pos)), rout, atol=1e-5)
+
+
+def test_gqa_decode_writes_the_cache_in_place():
+    cfg = _cfg()
+    p, rp = _params(cfg, 1)
+    rng = np.random.default_rng(4)
+    ck, cv = (rng.standard_normal((2, 32, cfg.num_kv_heads, cfg.head_dim)).astype(np.float32)
+              for _ in range(2))
+    x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    rout, rk, rv = RA.gqa_decode(rp, _ref_cfg(cfg), jnp.asarray(x), jnp.asarray(ck),
+                                 jnp.asarray(cv), jnp.int32(20))
+    tk, tv = torch.as_tensor(ck.copy()), torch.as_tensor(cv.copy())
+    out, k2, v2 = A.gqa_decode(p, cfg, torch.as_tensor(x), tk, tv, 20)
+    assert k2 is tk and v2 is tv
+    _close(out, rout, atol=1e-5)
+    _close(tk, rk, atol=1e-5)
+    _close(tv, rv, atol=1e-5)
+
+
+def test_sequence_parallel_attention_is_not_ported():
+    cfg = _cfg()
+    p, _ = _params(cfg)
+    x = torch.zeros((1, 4, cfg.d_model))
+    pos = torch.arange(4)[None]
+    for fn in (A.gqa_apply, A.gqa_prefill):
+        with pytest.raises(NotImplementedError, match='item 10'):
+            fn(p, cfg, x, pos, sp=True)
