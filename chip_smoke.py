@@ -126,7 +126,34 @@ Phases, each printing one line and raising on any failure:
    --no-smoke`` as a subprocess, which must exit 0 with the phase's
    tokens. The path is plain PyTorch and launches none of the
    hand-written kernels;
-15. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
+15. ``[train]``: ``fft_pencil`` and ``fft_matmul`` at the train path's
+   shapes against their plain versions (524,288 pencils of 32 and
+   270,336 of 64, with times, listed under ``train`` in the ``kernels``
+   line); then the trainer (``make_train_step``) at full width in fp32,
+   TF32 off, after freeing what earlier phases hold (``base_gib``):
+   internlm2-1.8b (remat, 8 x 2048 tokens in 2 microbatches, 4 steps at
+   the default schedule, launching no FFT kernel) and the FFT-conv LM
+   (mamba2-1.3b's widths with every block ``fftconv``, 48 layers,
+   4 x 2048 tokens, 3 steps: 576 ``fft_matmul`` and 576 ``fft_pencil``
+   launches a step, 12 of each a layer for the forward, remat's second
+   forward and the backward's two correlation applies, every one on the
+   tensor-core or radix-8 body). Each prints its step time (median of
+   the steps after the first, CUDA events), tokens a second, peak
+   memory, ce and grad norm a step, its flop and bound, and one more
+   step under the profiler. Then one layer's ``_FFTConv`` at those
+   shapes (8192 real signals of 4096): its gradients of hr and kr
+   against autograd through the plain tier (``kernel='reference'``),
+   its forward against the plain tier and ``torch.fft.rfft``/``irfft``
+   (relative L2 <= 1e-5), timed beside both; one step at smoke size on
+   the card against one on the CPU for internlm2, mamba2 and the
+   fftconv model (ce, grad norm, parameters and moments, relative
+   <= 1e-5); ``python -m repro_torch.launch.train --arch mamba2-1.3b
+   --steps 20 --ckpt-every 5 --fail-at 13`` as a subprocess beside an
+   uninterrupted run (``restarts=1``, the final checkpoints equal
+   byte for byte); and ``examples/torch_fftconv_lm.py`` as a subprocess
+   (its loss falls by more than 0.3 nats). The FFT-conv LM's training
+   steps count as the train path's launches in the ``kernels`` line;
+16. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
    registers and spills, and its times), the card line and, last, the
    result line.
@@ -142,6 +169,8 @@ rest of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import filecmp
 import json
 import math
 import os
@@ -609,10 +638,11 @@ def kernel_unaligned(gen) -> None:
             variant=fft_matmul.variant(n), max_abs_err=f"{err:.6g}", tol=KERNEL_RTOL)
 
 
-def profile(fn) -> dict:
+def profile(fn, sums: dict = None) -> dict:
     """One call under ``torch.profiler``: device time per kernel, the
     device's busy time and its idle share of the call's wall time (the
-    profiler's own overhead is in the wall time)."""
+    profiler's own overhead is in the wall time); ``sums`` names the
+    kernels (a regex each) whose device time is also added up."""
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -627,8 +657,10 @@ def profile(fn) -> dict:
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
     busy_us = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    extra = {name: f"{sum(v for k, v in per_kernel.items() if re.search(rx, k)) / 1e3:.6g}"
+             for name, rx in (sums or {}).items()}
     return dict(wall_ms=f"{wall_us / 1e3:.6g}", device_busy_ms=f"{busy_us / 1e3:.6g}",
-                idle_share=f"{1 - busy_us / wall_us:.3f}",
+                idle_share=f"{1 - busy_us / wall_us:.3f}", **extra,
                 top=json.dumps([[k[:48], round(v / 1e3, 3)] for k, v in top]))
 
 
@@ -1606,6 +1638,356 @@ def phase_lm() -> None:
         fft_kernel_launches=0, phase_seconds=f"{time.perf_counter() - t0:.3g}")
 
 
+#: ``[train]``: internlm2-1.8b at its published widths in fp32 (remat on),
+#: 8 x 2048 tokens in 2 microbatches, 4 steps of ``make_train_step``
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 'internlm2-1.8b', 8, 2048, 2, 4
+#: the FFT-conv LM at mamba2-1.3b's widths (every block the FFT-conv
+#: mixer, ``examples/fftconv_lm.py``'s model at full size): 4 x 2048
+#: tokens, so a layer's conv is 8192 real signals of n = 4096
+FFTCONV_BATCH, FFTCONV_STEPS = 4, 3
+#: one rank-1 real operator apply at n = 4096 = 64 x 64 (four_step
+#: factors): the r2c columns are complex pencils of 32, which 'auto'
+#: gives the Stockham kernel, the rows 64, the four-step kernel; an apply
+#: transforms two operands and inverts one: 3 of each kernel
+FFTCONV_PER_APPLY = {'fft_pencil': 3, 'fft_matmul': 3}
+#: applies a layer a training step: the forward, remat's second forward,
+#: the backward's two correlation applies
+FFTCONV_APPLIES = 4
+#: the kernels at the train path's shapes, one layer's signal operand
+#: (4 x 2048 signals of 4096 as 64 x 64 rows): the r2c columns' 32-point
+#: complex pencils, 64 a signal, and the half plane's 33 rows of 64
+TRAIN_KERNEL_SHAPES = {'fft_pencil': (FFTCONV_BATCH * 2048 * 64, 32),
+                       'fft_matmul': (FFTCONV_BATCH * 2048 * 33, 64)}
+#: the keys of each kernel's ``train`` record in the ``kernels`` JSON line
+TRAIN_KEYS = ('n', 'pencils', 'variant') + JSON_KEYS
+#: ``_FFTConv``'s gradients against autograd through the plain tier on
+#: the same inputs, relative L2 (fp32 four-step products either way);
+#: its forward against torch.fft.rfft/irfft
+FFTCONV_GRAD_REL = 1e-5
+#: one step on the card against one on the CPU at smoke size, the same
+#: parameters and batch: ce, grad norm, the updated parameters and
+#: moments, relative L2 (fp32 in another summation order; lr 2e-4, so
+#: the first AdamW step's sign-like moves stay small)
+TRAIN_CPU_REL = 1e-5
+TRAIN_CPU_LR = dict(peak_lr=1e-3, warmup_steps=5, total_steps=100)
+
+
+def kernels_train(gen) -> dict:
+    """``fft_pencil`` and ``fft_matmul`` at the train path's shapes, each
+    against its plain version, forward and inverse, with its time, the
+    plain version's, ``torch.fft.fft``'s and the bound."""
+    out = {}
+    for name, (pencils, n) in TRAIN_KERNEL_SHAPES.items():
+        module = fft_pencil if name == 'fft_pencil' else fft_matmul
+        run, plain = getattr(module, name), getattr(module, f'{name}_plain')
+        x = planar((pencils, n), gen)
+        xc = torch.complex(*x)
+        err = max(check(name, run(*x, inverse=inv), plain(*x, inverse=inv),
+                        f"({pencils}, {n}) inverse={inv}") for inv in (False, True))
+        b, by = bound(pencils * n, fft_flops(n, pencils))
+        out[name] = dict(n=n, pencils=pencils, variant=module.variant(n), max_abs_err=err,
+                         ms=time_ms(lambda: run(*x), 20), plain_ms=time_ms(lambda: plain(*x), 5),
+                         library_ms=time_ms(lambda: torch.fft.fft(xc, dim=-1), 20),
+                         bound_ms=b, bound_by=by)
+        say('kernel', path='train', name=name, tol=KERNEL_RTOL,
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in out[name].items()})
+        del x, xc
+    return out
+
+
+def _free_card() -> float:
+    """Drop what earlier phases left in the allocator's cache; return what
+    is still allocated, in GiB."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def _linear_weights(tree) -> int:
+    """The elements of every matrix product's weight (a linear layer's
+    'w', the MLP's 'wi' and 'wo') in a tree of meta tensors."""
+    return sum(_linear_weights(v) if isinstance(v, dict)
+               else (v.numel() if k in ('w', 'wi', 'wo') else 0) for k, v in tree.items())
+
+
+def _train_flops(cfg, tokens: int, seq: int) -> float:
+    """A step's operations, the least the card must do: every linear
+    weight's product 2 flop a token forward, 4 backward, 2 more in remat's
+    second forward; the tied head (outside remat) 6; causal attention's
+    scores and values, 2 S^2 hd a head a sequence forward, times 4 (remat,
+    backward twice); the FFT-conv mixer's transforms, 2.5 n log2 n a real
+    signal of n = 2S, three an apply, four applies a step."""
+    head = cfg.vocab_size * cfg.d_model
+    abstract = lm_model.abstract_params(cfg, torch.float32)
+    n_layer = _linear_weights({k: v for k, v in abstract.items() if k != 'embed'})
+    flops = (8.0 * n_layer + 6.0 * head) * tokens
+    layers = cfg.num_layers
+    if 'attn' in cfg.block_pattern:
+        flops += 4 * 2.0 * seq * cfg.num_heads * cfg.head_dim * tokens * layers
+    if 'fftconv' in cfg.block_pattern:
+        n = 2 * seq
+        signals = tokens // seq * cfg.d_model
+        flops += FFTCONV_APPLIES * 3 * signals * 2.5 * n * math.log2(n) * layers
+    return flops
+
+
+def _timed_steps(step, params, opt, batches) -> tuple:
+    """Run the steps; each step's CUDA-event ms, its metrics (host
+    floats) and its wall ms."""
+    ms, mets, walls = [], [], []
+    for b in batches:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        params, opt, m = step(params, opt, b)
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ms.append(e0.elapsed_time(e1))
+        mets.append({k: float(v) for k, v in m.items()})
+    return params, opt, ms, mets, walls
+
+
+def train_full(cfg, label: str, batch: int, micro: int, steps: int, mesh) -> dict:
+    """One config at full width in fp32: ``make_train_step`` for ``steps``
+    steps, then one more under the profiler. Returns the steps' kernel
+    launches (all, and those on the mma and radix-8 bodies)."""
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.trainstep import make_train_step
+    base = _free_card()
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    params = lm_model.init_params(gen, cfg, torch.float32)
+    n = sum(t.numel() for t in tree_leaves(params))
+    opt = adamw_init(params)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED)
+    batches = [shard_batch(data.batch_at(i), mesh) for i in range(steps + 1)]
+    # the first steps of a run at the trainer's default schedule (peak 3e-4
+    # after 100 warmup steps): a short warmup's sign-like first AdamW steps
+    # of 3e-4 a weight throw a 2048-wide random model off (internlm2's ce
+    # went 11.83 -> 13.86 at the third step with 2 warmup steps)
+    step = make_train_step(cfg, mesh, microbatches=micro, param_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    params, opt, ms, mets, walls = _timed_steps(step, params, opt, batches[:steps])
+    launches = kernels.launch_counts()
+    mma, radix8 = fft_matmul.launches_mma, fft_pencil.launches_radix8
+    peak = torch.cuda.max_memory_allocated()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != 'highest'):
+        raise AssertionError("train: fp32 products ran with TF32")
+    for m in mets:
+        if not (all(math.isfinite(v) for v in m.values()) and m['grad_norm'] > 0
+                and 0 < m['ce'] < 2 * math.log(cfg.vocab_size)):
+            raise AssertionError(f"train {label}: a step's metrics {m}")
+    # the hand-written kernels' share: the radix-8 Stockham and tensor-core bodies
+    prof = profile(lambda: step(params, opt, batches[steps]),
+                   sums={'fft_kernels_ms': r'radix8_|_mma3?_kernel'})
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    tokens = batch * TRAIN_SEQ
+    flops = _train_flops(cfg, tokens, TRAIN_SEQ)
+    out = dict(params=n, batch=batch, seq=TRAIN_SEQ, microbatches=micro, steps=steps,
+               step_ms=f"{med:.6g}", step_wall_ms=f"{sorted(walls[1:])[len(walls[1:]) // 2]:.6g}",
+               tok_per_s=f"{tokens / med * 1e3:.6g}", peak_gib=f"{peak / 2**30:.4g}",
+               base_gib=f"{base:.4g}", flop=f"{flops:.4g}",
+               bound_ms=f"{flops / FP32_FLOP_PER_S * 1e3:.6g}",
+               ce=json.dumps([round(m['ce'], 4) for m in mets]),
+               grad_norm=json.dumps([round(m['grad_norm'], 4) for m in mets]))
+    say('train', model=label, **out)
+    say('profile', path=f'train_{label}', **prof)
+    del params, opt, batches, step
+    return dict(launches=launches, mma=mma, radix8=radix8)
+
+
+def _fftconv_cfg(cfg):
+    return dataclasses.replace(cfg, block_pattern=('fftconv',), fftconv_len=1024)
+
+
+def fftconv_grad_check(cfg, mesh) -> None:
+    """One layer at the full-width shapes: ``_FFTConv`` (the kernels,
+    forward and adjoint) against autograd through the plain tier
+    (``kernel='reference'``) on the same hr and kr; its forward against
+    ``torch.fft.rfft``/``irfft``."""
+    S, n = TRAIN_SEQ, 2 * TRAIN_SEQ
+    g = torch.Generator(device='cuda').manual_seed(SEED + 2)
+    params = lm_model.init_params(g, cfg, torch.float32)
+    p = lm_model._layer(params['blocks'], 0)['0_fftconv']['fftconv']
+    klen = min(cfg.fftconv_len, S)
+    decay = torch.exp(-torch.nn.functional.softplus(p['decay'])
+                      * torch.arange(klen, device='cuda', dtype=torch.float32)[:, None])
+    kr = torch.nn.functional.pad((p['kernel'][:klen] * decay).t(), (0, n - klen)).contiguous()
+    hr = torch.nn.functional.pad(torch.randn((FFTCONV_BATCH, cfg.d_model, S), generator=g,
+                                             device='cuda'), (0, n - S)).contiguous()
+    w = torch.randn(hr.shape, generator=g, device='cuda')
+    del params, p
+    axes = lm_ssd._pick_axes(mesh, n)
+    conv = lm_ssd._fftconv_runtime_plan(n, mesh, axes, False)
+    adj = lm_ssd._fftconv_runtime_plan(n, mesh, axes, True)
+    if conv.resolved_kernel != 'pallas':
+        raise AssertionError(f"fftconv: the runtime plan resolved to {conv.resolved_kernel}")
+    th, tk = hr.clone().requires_grad_(), kr.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    y = lm_ssd._FFTConv.apply(th, tk, conv.apply, adj.apply)
+    gh, gk = torch.autograd.grad((y * w).sum(), (th, tk))
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    want = {k: 3 * v for k, v in FFTCONV_PER_APPLY.items()}
+    if {k: v for k, v in launched.items() if v} != want:
+        raise AssertionError(f"fftconv: a forward and backward launched {launched}, not {want}")
+    plain = fft.plan_op((n,), mesh, op=fft.spectral_mul, real=True, n_spectra=1,
+                        mesh_axes=axes, kernel='reference')
+    ph, pk = hr.clone().requires_grad_(), kr.clone().requires_grad_()
+    yp = plain.apply(ph, pk)
+    ah, ak = torch.autograd.grad((yp * w).sum(), (ph, pk))
+    if kernels.launch_counts() != launched:
+        raise AssertionError("fftconv: the plain tier launched a kernel")
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    lib = torch.fft.irfft(torch.fft.rfft(hr) * torch.fft.rfft(kr), n=n)
+    y, yp = y.detach(), yp.detach()
+    errs = dict(grad_hr_rel=rel(gh, ah), grad_kr_rel=rel(gk, ak), fwd_vs_plain_rel=rel(y, yp),
+                fwd_vs_torch_fft_rel=rel(y, lib))
+    if not all(v <= FFTCONV_GRAD_REL for v in errs.values()):
+        raise AssertionError(f"fftconv: {errs} > {FFTCONV_GRAD_REL}")
+
+    def kernel_fwd_bwd():
+        yk = lm_ssd._FFTConv.apply(th, tk, conv.apply, adj.apply)
+        torch.autograd.grad((yk * w).sum(), (th, tk))
+
+    def plain_fwd_bwd():
+        torch.autograd.grad((plain.apply(ph, pk) * w).sum(), (ph, pk))
+
+    def library_fwd_bwd():
+        lh, lk = hr.clone().requires_grad_(), kr.clone().requires_grad_()
+        yl = torch.fft.irfft(torch.fft.rfft(lh) * torch.fft.rfft(lk), n=n)
+        torch.autograd.grad((yl * w).sum(), (lh, lk))
+    times = dict(fwd_bwd_ms=time_ms(kernel_fwd_bwd, 5), plain_ms=time_ms(plain_fwd_bwd, 3),
+                 library_ms=time_ms(library_fwd_bwd, 5))
+    out = {k: f"{v:.3g}" for k, v in errs.items()}
+    out.update({k: f"{v:.6g}" for k, v in times.items()})
+    say('train', check='fftconv_adjoint', signals=FFTCONV_BATCH * cfg.d_model, n=n,
+        tol=FFTCONV_GRAD_REL, launches=json.dumps(want), **out)
+
+
+def train_cpu_check(arch: str, seq: int) -> None:
+    """One step at smoke size on the card and on the CPU from the same
+    parameters and batch: ce, grad norm, the parameters and moments."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.trainstep import make_train_step
+    cfg = smoke_config(get_config('mamba2-1.3b' if arch == 'fftconv' else arch))
+    if arch == 'fftconv':
+        cfg = _fftconv_cfg(cfg)
+    params = lm_model.init_params(torch.Generator().manual_seed(SEED), cfg, torch.float32)
+    batch = SyntheticLM(cfg.vocab_size, seq, 2, seed=SEED).batch_at(0)
+    res = []
+    for dev in ('cuda', 'cpu'):
+        mesh = make_host_mesh(1, 1, device=dev)
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        o = adamw_init(p)
+        step = make_train_step(cfg, mesh, param_dtype=torch.float32, **TRAIN_CPU_LR)
+        kernels.reset_launch_counts()
+        p, o, m = step(p, o, shard_batch(batch, mesh))
+        res.append((p, o, {k: float(v) for k, v in m.items()}, kernels.launch_counts()))
+    (pc, oc, mc, lc), (ph, oh, mh, _) = res
+    if arch == 'fftconv' and not lc['fft_pencil']:
+        raise AssertionError(f"train cpu check {arch}: no kernel launched on the card ({lc})")
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.double()
+        return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)),
+                                                           1e-30))
+    errs = dict(ce_rel=abs(mc['ce'] - mh['ce']) / abs(mh['ce']),
+                grad_norm_rel=abs(mc['grad_norm'] - mh['grad_norm']) / mh['grad_norm'],
+                params_rel=max(rel(a, b) for a, b in zip(tree_leaves(pc), tree_leaves(ph))),
+                moments_rel=max(rel(a, b) for k in ('m', 'v')
+                                for a, b in zip(tree_leaves(oc[k]), tree_leaves(oh[k]))))
+    if not all(v <= TRAIN_CPU_REL for v in errs.values()):
+        raise AssertionError(f"train cpu check {arch}: {errs} > {TRAIN_CPU_REL}")
+    say('train', check='card_vs_cpu', model=arch, seq=seq, tol=TRAIN_CPU_REL,
+        launches=json.dumps({k: v for k, v in lc.items() if v}),
+        **{k: f"{v:.3g}" for k, v in errs.items()})
+
+
+def _run(cmd: list, timeout: int) -> subprocess.CompletedProcess:
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, 'src')))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:4])} exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc
+
+
+def train_launcher_restart() -> None:
+    """The launcher as a subprocess, smoke mamba2-1.3b for 20 steps with a
+    checkpoint every 5 and a failure at step 13, beside an uninterrupted
+    run: restarts=1, and the two final checkpoints equal bit for bit."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, '-m', 'repro_torch.launch.train', '--arch', 'mamba2-1.3b',
+                '--steps', '20', '--ckpt-every', '5']
+        t0 = time.perf_counter()
+        ft = _run(base + ['--fail-at', '13', '--ckpt-dir', os.path.join(tmp, 'ft')], 300)
+        ref = _run(base + ['--ckpt-dir', os.path.join(tmp, 'ref')], 300)
+        last = ft.stdout.strip().splitlines()[-1]
+        print(last, flush=True)
+        if not (last.startswith('[train] arch=mamba2-1.3b steps=20 ') and 'restarts=1 ' in last):
+            raise AssertionError(f"train launcher: {last!r}")
+        ft_dir, ref_dir = (os.path.join(tmp, d, 'step_00000020') for d in ('ft', 'ref'))
+        names = sorted(os.listdir(ft_dir))
+        differ = [nm for nm in names if not filecmp.cmp(os.path.join(ft_dir, nm),
+                                                        os.path.join(ref_dir, nm), shallow=False)]
+        if differ:
+            raise AssertionError(f"train launcher: the restarted run's final checkpoint "
+                                 f"differs from the uninterrupted run's in {differ}")
+    say('train', check='launcher_restart', restarts=1, bitwise=True, files=len(names),
+        seconds=f"{time.perf_counter() - t0:.3g}")
+
+
+def phase_train(gen) -> tuple:
+    """``[train]``: the trainer at full width on the card; returns the
+    FFT-conv LM's launch counts (its training steps are the train path's
+    kernel launches) and the kernels' records at the path's shapes."""
+    t0 = time.perf_counter()
+    _free_card()
+    rec = kernels_train(gen)
+    mesh = make_host_mesh(1, 1)
+    internlm = train_full(get_config(TRAIN_ARCH), TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO,
+                          TRAIN_STEPS, mesh)
+    if any(internlm['launches'].values()):
+        raise AssertionError(f"train: internlm2 launched FFT kernels {internlm['launches']}")
+    cfg = _fftconv_cfg(get_config('mamba2-1.3b'))
+    conv = train_full(cfg, 'fftconv_lm', FFTCONV_BATCH, 1, FFTCONV_STEPS, mesh)
+    per_step = {k: v * FFTCONV_APPLIES * cfg.num_layers for k, v in FFTCONV_PER_APPLY.items()}
+    got = {k: v for k, v in conv['launches'].items() if v}
+    want = {k: v * FFTCONV_STEPS for k, v in per_step.items()}
+    if got != want or conv['mma'] != want['fft_matmul'] or conv['radix8'] != want['fft_pencil']:
+        raise AssertionError(f"train fftconv: launched {got} (mma {conv['mma']}, radix8 "
+                             f"{conv['radix8']}), want {want}, all on the hand-written body")
+    say('train', model='fftconv_lm', launches_per_step=json.dumps(per_step),
+        launches_mma=conv['mma'], launches_radix8=conv['radix8'])
+    _free_card()
+    fftconv_grad_check(cfg, mesh)
+    _free_card()
+    for arch, seq in (('internlm2-1.8b', 64), ('mamba2-1.3b', 64), ('fftconv', TRAIN_SEQ)):
+        train_cpu_check(arch, seq)
+    train_launcher_restart()
+    t1 = time.perf_counter()
+    ex = _run([sys.executable, os.path.join('examples', 'torch_fftconv_lm.py')], 600)
+    loss = [ln for ln in ex.stdout.splitlines() if ln.startswith('fftconv LM loss:')]
+    first, last = (float(v) for v in re.findall(r'([\d.]+) -> ([\d.]+)', loss[0])[0])
+    if not (first - last > 0.3 and 'torch_fftconv_lm OK' in ex.stdout):
+        raise AssertionError(f"train: the fftconv example did not learn: {loss}")
+    say('train', check='fftconv_example', loss_first=first, loss_last=last,
+        seconds=f"{time.perf_counter() - t1:.3g}",
+        phase_seconds=f"{time.perf_counter() - t0:.3g}")
+    return conv['launches'], rec
+
+
 def phase_cost() -> None:
     """The cost model on the host: reports and the selector's picks,
     each of which must plan."""
@@ -1678,6 +2060,10 @@ def main() -> None:
     paths += phase_service(gen)
     phase_grad()
     phase_lm()
+    train_launches, train_rec = phase_train(gen)
+    paths.append(train_launches)
+    for name, r in train_rec.items():
+        rec[name]['train'] = r
     launches = {k: sum(t[k] for t in paths) for k in paths[0]}
     out = []
     for name, meta in KERNELS.items():
@@ -1688,6 +2074,8 @@ def main() -> None:
                         **{k: rec[name][k] for k in JSON_KEYS}))
         if 'rank1' in rec[name]:
             out[-1]['rank1'] = [{k: r[k] for k in RANK1_KEYS} for r in rec[name]['rank1']]
+        if 'train' in rec[name]:
+            out[-1]['train'] = {k: rec[name]['train'][k] for k in TRAIN_KEYS}
     print(json.dumps({'kernels': out}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

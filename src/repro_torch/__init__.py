@@ -1,8 +1,9 @@
 """``repro_torch`` — the PyTorch/CUDA port of the wsFFT reproduction.
 
 The JAX package ``repro`` is the reference; this package mirrors its
-module layout (``core``, ``comm``, ``fft``, ``kernels``, ``launch``) so
-each counterpart is found under the same name. It imports ``torch``
+module layout (``core``, ``comm``, ``fft``, ``kernels``, ``launch``,
+``serve``, ``configs``, ``models``, ``train``, ``data``, ``checkpoint``,
+``runtime``) so each counterpart is found under the same name. It imports ``torch``
 only, never ``jax`` or ``repro``.
 
     import repro_torch.fft as fft

@@ -36,10 +36,9 @@ def main(argv=None) -> None:
     import torch
 
     from repro_torch.configs import get_config, make_batch, smoke_config
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, require_one_rank
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
-    from repro_torch.serve.engine import require_one_rank
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -47,7 +46,7 @@ def main(argv=None) -> None:
     if not cfg.causal:
         raise SystemExit(f'{cfg.name} is encoder-only: no decode step')
     rows, cols = (int(t) for t in args.mesh.split('x'))
-    require_one_rank({'data': rows, 'model': cols})
+    require_one_rank({'data': rows, 'model': cols}, 'ServeEngine')
     mesh = make_host_mesh(rows, cols, device=args.device)
 
     gen = torch.Generator(device=mesh.device).manual_seed(args.seed)

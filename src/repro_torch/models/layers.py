@@ -189,9 +189,11 @@ def embed_plan(vocab: int, d: int) -> Dict:
 
 
 def embed_lookup(p: Dict, ids):
-    """Rows of the table for int32 or int64 ``ids``."""
-    table = p['table']
-    return table.index_select(0, ids.reshape(-1)).reshape(tuple(ids.shape) + table.shape[1:])
+    """Rows of the table for int32 or int64 ``ids``. ``F.embedding``:
+    its CUDA backward sums a row's gradients in a fixed order, where
+    ``index_select``'s adds them with atomics, so a training step gives
+    the same bits on every run."""
+    return F.embedding(ids, p['table'])
 
 
 def unembed(p: Dict, x):

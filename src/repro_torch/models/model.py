@@ -6,11 +6,20 @@ axis of every parameter and cache leaf (the reference scans over it),
 and the remainder layers form an unrolled tail (``split_layers``). Here
 every loop over layers is a Python loop over that axis.
 
-Block kinds ``attn`` and ``ssd`` and the ``mlp`` feed-forward run. The
-others raise ``NotImplementedError`` naming the ROADMAP queue 1 item
-that ports them. Decode updates the caches in place: the reference's
-serving engine donates them to its jitted step, so a caller that still
-needs a cache after a decode step clones it first.
+Block kinds ``attn``, ``ssd`` and ``fftconv`` and the ``mlp``
+feed-forward run. The others raise ``NotImplementedError`` naming the
+ROADMAP queue 1 item that ports them. Decode updates the caches in
+place: the reference's serving engine donates them to its jitted step,
+so a caller that still needs a cache after a decode step clones it
+first.
+
+Training differentiates :func:`loss_fn` with autograd. With
+``cfg.remat`` (the full configs; ``smoke_config`` turns it off) and
+grad enabled, each period of layers runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, as the reference's ``jax.checkpoint`` of
+its scanned period body; the unrolled tail is not checkpointed, as
+there.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -31,7 +41,6 @@ UNPORTED = {
     'embeds': '11c (qwen2-vl-2b, hubert-xlarge: the embeds input)',
     'moe': '11d (dbrx-132b: the MoE feed-forward)',
     'mla': '11e (deepseek-v2-236b: MLA)',
-    'fftconv': '11f (training: the FFT-convolution mixer)',
 }
 
 
@@ -58,6 +67,8 @@ def layer_plan(cfg, kind: str) -> Dict:
         p[kind] = attn.gqa_plan(cfg)
     elif kind == 'ssd':
         p[kind] = ssd.ssd_plan(cfg)
+    elif kind == 'fftconv':
+        p[kind] = ssd.fftconv_plan(cfg)
     elif kind in UNPORTED:
         raise unported(kind)
     else:
@@ -119,10 +130,11 @@ def _layer(tree, i: int):
 # Full-sequence blocks (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_block(p: Dict, cfg, kind: str, x, positions, *, sp: bool = False,
+def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool = False,
                  cache_cap: Optional[int] = None, want_cache: bool = False):
     """One residual block (temporal + optional FFN). Returns
-    (x, cache-or-None)."""
+    (x, cache-or-None); ``fftconv`` has no cache. ``mesh``: the FFT-conv
+    mixer's plan mesh (None: the local real-pencil path)."""
     h = L.apply_norm(p['norm1'], x, cfg.norm_eps)
     cache = None
     if kind == 'attn':
@@ -134,6 +146,8 @@ def _apply_block(p: Dict, cfg, kind: str, x, positions, *, sp: bool = False,
     elif kind == 'ssd':
         out = ssd.ssd_apply(p[kind], cfg, h, return_cache=want_cache)
         y, cache = out if want_cache else (out, None)
+    elif kind == 'fftconv':
+        y = ssd.fftconv_apply(p[kind], cfg, h, mesh=mesh)
     elif kind in UNPORTED:
         raise unported(kind)
     else:
@@ -178,15 +192,32 @@ def _layers(params, cfg):
         yield params['tail'][str(j)], cfg.block_pattern[j]
 
 
-def forward(params, cfg, batch, *, sp: bool = False):
+def forward(params, cfg, batch, *, mesh=None, sp: bool = False):
     """Logits for a full sequence. batch: {'tokens'}.
     Returns (logits fp32, aux_loss); the auxiliary loss is the MoE
     router's (item 11d), 0 for every ported block."""
     x = _embed_in(params, cfg, _tokens(cfg, batch))
     B, S = x.shape[:2]
     positions = _positions(cfg, B, S, x.device)
-    for p, kind in _layers(params, cfg):
-        x, _ = _apply_block(p, cfg, kind, x, positions, sp=sp)
+    n_periods, n_tail = split_layers(cfg)
+
+    def period(x, pp):
+        for j, kind in enumerate(cfg.block_pattern):
+            x, _ = _apply_block(pp[f'{j}_{kind}'], cfg, kind, x, positions, mesh=mesh,
+                                sp=sp)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n_periods):
+        pp = _layer(params['blocks'], i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(period, x, pp, use_reentrant=False)
+        else:
+            x = period(x, pp)
+    for j in range(n_tail):
+        kind = cfg.block_pattern[j]
+        x, _ = _apply_block(params['tail'][str(j)], cfg, kind, x, positions, mesh=mesh,
+                            sp=sp)
     x = L.apply_norm(params['final_norm'], x, cfg.norm_eps)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -197,8 +228,8 @@ def _logits(params, cfg, x):
     return L.linear(x, params['head']['w']).float()
 
 
-def loss_fn(params, cfg, batch, *, sp: bool = False):
-    logits, aux = forward(params, cfg, batch, sp=sp)
+def loss_fn(params, cfg, batch, *, mesh=None, sp: bool = False):
+    logits, aux = forward(params, cfg, batch, mesh=mesh, sp=sp)
     loss = L.softmax_xent(logits, batch['labels'], mask=batch.get('mask'))
     total = loss + cfg.aux_coef * aux
     return total, {'loss': loss, 'aux': aux}
@@ -216,6 +247,8 @@ def _layer_cache_plan(cfg, kind: str, B: int, cap: int) -> Optional[Dict]:
                            'zeros', cdt),
                 'v': PSpec((B, cap, KH, hd), ('batch', 'kv_seq', 'kv_heads', None),
                            'zeros', cdt)}
+    if kind == 'fftconv':
+        return None
     if kind == 'ssd':
         di, H, P, N = ssd.ssd_dims(cfg)
         G, w = cfg.ssm_groups, cfg.conv_width
@@ -237,6 +270,7 @@ def cache_plan(cfg, B: int, cap: int) -> Dict:
     n_periods, tail = split_layers(cfg)
     period = {f'{i}_{kind}': _layer_cache_plan(cfg, kind, B, cap)
               for i, kind in enumerate(cfg.block_pattern)}
+    period = {k: v for k, v in period.items() if v is not None}
     plan: Dict[str, Any] = {'blocks': L.stack_plans([period] * n_periods)}
     if tail:
         plan['tail'] = {str(j): _layer_cache_plan(cfg, cfg.block_pattern[j], B, cap)
@@ -244,7 +278,8 @@ def cache_plan(cfg, B: int, cap: int) -> Dict:
     return plan
 
 
-def prefill(params, cfg, batch, *, cache_cap: Optional[int] = None, sp: bool = False):
+def prefill(params, cfg, batch, *, cache_cap: Optional[int] = None, mesh=None,
+            sp: bool = False):
     """Run the prompt; return (last-token logits fp32 (B, 1, V), caches),
     the caches laid out as ``cache_plan``'s."""
     x = _embed_in(params, cfg, _tokens(cfg, batch))
@@ -256,10 +291,12 @@ def prefill(params, cfg, batch, *, cache_cap: Optional[int] = None, sp: bool = F
     blocks: Dict[str, Any] = {}
     out: Dict[str, Any] = {'blocks': blocks}
     for n, (p, kind) in enumerate(_layers(params, cfg)):
-        x, c = _apply_block(p, cfg, kind, x, positions, sp=sp, cache_cap=cap,
+        x, c = _apply_block(p, cfg, kind, x, positions, mesh=mesh, sp=sp, cache_cap=cap,
                             want_cache=True)
         i, j = divmod(n, P)
         if i < n_periods:            # into the layer-stacked buffers
+            if c is None:            # fftconv: no cache
+                continue
             key = f'{j}_{kind}'
             if i == 0:
                 blocks[key] = L.tree_map(

@@ -17,16 +17,9 @@ from typing import Dict
 
 import torch
 
+from repro_torch.launch.mesh import require_one_rank
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
-
-
-def require_one_rank(mesh_shape: Dict[str, int]) -> None:
-    """Raise ``ValueError`` for a mesh of more than one rank."""
-    if any(n != 1 for n in mesh_shape.values()):
-        dims = 'x'.join(str(n) for n in mesh_shape.values())
-        raise ValueError(f'ServeEngine runs on a 1x1 mesh only, not {dims}: the sharded '
-                         'LM server is not ported yet (ROADMAP queue 1 item 11g)')
 
 
 class ServeEngine:
@@ -39,7 +32,7 @@ class ServeEngine:
     """
 
     def __init__(self, cfg, mesh, params, *, batch: int, prompt_len: int, max_len: int):
-        require_one_rank(mesh.shape)
+        require_one_rank(mesh.shape, 'ServeEngine')
         if not cfg.causal:
             raise ValueError(f'{cfg.name} is encoder-only: no decode step')
         if max_len < prompt_len:

@@ -10,7 +10,10 @@ The language models' parameters are nested dicts laid out as the
 reference's parameter tree: layer-stacked along axis 0, linear weights
 ``(d_in, d_out)`` used as ``x @ w``. :func:`params_from_reference` and
 :func:`params_to_reference` carry a tree across, leaf for leaf, in its
-own dtype.
+own dtype (bfloat16 as ``ml_dtypes.bfloat16`` on the reference's side).
+:func:`opt_from_reference` and :func:`opt_to_reference` carry the
+optimizer state ``{'step', 'master', 'm', 'v'}``; the port keeps its
+``step`` on the host (``repro_torch.train.optim``).
 """
 from __future__ import annotations
 
@@ -39,12 +42,33 @@ def params_from_reference(tree, device='cuda'):
     ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.asarray(tree), device=device)
+    a = np.asarray(tree)
+    if a.dtype.name == 'bfloat16':          # ml_dtypes: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)          # a copy: the port updates in place
 
 
 def params_to_reference(params):
     """The port's parameter (or cache) tree as numpy leaves, the layout
-    the reference's functions take (``jax.tree.map(jnp.asarray, ...)``)."""
+    the reference's functions take (``jax.tree.map(jnp.asarray, ...)``).
+    A bfloat16 leaf needs ``ml_dtypes`` (which JAX brings)."""
     if isinstance(params, dict):
         return {k: params_to_reference(v) for k, v in params.items()}
-    return params.detach().cpu().numpy()
+    t = params.detach().to('cpu', copy=True)       # a copy: the port updates in place
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def opt_from_reference(opt, device='cuda'):
+    """The reference's AdamW state (numpy leaves) as the port's: master,
+    m and v on ``device``, step a host int32 tensor."""
+    out = {k: params_from_reference(opt[k], device) for k in ('master', 'm', 'v')}
+    out['step'] = torch.tensor(int(np.asarray(opt['step'])), dtype=torch.int32)
+    return out
+
+
+def opt_to_reference(opt):
+    """The port's AdamW state as the reference's numpy leaves."""
+    return {k: params_to_reference(v) for k, v in opt.items()}

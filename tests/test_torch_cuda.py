@@ -1,5 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, a
-small plan end to end, and the LM server against the CPU. Every test
+small plan end to end, the LM server against the CPU, the FFT-conv
+mixer's adjoint against the plain tier, and a train step against the
+CPU. Every test
 here is marked ``cuda`` and skips without an NVIDIA GPU (the kernels
 have no CPU mode). This file imports
 no jax, so it runs on the GPU machine as it is:
@@ -372,3 +374,74 @@ def test_lm_server_on_the_card_matches_the_cpu(gen, arch):
     top2 = torch.topk(cpu[:, 0], 2, dim=-1).values
     wide = (top2[:, 0] - top2[:, 1]) > 1e-3
     assert torch.equal(tok_card[wide, 0], tok_cpu[wide, 0])
+
+
+@pytest.mark.parametrize("n", [512, 4096])
+def test_fftconv_adjoint_on_the_card(gen, n):
+    """``_FFTConv`` on the runtime plans of a 1 x 1 card mesh: the forward
+    and the backward's two correlation applies launch the kernels (3
+    applies, each 3 launches of the four-step and Stockham kernels
+    between them), and its gradients of hr and kr are within 1e-5
+    relative L2 of autograd through the plain tier (``kernel='reference'``)
+    on the same inputs; the forward within 1e-5 of torch.fft."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ssd
+    mesh = make_host_mesh(1, 1)
+    hr = torch.randn((2, 8, n), generator=gen, device='cuda')
+    kr = torch.randn((8, n), generator=gen, device='cuda')
+    w = torch.randn(hr.shape, generator=gen, device='cuda')
+    axes = ssd._pick_axes(mesh, n)
+    conv = ssd._fftconv_runtime_plan(n, mesh, axes, False)
+    adj = ssd._fftconv_runtime_plan(n, mesh, axes, True)
+    th, tk = hr.clone().requires_grad_(), kr.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    y = ssd._FFTConv.apply(th, tk, conv.apply, adj.apply)
+    gh, gk = torch.autograd.grad((y * w).sum(), (th, tk))
+    assert sum(kernels.launch_counts().values()) == 3 * 6
+    plain = fft.plan_op((n,), mesh, op=fft.spectral_mul, real=True, n_spectra=1,
+                        mesh_axes=axes, kernel='reference')
+    ph, pk = hr.clone().requires_grad_(), kr.clone().requires_grad_()
+    yp = plain.apply(ph, pk)
+    ah, ak = torch.autograd.grad((yp * w).sum(), (ph, pk))
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    assert rel(gh, ah) <= 1e-5 and rel(gk, ak) <= 1e-5
+    lib = torch.fft.irfft(torch.fft.rfft(hr) * torch.fft.rfft(kr), n=n)
+    assert rel(y.detach(), lib) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ['internlm2-1.8b', 'fftconv'])
+def test_train_step_on_the_card_matches_the_cpu(gen, arch):
+    """One ``make_train_step`` step at smoke size on the card and on the
+    CPU from the same parameters and batch: ce, the grad norm and the
+    updated parameters within 1e-5 relative (L2 for the parameters);
+    the fftconv model's step launches the kernels."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.trainstep import make_train_step
+    cfg = smoke_config(get_config('mamba2-1.3b' if arch == 'fftconv' else arch))
+    if arch == 'fftconv':
+        cfg = dataclasses.replace(cfg, block_pattern=('fftconv',))
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    batch = SyntheticLM(cfg.vocab_size, 128, 2, seed=0).batch_at(0)
+    res = {}
+    for dev in ('cpu', 'cuda'):
+        mesh = make_host_mesh(1, 1, device=dev)
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        step = make_train_step(cfg, mesh, peak_lr=1e-3, warmup_steps=5, total_steps=100,
+                               param_dtype=torch.float32)
+        kernels.reset_launch_counts()
+        p, _, m = step(p, adamw_init(p), shard_batch(batch, mesh))
+        res[dev] = p, {k: float(v) for k, v in m.items()}, kernels.launch_counts()
+    (pc, mc, _), (pg, mg, lg) = res['cpu'], res['cuda']
+    assert bool(sum(lg.values())) == (arch == 'fftconv')
+    for k in ('ce', 'grad_norm'):
+        assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k])
+    for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+        assert float(torch.linalg.vector_norm(a.cpu() - b) / torch.linalg.vector_norm(b)) <= 1e-5

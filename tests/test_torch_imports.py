@@ -78,3 +78,18 @@ def test_importing_the_serving_engine_loads_no_jax():
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_check_sees_the_trainer():
+    """The training path's modules: the optimizer, schedule and step, the
+    data pipeline, checkpoints, the driver, the launcher and the
+    examples' port."""
+    port = ROOT / 'src' / 'repro_torch'
+    rel = {str(p.relative_to(port)) for p in FILES if port in p.parents}
+    assert {'train/__init__.py', 'train/optim.py', 'train/schedule.py', 'train/trainstep.py',
+            'data/__init__.py', 'data/pipeline.py', 'checkpoint/__init__.py',
+            'checkpoint/ckpt.py', 'runtime/__init__.py', 'runtime/driver.py',
+            'launch/train.py', 'models/ssd.py'} <= rel
+    for name in ('torch_train_lm.py', 'torch_fftconv_lm.py'):
+        bad = [m for m in _imported(ROOT / 'examples' / name) if m.split('.')[0] in BANNED]
+        assert not bad, f"examples/{name} imports {bad}"

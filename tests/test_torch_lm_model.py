@@ -163,7 +163,18 @@ def test_unported_block_kinds_raise(arch, item):
 @pytest.mark.parametrize('kind, item', [('local_attn', '11b'), ('rglru', '11b'),
                                         ('mla', '11e'), ('fftconv', '11f')])
 def test_each_unported_kind_names_its_item(kind, item):
+    """Item 11f (training) ported the FFT-conv mixer: its case now holds
+    that the kind plans, has no decode cache (as the reference's) and
+    refuses decode with the reference's ValueError."""
     cfg = smoke_config(get_config('internlm2-1.8b'))
+    if item == '11f':
+        assert kind not in M.UNPORTED
+        assert set(M.layer_plan(cfg, kind)[kind]) == {'wi', 'kernel', 'decay', 'wo'}
+        assert M._layer_cache_plan(cfg, kind, 1, 4) is None
+        with pytest.raises(ValueError, match=kind):
+            M._decode_block({'norm1': {'scale': torch.ones(cfg.d_model)}}, cfg, kind,
+                            torch.zeros((1, 1, cfg.d_model)), None, 0)
+        return
     with pytest.raises(NotImplementedError, match=f'item {item}'):
         M.layer_plan(cfg, kind)
     with pytest.raises(NotImplementedError, match=f'item {item}'):

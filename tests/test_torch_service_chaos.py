@@ -19,7 +19,8 @@ import pytest
 
 from repro_torch.launch.mesh import make_fft_mesh
 from repro_torch.serve import (BrownoutBreaker, FaultPlan, FaultPoint, FFTClient, FFTEngine,
-                               FFTService, RetryAfter, SLOClass, TenantConfig)
+                               FFTService, RetryAfter, SLOClass, TenantConfig,
+                               default_slo_classes)
 from repro_torch.weights import from_numpy
 
 WAIT = 60.0
@@ -182,8 +183,14 @@ def test_idempotent_resubmit_reattach_and_reaping(eng, sock):
     refs = [_ref(eng, x) for x in xs]
     eng.set_drainer(watermark=1, max_wait_ms=5.0)
     plan = FaultPlan(points=[FaultPoint('service.writer', 'drop', at=[1])])
+    # the tenant's class waits a minute before its deadline flushes a
+    # request (the default 'standard' waits 20 ms): B's request must stay
+    # queued until the test flushes it, however slowly the resubmit comes
+    # on a loaded host; A and C flush at the drainer's watermark of 1
+    slos = dict(default_slo_classes(),
+                standard=SLOClass('standard', deadline_ms=240_000.0, max_wait_ms=60_000.0))
     svc = FFTService(engine=eng, persist_policy=False, policy=None, faults=plan,
-                     heartbeat_timeout_s=1.0,
+                     heartbeat_timeout_s=1.0, slo_classes=slos,
                      tenants=[TenantConfig('idem', max_inflight=16)]).start(sock)
 
     # A: dropped RESULT -> reconnect -> re-delivered, not recomputed
