@@ -109,8 +109,13 @@ Phases, each printing one line and raising on any failure:
    metrics, a drained close, and the launcher's ``--smoke``;
 13. ``[grad]``: every kernel refuses an operand that requires grad;
 14. ``[lm]``: the language-model server (``ServeEngine``) at full width
-   in fp32, internlm2-1.8b and mamba2-1.3b, parameters from a seeded
-   generator on the card, 8 prompts of 2048 tokens and 64 new tokens:
+   and depth in fp32, parameters from a seeded generator on the card,
+   64 new tokens after each prompt: internlm2-1.8b and mamba2-1.3b (8
+   prompts of 2048 tokens), recurrentgemma-9b (RG-LRU and local
+   attention, 4 prompts of 4096, twice its 2048-token window: prefill
+   masks the window and folds the ring cache, decode writes across it)
+   and qwen2-vl-2b (8 x 2048 embeddings, M-RoPE's three streams a
+   32 x 32 patch grid then text; decode continues in text); each:
    prefill and decode times (medians of 3, CUDA events), tokens a
    second, peak memory (and what earlier phases still held before the
    parameters, ``base_gib``), bounds, one decode step under the
@@ -122,17 +127,23 @@ Phases, each printing one line and raising on any failure:
    16-token prompt and 4 decode steps, relative L2 <= 1e-4), fp32
    products without TF32, and for internlm2 one layer's prefill
    attention beside ``scaled_dot_product_attention`` (a yardstick the
-   path never calls); then ``python -m repro_torch.launch.serve
-   --no-smoke`` as a subprocess, which must exit 0 with the phase's
-   tokens. The path is plain PyTorch and launches none of the
-   hand-written kernels;
+   path never calls); then hubert-xlarge, encoder-only: its forward
+   over 8 x 2048 frame embeddings at full width (time, bound, peak
+   memory, finite logits of the expected shape, one forward under the
+   profiler) and the card against the CPU at smoke size (relative L2
+   <= 1e-5); then ``python -m repro_torch.launch.serve --no-smoke`` as a
+   subprocess, which must exit 0 with the phase's tokens. The path is
+   plain PyTorch and launches none of the hand-written kernels; each
+   model is freed before the next (recurrentgemma-9b's parameters alone
+   take 35 GiB);
 15. ``[train]``: ``fft_pencil`` and ``fft_matmul`` at the train path's
    shapes against their plain versions (524,288 pencils of 32 and
    270,336 of 64, with times, listed under ``train`` in the ``kernels``
    line); then the trainer (``make_train_step``) at full width in fp32,
    TF32 off, after freeing what earlier phases hold (``base_gib``):
-   internlm2-1.8b (remat, 8 x 2048 tokens in 2 microbatches, 4 steps at
-   the default schedule, launching no FFT kernel) and the FFT-conv LM
+   internlm2-1.8b and hubert-xlarge (embeds-mode batches; remat, 8 x
+   2048 tokens in 2 microbatches, 4 steps at the default schedule,
+   launching no FFT kernel) and the FFT-conv LM
    (mamba2-1.3b's widths with every block ``fftconv``, 48 layers,
    4 x 2048 tokens, 3 steps: 576 ``fft_matmul`` and 576 ``fft_pencil``
    launches a step, 12 of each a layer for the forward, remat's second
@@ -145,8 +156,8 @@ Phases, each printing one line and raising on any failure:
    against autograd through the plain tier (``kernel='reference'``),
    its forward against the plain tier and ``torch.fft.rfft``/``irfft``
    (relative L2 <= 1e-5), timed beside both; one step at smoke size on
-   the card against one on the CPU for internlm2, mamba2 and the
-   fftconv model (ce, grad norm, parameters and moments, relative
+   the card against one on the CPU for internlm2, mamba2, hubert-xlarge
+   and the fftconv model (ce, grad norm, parameters and moments, relative
    <= 1e-5); ``python -m repro_torch.launch.train --arch mamba2-1.3b
    --steps 20 --ckpt-every 5 --fail-at 13`` as a subprocess beside an
    uninterrupted run (``restarts=1``, the final checkpoints equal
@@ -1422,10 +1433,16 @@ def phase_grad() -> None:
     say('grad', refused=json.dumps(refused), plain_grad_finite=bool(torch.isfinite(g).all()))
 
 
-#: the language-model server (``[lm]``): both configs at their published
-#: widths in fp32, 8 prompts of 2048 tokens and 64 new tokens each
-LM_ARCHS = ('internlm2-1.8b', 'mamba2-1.3b')
-LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 64
+#: the language-model server (``[lm]``): each config at its published
+#: widths and depth in fp32, (prompts, tokens a prompt) and 64 new tokens
+#: each. recurrentgemma-9b's prompts are twice its 2048-token window, so
+#: prefill's window mask and the ring fold run and decode writes across
+#: the ring; qwen2-vl-2b's are embeddings with three distinct position
+#: streams (``lm_prompt``)
+LM_SHAPES = {'internlm2-1.8b': (8, 2048), 'mamba2-1.3b': (8, 2048),
+             'recurrentgemma-9b': (4, 4096), 'qwen2-vl-2b': (8, 2048)}
+LM_ARCHS = tuple(LM_SHAPES)
+LM_GEN = 64
 #: the card against itself (two rows: the full-vocabulary logits of the
 #: forward over 2112 tokens are 1.56 GB a row for internlm2): the
 #: reference's serve contract (tests/test_serve.py), prefill and decode
@@ -1434,8 +1451,50 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 64
 LM_ROWS, LM_PREFILL_TOL, LM_DECODE_TOL, LM_MARGIN = 2, 2e-3, 3e-3, 1e-3
 #: the card against the CPU, the same weights: a 16-token prompt and 4
 #: teacher-forced decode steps, logits relative L2 (fp32 products at full
-#: precision on both; sums in another order through 24 or 48 layers)
+#: precision on both; sums in another order through 24 to 48 layers)
 LM_CPU_PROMPT, LM_CPU_STEPS, LM_CPU_REL = 16, 4, 1e-4
+#: the encoder (hubert-xlarge, encoder-only: no decode): a forward over
+#: 8 x 2048 frame embeddings at full width; the card against the CPU at
+#: smoke size, logits relative L2
+ENCODE_ARCH, ENCODE_BATCH, ENCODE_SEQ, ENCODE_CPU_REL = 'hubert-xlarge', 8, 2048, 1e-5
+
+
+def mrope_grid(B: int, S: int, g: int, device='cuda') -> torch.Tensor:
+    """M-RoPE's (3, B, S) int32 positions for a g x g patch grid then
+    text: the grid's t fixed at 0, h its row, w its column; the text from
+    g on, equal in all three streams (Qwen2-VL's layout)."""
+    n = g * g
+    r = torch.arange(n, device=device)
+    img = torch.stack([torch.zeros_like(r), r // g, r % g])
+    text = (g + torch.arange(S - n, device=device))[None].expand(3, S - n)
+    return torch.cat([img, text], dim=1)[:, None].expand(3, B, S).to(torch.int32).contiguous()
+
+
+def lm_prompt(cfg, batch: int, seq: int, seed: int, device='cuda') -> dict:
+    """The prompt batch ``make_batch`` draws (tokens, or embeddings in
+    embeds mode), M-RoPE's streams a patch grid of side isqrt(seq / 2)
+    then text."""
+    out = make_batch(cfg, batch=batch, seq=seq, seed=seed, device=device)
+    del out['labels']
+    if 'positions' in out:
+        out['positions'] = mrope_grid(batch, seq, math.isqrt(seq // 2), device)
+    return out
+
+
+def _continue_in_text(params, cfg, prompt: dict, toks, rows: int) -> dict:
+    """The full forward's batch over ``rows`` rows of a prompt and the
+    tokens decoded after it (in embeds mode their table rows, their
+    positions text: the cache length in all three streams)."""
+    if 'tokens' in prompt:
+        return {'tokens': torch.cat([prompt['tokens'][:rows], toks[:rows]], dim=1)}
+    out = {'embeds': torch.cat([prompt['embeds'][:rows],
+                                lm_layers.embed_lookup(params['embed'], toks[:rows])], dim=1)}
+    if 'positions' in prompt:
+        S, n = prompt['embeds'].shape[1], toks.shape[1]
+        text = torch.arange(S, S + n, dtype=torch.int32, device=toks.device)
+        out['positions'] = torch.cat([prompt['positions'][:, :rows],
+                                      text[None, None].expand(3, rows, n)], dim=2)
+    return out
 
 
 def _lm_generate(eng, batch, rows: int):
@@ -1448,7 +1507,7 @@ def _lm_generate(eng, batch, rows: int):
     ev[1].record()
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     out, kept = [tok], [logits[:rows, -1]]
-    for pos in range(LM_PROMPT, LM_PROMPT + LM_GEN - 1):
+    for pos in range(eng.prompt_len, eng.prompt_len + LM_GEN - 1):
         logits, caches = eng.decode(caches, tok, pos)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         out.append(tok)
@@ -1460,35 +1519,44 @@ def _lm_generate(eng, batch, rows: int):
             ev[1].elapsed_time(ev[2]) / (LM_GEN - 1), wall, torch.stack(kept, dim=1), caches)
 
 
-def _lm_bounds(cfg, params) -> dict:
+def _lm_bounds(cfg, params, B: int, S: int) -> dict:
     """The least times the card could take: prefill's linear-layer
-    products (2 flop a weight a token, the embedding table excluded: it is
-    read for the last token only) over the fp32 rate; a decode step's
-    bytes (every weight and the caches read once) over the HBM rate."""
+    products (2 flop a weight a token; the embedding table and an untied
+    head excluded: the logits are the last token's only) over the fp32
+    rate; a decode step's bytes (every weight it reads once: all but an
+    untied model's table, of which it reads B rows; the caches: the
+    dense KV, the ring, the SSM and RG-LRU states) over the HBM rate."""
     n = sum(t.numel() for t in tree_leaves(params))
-    tied = cfg.vocab_size * cfg.d_model
-    flops = 2.0 * (n - tied) * LM_BATCH * LM_PROMPT
+    table = cfg.vocab_size * cfg.d_model
+    head = 0 if cfg.tie_embeddings else table
+    flops = 2.0 * (n - table - head) * B * S
     cache = 0
-    for kind in cfg.block_pattern:
+    for j in range(cfg.num_layers):
+        kind = cfg.block_pattern[j % len(cfg.block_pattern)]
         if kind == 'attn':
-            cache += 2 * LM_BATCH * (LM_PROMPT + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * 4
+            cache += 2 * B * (S + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * 4
+        elif kind == 'local_attn':
+            cache += 2 * B * min(cfg.window, S + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * 4
+        elif kind == 'rglru':
+            cache += B * cfg.conv_width * cfg.lru_width * 4
         else:
             di, H, P, Nst = lm_ssd.ssd_dims(cfg)
-            cache += LM_BATCH * H * Nst * P * 4
-    cache *= cfg.num_layers // len(cfg.block_pattern)
+            cache += B * H * Nst * P * 4
+    weights = 4 * (n - (table if head else 0))
     return dict(prefill_bound_ms=f"{flops / FP32_FLOP_PER_S * 1e3:.6g}",
-                decode_bound_ms=f"{(4 * n + cache) / HBM_BYTES_PER_S * 1e3:.6g}")
+                decode_bound_ms=f"{(weights + cache) / HBM_BYTES_PER_S * 1e3:.6g}")
 
 
 def _lm_yardstick(cfg, params, batch) -> dict:
     """One layer's prefill attention: the port's flash attention against
     ``scaled_dot_product_attention`` on the same q/k/v (a yardstick; the
     path never calls it)."""
+    B, S = batch['tokens'].shape
     p0 = lm_model._layer(params['blocks'], 0)['0_attn']
     with torch.inference_mode():
         x = lm_layers.embed_lookup(params['embed'], batch['tokens'])
         h = lm_layers.apply_norm(p0['norm1'], x, cfg.norm_eps)
-        pos = torch.arange(LM_PROMPT, device='cuda')[None].expand(LM_BATCH, LM_PROMPT)
+        pos = torch.arange(S, device='cuda')[None].expand(B, S)
         q, k, v = lm_attn.gqa_qkv(p0['attn'], cfg, h, pos)
 
     @torch.inference_mode()
@@ -1509,10 +1577,11 @@ def _lm_self_check(cfg, params, batch, toks, kept) -> dict:
     """The card's full forward over prompt + generated tokens (LM_ROWS
     rows) against prefill's and every decode step's logits, and the
     generated tokens against its argmax where its top-2 margin is wide."""
-    seq = torch.cat([batch['tokens'][:LM_ROWS], toks[:LM_ROWS, :-1]], dim=1)
+    S = (batch['tokens'] if 'tokens' in batch else batch['embeds']).shape[1]
     with torch.inference_mode():
-        full, _ = lm_model.forward(params, cfg, {'tokens': seq})
-    ref = full[:, LM_PROMPT - 1:]                          # the logits of each step
+        full, _ = lm_model.forward(params, cfg,
+                                   _continue_in_text(params, cfg, batch, toks[:, :-1], LM_ROWS))
+    ref = full[:, S - 1:]                                  # the logits of each step
     del full
     diff = (kept - ref).abs()
     for t in range(LM_GEN):
@@ -1533,18 +1602,20 @@ def _lm_self_check(cfg, params, batch, toks, kept) -> dict:
 def _lm_cpu_check(cfg, params) -> dict:
     """The same weights on the CPU (the port's plain path) against the
     card: prefill of a 16-token prompt and 4 teacher-forced decode steps."""
-    prompt = make_batch(cfg, batch=2, seq=LM_CPU_PROMPT + LM_CPU_STEPS, seed=SEED + 1,
-                        device='cpu')['tokens']
+    prompt = lm_prompt(cfg, 2, LM_CPU_PROMPT, SEED + 1, device='cpu')
+    steps_in = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (2, LM_CPU_STEPS), dtype=np.int32))
     cap = LM_CPU_PROMPT + LM_CPU_STEPS
     out = []
     for p, dev in ((params, 'cuda'), (tree_map(lambda t: t.cpu(), params), 'cpu')):
         with torch.inference_mode():
-            logits, caches = lm_model.prefill(
-                p, cfg, {'tokens': prompt[:, :LM_CPU_PROMPT].to(dev)}, cache_cap=cap)
+            logits, caches = lm_model.prefill(p, cfg, {k: v.to(dev) for k, v in prompt.items()},
+                                              cache_cap=cap)
             steps = [logits]
             for t in range(LM_CPU_STEPS):
-                tok = prompt[:, LM_CPU_PROMPT + t:LM_CPU_PROMPT + t + 1].to(dev)
-                logits, caches = lm_model.decode_step(p, cfg, caches, tok, LM_CPU_PROMPT + t)
+                logits, caches = lm_model.decode_step(p, cfg, caches,
+                                                      steps_in[:, t:t + 1].to(dev),
+                                                      LM_CPU_PROMPT + t)
                 steps.append(logits)
         out.append(torch.cat(steps, dim=1).cpu())
         del p, caches
@@ -1560,6 +1631,7 @@ def lm_serve(arch: str) -> list:
     against the CPU, profile one decode step, time the yardstick. Returns
     the first row's generated tokens."""
     cfg = get_config(arch)
+    B, S = LM_SHAPES[arch]
     base = torch.cuda.memory_allocated()     # what earlier phases still hold
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     params = lm_model.init_params(gen, cfg, torch.float32)
@@ -1567,12 +1639,12 @@ def lm_serve(arch: str) -> list:
     if n != lm_model.param_count(cfg):
         raise AssertionError(f"lm {arch}: {n} parameters, the plan counts "
                              f"{lm_model.param_count(cfg)}")
-    batch = {'tokens': make_batch(cfg, batch=LM_BATCH, seq=LM_PROMPT, seed=SEED)['tokens']}
+    batch = lm_prompt(cfg, B, S, SEED)
     torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(cfg, make_host_mesh(1, 1), params, batch=LM_BATCH,
-                      prompt_len=LM_PROMPT, max_len=LM_PROMPT + LM_GEN)
+    eng = ServeEngine(cfg, make_host_mesh(1, 1), params, batch=B, prompt_len=S,
+                      max_len=S + LM_GEN)
     toks = eng.generate(batch, LM_GEN)
-    if tuple(toks.shape) != (LM_BATCH, LM_GEN) or toks.dtype != torch.int32:
+    if tuple(toks.shape) != (B, LM_GEN) or toks.dtype != torch.int32:
         raise AssertionError(f"lm {arch}: generate gave {tuple(toks.shape)} {toks.dtype}")
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != 'highest'):
@@ -1588,22 +1660,78 @@ def lm_serve(arch: str) -> list:
     med = [sorted(r[i] for r in runs)[1] for i in (1, 2, 3)]
     peak = torch.cuda.max_memory_allocated()
     last = toks[:, -1:]
-    prof = profile(lambda: eng.decode(caches, last, LM_PROMPT + LM_GEN - 1))
+    prof = profile(lambda: eng.decode(caches, last, S + LM_GEN - 1))
     kept = runs[-1][4]
     del runs, caches
-    say('lm', arch=arch, params=n, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+    say('lm', arch=arch, params=n, batch=B, prompt=S, gen=LM_GEN, inputs='+'.join(batch),
         prefill_ms=f"{med[0]:.6g}", decode_ms_per_token=f"{med[1]:.6g}",
-        tok_per_s=f"{LM_BATCH * LM_GEN / med[2]:.6g}", generate_s=f"{med[2]:.6g}",
+        tok_per_s=f"{B * LM_GEN / med[2]:.6g}", generate_s=f"{med[2]:.6g}",
         peak_gib=f"{peak / 2**30:.4g}", base_gib=f"{base / 2**30:.4g}",
-        **_lm_bounds(cfg, params),
+        **_lm_bounds(cfg, params, B, S),
         first_row=json.dumps(toks[0, :8].tolist()))
     say('profile', path=f'lm_decode_{arch}', **prof)
     checks = _lm_self_check(cfg, params, batch, toks, kept)
     checks.update(_lm_cpu_check(cfg, params))
-    if cfg.block_pattern == ('attn',):
+    if cfg.block_pattern == ('attn',) and 'tokens' in batch:
         checks.update(_lm_yardstick(cfg, params, batch))
     say('lm', arch=arch, **checks)
     return toks[0].tolist()
+
+
+def _encode_flops(cfg, tokens: int, seq: int) -> float:
+    """An encoder forward's operations: 2 flop a linear weight a token
+    (the head's too: every frame's logits) and bidirectional attention's
+    scores and values, 4 S^2 hd a head a sequence."""
+    abstract = lm_model.abstract_params(cfg, torch.float32)
+    n_linear = _linear_weights({k: v for k, v in abstract.items() if k != 'embed'})
+    attn = 4.0 * seq * cfg.num_heads * cfg.head_dim * tokens * cfg.num_layers
+    return 2.0 * n_linear * tokens + attn
+
+
+def lm_encode() -> None:
+    """``[lm]`` for the encoder: hubert-xlarge's forward over 8 x 2048
+    frame embeddings at full width (its time, bound and peak memory,
+    finite logits of the expected shape, one forward under the
+    profiler), then the card against the CPU at smoke size."""
+    from repro_torch.configs import smoke_config
+    cfg = get_config(ENCODE_ARCH)
+    base = torch.cuda.memory_allocated()
+    params = lm_model.init_params(torch.Generator(device='cuda').manual_seed(SEED), cfg,
+                                  torch.float32)
+    n = sum(t.numel() for t in tree_leaves(params))
+    batch = lm_prompt(cfg, ENCODE_BATCH, ENCODE_SEQ, SEED)
+    torch.cuda.reset_peak_memory_stats()
+
+    @torch.inference_mode()
+    def encode():
+        return lm_model.forward(params, cfg, batch)[0]
+    logits = encode()
+    if (tuple(logits.shape) != (ENCODE_BATCH, ENCODE_SEQ, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"encode: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    ms = time_ms(encode, 3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile(encode)
+    flops = _encode_flops(cfg, ENCODE_BATCH * ENCODE_SEQ, ENCODE_SEQ)
+    del params, batch
+    small = smoke_config(cfg)
+    sp = lm_model.init_params(torch.Generator().manual_seed(SEED), small, torch.float32)
+    sb = lm_prompt(small, 2, 64, SEED + 1, device='cpu')
+    with torch.inference_mode():
+        want = lm_model.forward(sp, small, sb)[0]
+        got = lm_model.forward(tree_map(lambda t: t.cuda(), sp), small,
+                               {k: v.cuda() for k, v in sb.items()})[0].cpu()
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    if not rel <= ENCODE_CPU_REL:
+        raise AssertionError(f"encode: card vs CPU logits rel L2 {rel:.3e} > {ENCODE_CPU_REL}")
+    say('lm', arch=ENCODE_ARCH, mode='encode', params=n, batch=ENCODE_BATCH, seq=ENCODE_SEQ,
+        encode_ms=f"{ms:.6g}", tok_per_s=f"{ENCODE_BATCH * ENCODE_SEQ / ms * 1e3:.6g}",
+        flop=f"{flops:.4g}", bound_ms=f"{flops / FP32_FLOP_PER_S * 1e3:.6g}",
+        peak_gib=f"{peak / 2**30:.4g}", base_gib=f"{base / 2**30:.4g}",
+        cpu_rel_l2=f"{rel:.3g}", cpu_tol=ENCODE_CPU_REL)
+    say('profile', path=f'lm_encode_{ENCODE_ARCH}', **prof)
 
 
 def phase_lm() -> None:
@@ -1616,14 +1744,16 @@ def phase_lm() -> None:
     first_rows = {}
     for arch in LM_ARCHS:
         first_rows[arch] = lm_serve(arch)
-        torch.cuda.empty_cache()
+        _free_card()                    # recurrentgemma-9b's parameters take 35 GiB
+    lm_encode()
+    _free_card()
     launched = {k: v for k, v in kernels.launch_counts().items() if v}
     if launched:
         raise AssertionError(f"lm: the LM path launched hand-written kernels {launched}")
     t1 = time.perf_counter()
+    B, S = LM_SHAPES[LM_ARCHS[0]]
     cmd = [sys.executable, '-m', 'repro_torch.launch.serve', '--arch', LM_ARCHS[0],
-           '--no-smoke', '--batch', str(LM_BATCH), '--prompt-len', str(LM_PROMPT),
-           '--gen', str(LM_GEN)]
+           '--no-smoke', '--batch', str(B), '--prompt-len', str(S), '--gen', str(LM_GEN)]
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, 'src')))
     for line in proc.stdout.splitlines():
@@ -1714,18 +1844,20 @@ def _linear_weights(tree) -> int:
 
 def _train_flops(cfg, tokens: int, seq: int) -> float:
     """A step's operations, the least the card must do: every linear
-    weight's product 2 flop a token forward, 4 backward, 2 more in remat's
-    second forward; the tied head (outside remat) 6; causal attention's
-    scores and values, 2 S^2 hd a head a sequence forward, times 4 (remat,
+    weight of the layers' products 2 flop a token forward, 4 backward, 2
+    more in remat's second forward; the head (tied or not, outside remat)
+    6; attention's scores and values, 2 S^2 hd a head a sequence forward
+    when causal and 4 S^2 hd when not (hubert-xlarge), times 4 (remat,
     backward twice); the FFT-conv mixer's transforms, 2.5 n log2 n a real
     signal of n = 2S, three an apply, four applies a step."""
     head = cfg.vocab_size * cfg.d_model
     abstract = lm_model.abstract_params(cfg, torch.float32)
-    n_layer = _linear_weights({k: v for k, v in abstract.items() if k != 'embed'})
+    n_layer = _linear_weights({k: v for k, v in abstract.items() if k in ('blocks', 'tail')})
     flops = (8.0 * n_layer + 6.0 * head) * tokens
     layers = cfg.num_layers
     if 'attn' in cfg.block_pattern:
-        flops += 4 * 2.0 * seq * cfg.num_heads * cfg.head_dim * tokens * layers
+        flops += (4 * 2.0 * seq * cfg.num_heads * cfg.head_dim * tokens * layers
+                  * (1 if cfg.causal else 2))
     if 'fftconv' in cfg.block_pattern:
         n = 2 * seq
         signals = tokens // seq * cfg.d_model
@@ -1762,7 +1894,8 @@ def train_full(cfg, label: str, batch: int, micro: int, steps: int, mesh) -> dic
     params = lm_model.init_params(gen, cfg, torch.float32)
     n = sum(t.numel() for t in tree_leaves(params))
     opt = adamw_init(params)
-    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=SEED, input_mode=cfg.input_mode,
+                       d_model=cfg.d_model, mrope=cfg.pos_kind == 'mrope')
     batches = [shard_batch(data.batch_at(i), mesh) for i in range(steps + 1)]
     # the first steps of a run at the trainer's default schedule (peak 3e-4
     # after 100 warmup steps): a short warmup's sign-like first AdamW steps
@@ -1883,7 +2016,8 @@ def train_cpu_check(arch: str, seq: int) -> None:
     if arch == 'fftconv':
         cfg = _fftconv_cfg(cfg)
     params = lm_model.init_params(torch.Generator().manual_seed(SEED), cfg, torch.float32)
-    batch = SyntheticLM(cfg.vocab_size, seq, 2, seed=SEED).batch_at(0)
+    batch = SyntheticLM(cfg.vocab_size, seq, 2, seed=SEED, input_mode=cfg.input_mode,
+                        d_model=cfg.d_model, mrope=cfg.pos_kind == 'mrope').batch_at(0)
     res = []
     for dev in ('cuda', 'cpu'):
         mesh = make_host_mesh(1, 1, device=dev)
@@ -1956,10 +2090,11 @@ def phase_train(gen) -> tuple:
     _free_card()
     rec = kernels_train(gen)
     mesh = make_host_mesh(1, 1)
-    internlm = train_full(get_config(TRAIN_ARCH), TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO,
-                          TRAIN_STEPS, mesh)
-    if any(internlm['launches'].values()):
-        raise AssertionError(f"train: internlm2 launched FFT kernels {internlm['launches']}")
+    for arch in (TRAIN_ARCH, ENCODE_ARCH):
+        run = train_full(get_config(arch), arch, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS, mesh)
+        if any(run['launches'].values()):
+            raise AssertionError(f"train: {arch} launched FFT kernels {run['launches']}")
+        _free_card()
     cfg = _fftconv_cfg(get_config('mamba2-1.3b'))
     conv = train_full(cfg, 'fftconv_lm', FFTCONV_BATCH, 1, FFTCONV_STEPS, mesh)
     per_step = {k: v * FFTCONV_APPLIES * cfg.num_layers for k, v in FFTCONV_PER_APPLY.items()}
@@ -1973,7 +2108,8 @@ def phase_train(gen) -> tuple:
     _free_card()
     fftconv_grad_check(cfg, mesh)
     _free_card()
-    for arch, seq in (('internlm2-1.8b', 64), ('mamba2-1.3b', 64), ('fftconv', TRAIN_SEQ)):
+    for arch, seq in (('internlm2-1.8b', 64), ('mamba2-1.3b', 64), (ENCODE_ARCH, 64),
+                      ('fftconv', TRAIN_SEQ)):
         train_cpu_check(arch, seq)
     train_launcher_restart()
     t1 = time.perf_counter()

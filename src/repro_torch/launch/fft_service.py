@@ -133,10 +133,9 @@ def cmd_serve(args) -> None:
         heartbeat_timeout_s=args.heartbeat_timeout or None,
         schedule_table=args.schedules if args.schedules else 'auto',
     ).start(_address(args.address))
-    print(f'[fft_service] serving on {svc.address!r} '
-          f'(mesh {args.mesh} on {args.device}, tenants '
-          f'{sorted(t.name for t in tenants) or "open"})',
-          flush=True)
+    # the SIGHUP handler goes in before the ready line: a caller that
+    # signals on reading it must not meet SIGHUP's default, which ends
+    # the process
     if args.tenant_file and hasattr(signal, 'SIGHUP'):
         def _on_hup(signum, frame):
             # hot reload: re-read the file and swap the tenant set
@@ -154,6 +153,10 @@ def cmd_serve(args) -> None:
                 print(f'[fft_service] SIGHUP reload FAILED, keeping '
                       f'previous config: {exc}', flush=True)
         signal.signal(signal.SIGHUP, _on_hup)
+    print(f'[fft_service] serving on {svc.address!r} '
+          f'(mesh {args.mesh} on {args.device}, tenants '
+          f'{sorted(t.name for t in tenants) or "open"})',
+          flush=True)
     try:
         if args.duration:
             time.sleep(args.duration)

@@ -9,11 +9,14 @@ Port of ``repro.launch.serve``, with these differences:
   reference took ``--devices`` (fake host devices); the engine serves on
   1x1 only.
 * ``--seed`` seeds the parameters (a ``torch.Generator`` on the device)
-  and the prompts (numpy).
+  and the prompts (numpy): tokens, or for an embeds-mode config
+  (qwen2-vl-2b) embeddings with M-RoPE positions.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --no-smoke \\
         --batch 8 --prompt-len 2048 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --device cpu \\
+        --prompt-len 40 --gen 8           # a prompt past the smoke window of 16: the ring wraps
 """
 from __future__ import annotations
 

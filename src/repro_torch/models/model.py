@@ -6,12 +6,14 @@ axis of every parameter and cache leaf (the reference scans over it),
 and the remainder layers form an unrolled tail (``split_layers``). Here
 every loop over layers is a Python loop over that axis.
 
-Block kinds ``attn``, ``ssd`` and ``fftconv`` and the ``mlp``
-feed-forward run. The others raise ``NotImplementedError`` naming the
-ROADMAP queue 1 item that ports them. Decode updates the caches in
-place: the reference's serving engine donates them to its jitted step,
-so a caller that still needs a cache after a decode step clones it
-first.
+Block kinds ``attn``, ``local_attn`` (sliding window, ring cache),
+``ssd``, ``rglru`` and ``fftconv`` and the ``mlp`` feed-forward run, on
+token or embedding inputs (``cfg.input_mode``) with RoPE, M-RoPE's three
+position streams or no positions (``cfg.pos_kind``). ``moe`` and ``mla``
+raise ``NotImplementedError`` naming the ROADMAP queue 1 item that
+ports them. Decode updates the caches in place: the reference's serving
+engine donates them to its jitted step, so a caller that still needs a
+cache after a decode step clones it first.
 
 Training differentiates :func:`loss_fn` with autograd. With
 ``cfg.remat`` (the full configs; ``smoke_config`` turns it off) and
@@ -30,15 +32,12 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import griffin, ssd
 from repro_torch.models import layers as L
-from repro_torch.models import ssd
 from repro_torch.models.layers import PSpec
 
 #: what is not ported yet, and the ROADMAP queue 1 item that ports it
 UNPORTED = {
-    'local_attn': '11b (recurrentgemma-9b: local attention and its ring cache)',
-    'rglru': '11b (recurrentgemma-9b: the RG-LRU block)',
-    'embeds': '11c (qwen2-vl-2b, hubert-xlarge: the embeds input)',
     'moe': '11d (dbrx-132b: the MoE feed-forward)',
     'mla': '11e (deepseek-v2-236b: MLA)',
 }
@@ -63,10 +62,12 @@ def ffn_kind(cfg) -> Optional[str]:
 
 def layer_plan(cfg, kind: str) -> Dict:
     p: Dict[str, Any] = {'norm1': L.norm_plan(cfg.d_model, cfg.norm_kind)}
-    if kind == 'attn':
+    if kind in ('attn', 'local_attn'):
         p[kind] = attn.gqa_plan(cfg)
     elif kind == 'ssd':
         p[kind] = ssd.ssd_plan(cfg)
+    elif kind == 'rglru':
+        p[kind] = griffin.rglru_plan(cfg)
     elif kind == 'fftconv':
         p[kind] = ssd.fftconv_plan(cfg)
     elif kind in UNPORTED:
@@ -137,14 +138,18 @@ def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool =
     mixer's plan mesh (None: the local real-pencil path)."""
     h = L.apply_norm(p['norm1'], x, cfg.norm_eps)
     cache = None
-    if kind == 'attn':
+    if kind in ('attn', 'local_attn'):
+        window = cfg.window if kind == 'local_attn' else 0
         if want_cache:
-            y, cache = attn.gqa_prefill(p[kind], cfg, h, positions, cache_cap=cache_cap,
-                                        sp=sp)
+            y, cache = attn.gqa_prefill(p[kind], cfg, h, positions, window=window,
+                                        cache_cap=cache_cap, sp=sp)
         else:
-            y = attn.gqa_apply(p[kind], cfg, h, positions, sp=sp)
+            y = attn.gqa_apply(p[kind], cfg, h, positions, window=window, sp=sp)
     elif kind == 'ssd':
         out = ssd.ssd_apply(p[kind], cfg, h, return_cache=want_cache)
+        y, cache = out if want_cache else (out, None)
+    elif kind == 'rglru':
+        out = griffin.rglru_apply(p[kind], cfg, h, return_cache=want_cache)
         y, cache = out if want_cache else (out, None)
     elif kind == 'fftconv':
         y = ssd.fftconv_apply(p[kind], cfg, h, mesh=mesh)
@@ -159,25 +164,32 @@ def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool =
     return x, cache
 
 
-def _positions(cfg, B: int, S: int, device):
-    """RoPE positions; M-RoPE's three streams come with the embeds input
-    (item 11c), which ``_tokens`` refuses first."""
+def _positions(cfg, batch, B: int, S: int, device):
+    """RoPE's (B, S); M-RoPE's three streams (3, B, S) from the batch,
+    by default ``arange`` in each; None for ``pos_kind='none'``."""
+    if cfg.pos_kind == 'mrope':
+        pos = batch.get('positions')
+        if pos is None:
+            pos = torch.arange(S, device=device)[None, None].expand(3, B, S)
+        return pos
     if cfg.pos_kind == 'rope':
         return torch.arange(S, device=device)[None].expand(B, S)
     return None
 
 
-def _embed_in(params, cfg, tokens):
-    x = L.embed_lookup(params['embed'], tokens)
+def _scale(cfg, x):
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
 
 
-def _tokens(cfg, batch):
+def _embed_in(params, cfg, batch):
+    """The input sequence: ``batch['embeds']`` (embeds mode) or the
+    tokens' rows of the table, scaled by sqrt(d_model) where
+    ``cfg.embed_scale``."""
     if cfg.input_mode == 'embeds':
-        raise unported('embeds')
-    return batch['tokens']
+        return _scale(cfg, batch['embeds'])
+    return _scale(cfg, L.embed_lookup(params['embed'], batch['tokens']))
 
 
 def _layers(params, cfg):
@@ -193,12 +205,12 @@ def _layers(params, cfg):
 
 
 def forward(params, cfg, batch, *, mesh=None, sp: bool = False):
-    """Logits for a full sequence. batch: {'tokens'}.
-    Returns (logits fp32, aux_loss); the auxiliary loss is the MoE
-    router's (item 11d), 0 for every ported block."""
-    x = _embed_in(params, cfg, _tokens(cfg, batch))
+    """Logits for a full sequence. batch: {'tokens' | 'embeds',
+    ['positions']}. Returns (logits fp32, aux_loss); the auxiliary loss
+    is the MoE router's (item 11d), 0 for every ported block."""
+    x = _embed_in(params, cfg, batch)
     B, S = x.shape[:2]
-    positions = _positions(cfg, B, S, x.device)
+    positions = _positions(cfg, batch, B, S, x.device)
     n_periods, n_tail = split_layers(cfg)
 
     def period(x, pp):
@@ -247,6 +259,11 @@ def _layer_cache_plan(cfg, kind: str, B: int, cap: int) -> Optional[Dict]:
                            'zeros', cdt),
                 'v': PSpec((B, cap, KH, hd), ('batch', 'kv_seq', 'kv_heads', None),
                            'zeros', cdt)}
+    if kind == 'local_attn':
+        W = min(cfg.window, cap)
+        return {'k': PSpec((B, W, KH, hd), ('batch', None, 'kv_heads', None), 'zeros', cdt),
+                'v': PSpec((B, W, KH, hd), ('batch', None, 'kv_heads', None), 'zeros', cdt),
+                'kpos': PSpec((W,), (None,), 'neg1', torch.int32)}
     if kind == 'fftconv':
         return None
     if kind == 'ssd':
@@ -257,6 +274,11 @@ def _layer_cache_plan(cfg, kind: str, B: int, cap: int) -> Optional[Dict]:
                 'conv_x': PSpec((B, w - 1, di), ('batch', None, 'heads'), 'zeros', cdt),
                 'conv_b': PSpec((B, w - 1, G * N), ('batch', None, None), 'zeros', cdt),
                 'conv_c': PSpec((B, w - 1, G * N), ('batch', None, None), 'zeros', cdt)}
+    if kind == 'rglru':
+        w = cfg.conv_width
+        return {'h': PSpec((B, cfg.lru_width), ('batch', 'heads'), 'zeros', torch.float32),
+                'conv': PSpec((B, w - 1, cfg.lru_width), ('batch', None, 'heads'), 'zeros',
+                              cdt)}
     if kind in UNPORTED:
         raise unported(kind)
     raise ValueError(kind)
@@ -282,10 +304,10 @@ def prefill(params, cfg, batch, *, cache_cap: Optional[int] = None, mesh=None,
             sp: bool = False):
     """Run the prompt; return (last-token logits fp32 (B, 1, V), caches),
     the caches laid out as ``cache_plan``'s."""
-    x = _embed_in(params, cfg, _tokens(cfg, batch))
+    x = _embed_in(params, cfg, batch)
     B, S = x.shape[:2]
     cap = cache_cap or S
-    positions = _positions(cfg, B, S, x.device)
+    positions = _positions(cfg, batch, B, S, x.device)
     n_periods = split_layers(cfg)[0]
     P = len(cfg.block_pattern)
     blocks: Dict[str, Any] = {}
@@ -312,8 +334,12 @@ def _decode_block(p: Dict, cfg, kind: str, x, cache, cache_len: int):
     h = L.apply_norm(p['norm1'], x, cfg.norm_eps)
     if kind == 'attn':
         y, _, _ = attn.gqa_decode(p[kind], cfg, h, cache['k'], cache['v'], cache_len)
+    elif kind == 'local_attn':
+        y, _ = attn.gqa_decode_ring(p[kind], cfg, h, cache, cache_len, window=cfg.window)
     elif kind == 'ssd':
         y, _ = ssd.ssd_decode(p[kind], cfg, h, cache)
+    elif kind == 'rglru':
+        y, _ = griffin.rglru_decode(p[kind], cfg, h, cache)
     elif kind in UNPORTED:
         raise unported(kind)
     else:
@@ -328,8 +354,9 @@ def _decode_block(p: Dict, cfg, kind: str, x, cache, cache_len: int):
 def decode_step(params, cfg, caches, tokens, cache_len: int):
     """One-token decode. tokens: (B, 1) int; cache_len: the number of
     tokens already in the cache. Updates ``caches`` in place and returns
-    (logits fp32 (B, 1, V), caches)."""
-    x = _embed_in(params, cfg, tokens)
+    (logits fp32 (B, 1, V), caches). An embeds-mode config continues in
+    text, through ``params['embed']``."""
+    x = _scale(cfg, L.embed_lookup(params['embed'], tokens))
     n_periods = split_layers(cfg)[0]
     P = len(cfg.block_pattern)
     for n, (p, kind) in enumerate(_layers(params, cfg)):

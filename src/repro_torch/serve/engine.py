@@ -8,6 +8,13 @@ the decode step; here both steps run eagerly on the mesh's device
 updates the caches in place. The caches keep the dtype the prefill
 computes them in (fp32 for fp32 parameters), as the reference's do.
 
+A prompt batch is ``{'tokens': (B, S) int}`` or, for an embeds-mode
+config (qwen2-vl-2b), ``{'embeds': (B, S, d_model)}``, with M-RoPE's
+``'positions'`` (3, B, S) where the config has them (default ``arange``
+in each stream); decode continues in text either way. A local-attention
+config (recurrentgemma-9b) keeps a ring cache of its window, so a
+prompt may be longer than the window and decode wraps the ring.
+
 The engine serves on a 1 x 1 mesh only: the sharded server (DTensor
 placements for ``parallel/sharding.py``) is ROADMAP queue 1 item 11g.
 """
@@ -45,15 +52,26 @@ class ServeEngine:
         self.cfg, self.mesh, self.params = cfg, mesh, params
         self.batch, self.prompt_len, self.max_len = batch, prompt_len, max_len
 
+    def _prompt(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The prompt's inputs the config takes, shape-checked, on the device."""
+        B, S, cfg = self.batch, self.prompt_len, self.cfg
+        key, want = (('embeds', (B, S, cfg.d_model)) if cfg.input_mode == 'embeds'
+                     else ('tokens', (B, S)))
+        if key not in batch:
+            raise ValueError(f'{cfg.name} takes {key!r}; the batch holds {sorted(batch)}')
+        shapes = {key: want}
+        if cfg.pos_kind == 'mrope' and 'positions' in batch:
+            shapes['positions'] = (3, B, S)
+        for k, shape in shapes.items():
+            if tuple(batch[k].shape) != shape:
+                raise ValueError(f'{k} of shape {tuple(batch[k].shape)}, the engine serves '
+                                 f'{shape}')
+        return {k: batch[k].to(self.device) for k in shapes}
+
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor]):
         """(last-token logits (B, 1, V) fp32, caches of ``max_len`` positions)."""
-        tokens = batch['tokens']
-        if tuple(tokens.shape) != (self.batch, self.prompt_len):
-            raise ValueError(f'tokens of shape {tuple(tokens.shape)}, the engine serves '
-                             f'({self.batch}, {self.prompt_len})')
-        return M.prefill(self.params, self.cfg, {'tokens': tokens.to(self.device)},
-                         cache_cap=self.max_len)
+        return M.prefill(self.params, self.cfg, self._prompt(batch), cache_cap=self.max_len)
 
     @torch.inference_mode()
     def decode(self, caches, tokens: torch.Tensor, pos: int):

@@ -1,6 +1,7 @@
 """Train-step factory: loss gradients, microbatch accumulation, AdamW.
 
-Port of ``repro.train.trainstep.make_train_step`` on one rank. The
+Port of ``repro.train.trainstep.make_train_step`` on one rank, for
+token and embeds-mode batches (``embeds``, M-RoPE ``positions``). The
 global batch is split on its leading axis into ``microbatches`` (the
 M-RoPE positions ``(3, B, S)`` on their second), each microbatch's
 gradients are added into one fp32 buffer a parameter, then clipped and
@@ -60,7 +61,10 @@ def make_train_step(cfg, mesh=None, *, microbatches: int = 1, peak_lr: float = 3
     def grads_of(params, batch):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = M.loss_fn(live, cfg, batch, mesh=mesh, sp=sp)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
+        # an embeds-mode config's table is unused by the forward (decode
+        # reads it): its gradient is zeros, as jax.grad's
+        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), metrics, grads
 
     def train_step(params, opt_state, batch):

@@ -55,7 +55,8 @@ def test_the_check_sees_the_language_models():
     rel = {str(p.relative_to(port)) for p in FILES if port in p.parents}
     assert {'configs/__init__.py', 'configs/base.py', 'configs/internlm2_1_8b.py',
             'configs/mamba2_1_3b.py', 'models/__init__.py', 'models/layers.py',
-            'models/attention.py', 'models/ssd.py', 'models/model.py', 'serve/engine.py',
+            'models/attention.py', 'models/ssd.py', 'models/griffin.py', 'models/model.py',
+            'serve/engine.py',
             'launch/serve.py', 'weights.py'} <= rel
     assert len([p for p in rel if p.startswith('configs/')]) == 12
 
@@ -90,6 +91,6 @@ def test_the_check_sees_the_trainer():
             'data/__init__.py', 'data/pipeline.py', 'checkpoint/__init__.py',
             'checkpoint/ckpt.py', 'runtime/__init__.py', 'runtime/driver.py',
             'launch/train.py', 'models/ssd.py'} <= rel
-    for name in ('torch_train_lm.py', 'torch_fftconv_lm.py'):
+    for name in ('torch_train_lm.py', 'torch_fftconv_lm.py', 'torch_serve_batched.py'):
         bad = [m for m in _imported(ROOT / 'examples' / name) if m.split('.')[0] in BANNED]
         assert not bad, f"examples/{name} imports {bad}"

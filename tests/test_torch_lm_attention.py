@@ -4,8 +4,11 @@ against the reference's (``repro.models.attention``).
 ``flash_attention`` over its three blockings (one pass, KV chunks, query
 blocks over KV chunks; a length that no chunk divides runs one pass),
 GQA groups of 1, 2 and 4, and its masks (``causal``, ``window``,
-``q_offset``, ``kv_len``); the GQA block's prefill (output and caches)
-and decode. Tolerances: max abs <= 2e-6 and relative L2 <= 1e-6 (fp32;
+``q_offset``, ``kv_len``, ``kv_positions``); the GQA block's prefill
+(output and caches) and decode; recurrentgemma-9b's local attention:
+windowed prefill with its ring cache for a prompt shorter than, equal
+to and longer than the window and a cache shorter than the window, and
+ring decode across two wraps; qwen2-vl-2b's M-RoPE decode. Tolerances: max abs <= 2e-6 and relative L2 <= 1e-6 (fp32;
 the exp and the sums are taken in another order by XLA).
 """
 import dataclasses
@@ -144,3 +147,128 @@ def test_sequence_parallel_attention_is_not_ported():
     for fn in (A.gqa_apply, A.gqa_prefill):
         with pytest.raises(NotImplementedError, match='item 10'):
             fn(p, cfg, x, pos, sp=True)
+
+
+# ---------------------------------------------------------------------------
+# Sliding window: explicit key positions, the ring cache, M-RoPE decode
+# ---------------------------------------------------------------------------
+
+def test_flash_attention_kv_positions():
+    """Explicit key positions in ring order with empty (-1) slots, under
+    a window, in one pass and in KV chunks."""
+    q, k, v = _qkv(5, 2, 1, 32, 4, 2)
+    kpos = np.roll(np.arange(40, 72, dtype=np.int32), 40 % 32)
+    kpos[[3, 17]] = -1
+    for chunk in (32, 8):
+        kw = dict(causal=True, window=24, q_offset=71, chunk=chunk)
+        got = A.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                                kv_positions=torch.as_tensor(kpos), **kw)
+        want = RA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  kv_positions=jnp.asarray(kpos), **kw)
+        _close(got, want)
+    q, k, v = _qkv(6, 2, 16, 16, 4, 4)
+    kpos = np.arange(16, dtype=np.int32)
+    got = A.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                            kv_positions=torch.as_tensor(kpos), chunk=8, q_chunk=8)
+    _close(got, A.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                                  chunk=8, q_chunk=8), atol=0, rel=0)
+
+
+def _local_cfg():
+    return smoke_config(get_config('recurrentgemma-9b'))
+
+
+def _local_params(cfg, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    p = init_from_plan(gen, A.gqa_plan(cfg), torch.float32)
+    return p, {k: {n: jnp.asarray(a) for n, a in d.items()}
+               for k, d in params_to_reference(p).items()}
+
+
+# (S, cache_cap): shorter than the window (16: the pad branch); equal;
+# longer (the ring, rolled); a cap under the window (W = 12), S < W and
+# S > W
+WINDOWED = [(10, 24), (16, 24), (27, 32), (8, 12), (12, 12)]
+
+
+@pytest.mark.parametrize('S, cap', WINDOWED, ids=lambda v: str(v))
+def test_windowed_prefill_output_and_ring_cache(S, cap):
+    cfg = _local_cfg()
+    p, rp = _local_params(cfg)
+    x = np.random.default_rng(S).standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (2, S)).astype(np.int32)
+    out, cache = A.gqa_prefill(p, cfg, torch.as_tensor(x), torch.as_tensor(pos),
+                               window=cfg.window, cache_cap=cap)
+    rout, rcache = RA.gqa_prefill(rp, _ref_cfg(cfg), jnp.asarray(x), jnp.asarray(pos),
+                                  window=cfg.window, cache_cap=cap)
+    _close(out, rout, atol=1e-5)
+    W = min(cfg.window, cap)
+    assert set(cache) == {'k', 'v', 'kpos'}
+    assert cache['kpos'].dtype == torch.int32 and cache['kpos'].shape == (W,)
+    np.testing.assert_array_equal(cache['kpos'].numpy(), np.asarray(rcache['kpos']))
+    for name in ('k', 'v'):
+        assert cache[name].shape == (2, W, cfg.num_kv_heads, cfg.head_dim)
+        _close(cache[name], rcache[name], atol=1e-5)
+    _close(A.gqa_apply(p, cfg, torch.as_tensor(x), torch.as_tensor(pos), window=cfg.window),
+           rout, atol=1e-5)
+
+
+def test_ring_decode_across_a_wrap():
+    """Prefill 20 tokens into a 16-slot ring, then 20 decode steps: the
+    slots wrap past 16 and 32; each step's output and the whole cache
+    against the reference's, the cache written in place."""
+    cfg = _local_cfg()
+    p, rp = _local_params(cfg, 2)
+    rcfg = _ref_cfg(cfg)
+    S, steps = 20, 20
+    x = np.random.default_rng(7).standard_normal((2, S + steps, cfg.d_model)).astype(
+        np.float32)
+    pos = np.broadcast_to(np.arange(S), (2, S)).astype(np.int32)
+    _, cache = A.gqa_prefill(p, cfg, torch.as_tensor(x[:, :S]), torch.as_tensor(pos),
+                             window=cfg.window, cache_cap=S + steps)
+    _, rcache = RA.gqa_prefill(rp, rcfg, jnp.asarray(x[:, :S]), jnp.asarray(pos),
+                               window=cfg.window, cache_cap=S + steps)
+    held = dict(cache)
+    for t in range(steps):
+        xt = x[:, S + t:S + t + 1]
+        out, cache = A.gqa_decode_ring(p, cfg, torch.as_tensor(xt), cache, S + t,
+                                       window=cfg.window)
+        rout, rcache = RA.gqa_decode_ring(rp, rcfg, jnp.asarray(xt), rcache, jnp.int32(S + t),
+                                          window=cfg.window)
+        assert all(cache[k] is held[k] for k in cache)
+        _close(out, rout, atol=1e-5)
+        np.testing.assert_array_equal(cache['kpos'].numpy(), np.asarray(rcache['kpos']))
+        for name in ('k', 'v'):
+            _close(cache[name], rcache[name], atol=1e-5)
+    assert sorted(cache['kpos'].tolist()) == list(range(S + steps - 16, S + steps))
+
+
+def test_mrope_decode_advances_all_three_streams():
+    """qwen2-vl-2b's decode: positions (3, B, 1), every stream at the
+    cache length; the new k/v written in place."""
+    cfg = smoke_config(get_config('qwen2-vl-2b'))
+    gen = torch.Generator().manual_seed(3)
+    p = init_from_plan(gen, A.gqa_plan(cfg), torch.float32)
+    for name in ('wq', 'wk', 'wv'):
+        p[name]['b'] = torch.randn(p[name]['b'].shape, generator=gen)
+    rp = {k: {n: jnp.asarray(a) for n, a in d.items()} for k, d in params_to_reference(p).items()}
+    rcfg = ref_smoke(ref_config('qwen2-vl-2b'))
+    rng = np.random.default_rng(8)
+    ck, cv = (rng.standard_normal((2, 24, cfg.num_kv_heads, cfg.head_dim)).astype(np.float32)
+              for _ in range(2))
+    x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    rout, rk, rv = RA.gqa_decode(rp, rcfg, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
+                                 jnp.int32(13))
+    tk, tv = torch.as_tensor(ck.copy()), torch.as_tensor(cv.copy())
+    out, k2, v2 = A.gqa_decode(p, cfg, torch.as_tensor(x), tk, tv, 13)
+    assert k2 is tk and v2 is tv
+    _close(out, rout, atol=1e-5)
+    _close(tk, rk, atol=1e-5)
+    _close(tv, rv, atol=1e-5)
+    # the three streams at the cache length are RoPE at it: the sections
+    # select among equal angles
+    q3 = A.gqa_qkv(p, cfg, torch.as_tensor(x), torch.full((3, 2, 1), 13))[0]
+    import dataclasses as dc
+    q1 = A.gqa_qkv(p, dc.replace(cfg, pos_kind='rope'), torch.as_tensor(x),
+                   torch.full((2, 1), 13))[0]
+    _close(q3, q1.numpy(), atol=1e-6)

@@ -8,6 +8,10 @@ parameters (the port's, carried across by ``repro_torch.weights``) and
 the same numpy prompts go through both: the generated tokens are equal,
 and the logits of prefill and of each decode step, teacher-forced on
 the reference's tokens, agree within max abs 1e-5 and relative L2 1e-5.
+recurrentgemma-9b's prompt (24) is longer than its smoke window (16),
+so prefill folds the ring and decode writes across it; qwen2-vl-2b's
+prompt is embeddings with three distinct position streams (a 4 x 4
+patch grid, then text), its decode text.
 The launcher runs on the CPU as a user runs it; a mesh of more than one
 rank, and ``cuda`` without a card, raise.
 """
@@ -34,9 +38,15 @@ from repro_torch.serve import ServeEngine
 from repro_torch.serve.engine import require_one_rank
 from repro_torch.weights import params_to_reference
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_lm_model import mrope_positions  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCH_IDS = ['internlm2-1.8b', 'mamba2-1.3b']
-B, PROMPT, STEPS = 2, 12, 6
+ARCH_IDS = ['internlm2-1.8b', 'mamba2-1.3b', 'recurrentgemma-9b', 'qwen2-vl-2b']
+B, STEPS = 2, 6
+#: prompt lengths: recurrentgemma-9b's past its smoke window of 16;
+#: qwen2-vl-2b's a 4 x 4 patch grid and 4 text positions
+PROMPTS = {'recurrentgemma-9b': 24, 'qwen2-vl-2b': 20}
 ATOL, REL = 1e-5, 1e-5
 
 
@@ -55,16 +65,21 @@ def served(request):
     cfg, rcfg = smoke_config(get_config(arch)), ref_smoke(ref_config(arch))
     params = M.init_params(torch.Generator().manual_seed(5), cfg, torch.float32)
     rparams = tree_map(jnp.asarray, params_to_reference(params))
-    prompts = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, PROMPT)).astype(
-        np.int32)
+    prompt = PROMPTS.get(arch, 12)
+    rng = np.random.default_rng(6)
+    if cfg.input_mode == 'embeds':
+        prompts = {'embeds': rng.standard_normal((B, prompt, cfg.d_model)).astype(np.float32),
+                   'positions': mrope_positions(B, prompt, 4)}
+    else:
+        prompts = {'tokens': rng.integers(0, cfg.vocab_size, (B, prompt)).astype(np.int32)}
     with ServeEngine(cfg, make_host_mesh(1, 1, device='cpu'), params, batch=B,
-                     prompt_len=PROMPT, max_len=PROMPT + STEPS) as eng:
-        toks = eng.generate({'tokens': torch.as_tensor(prompts)}, STEPS)
+                     prompt_len=prompt, max_len=prompt + STEPS) as eng:
+        toks = eng.generate({k: torch.as_tensor(v) for k, v in prompts.items()}, STEPS)
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ('data', 'model'))
     with mesh:
-        ref = RefServeEngine(rcfg, mesh, rparams, batch=B, prompt_len=PROMPT,
-                             max_len=PROMPT + STEPS, param_dtype=jnp.float32)
-        rtoks = np.array(ref.generate({'tokens': jnp.asarray(prompts)}, STEPS))
+        ref = RefServeEngine(rcfg, mesh, rparams, batch=B, prompt_len=prompt,
+                             max_len=prompt + STEPS, param_dtype=jnp.float32)
+        rtoks = np.array(ref.generate({k: jnp.asarray(v) for k, v in prompts.items()}, STEPS))
     return cfg, rcfg, params, rparams, prompts, toks, rtoks
 
 
@@ -76,18 +91,20 @@ def test_generated_tokens_equal_the_reference_engines(served):
 
 def test_teacher_forced_logits_match_the_reference(served):
     cfg, rcfg, params, rparams, prompts, _, rtoks = served
-    cap = PROMPT + STEPS
+    prompt = PROMPTS.get(cfg.name, 12)
+    cap = prompt + STEPS
     with ServeEngine(cfg, make_host_mesh(1, 1, device='cpu'), params, batch=B,
-                     prompt_len=PROMPT, max_len=cap) as eng:
-        logits, caches = eng.prefill({'tokens': torch.as_tensor(prompts)})
-        rlogits, rcaches = RM.prefill(rparams, rcfg, {'tokens': jnp.asarray(prompts)},
+                     prompt_len=prompt, max_len=cap) as eng:
+        logits, caches = eng.prefill({k: torch.as_tensor(v) for k, v in prompts.items()})
+        rlogits, rcaches = RM.prefill(rparams, rcfg,
+                                      {k: jnp.asarray(v) for k, v in prompts.items()},
                                       cache_cap=cap)
         _close(logits, rlogits)
         for t in range(STEPS - 1):
             tok = rtoks[:, t:t + 1]
-            logits, caches = eng.decode(caches, torch.as_tensor(tok), PROMPT + t)
+            logits, caches = eng.decode(caches, torch.as_tensor(tok), prompt + t)
             rlogits, rcaches = RM.decode_step(rparams, rcfg, rcaches, jnp.asarray(tok),
-                                              jnp.int32(PROMPT + t))
+                                              jnp.int32(prompt + t))
             _close(logits, rlogits)
 
 
@@ -106,6 +123,19 @@ def test_engine_validates_its_inputs():
     meta = tree_map(lambda t: t.to('meta'), params)
     with pytest.raises(ValueError, match='parameters on'):
         ServeEngine(cfg, mesh, meta, batch=2, prompt_len=4, max_len=6)
+    # an embeds-mode config takes embeddings (B, S, d_model) and M-RoPE
+    # positions (3, B, S)
+    cfg = smoke_config(get_config('qwen2-vl-2b'))
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    eng = ServeEngine(cfg, mesh, params, batch=2, prompt_len=4, max_len=6)
+    emb = torch.zeros((2, 4, cfg.d_model))
+    with pytest.raises(ValueError, match="takes 'embeds'"):
+        eng.generate({'tokens': torch.zeros((2, 4), dtype=torch.int32)}, 2)
+    with pytest.raises(ValueError, match='embeds of shape'):
+        eng.generate({'embeds': emb[:, :3]}, 2)
+    with pytest.raises(ValueError, match='positions of shape'):
+        eng.generate({'embeds': emb, 'positions': torch.zeros((2, 4), dtype=torch.int32)}, 2)
+    assert eng.generate({'embeds': emb}, 3).shape == (2, 3)
 
 
 @pytest.mark.parametrize('shape', [{'data': 2, 'model': 2}, {'data': 1, 'model': 4},
@@ -159,3 +189,23 @@ def test_launcher_refuses_what_it_cannot_serve():
     if not torch.cuda.is_available():
         proc = _launch('--arch', 'internlm2-1.8b')
         assert proc.returncode != 0 and 'no CUDA device' in proc.stderr
+
+
+@pytest.mark.parametrize('arch', ['recurrentgemma-9b', 'qwen2-vl-2b', 'mamba2-1.3b',
+                                  'granite-3-8b'])
+def test_serve_batched_example_on_the_cpu(arch):
+    """``examples/torch_serve_batched.py`` on the CPU: the ring cache
+    (a 24-token prompt over a window of 16), the embeds input, the SSM
+    state and the dense cache; it checks its tokens against the full
+    forward and prints its OK line. An encoder-only config is refused."""
+    script = os.path.join(ROOT, 'examples', 'torch_serve_batched.py')
+    proc = subprocess.run([sys.executable, script, '--device', 'cpu', '--arch', arch],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert f'[serve_batched] {arch} on cpu: 4 prompts x 12 tokens' in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == 'torch_serve_batched OK'
+    if arch == 'granite-3-8b':
+        proc = subprocess.run([sys.executable, script, '--device', 'cpu', '--arch',
+                               'hubert-xlarge'], cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode != 0 and 'encoder-only' in proc.stderr

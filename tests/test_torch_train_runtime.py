@@ -190,3 +190,17 @@ def test_launcher_refuses_cuda_without_a_card_and_a_multi_rank_mesh(tmp_path):
     run = _launch('--arch', 'internlm2-1.8b', '--device', 'cpu', '--mesh', '2x1',
                   '--steps', '1', '--ckpt-dir', str(tmp_path))
     assert run.returncode != 0 and '11g' in run.stderr
+
+
+@pytest.mark.parametrize('arch', ['hubert-xlarge', 'qwen2-vl-2b', 'recurrentgemma-9b'])
+def test_launcher_trains_the_embeds_and_recurrent_configs(tmp_path, arch):
+    """hubert-xlarge and qwen2-vl-2b train from embeds-mode batches (and
+    M-RoPE positions), recurrentgemma-9b through the RG-LRU and local
+    attention, as the reference's launcher trains them; the last
+    checkpoint holds the final step."""
+    run = _launch('--arch', arch, '--device', 'cpu', '--steps', '3', '--ckpt-every', '3',
+                  '--seq', '24', '--batch', '2', '--ckpt-dir', str(tmp_path))
+    assert run.returncode == 0, run.stderr[-2000:]
+    last = run.stdout.strip().splitlines()[-1]
+    assert last.startswith(f'[train] arch={arch} steps=3 loss first=')
+    assert 'restarts=0 ' in last and os.path.isdir(tmp_path / 'step_00000003')

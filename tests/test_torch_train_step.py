@@ -2,7 +2,10 @@
 (``repro.train.trainstep.make_train_step``) on the CPU, with
 ``microbatches`` 1 and 2.
 
-internlm2-1.8b and mamba2-1.3b at smoke size run the reference's step,
+internlm2-1.8b, mamba2-1.3b, recurrentgemma-9b (RG-LRU + local
+attention), qwen2-vl-2b (embeds, M-RoPE with three distinct position
+streams, untied head) and hubert-xlarge (embeds, encoder-only,
+LayerNorm) at smoke size run the reference's step,
 jitted on an Auto-axes 1 x 1 ``jax.sharding.Mesh`` (its Explicit-axes
 ``jax.make_mesh`` fails in ``with_sharding_constraint`` on jax 0.9). The
 FFT-conv LM's reference mesh path cannot run on jax 0.9 (``plan_op``
@@ -23,8 +26,21 @@ the first AdamW step moves each weight by about lr * sign(g), so a
 weight whose gradient is near 0 takes fp32 noise into a step of lr,
 and the later gradients see those weights; mamba2's SSD sums its
 decays as segment sums where the reference differences cumulative sums.
+
+One leaf is held apart after three steps: qwen2-vl-2b's key bias
+(``attn/wk/b`` and its master and moments), at relative L2 1e-2
+(measured at most 4.0e-3). Softmax does not change when a key-
+independent term is added to a query's scores, so the key bias has a
+gradient only through RoPE's rotation of it; at ``rope_theta`` 1e6 the
+slowest frequencies turn by about 1e-5 rad over 32 positions, and
+those elements' gradients (1e-9 to 1e-8) are sums that cancel to
+within fp32 noise of zero and of AdamW's eps. The bias starts at 0, so
+the leaf is only its three steps, each element a different fraction of
+lr. At step 0 its moments are held at 1e-5 with the rest.
 """
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -48,8 +64,13 @@ from repro_torch.launch.mesh import require_one_rank
 from repro_torch.train.trainstep import make_train_step
 from repro_torch.weights import opt_to_reference, params_to_reference
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_lm_model import mrope_positions  # noqa: E402
+
 REL = 1e-5
 REL_AFTER_THREE = 5e-4
+#: the key bias after three steps (the docstring's one leaf held apart)
+KEY_BIAS_REL_AFTER_THREE = 1e-2
 STEP_KW = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10)
 
 
@@ -99,8 +120,24 @@ def _ref_composed_step(rcfg, microbatches):
     return step
 
 
+def _data(cfg):
+    """``SyntheticLM`` batches in the config's input mode; qwen2-vl-2b's
+    positions replaced by distinct streams (a 4 x 4 patch grid, then
+    text), which the data's equal streams would not test."""
+    data = SyntheticLM(cfg.vocab_size, 32, 4, seed=3, input_mode=cfg.input_mode,
+                       d_model=cfg.d_model, mrope=cfg.pos_kind == 'mrope')
+
+    def batch_at(i):
+        b = data.batch_at(i)
+        if 'positions' in b:
+            b['positions'] = mrope_positions(4, 32, 4)
+        return b
+    return batch_at
+
+
 @pytest.mark.parametrize('microbatches', [1, 2])
-@pytest.mark.parametrize('case', ['internlm2-1.8b', 'mamba2-1.3b', 'fftconv'])
+@pytest.mark.parametrize('case', ['internlm2-1.8b', 'mamba2-1.3b', 'fftconv',
+                                  'recurrentgemma-9b', 'qwen2-vl-2b', 'hubert-xlarge'])
 def test_three_steps_match_reference(case, microbatches):
     cfg, rcfg = _configs(case)
     mesh = make_host_mesh(1, 1, device='cpu')
@@ -116,9 +153,9 @@ def test_three_steps_match_reference(case, microbatches):
         rmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ('data', 'model'))
         rstep = jax.jit(ref_make_train_step(rcfg, rmesh, microbatches=microbatches,
                                             param_dtype=jnp.float32, **STEP_KW))
-    data = SyntheticLM(cfg.vocab_size, 32, 4, seed=3)
+    batch_at = _data(cfg)
     for i in range(3):
-        batch = data.batch_at(i)
+        batch = batch_at(i)
         params, opt, m = step(params, opt, shard_batch(batch, mesh))
         rparams, ropt, rm = rstep(rparams, ropt, {k: jnp.asarray(v) for k, v in batch.items()})
         assert m['lr'] == float(rm['lr'])
@@ -131,8 +168,10 @@ def test_three_steps_match_reference(case, microbatches):
     assert int(opt['step']) == int(ropt['step']) == 3
     got = {'params': params_to_reference(params), 'opt': opt_to_reference(opt)}
     want = jax.tree.map(np.asarray, {'params': rparams, 'opt': ropt})
-    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
-        assert _rel(a, b) <= REL_AFTER_THREE, (a.shape, _rel(a, b))
+    for a, (path, b) in zip(jax.tree.leaves(got), jax.tree_util.tree_flatten_with_path(want)[0]):
+        keys = [getattr(k, 'key', '') for k in path]
+        tol = KEY_BIAS_REL_AFTER_THREE if keys[-2:] == ['wk', 'b'] else REL_AFTER_THREE
+        assert _rel(a, b) <= tol, (keys, _rel(a, b))
 
 
 def test_positions_split_on_their_batch_axis():
