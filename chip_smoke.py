@@ -109,13 +109,16 @@ Phases, each printing one line and raising on any failure:
    metrics, a drained close, and the launcher's ``--smoke``;
 13. ``[grad]``: every kernel refuses an operand that requires grad;
 14. ``[lm]``: the language-model server (``ServeEngine``) at full width
-   and depth in fp32, parameters from a seeded generator on the card,
-   64 new tokens after each prompt: internlm2-1.8b and mamba2-1.3b (8
+   in fp32, parameters from a seeded generator on the card, 64 new
+   tokens after each prompt: internlm2-1.8b and mamba2-1.3b (8
    prompts of 2048 tokens), recurrentgemma-9b (RG-LRU and local
    attention, 4 prompts of 4096, twice its 2048-token window: prefill
-   masks the window and folds the ring cache, decode writes across it)
-   and qwen2-vl-2b (8 x 2048 embeddings, M-RoPE's three streams a
-   32 x 32 patch grid then text; decode continues in text); each:
+   masks the window and folds the ring cache, decode writes across it),
+   qwen2-vl-2b (8 x 2048 embeddings, M-RoPE's three streams a
+   32 x 32 patch grid then text; decode continues in text),
+   codeqwen1.5-7b and granite-3-8b (8 x 2048), qwen1.5-32b (in bf16,
+   2 x 2048), dbrx-132b (the MoE feed-forward, 4 of its 40 layers) and
+   deepseek-v2-236b (MLA and MoE, 3 of its 60 layers), 8 x 2048; each:
    prefill and decode times (medians of 3, CUDA events), tokens a
    second, peak memory (and what earlier phases still held before the
    parameters, ``base_gib``), bounds, one decode step under the
@@ -124,10 +127,16 @@ Phases, each printing one line and raising on any failure:
    on two rows against prefill's and every decode step's logits, the
    reference's serve contract, and the tokens against its argmax where
    the top-2 margin is wide), against the CPU (the same weights, a
-   16-token prompt and 4 decode steps, relative L2 <= 1e-4), fp32
-   products without TF32, and for internlm2 one layer's prefill
+   16-token prompt and 4 decode steps, relative L2 <= 1e-4; past 16
+   GiB of weights on a view of the first whole periods of at least 2
+   layers), fp32 products
+   without TF32, and for the dense GQA configs one layer's prefill
    attention beside ``scaled_dot_product_attention`` (a yardstick the
-   path never calls); then hubert-xlarge, encoder-only: its forward
+   path never calls). qwen1.5-32b is held against its own bf16 forward
+   and the CPU at ``LM_BF16_REL`` / ``LM_BF16_ATOL``; an MoE config
+   prints the share of (token, expert) pairs its prefill dropped at the
+   published capacity factor and runs its self-check on two rows at a
+   factor at which none drops. Then hubert-xlarge, encoder-only: its forward
    over 8 x 2048 frame embeddings at full width (time, bound, peak
    memory, finite logits of the expected shape, one forward under the
    profiler) and the card against the CPU at smoke size (relative L2
@@ -180,6 +189,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import filecmp
 import json
@@ -208,7 +218,7 @@ from repro_torch.core.twiddle import four_step_factors  # noqa: E402
 from repro_torch.launch.mesh import abstract_fft_mesh, make_fft_mesh, make_host_mesh  # noqa: E402
 from repro_torch.configs import get_config, make_batch  # noqa: E402
 from repro_torch.models import attention as lm_attn, layers as lm_layers  # noqa: E402
-from repro_torch.models import model as lm_model, ssd as lm_ssd  # noqa: E402
+from repro_torch.models import model as lm_model, moe as lm_moe, ssd as lm_ssd  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -1434,25 +1444,59 @@ def phase_grad() -> None:
 
 
 #: the language-model server (``[lm]``): each config at its published
-#: widths and depth in fp32, (prompts, tokens a prompt) and 64 new tokens
-#: each. recurrentgemma-9b's prompts are twice its 2048-token window, so
+#: widths, (prompts, tokens a prompt) and 64 new tokens each.
+#: recurrentgemma-9b's prompts are twice its 2048-token window, so
 #: prefill's window mask and the ring fold run and decode writes across
 #: the ring; qwen2-vl-2b's are embeddings with three distinct position
-#: streams (``lm_prompt``)
+#: streams (``lm_prompt``); qwen1.5-32b serves 2 prompts (its bf16
+#: weights take 65.6 GiB)
 LM_SHAPES = {'internlm2-1.8b': (8, 2048), 'mamba2-1.3b': (8, 2048),
-             'recurrentgemma-9b': (4, 4096), 'qwen2-vl-2b': (8, 2048)}
+             'recurrentgemma-9b': (4, 4096), 'qwen2-vl-2b': (8, 2048),
+             'codeqwen1.5-7b': (8, 2048), 'granite-3-8b': (8, 2048),
+             'qwen1.5-32b': (2, 2048), 'dbrx-132b': (8, 2048),
+             'deepseek-v2-236b': (8, 2048)}
 LM_ARCHS = tuple(LM_SHAPES)
 LM_GEN = 64
+#: the depth cut of the configs whose published depth fits no card (40
+#: and 60 layers: 526 and 957 GB in fp32); the widths stay published
+LM_LAYERS = {'dbrx-132b': 4, 'deepseek-v2-236b': 3}
+#: the parameter dtype where it is not fp32: qwen1.5-32b's 131 GiB in fp32
+#: do not fit one card
+LM_DTYPE = {'qwen1.5-32b': torch.bfloat16}
 #: the card against itself (two rows: the full-vocabulary logits of the
 #: forward over 2112 tokens are 1.56 GB a row for internlm2): the
 #: reference's serve contract (tests/test_serve.py), prefill and decode
 #: against the full forward, atol = rtol; generated tokens equal to the
 #: forward's argmax where its top-2 margin exceeds LM_MARGIN
 LM_ROWS, LM_PREFILL_TOL, LM_DECODE_TOL, LM_MARGIN = 2, 2e-3, 3e-3, 1e-3
+#: a bf16 config (qwen1.5-32b, no fp32 twin on one card) against its own
+#: bf16 forward: every step's logits within relative L2 LM_BF16_REL and
+#: max abs LM_BF16_ATOL (logits of about unit spread; products round to
+#: bf16, 8 bits, and prefill, decode and the forward round in other
+#: orders through 64 layers: 64 layers at d = 512 on the CPU read 2e-2
+#: and 0.10), the generated tokens equal to the forward's argmax where
+#: its top-2 margin exceeds twice LM_BF16_ATOL; the card against the CPU
+#: within LM_BF16_REL
+LM_BF16_REL, LM_BF16_ATOL = 5e-2, 0.25
 #: the card against the CPU, the same weights: a 16-token prompt and 4
 #: teacher-forced decode steps, logits relative L2 (fp32 products at full
-#: precision on both; sums in another order through 24 to 48 layers)
+#: precision on both; sums in another order through 24 to 48 layers).
+#: Weights past LM_CPU_MAX_BYTES (recurrentgemma-9b, codeqwen1.5-7b,
+#: granite-3-8b, qwen1.5-32b, dbrx-132b, deepseek-v2-236b: 30 to 66 GiB,
+#: whose copy to the host and CPU forward would take most of a row's
+#: time) run as a view of their first whole periods of at least
+#: LM_CPU_LAYERS layers (the stacked leaves' first slices): every block
+#: kind of the model, fewer repeats of it
 LM_CPU_PROMPT, LM_CPU_STEPS, LM_CPU_REL = 16, 4, 1e-4
+LM_CPU_MAX_BYTES, LM_CPU_LAYERS = 16 * 2**30, 2
+#: an MoE config's self-check runs at a capacity factor at which no
+#: (token, expert) pair drops in its prefill or its forward (a drop
+#: depends on the sequence's length): from the published factor up, each
+#: try raised to cover the largest expert load the last one routed
+LM_NO_DROP_TRIES = 4
+#: the card's dense bf16 rate (tensor cores, no sparsity), the prefill
+#: bound of a bf16 config
+BF16_FLOP_PER_S = 989e12
 #: the encoder (hubert-xlarge, encoder-only: no decode): a forward over
 #: 8 x 2048 frame embeddings at full width; the card against the CPU at
 #: smoke size, logits relative L2
@@ -1519,32 +1563,63 @@ def _lm_generate(eng, batch, rows: int):
             ev[1].elapsed_time(ev[2]) / (LM_GEN - 1), wall, torch.stack(kept, dim=1), caches)
 
 
+def _expert_weights(tree, keys=()) -> int:
+    """The elements of the routed experts' weights (``moe/wi``,
+    ``moe/wo``; the shared experts are dense) in a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(_expert_weights(v, keys + (k,)) for k, v in tree.items())
+    routed = 'moe' in keys and 'shared' not in keys and keys[-1] in ('wi', 'wo')
+    return tree.numel() if routed else 0
+
+
 def _lm_bounds(cfg, params, B: int, S: int) -> dict:
-    """The least times the card could take: prefill's linear-layer
-    products (2 flop a weight a token; the embedding table and an untied
-    head excluded: the logits are the last token's only) over the fp32
-    rate; a decode step's bytes (every weight it reads once: all but an
-    untied model's table, of which it reads B rows; the caches: the
-    dense KV, the ring, the SSM and RG-LRU states) over the HBM rate."""
+    """The least times the card could take. Prefill: its linear-layer
+    products, 2 flop a weight a token (the embedding table and an untied
+    head excluded: the logits are the last token's only; a routed
+    expert's weights count top_k / E of them, the capacity's padding
+    none) over the fp32 rate (bf16: the dense bf16 rate). A decode step:
+    the larger of its bytes (every weight it reads once: all but an
+    untied model's table, of which it reads B rows, and of the routed
+    experts the min(E, B top_k) that B tokens can pick; the caches: the
+    dense KV, MLA's latent and roped key, the ring, the SSM and RG-LRU
+    states) over the HBM rate, and its operations (2 flop a weight a
+    token it multiplies; MLA's decompression of the prompt's latents
+    through ``wkv_b`` and attention over them, dense attention's over
+    the prompt's keys) over the same flop rate."""
     n = sum(t.numel() for t in tree_leaves(params))
+    item = next(iter(tree_leaves(params))).element_size()
+    rate = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
     table = cfg.vocab_size * cfg.d_model
     head = 0 if cfg.tie_embeddings else table
-    flops = 2.0 * (n - table - head) * B * S
-    cache = 0
+    experts = _expert_weights(params)
+    active = n - table - head - experts + experts * cfg.top_k // max(cfg.num_experts, 1)
+    flops = 2.0 * active * B * S
+    read = n - (table if head else 0) - experts
+    if experts:
+        read += experts * min(cfg.num_experts, B * cfg.top_k) // cfg.num_experts
+    cache, step_flops = 0, 2.0 * (active + table) * B      # the head: tied or not
+    H = cfg.num_heads
     for j in range(cfg.num_layers):
         kind = cfg.block_pattern[j % len(cfg.block_pattern)]
         if kind == 'attn':
-            cache += 2 * B * (S + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * 4
+            cache += 2 * B * (S + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * item
+            step_flops += 4.0 * B * S * H * cfg.head_dim
+        elif kind == 'mla':
+            cache += B * (S + LM_GEN) * (cfg.kv_lora_rank + cfg.rope_head_dim) * item
+            nh, rh, vh = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
+            step_flops += 2.0 * B * S * (cfg.kv_lora_rank * H * (nh + vh) + H * (nh + rh + vh))
         elif kind == 'local_attn':
-            cache += 2 * B * min(cfg.window, S + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * 4
+            cache += 2 * B * min(cfg.window, S + LM_GEN) * cfg.num_kv_heads * cfg.head_dim * item
         elif kind == 'rglru':
-            cache += B * cfg.conv_width * cfg.lru_width * 4
+            cache += B * cfg.conv_width * cfg.lru_width * item
         else:
-            di, H, P, Nst = lm_ssd.ssd_dims(cfg)
-            cache += B * H * Nst * P * 4
-    weights = 4 * (n - (table if head else 0))
-    return dict(prefill_bound_ms=f"{flops / FP32_FLOP_PER_S * 1e3:.6g}",
-                decode_bound_ms=f"{(weights + cache) / HBM_BYTES_PER_S * 1e3:.6g}")
+            di, Hs, P, Nst = lm_ssd.ssd_dims(cfg)
+            cache += B * Hs * Nst * P * 4
+    t_bytes = (item * read + cache) / HBM_BYTES_PER_S * 1e3
+    t_ops = step_flops / rate * 1e3
+    return dict(prefill_bound_ms=f"{flops / rate * 1e3:.6g}",
+                decode_bound_ms=f"{max(t_bytes, t_ops):.6g}",
+                decode_bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
 
 def _lm_yardstick(cfg, params, batch) -> dict:
@@ -1573,35 +1648,119 @@ def _lm_yardstick(cfg, params, batch) -> dict:
                 flash_vs_sdpa_max_abs=f"{err:.3g}")
 
 
-def _lm_self_check(cfg, params, batch, toks, kept) -> dict:
-    """The card's full forward over prompt + generated tokens (LM_ROWS
-    rows) against prefill's and every decode step's logits, and the
-    generated tokens against its argmax where its top-2 margin is wide."""
+@contextlib.contextmanager
+def moe_routing():
+    """Record every MoE layer's dispatch while the block runs: a list of
+    (tokens a row, the largest expert load of a row, dropped pairs,
+    pairs), device tensors where they are counts. Wraps the module's
+    ``_dispatch_indices`` (which ``moe_apply`` calls) and restores it."""
+    rec, inner = [], lm_moe._dispatch_indices
+
+    def spy(idx, E, C):
+        order, dest, keep = inner(idx, E, C)
+        loads = torch.nn.functional.one_hot(idx.long(), E).sum(dim=(-3, -2))
+        rec.append((idx.shape[-2], loads.max(), (~keep).sum(), keep.numel()))
+        return order, dest, keep
+    lm_moe._dispatch_indices = spy
+    try:
+        yield rec
+    finally:
+        lm_moe._dispatch_indices = inner
+
+
+def _lm_full(cfg, params, batch, toks):
+    """The card's full forward over LM_ROWS rows of the prompt and the
+    tokens generated after it: the logits of each generated step."""
     S = (batch['tokens'] if 'tokens' in batch else batch['embeds']).shape[1]
     with torch.inference_mode():
         full, _ = lm_model.forward(params, cfg,
                                    _continue_in_text(params, cfg, batch, toks[:, :-1], LM_ROWS))
-    ref = full[:, S - 1:]                                  # the logits of each step
-    del full
+    return full[:, S - 1:].clone()
+
+
+def _lm_compare(cfg, ref, toks, kept, bf16: bool) -> dict:
+    """Prefill's and every decode step's logits (``kept``) against the
+    full forward's (``ref``), and the generated tokens against its argmax
+    where its top-2 margin is wide: fp32 at the serve contract's atol =
+    rtol, bf16 at LM_BF16_REL / LM_BF16_ATOL."""
     diff = (kept - ref).abs()
+    rel = (torch.linalg.vector_norm(kept - ref, dim=-1)
+           / torch.linalg.vector_norm(ref, dim=-1)).amax(dim=0)      # a step's worst row
     for t in range(LM_GEN):
-        tol = LM_PREFILL_TOL if t == 0 else LM_DECODE_TOL
-        if bool((diff[:, t] > tol + tol * ref[:, t].abs()).any()):
+        if bf16:
+            bad = float(rel[t]) > LM_BF16_REL or float(diff[:, t].max()) > LM_BF16_ATOL
+            what = f"relative L2 {LM_BF16_REL} and max abs {LM_BF16_ATOL}"
+        else:
+            tol = LM_PREFILL_TOL if t == 0 else LM_DECODE_TOL
+            bad = bool((diff[:, t] > tol + tol * ref[:, t].abs()).any())
+            what = f"atol = rtol = {tol}"
+        if bad:
             raise AssertionError(f"lm {cfg.name}: step {t} logits differ from the full "
-                                 f"forward by more than atol = rtol = {tol}")
+                                 f"forward by more than {what}")
+    margin = 2 * LM_BF16_ATOL if bf16 else LM_MARGIN
     top2 = torch.topk(ref, 2, dim=-1).values
-    wide = (top2[..., 0] - top2[..., 1]) > LM_MARGIN
+    wide = (top2[..., 0] - top2[..., 1]) > margin
     agree = toks[:LM_ROWS] == torch.argmax(ref, dim=-1).to(torch.int32)
     if not bool(agree[wide].all()):
         raise AssertionError(f"lm {cfg.name}: a generated token differs from the full "
-                             f"forward's argmax where its margin exceeds {LM_MARGIN}")
+                             f"forward's argmax where its margin exceeds {margin}")
     return dict(self_check='ok', self_max_abs=f"{float(diff.max()):.3g}",
-                steps_below_margin=int((~wide).sum()))
+                self_rel_l2=f"{float(rel.max()):.3g}", steps_below_margin=int((~wide).sum()))
+
+
+def _no_drop_factor(cfg, rec, cf: float) -> float:
+    """``cf``, raised to cover the largest expert load of every routing
+    in ``rec`` (``moe_routing``'s) that dropped pairs."""
+    E, K = cfg.num_experts, cfg.top_k
+    return max([cf] + [(int(r[1]) + 0.5) * E / (r[0] * K) for r in rec if int(r[2])])
+
+
+def _moe_self_check(cfg, params, batch, cf: float) -> dict:
+    """The self-check of an MoE config on LM_ROWS rows, at a capacity
+    factor at which neither the rows' prefill nor the forward over the
+    prompt and its 64 generated tokens drops a pair: from ``cf``, raised
+    after each try to cover the largest expert load it routed (a drop
+    upstream changes what later layers route, so the last try must see
+    none)."""
+    S = batch['tokens'].shape[1]
+    rows = {k: v[:LM_ROWS] for k, v in batch.items()}
+    for _ in range(LM_NO_DROP_TRIES):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        eng = ServeEngine(c, make_host_mesh(1, 1), params, batch=LM_ROWS, prompt_len=S,
+                          max_len=S + LM_GEN)
+        with moe_routing() as rec:
+            toks, *_, kept, caches = _lm_generate(eng, rows, LM_ROWS)
+            del caches
+            ref = _lm_full(c, params, rows, toks)
+        if sum(int(r[2]) for r in rec) == 0:
+            out = _lm_compare(c, ref, toks, kept, bf16=False)
+            return dict(out, self_capacity_factor=f"{cf:.6g}")
+        cf = _no_drop_factor(cfg, rec, cf)
+        del ref, kept
+    raise AssertionError(f"lm {cfg.name}: pairs still drop at capacity factor {cf:.6g} "
+                         f"after {LM_NO_DROP_TRIES} tries")
+
+
+def _cpu_view(cfg, params):
+    """(cfg, params, layers run) of the CPU check: the whole model, or
+    where its weights pass LM_CPU_MAX_BYTES a view of its first whole
+    periods, at least LM_CPU_LAYERS layers (the stacked leaves' first
+    slices; no tail)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if nbytes <= LM_CPU_MAX_BYTES:
+        return cfg, params, cfg.num_layers
+    periods = -(-LM_CPU_LAYERS // len(cfg.block_pattern))
+    view = {k: v for k, v in params.items() if k != 'tail'}
+    view['blocks'] = tree_map(lambda t: t[:periods], params['blocks'])
+    layers = periods * len(cfg.block_pattern)
+    return dataclasses.replace(cfg, num_layers=layers), view, layers
 
 
 def _lm_cpu_check(cfg, params) -> dict:
     """The same weights on the CPU (the port's plain path) against the
-    card: prefill of a 16-token prompt and 4 teacher-forced decode steps."""
+    card: prefill of a 16-token prompt and 4 teacher-forced decode steps
+    (past LM_CPU_MAX_BYTES, of the first whole periods, ``_cpu_view``)."""
+    cfg, params, layers = _cpu_view(cfg, params)
     prompt = lm_prompt(cfg, 2, LM_CPU_PROMPT, SEED + 1, device='cpu')
     steps_in = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, (2, LM_CPU_STEPS), dtype=np.int32))
@@ -1619,22 +1778,26 @@ def _lm_cpu_check(cfg, params) -> dict:
                 steps.append(logits)
         out.append(torch.cat(steps, dim=1).cpu())
         del p, caches
+    tol = LM_BF16_REL if next(iter(tree_leaves(params))).dtype == torch.bfloat16 else LM_CPU_REL
     rel = float(torch.linalg.vector_norm(out[0] - out[1]) / torch.linalg.vector_norm(out[1]))
-    if not rel <= LM_CPU_REL:
-        raise AssertionError(f"lm {cfg.name}: card vs CPU logits rel L2 {rel:.3e} > "
-                             f"{LM_CPU_REL}")
-    return dict(cpu_rel_l2=f"{rel:.3g}", cpu_tol=LM_CPU_REL)
+    if not rel <= tol:
+        raise AssertionError(f"lm {cfg.name}: card vs CPU logits rel L2 {rel:.3e} > {tol}")
+    return dict(cpu_rel_l2=f"{rel:.3g}", cpu_tol=tol, cpu_layers=layers)
 
 
 def lm_serve(arch: str) -> list:
-    """One config at full width: serve, check the card against itself and
-    against the CPU, profile one decode step, time the yardstick. Returns
-    the first row's generated tokens."""
+    """One config at full width (the depth LM_LAYERS cuts, in
+    LM_DTYPE): serve, check the card against itself and against the CPU,
+    profile one decode step, time the yardstick. Returns the first row's
+    generated tokens."""
     cfg = get_config(arch)
+    depth = f"{LM_LAYERS.get(arch, cfg.num_layers)}/{cfg.num_layers}"
+    cfg = dataclasses.replace(cfg, num_layers=LM_LAYERS.get(arch, cfg.num_layers))
+    dtype = LM_DTYPE.get(arch, torch.float32)
     B, S = LM_SHAPES[arch]
     base = torch.cuda.memory_allocated()     # what earlier phases still hold
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    params = lm_model.init_params(gen, cfg, torch.float32)
+    params = lm_model.init_params(gen, cfg, dtype)
     n = sum(t.numel() for t in tree_leaves(params))
     if n != lm_model.param_count(cfg):
         raise AssertionError(f"lm {arch}: {n} parameters, the plan counts "
@@ -1643,12 +1806,22 @@ def lm_serve(arch: str) -> list:
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, make_host_mesh(1, 1), params, batch=B, prompt_len=S,
                       max_len=S + LM_GEN)
-    toks = eng.generate(batch, LM_GEN)
+    with moe_routing() as rec:
+        toks = eng.generate(batch, LM_GEN)
     if tuple(toks.shape) != (B, LM_GEN) or toks.dtype != torch.int32:
         raise AssertionError(f"lm {arch}: generate gave {tuple(toks.shape)} {toks.dtype}")
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != 'highest'):
         raise AssertionError("lm: fp32 products ran with TF32")
+    moe = {}
+    if cfg.moe:     # the prefill's routing (decode routes 1 token a row: it drops none)
+        pre = [r for r in rec if r[0] == S]
+        if len(pre) != cfg.num_layers:
+            raise AssertionError(f"lm {arch}: {len(pre)} MoE layers routed the prefill")
+        share = sum(int(r[2]) for r in pre) / sum(r[3] for r in pre)
+        moe = dict(capacity_factor=cfg.capacity_factor, prefill_dropped_share=f"{share:.6g}")
+        start = _no_drop_factor(cfg, pre, cfg.capacity_factor)   # the self-check's first try
+    del rec
     runs, caches = [], None
     for _ in range(3):
         caches = None                       # one run's caches alive at a time
@@ -1663,14 +1836,21 @@ def lm_serve(arch: str) -> list:
     prof = profile(lambda: eng.decode(caches, last, S + LM_GEN - 1))
     kept = runs[-1][4]
     del runs, caches
-    say('lm', arch=arch, params=n, batch=B, prompt=S, gen=LM_GEN, inputs='+'.join(batch),
-        prefill_ms=f"{med[0]:.6g}", decode_ms_per_token=f"{med[1]:.6g}",
+    say('lm', arch=arch, layers=depth, dtype=str(dtype).replace('torch.', ''), params=n,
+        active_params=lm_model.active_param_count(cfg), batch=B, prompt=S, gen=LM_GEN,
+        inputs='+'.join(batch), prefill_ms=f"{med[0]:.6g}", decode_ms_per_token=f"{med[1]:.6g}",
         tok_per_s=f"{B * LM_GEN / med[2]:.6g}", generate_s=f"{med[2]:.6g}",
         peak_gib=f"{peak / 2**30:.4g}", base_gib=f"{base / 2**30:.4g}",
-        **_lm_bounds(cfg, params, B, S),
+        **_lm_bounds(cfg, params, B, S), **moe,
         first_row=json.dumps(toks[0, :8].tolist()))
     say('profile', path=f'lm_decode_{arch}', **prof)
-    checks = _lm_self_check(cfg, params, batch, toks, kept)
+    if cfg.moe:
+        del kept
+        checks = _moe_self_check(cfg, params, batch, start)
+    else:
+        checks = _lm_compare(cfg, _lm_full(cfg, params, batch, toks), toks, kept,
+                             bf16=dtype == torch.bfloat16)
+        del kept
     checks.update(_lm_cpu_check(cfg, params))
     if cfg.block_pattern == ('attn',) and 'tokens' in batch:
         checks.update(_lm_yardstick(cfg, params, batch))

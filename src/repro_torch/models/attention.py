@@ -1,7 +1,7 @@
-"""Attention: flash-chunked GQA and sliding-window attention for full
-sequences, prefill and decode.
+"""Attention: flash-chunked GQA, sliding-window attention and MLA for
+full sequences, prefill and decode.
 
-Port of the GQA and sliding-window parts of ``repro.models.attention``.
+Port of ``repro.models.attention``, except its Ulysses attention.
 ``flash_attention`` is the reference's online-softmax algorithm in plain
 PyTorch: an outer loop over ``q_chunk`` query blocks, an inner loop over
 ``chunk`` KV chunks, fp32 accumulators, GQA through a (kv_heads, group)
@@ -18,8 +18,15 @@ the new token at ``cache_len % W`` in place (:func:`gqa_decode_ring`).
 M-RoPE configs decode text: all three position streams advance to the
 cache length.
 
-Sequence parallelism (``sp=True``, Ulysses) and MLA are not ported yet
-(ROADMAP queue 1 items 10, 11e).
+MLA (DeepSeek-V2, :func:`mla_apply`): queries and keys from low-rank
+projections, RoPE on a decoupled slice of each head, and the key's
+roped slice shared by every head. Its decode cache is the compressed
+one, the normalized latent and the shared roped key of each token,
+written in place; each decode step decompresses the whole cache, as the
+reference's (no absorbed-weight decode).
+
+Sequence parallelism (``sp=True``, Ulysses) is not ported yet (ROADMAP
+queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -93,15 +100,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         mask = _mask(qpos, kpos, causal=causal, window=window)
         if kv_len is not None:
             mask = mask & (kpos[None, :] < kv_len)
-        s = torch.where(mask, s, NEG_INF)
+        # the score block is masked and exponentiated in place, and each
+        # block is dropped before the next: at most two (B, H, q, k) fp32
+        # blocks are alive (4 GiB each for deepseek-v2-236b's 128 heads
+        # at 8 x 1024 x 1024), the values those of the out-of-place ops
+        s.masked_fill_(~mask, NEG_INF)
         m_cur = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_cur[..., None])
+        p = torch.sub(s, m_cur[..., None]).exp_()
+        del s
         corr = torch.exp(m - m_cur)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum('bhgqk,bkhd->bhgqd', p, vc)
+        del p
         m = m_cur
     out = acc / torch.clamp(l[..., None], min=1e-30)      # (B, KH, G, Sq, D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(out_dtype)
+
+
+def _cache_pad(cache_cap: Optional[int], S: int) -> int:
+    """Positions a dense cache adds past a prompt of ``S``. A cache
+    shorter than the prompt raises ``ValueError``, as the reference's
+    ``jnp.pad`` does (``F.pad`` would crop it)."""
+    cap = cache_cap or S
+    if cap < S:
+        raise ValueError(f'cache_cap {cap} is shorter than the prompt ({S} positions)')
+    return cap - S
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +180,7 @@ def gqa_prefill(p: Dict, cfg, x, positions, *, window: int = 0,
     o = flash_attention(q, k, v, causal=cfg.causal, window=window, chunk=cfg.attn_chunk)
     out = L.apply_linear(p['wo'], o.reshape(B, S, -1))
     if not window:
-        pad = (cache_cap or S) - S
+        pad = _cache_pad(cache_cap, S)
         return out, {'k': F.pad(k, (0, 0, 0, 0, 0, pad)), 'v': F.pad(v, (0, 0, 0, 0, 0, pad))}
     W = window if cache_cap is None else min(window, cache_cap)
     if S >= W:
@@ -213,3 +236,105 @@ def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int
     o = flash_attention(q, cache_k, cache_v, causal=True, q_offset=cache_len,
                         kv_len=cache_len + 1, chunk=cache_k.shape[1])
     return L.apply_linear(p['wo'], o.reshape(B, 1, -1)), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank Q/KV with decoupled RoPE
+# ---------------------------------------------------------------------------
+
+def mla_plan(cfg) -> Dict:
+    d, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nh, rh, vh = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
+    return {
+        'wq_a': L.linear_plan(d, qr, ('embed', None)),
+        'q_norm': L.norm_plan(qr),
+        'wq_b': L.linear_plan(qr, H * (nh + rh), (None, 'heads')),
+        'wkv_a': L.linear_plan(d, kvr + rh, ('embed', 'kv_lora')),
+        'kv_norm': L.norm_plan(kvr),
+        'wkv_b': L.linear_plan(kvr, H * (nh + vh), ('kv_lora', 'heads')),
+        'wo': L.linear_plan(H * vh, d, ('heads', 'embed')),
+    }
+
+
+def _mla_q(p: Dict, cfg, x, positions):
+    """The queries (B, S, H, nh + rh): the low-rank projection through
+    ``q_norm`` (eps 1e-6, not ``cfg.norm_eps``, as the reference), RoPE
+    on the last ``rh`` of each head."""
+    B, S, _ = x.shape
+    nh, rh = cfg.qk_nope_dim, cfg.rope_head_dim
+    q = L.apply_linear(p['wq_b'], L.apply_norm(p['q_norm'], L.apply_linear(p['wq_a'], x)))
+    q = q.reshape(B, S, cfg.num_heads, nh + rh)
+    return torch.cat([q[..., :nh], L.apply_rope(q[..., nh:], positions, theta=cfg.rope_theta)],
+                     dim=-1)
+
+
+def _mla_latent(p: Dict, cfg, x, positions):
+    """What the decode cache keeps of each token: the normalized latent
+    (B, S, kv_lora_rank) and the roped key shared by every head (B, S, rh)."""
+    kvr = cfg.kv_lora_rank
+    kv_a = L.apply_linear(p['wkv_a'], x)
+    latent = L.apply_norm(p['kv_norm'], kv_a[..., :kvr])
+    k_rope = L.apply_rope(kv_a[..., None, kvr:], positions, theta=cfg.rope_theta)[:, :, 0]
+    return latent, k_rope
+
+
+def _mla_qkv_from_latent(p: Dict, cfg, latent, k_rope):
+    """Keys (B, T, H, nh + rh) and values (B, T, H, vh) decompressed from
+    the latent (B, T, kvr) through ``wkv_b``, the shared roped key
+    (B, T, rh) broadcast to every head."""
+    B, T = latent.shape[:2]
+    H, nh, rh, vh = cfg.num_heads, cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
+    kv = L.apply_linear(p['wkv_b'], latent).reshape(B, T, H, nh + vh)
+    k = torch.cat([kv[..., :nh], k_rope[:, :, None].to(kv.dtype).expand(B, T, H, rh)], dim=-1)
+    return k, kv[..., nh:]
+
+
+def _mla_attend(p: Dict, cfg, q, latent, k_rope, **flash_kw):
+    """Causal attention of q over the decompressed latent; v is zero-padded
+    to the query's head width for ``flash_attention`` and sliced after."""
+    B, Sq, H, D = q.shape
+    vh = cfg.v_head_dim
+    k, v = _mla_qkv_from_latent(p, cfg, latent, k_rope)
+    if vh < D:
+        v = F.pad(v, (0, D - vh))
+    o = flash_attention(q, k, v, causal=True, **flash_kw)[..., :vh]
+    return L.apply_linear(p['wo'], o.reshape(B, Sq, H * vh))
+
+
+def mla_apply(p: Dict, cfg, x, positions):
+    """Full-sequence (train/prefill) MLA."""
+    q = _mla_q(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    return _mla_attend(p, cfg, q, latent, k_rope, chunk=cfg.attn_chunk)
+
+
+def mla_prefill(p: Dict, cfg, x, positions, *, cache_cap: Optional[int] = None):
+    """Full-sequence MLA that also returns the compressed decode cache
+    {'latent': (B, cap, kvr), 'krope': (B, cap, rh)}, zero-padded to
+    ``cache_cap`` positions (a cap under the prompt raises). The
+    reference recomputes the latent for the cache; here one computation
+    serves both."""
+    S = x.shape[1]
+    pad = _cache_pad(cache_cap, S)
+    q = _mla_q(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    out = _mla_attend(p, cfg, q, latent, k_rope, chunk=cfg.attn_chunk)
+    return out, {'latent': F.pad(latent, (0, 0, 0, pad)), 'krope': F.pad(k_rope, (0, 0, 0, pad))}
+
+
+def mla_decode(p: Dict, cfg, x, cache_latent, cache_krope, cache_len: int):
+    """One-token decode with the *compressed* cache: latents (B, S_max,
+    kvr) and the roped shared key (B, S_max, rh). Writes the new token's
+    at ``cache_len`` IN PLACE (as ``gqa_decode``) and decompresses the
+    whole cache through ``wkv_b`` each step, as the reference does.
+    Returns (out, cache_latent, cache_krope)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_len, device=x.device)
+    q = _mla_q(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    cache_latent[:, cache_len] = latent[:, 0]
+    cache_krope[:, cache_len] = k_rope[:, 0]
+    out = _mla_attend(p, cfg, q, cache_latent.to(x.dtype), cache_krope.to(x.dtype),
+                      q_offset=cache_len, kv_len=cache_len + 1, chunk=cache_latent.shape[1])
+    return out, cache_latent, cache_krope

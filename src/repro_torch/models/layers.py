@@ -68,6 +68,28 @@ def _uniform(gen, shape, lo: float, hi: float) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=gen.device) * (hi - lo) + lo
 
 
+#: the most fp32 elements a narrow-dtype draw holds at once (1 GiB)
+DRAW_ELEMS = 1 << 28
+
+
+def _normal(gen, shape, scale: float, dt) -> torch.Tensor:
+    """``scale`` times a standard normal of ``shape`` in ``dt``. An fp32
+    (or wider) leaf is one draw scaled in place. A narrower leaf is
+    drawn in fp32 and cast a block of leading-axis slices at a time (at
+    most ``DRAW_ELEMS`` elements), so a leaf that fills most of the card
+    in bf16 never has its fp32 twin alongside it."""
+    dev = gen.device
+    if torch.finfo(dt).bits >= 32 or len(shape) < 2:
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(dt)
+    out = torch.empty(shape, dtype=dt, device=dev)
+    rows = max(1, DRAW_ELEMS // math.prod(shape[1:]))
+    for i in range(0, shape[0], rows):
+        n = min(rows, shape[0] - i)
+        out[i:i + n] = torch.randn((n,) + tuple(shape[1:]), generator=gen,
+                                   device=dev).mul_(scale)
+    return out
+
+
 def _init_leaf(gen: torch.Generator, p: PSpec, dtype) -> torch.Tensor:
     """One leaf drawn from ``gen`` on ``gen.device``, as the reference's
     ``_init_leaf`` draws it (another generator, the same distribution),
@@ -81,7 +103,7 @@ def _init_leaf(gen: torch.Generator, p: PSpec, dtype) -> torch.Tensor:
     if p.init == 'ones':
         return torch.ones(p.shape, dtype=dt, device=dev)
     if p.init == 'emb':
-        return (torch.randn(p.shape, generator=gen, device=dev) * 0.02).to(dt)
+        return _normal(gen, p.shape, 0.02, dt)
     if p.init == 'lin':
         # fan-in scaled normal, the fan-in d_in of a (..., d_in, d_out)
         # leaf. The reference takes shape[0], which for a layer-stacked
@@ -90,8 +112,7 @@ def _init_leaf(gen: torch.Generator, p: PSpec, dtype) -> torch.Tensor:
         # mamba2-1.3b), and fp32 rounding then grows past the serve
         # contract's 2e-3 on the logits
         fan_in = p.shape[-2] if len(p.shape) > 1 else p.shape[-1]
-        scale = 1.0 / math.sqrt(max(fan_in, 1))
-        return (torch.randn(p.shape, generator=gen, device=dev) * scale).to(dt)
+        return _normal(gen, p.shape, 1.0 / math.sqrt(max(fan_in, 1)), dt)
     if p.init == 'ssm_a':         # log(-A) ~ U[log 1, log 16]: Mamba2 A_log init
         return _uniform(gen, p.shape, math.log(1.0), math.log(16.0)).to(dt)
     if p.init == 'ssm_dt':        # dt bias ~ softplus^-1(U[1e-3, 1e-1]) (log-uniform)

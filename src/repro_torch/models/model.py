@@ -6,14 +6,16 @@ axis of every parameter and cache leaf (the reference scans over it),
 and the remainder layers form an unrolled tail (``split_layers``). Here
 every loop over layers is a Python loop over that axis.
 
-Block kinds ``attn``, ``local_attn`` (sliding window, ring cache),
-``ssd``, ``rglru`` and ``fftconv`` and the ``mlp`` feed-forward run, on
-token or embedding inputs (``cfg.input_mode``) with RoPE, M-RoPE's three
-position streams or no positions (``cfg.pos_kind``). ``moe`` and ``mla``
-raise ``NotImplementedError`` naming the ROADMAP queue 1 item that
-ports them. Decode updates the caches in place: the reference's serving
-engine donates them to its jitted step, so a caller that still needs a
-cache after a decode step clones it first.
+Every block kind of the reference runs: ``attn``, ``local_attn``
+(sliding window, ring cache), ``mla`` (compressed latent cache),
+``ssd``, ``rglru`` and ``fftconv``, with the ``mlp`` or the ``moe``
+feed-forward, on token or embedding inputs (``cfg.input_mode``) with
+RoPE, M-RoPE's three position streams or no positions
+(``cfg.pos_kind``). The MoE router's load-balance loss is summed over
+every layer into ``forward``'s aux loss. Decode updates the caches in
+place: the reference's serving engine donates them to its jitted step,
+so a caller that still needs a cache after a decode step clones it
+first.
 
 Training differentiates :func:`loss_fn` with autograd. With
 ``cfg.remat`` (the full configs; ``smoke_config`` turns it off) and
@@ -32,21 +34,9 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models import griffin, ssd
+from repro_torch.models import griffin, moe, ssd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import PSpec
-
-#: what is not ported yet, and the ROADMAP queue 1 item that ports it
-UNPORTED = {
-    'moe': '11d (dbrx-132b: the MoE feed-forward)',
-    'mla': '11e (deepseek-v2-236b: MLA)',
-}
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f'{what!r} is not ported yet (ROADMAP queue 1 item '
-                               f'{UNPORTED[what]})')
-
 
 # ---------------------------------------------------------------------------
 # Plans
@@ -64,22 +54,20 @@ def layer_plan(cfg, kind: str) -> Dict:
     p: Dict[str, Any] = {'norm1': L.norm_plan(cfg.d_model, cfg.norm_kind)}
     if kind in ('attn', 'local_attn'):
         p[kind] = attn.gqa_plan(cfg)
+    elif kind == 'mla':
+        p[kind] = attn.mla_plan(cfg)
     elif kind == 'ssd':
         p[kind] = ssd.ssd_plan(cfg)
     elif kind == 'rglru':
         p[kind] = griffin.rglru_plan(cfg)
     elif kind == 'fftconv':
         p[kind] = ssd.fftconv_plan(cfg)
-    elif kind in UNPORTED:
-        raise unported(kind)
     else:
         raise ValueError(f'unknown block kind {kind!r}')
     fk = ffn_kind(cfg)
-    if fk == 'moe':
-        raise unported('moe')
-    if fk == 'mlp':
+    if fk is not None:
         p['norm2'] = L.norm_plan(cfg.d_model, cfg.norm_kind)
-        p['mlp'] = L.mlp_plan(cfg.d_model, cfg.d_ff)
+        p[fk] = moe.moe_plan(cfg) if fk == 'moe' else L.mlp_plan(cfg.d_model, cfg.d_ff)
     return p
 
 
@@ -122,6 +110,24 @@ def param_count(cfg) -> int:
     return int(sum(np.prod(p.shape) for p in L.tree_leaves(model_plan(cfg))))
 
 
+def active_param_count(cfg) -> int:
+    """Parameters touched a token: in an MoE layer every leaf named
+    ``wi`` or ``wo`` under ``moe`` counts ``top_k / num_experts`` of its
+    size, as the reference's count (which scales the shared experts'
+    too)."""
+    if not cfg.moe:
+        return param_count(cfg)
+
+    def count(tree, keys):
+        if isinstance(tree, dict):
+            return sum(count(v, keys + (k,)) for k, v in tree.items())
+        n = int(np.prod(tree.shape))
+        if 'moe' in keys and ('wi' in keys or 'wo' in keys):
+            n = n * cfg.top_k // cfg.num_experts
+        return n
+    return count(model_plan(cfg), ())
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a layer-stacked tree (views)."""
     return L.tree_map(lambda t: t[i], tree)
@@ -134,7 +140,8 @@ def _layer(tree, i: int):
 def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool = False,
                  cache_cap: Optional[int] = None, want_cache: bool = False):
     """One residual block (temporal + optional FFN). Returns
-    (x, cache-or-None); ``fftconv`` has no cache. ``mesh``: the FFT-conv
+    (x, aux-loss-or-None, cache-or-None); ``fftconv`` has no cache, and
+    only the MoE feed-forward has an aux loss. ``mesh``: the FFT-conv
     mixer's plan mesh (None: the local real-pencil path)."""
     h = L.apply_norm(p['norm1'], x, cfg.norm_eps)
     cache = None
@@ -145,6 +152,11 @@ def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool =
                                         cache_cap=cache_cap, sp=sp)
         else:
             y = attn.gqa_apply(p[kind], cfg, h, positions, window=window, sp=sp)
+    elif kind == 'mla':
+        if want_cache:
+            y, cache = attn.mla_prefill(p[kind], cfg, h, positions, cache_cap=cache_cap)
+        else:
+            y = attn.mla_apply(p[kind], cfg, h, positions)
     elif kind == 'ssd':
         out = ssd.ssd_apply(p[kind], cfg, h, return_cache=want_cache)
         y, cache = out if want_cache else (out, None)
@@ -153,15 +165,29 @@ def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool =
         y, cache = out if want_cache else (out, None)
     elif kind == 'fftconv':
         y = ssd.fftconv_apply(p[kind], cfg, h, mesh=mesh)
-    elif kind in UNPORTED:
-        raise unported(kind)
     else:
         raise ValueError(kind)
-    x = x + y
-    if ffn_kind(cfg) == 'mlp':
-        h2 = L.apply_norm(p['norm2'], x, cfg.norm_eps)
-        x = x + L.apply_mlp(p['mlp'], h2, act=cfg.act)
-    return x, cache
+    x, aux = _ffn(p, cfg, x + y)
+    return x, aux, cache
+
+
+def _ffn(p: Dict, cfg, x):
+    """The block's feed-forward and its residual: (x, the MoE router's
+    aux loss, or None for an MLP or no feed-forward)."""
+    fk = ffn_kind(cfg)
+    if fk is None:
+        return x, None
+    h = L.apply_norm(p['norm2'], x, cfg.norm_eps)
+    if fk == 'mlp':
+        return x + L.apply_mlp(p['mlp'], h, act=cfg.act), None
+    y, aux = _moe_ffn(p['moe'], cfg, h)
+    return x + y, aux
+
+
+def _moe_ffn(p: Dict, cfg, h):
+    """One rank: the scatter path (``moe.moe_apply``). The reference's
+    expert-parallel path on a 'model' axis of several ranks is item 11g."""
+    return moe.moe_apply(p, cfg, h)
 
 
 def _positions(cfg, batch, B: int, S: int, device):
@@ -206,32 +232,35 @@ def _layers(params, cfg):
 
 def forward(params, cfg, batch, *, mesh=None, sp: bool = False):
     """Logits for a full sequence. batch: {'tokens' | 'embeds',
-    ['positions']}. Returns (logits fp32, aux_loss); the auxiliary loss
-    is the MoE router's (item 11d), 0 for every ported block."""
+    ['positions']}. Returns (logits fp32, aux_loss): the MoE router's
+    load-balance loss summed over the layers (0 without MoE)."""
     x = _embed_in(params, cfg, batch)
     B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
     n_periods, n_tail = split_layers(cfg)
 
-    def period(x, pp):
+    def period(x, aux, pp):
         for j, kind in enumerate(cfg.block_pattern):
-            x, _ = _apply_block(pp[f'{j}_{kind}'], cfg, kind, x, positions, mesh=mesh,
-                                sp=sp)
-        return x
+            x, a, _ = _apply_block(pp[f'{j}_{kind}'], cfg, kind, x, positions, mesh=mesh,
+                                   sp=sp)
+            aux = aux if a is None else aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(n_periods):
         pp = _layer(params['blocks'], i)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(period, x, pp, use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(period, x, aux, pp, use_reentrant=False)
         else:
-            x = period(x, pp)
+            x, aux = period(x, aux, pp)
     for j in range(n_tail):
         kind = cfg.block_pattern[j]
-        x, _ = _apply_block(params['tail'][str(j)], cfg, kind, x, positions, mesh=mesh,
-                            sp=sp)
+        x, a, _ = _apply_block(params['tail'][str(j)], cfg, kind, x, positions, mesh=mesh,
+                               sp=sp)
+        aux = aux if a is None else aux + a
     x = L.apply_norm(params['final_norm'], x, cfg.norm_eps)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux
 
 
 def _logits(params, cfg, x):
@@ -279,8 +308,11 @@ def _layer_cache_plan(cfg, kind: str, B: int, cap: int) -> Optional[Dict]:
         return {'h': PSpec((B, cfg.lru_width), ('batch', 'heads'), 'zeros', torch.float32),
                 'conv': PSpec((B, w - 1, cfg.lru_width), ('batch', None, 'heads'), 'zeros',
                               cdt)}
-    if kind in UNPORTED:
-        raise unported(kind)
+    if kind == 'mla':
+        return {'latent': PSpec((B, cap, cfg.kv_lora_rank), ('batch', 'kv_seq', 'kv_lora'),
+                                'zeros', cdt),
+                'krope': PSpec((B, cap, cfg.rope_head_dim), ('batch', 'kv_seq', None),
+                               'zeros', cdt)}
     raise ValueError(kind)
 
 
@@ -313,8 +345,8 @@ def prefill(params, cfg, batch, *, cache_cap: Optional[int] = None, mesh=None,
     blocks: Dict[str, Any] = {}
     out: Dict[str, Any] = {'blocks': blocks}
     for n, (p, kind) in enumerate(_layers(params, cfg)):
-        x, c = _apply_block(p, cfg, kind, x, positions, mesh=mesh, sp=sp, cache_cap=cap,
-                            want_cache=True)
+        x, _, c = _apply_block(p, cfg, kind, x, positions, mesh=mesh, sp=sp, cache_cap=cap,
+                               want_cache=True)
         i, j = divmod(n, P)
         if i < n_periods:            # into the layer-stacked buffers
             if c is None:            # fftconv: no cache
@@ -338,17 +370,13 @@ def _decode_block(p: Dict, cfg, kind: str, x, cache, cache_len: int):
         y, _ = attn.gqa_decode_ring(p[kind], cfg, h, cache, cache_len, window=cfg.window)
     elif kind == 'ssd':
         y, _ = ssd.ssd_decode(p[kind], cfg, h, cache)
+    elif kind == 'mla':
+        y, _, _ = attn.mla_decode(p[kind], cfg, h, cache['latent'], cache['krope'], cache_len)
     elif kind == 'rglru':
         y, _ = griffin.rglru_decode(p[kind], cfg, h, cache)
-    elif kind in UNPORTED:
-        raise unported(kind)
     else:
         raise ValueError(kind)
-    x = x + y
-    if ffn_kind(cfg) == 'mlp':
-        h2 = L.apply_norm(p['norm2'], x, cfg.norm_eps)
-        x = x + L.apply_mlp(p['mlp'], h2, act=cfg.act)
-    return x
+    return _ffn(p, cfg, x + y)[0]           # decode discards the router's aux loss
 
 
 def decode_step(params, cfg, caches, tokens, cache_len: int):

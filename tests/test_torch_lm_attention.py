@@ -8,8 +8,12 @@ GQA groups of 1, 2 and 4, and its masks (``causal``, ``window``,
 (output and caches) and decode; recurrentgemma-9b's local attention:
 windowed prefill with its ring cache for a prompt shorter than, equal
 to and longer than the window and a cache shorter than the window, and
-ring decode across two wraps; qwen2-vl-2b's M-RoPE decode. Tolerances: max abs <= 2e-6 and relative L2 <= 1e-6 (fp32;
-the exp and the sums are taken in another order by XLA).
+ring decode across two wraps; qwen2-vl-2b's M-RoPE decode;
+deepseek-v2-236b's MLA: prefill with its compressed cache (latent and
+shared roped key) and decode that writes it in place; a dense cache
+shorter than the prompt raises, as the reference's. Tolerances: max abs
+<= 2e-6 and relative L2 <= 1e-6 (fp32; the exp and the sums are taken
+in another order by XLA); a block's output and caches max abs 1e-5.
 """
 import dataclasses
 
@@ -272,3 +276,92 @@ def test_mrope_decode_advances_all_three_streams():
     q1 = A.gqa_qkv(p, dc.replace(cfg, pos_kind='rope'), torch.as_tensor(x),
                    torch.full((2, 1), 13))[0]
     _close(q3, q1.numpy(), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2-236b): apply, prefill with the compressed cache, decode
+# ---------------------------------------------------------------------------
+
+def _mla_setup(seed=0):
+    cfg = smoke_config(get_config('deepseek-v2-236b'))
+    gen = torch.Generator().manual_seed(seed)
+    p = init_from_plan(gen, A.mla_plan(cfg), torch.float32)
+    for norm in ('q_norm', 'kv_norm'):       # non-trivial norm scales
+        p[norm]['scale'] = 1 + 0.1 * torch.randn(p[norm]['scale'].shape, generator=gen)
+    rp = {k: {n: jnp.asarray(a) for n, a in d.items()} for k, d in params_to_reference(p).items()}
+    return cfg, ref_smoke(ref_config('deepseek-v2-236b')), p, rp
+
+
+def test_mla_plan_is_the_references():
+    cfg, rcfg, p, _ = _mla_setup()
+    plan = {k: {n: (s.shape, s.axes, s.init) for n, s in d.items()}
+            for k, d in A.mla_plan(cfg).items()}
+    assert plan == {k: {n: (s.shape, s.axes, s.init) for n, s in d.items()}
+                    for k, d in RA.mla_plan(rcfg).items()}
+
+
+@pytest.mark.parametrize('S, cap', [(24, 32), (40, 40), (64, 70)], ids=lambda v: str(v))
+def test_mla_prefill_output_and_compressed_cache(S, cap):
+    """One pass (24), one pass at the cap (40: no chunk divides it) and KV
+    chunks with query blocks (64 over the smoke chunk of 32)."""
+    cfg, rcfg, p, rp = _mla_setup()
+    x = np.random.default_rng(S).standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (2, S)).astype(np.int32)
+    out, cache = A.mla_prefill(p, cfg, torch.as_tensor(x), torch.as_tensor(pos), cache_cap=cap)
+    rout, rcache = RA.mla_prefill(rp, rcfg, jnp.asarray(x), jnp.asarray(pos), cache_cap=cap)
+    _close(out, rout, atol=1e-5)
+    assert set(cache) == {'latent', 'krope'}
+    assert cache['latent'].shape == (2, cap, cfg.kv_lora_rank)
+    assert cache['krope'].shape == (2, cap, cfg.rope_head_dim)
+    for name in cache:
+        assert cache[name].dtype == torch.float32
+        _close(cache[name], rcache[name], atol=1e-5)
+    _close(A.mla_apply(p, cfg, torch.as_tensor(x), torch.as_tensor(pos)),
+           RA.mla_apply(rp, rcfg, jnp.asarray(x), jnp.asarray(pos)), atol=1e-5)
+
+
+def test_mla_decode_writes_the_compressed_cache_in_place():
+    """Prefill 20 tokens into a cache of 28, then 6 decode steps: each
+    step's output and both cache leaves against the reference's, the
+    leaves written in place."""
+    cfg, rcfg, p, rp = _mla_setup(1)
+    S, steps = 20, 6
+    x = np.random.default_rng(9).standard_normal((2, S + steps, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (2, S)).astype(np.int32)
+    _, cache = A.mla_prefill(p, cfg, torch.as_tensor(x[:, :S]), torch.as_tensor(pos),
+                             cache_cap=S + steps + 2)
+    _, rcache = RA.mla_prefill(rp, rcfg, jnp.asarray(x[:, :S]), jnp.asarray(pos),
+                               cache_cap=S + steps + 2)
+    lat, kr = cache['latent'], cache['krope']
+    rlat, rkr = rcache['latent'], rcache['krope']
+    for t in range(steps):
+        xt = x[:, S + t:S + t + 1]
+        out, lat2, kr2 = A.mla_decode(p, cfg, torch.as_tensor(xt), lat, kr, S + t)
+        rout, rlat, rkr = RA.mla_decode(rp, rcfg, jnp.asarray(xt), rlat, rkr, jnp.int32(S + t))
+        assert lat2 is lat and kr2 is kr
+        _close(out, rout, atol=1e-5)
+        _close(lat, rlat, atol=1e-5)
+        _close(kr, rkr, atol=1e-5)
+    assert float(lat[:, S + steps:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('kind', ['attn', 'mla'])
+def test_a_cache_shorter_than_the_prompt_raises(kind):
+    """A dense cache (GQA, MLA) of fewer positions than the prompt raises
+    ``ValueError``, as the reference's ``jnp.pad`` does; ``F.pad`` would
+    crop it without a word."""
+    if kind == 'mla':
+        cfg, rcfg, p, rp = _mla_setup()
+        fn, rfn = A.mla_prefill, RA.mla_prefill
+    else:
+        cfg, rcfg = _cfg(), _ref_cfg(_cfg())
+        p, rp = _params(cfg)
+        fn, rfn = A.gqa_prefill, RA.gqa_prefill
+    x = np.random.default_rng(5).standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(16), (2, 16)).astype(np.int32)
+    with pytest.raises(ValueError):
+        rfn(rp, rcfg, jnp.asarray(x), jnp.asarray(pos), cache_cap=12)
+    with pytest.raises(ValueError, match='cache_cap 12 is shorter than the prompt'):
+        fn(p, cfg, torch.as_tensor(x), torch.as_tensor(pos), cache_cap=12)
+    _, cache = fn(p, cfg, torch.as_tensor(x), torch.as_tensor(pos), cache_cap=16)
+    assert all(t.shape[1] == 16 for t in cache.values())

@@ -12,6 +12,9 @@ linear weight takes the fan-in of its unstacked leaf (the reference takes
 the layer count).
 """
 import math
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -210,3 +213,63 @@ def test_stacked_linear_init_scales_by_the_input_width():
     assert got.shape == ref.shape == (L_, d_in, d_out)
     assert abs(float(got.std()) * math.sqrt(d_in) - 1) < 0.01
     assert abs(float(ref.std()) * math.sqrt(L_) - 1) < 0.01
+
+
+@pytest.mark.parametrize('init, shape', [('lin', (3, 40, 24)), ('lin', (40, 24)),
+                                         ('emb', (50, 16)), ('lin', (7,))])
+def test_fp32_draws_are_one_scaled_normal(init, shape):
+    """An fp32 leaf is one ``randn`` of its shape times its scale, bit for
+    bit (the scale is applied in place, so no second leaf-sized buffer)."""
+    got = L._init_leaf(torch.Generator().manual_seed(4), L.PSpec(shape, (None,) * len(shape),
+                                                                 init), torch.float32)
+    fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+    scale = 0.02 if init == 'emb' else 1.0 / math.sqrt(fan_in)
+    want = torch.randn(shape, generator=torch.Generator().manual_seed(4)) * scale
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_narrow_draws_go_a_block_of_slices_at_a_time(monkeypatch, dtype):
+    """A leaf narrower than fp32 is drawn in blocks of leading-axis slices
+    (here 3 rows of (10, 40, 64) a block: four blocks, the last of one
+    row): its shape, dtype and scale; the blocks are fresh draws, and
+    the same seed gives the same leaf."""
+    monkeypatch.setattr(L, 'DRAW_ELEMS', 3 * 40 * 64)
+    spec = L.PSpec((10, 40, 64), (None, None, None))
+    got = L._init_leaf(torch.Generator().manual_seed(5), spec, dtype)
+    assert got.shape == (10, 40, 64) and got.dtype == dtype
+    assert abs(float(got.float().std()) * math.sqrt(40) - 1) < 0.02
+    assert abs(float(got.float().mean())) < 0.01
+    assert not torch.equal(got[0], got[3]) and not torch.equal(got[0], got[9])
+    assert torch.equal(got, L._init_leaf(torch.Generator().manual_seed(5), spec, dtype))
+    emb = L._init_leaf(torch.Generator().manual_seed(5), L.PSpec((10, 640), (None, None),
+                                                                 'emb'), dtype)
+    assert emb.dtype == dtype and abs(float(emb.float().std()) / 0.02 - 1) < 0.03
+
+
+def test_a_bf16_draw_holds_little_more_than_its_leaf():
+    """The peak host memory of drawing a (8, 4096, 4096) bf16 leaf (256
+    MiB) in blocks of one slice (``DRAW_ELEMS`` = 4096^2) stays under 1.5
+    times the leaf: one fp32 slice (64 MiB) at a time beside it, where a
+    whole fp32 draw and its scaled copy would add 1 GiB. Measured in a
+    fresh process (its peak resident size)."""
+    code = '''
+import resource, torch
+from repro_torch.models import layers as L
+L.DRAW_ELEMS = 4096 * 4096
+spec = L.PSpec((8, 4096, 4096), (None, None, None))
+gen = torch.Generator().manual_seed(0)
+L._init_leaf(gen, L.PSpec((8, 8), (None, None)), torch.bfloat16)   # warm the allocator
+before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+leaf = L._init_leaf(gen, spec, torch.bfloat16)
+after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+print((after - before) * 1024, leaf.numel() * leaf.element_size())
+'''
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(root, 'src'),
+                                   OMP_NUM_THREADS='1'), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    grew, leaf = (int(v) for v in proc.stdout.split())
+    assert leaf == 8 * 4096 * 4096 * 2
+    assert grew < 1.5 * leaf, (grew, leaf)

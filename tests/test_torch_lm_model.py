@@ -2,8 +2,10 @@
 reference's (``repro.models.model``), for internlm2-1.8b (GQA + RoPE +
 gated MLP), mamba2-1.3b (SSD), recurrentgemma-9b (RG-LRU + local
 attention with its ring cache), qwen2-vl-2b (embeds input, M-RoPE,
-untied head) and hubert-xlarge (embeds input, encoder-only, LayerNorm,
-no positions) at smoke size.
+untied head), hubert-xlarge (embeds input, encoder-only, LayerNorm,
+no positions), dbrx-132b (GQA + the MoE feed-forward) and
+deepseek-v2-236b (MLA with its compressed cache + MoE with a shared
+expert) at smoke size.
 
 The port's parameters, drawn from a seeded ``torch.Generator``, go to the
 reference through ``repro_torch.weights``; tokens and embeddings are
@@ -22,7 +24,11 @@ Every cache leaf has the reference prefill's shape and dtype (float32
 for fp32 parameters, not ``cfg.cache_dtype``). The port also keeps the
 reference's serve contract (``tests/test_serve.py``): prefill + decode
 reproduce the full forward (hubert-xlarge, encoder-only, has no
-decode). ``moe`` and ``mla`` raise ``NotImplementedError``.
+decode), an MoE config at the reference test's capacity factor 8, at
+which no (token, expert) pair drops (a drop depends on the sequence's
+length, so prefill and forward would drop different pairs). The MoE
+configs' aux loss (the router's, summed over the layers) is held to the
+reference's at the logits' tolerance. Every block kind plans.
 """
 import dataclasses
 
@@ -41,10 +47,16 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.weights import params_from_reference, params_to_reference
 
 ARCH_IDS = ['internlm2-1.8b', 'mamba2-1.3b', 'recurrentgemma-9b', 'qwen2-vl-2b',
-            'hubert-xlarge']
+            'hubert-xlarge', 'dbrx-132b', 'deepseek-v2-236b']
 #: the configs with a decode step (hubert-xlarge is encoder-only)
 DECODE_IDS = [a for a in ARCH_IDS if a != 'hubert-xlarge']
 ATOL, REL = 1e-5, 1e-5
+
+
+def no_drop(cfg):
+    """The reference serve test's MoE capacity factor (``_no_drop``):
+    capacity for every (token, expert) pair."""
+    return dataclasses.replace(cfg, capacity_factor=8.0) if cfg.moe else cfg
 
 
 def _close(got, want, atol=ATOL, rel=REL):
@@ -137,9 +149,13 @@ def test_forward(setup):
     cfg, rcfg, params, rparams, inputs = setup
     logits, aux = M.forward(params, cfg, _batch(inputs, 28))
     rlogits, raux = RM.forward(rparams, rcfg, _jbatch(inputs, 28))
-    assert logits.dtype == torch.float32
+    assert logits.dtype == torch.float32 and aux.dtype == torch.float32
     _close(logits, rlogits)
-    assert float(aux) == float(raux) == 0.0
+    if cfg.moe:
+        assert float(raux) > 0.5 * cfg.num_layers
+        _close(aux, raux)
+    else:
+        assert float(aux) == float(raux) == 0.0
 
 
 def test_loss_fn(setup):
@@ -151,6 +167,8 @@ def test_loss_fn(setup):
                                                     labels=jnp.asarray(labels)))
     _close(total, rtotal, atol=1e-5)
     _close(parts['loss'], rparts['loss'], atol=1e-5)
+    _close(parts['aux'], rparts['aux'], atol=1e-5)
+    assert abs(float(total - parts['loss'] - cfg.aux_coef * parts['aux'])) < 1e-6
 
 
 def test_prefill_and_decode_match_the_reference(served):
@@ -205,6 +223,7 @@ def _continued(params, cfg, inputs, S, extra):
 def test_prefill_decode_matches_forward(served):
     """The reference's serve contract (tests/test_serve.py), in the port."""
     cfg, _, params, _, inputs = served
+    cfg = no_drop(cfg)
     S, extra, cap = 24, 4, 32
     full = torch.as_tensor(inputs['tokens'][:, :S + extra])
     logits_full, _ = M.forward(params, cfg, _continued(params, cfg, inputs, S, extra))
@@ -220,8 +239,11 @@ def test_prefill_decode_matches_forward(served):
 def test_param_count_of_the_published_configs():
     for arch, n in (('internlm2-1.8b', 1_699_579_904), ('mamba2-1.3b', 1_343_532_032),
                     ('recurrentgemma-9b', 9_396_301_824), ('qwen2-vl-2b', 1_777_088_000),
-                    ('hubert-xlarge', 1_259_829_760)):
+                    ('hubert-xlarge', 1_259_829_760), ('dbrx-132b', 131_596_523_520),
+                    ('deepseek-v2-236b', 239_375_569_920)):
         assert M.param_count(get_config(arch)) == RM.param_count(ref_config(arch)) == n
+        assert M.active_param_count(get_config(arch)) == RM.active_param_count(
+            ref_config(arch))
         cfg = smoke_config(get_config(arch))
         assert M.param_count(cfg) == RM.param_count(ref_smoke(ref_config(arch)))
         assert M.param_count(cfg) == sum(t.numel() for t in tree_leaves(
@@ -231,74 +253,76 @@ def test_param_count_of_the_published_configs():
 @pytest.mark.parametrize('arch, item', [
     ('recurrentgemma-9b', '11b'), ('dbrx-132b', '11d'), ('deepseek-v2-236b', '11e')])
 def test_unported_block_kinds_raise(arch, item):
-    """Item 11b (recurrentgemma-9b) is ported: its case holds that the
-    config plans and counts as the reference's; 11d and 11e still raise."""
+    """Items 11b (recurrentgemma-9b), 11d (dbrx-132b: the MoE feed-forward)
+    and 11e (deepseek-v2-236b: MLA) are ported: each config plans and
+    counts as the reference's, at smoke size and at its published widths
+    (``active_param_count`` too); an MoE config's forward returns the
+    router's positive aux loss."""
     cfg = smoke_config(get_config(arch))
+    rcfg = ref_smoke(ref_config(arch))
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    assert M.param_count(cfg) == RM.param_count(rcfg) == sum(
+        t.numel() for t in tree_leaves(params))
+    assert M.active_param_count(cfg) == RM.active_param_count(rcfg)
+    assert M.active_param_count(get_config(arch)) == RM.active_param_count(ref_config(arch))
     if item == '11b':
-        params = M.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
-        assert M.param_count(cfg) == RM.param_count(ref_smoke(ref_config(arch))) == sum(
-            t.numel() for t in tree_leaves(params))
         return
-    with pytest.raises(NotImplementedError, match=f'item {item}'):
-        M.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
-    with pytest.raises(NotImplementedError, match=f'item {item}'):
-        M.param_count(cfg)
+    assert M.active_param_count(cfg) < M.param_count(cfg)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 6)))
+    logits, aux = M.forward(params, cfg, {'tokens': toks})
+    assert logits.shape == (1, 6, cfg.vocab_size) and float(aux) > 0
 
 
 @pytest.mark.parametrize('kind, item', [('local_attn', '11b'), ('rglru', '11b'),
                                         ('mla', '11e'), ('fftconv', '11f')])
 def test_each_unported_kind_names_its_item(kind, item):
-    """Items 11f (training: the FFT-conv mixer) and 11b (local attention,
-    the RG-LRU) are ported. The FFT-conv case holds that the kind plans,
-    has no decode cache (as the reference's) and refuses decode with the
-    reference's ValueError; the 11b cases that the kind plans, caches
-    and runs a block (prefill with its cache, then a decode step) as the
-    reference's does."""
+    """Items 11f (training: the FFT-conv mixer), 11b (local attention,
+    the RG-LRU) and 11e (MLA) are ported. The FFT-conv case holds that
+    the kind plans, has no decode cache (as the reference's) and refuses
+    decode with the reference's ValueError; the 11b and 11e cases that
+    the kind plans, caches and runs a block (prefill with its cache, then
+    a decode step) as the reference's does: the MLA block with
+    deepseek-v2-236b's MoE feed-forward and its aux loss. An unknown
+    kind raises ``ValueError``."""
     cfg = smoke_config(get_config('internlm2-1.8b'))
+    with pytest.raises(ValueError, match='unknown block kind'):
+        M.layer_plan(cfg, 'conv')
     if item == '11f':
-        assert kind not in M.UNPORTED
         assert set(M.layer_plan(cfg, kind)[kind]) == {'wi', 'kernel', 'decay', 'wo'}
         assert M._layer_cache_plan(cfg, kind, 1, 4) is None
         with pytest.raises(ValueError, match=kind):
             M._decode_block({'norm1': {'scale': torch.ones(cfg.d_model)}}, cfg, kind,
                             torch.zeros((1, 1, cfg.d_model)), None, 0)
         return
-    if item == '11b':
-        assert kind not in M.UNPORTED
-        cfg = smoke_config(get_config('recurrentgemma-9b'))
-        rcfg = ref_smoke(ref_config('recurrentgemma-9b'))
-        assert tree_map(lambda s: (s.shape, s.axes, s.init, str(s.dtype)[6:]),
-                        M._layer_cache_plan(cfg, kind, 2, 20)) == jax.tree.map(
-            lambda s: (s.shape, s.axes, s.init, np.dtype(s.dtype).name),
-            RM._layer_cache_plan(rcfg, kind, 2, 20), is_leaf=lambda x: hasattr(x, 'init'))
-        p = L.init_from_plan(torch.Generator().manual_seed(1), M.layer_plan(cfg, kind),
-                             torch.float32)
-        rp = tree_map(jnp.asarray, params_to_reference(p))
-        x = np.random.default_rng(2).standard_normal((2, 20, cfg.d_model)).astype(np.float32)
-        pos = np.broadcast_to(np.arange(20), (2, 20)).astype(np.int32)
-        y, cache = M._apply_block(p, cfg, kind, torch.as_tensor(x), torch.as_tensor(pos),
-                                  cache_cap=22, want_cache=True)
-        ry, _, rcache = RM._apply_block(rp, rcfg, kind, jnp.asarray(x), jnp.asarray(pos),
-                                        cache_cap=22, want_cache=True)
-        _close(y, ry)
-        for got, want in zip(tree_leaves(cache), tree_leaves(_ref_caches(rcache))):
-            _close_cache(got, want)
-        xt = np.random.default_rng(3).standard_normal((2, 1, cfg.d_model)).astype(np.float32)
-        y = M._decode_block(p, cfg, kind, torch.as_tensor(xt), cache, 20)
-        ry, rcache = RM._decode_block(rp, rcfg, kind, jnp.asarray(xt), rcache, jnp.int32(20))
-        _close(y, ry)
-        for got, want in zip(tree_leaves(cache), tree_leaves(_ref_caches(rcache))):
-            _close_cache(got, want)
-        return
-    with pytest.raises(NotImplementedError, match=f'item {item}'):
-        M.layer_plan(cfg, kind)
-    with pytest.raises(NotImplementedError, match=f'item {item}'):
-        M._apply_block({'norm1': {'scale': torch.ones(cfg.d_model)}}, cfg, kind,
-                       torch.zeros((1, 2, cfg.d_model)), None)
-    with pytest.raises(NotImplementedError, match=f'item {item}'):
-        M._layer_cache_plan(cfg, kind, 1, 4)
-    with pytest.raises(ValueError, match='unknown block kind'):
-        M.layer_plan(cfg, 'conv')
+    arch = 'deepseek-v2-236b' if item == '11e' else 'recurrentgemma-9b'
+    cfg, rcfg = smoke_config(get_config(arch)), ref_smoke(ref_config(arch))
+    assert tree_map(lambda s: (s.shape, s.axes, s.init, str(s.dtype)[6:]),
+                    M._layer_cache_plan(cfg, kind, 2, 20)) == jax.tree.map(
+        lambda s: (s.shape, s.axes, s.init, np.dtype(s.dtype).name),
+        RM._layer_cache_plan(rcfg, kind, 2, 20), is_leaf=lambda x: hasattr(x, 'init'))
+    p = L.init_from_plan(torch.Generator().manual_seed(1), M.layer_plan(cfg, kind),
+                         torch.float32)
+    rp = tree_map(jnp.asarray, params_to_reference(p))
+    x = np.random.default_rng(2).standard_normal((2, 20, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(20), (2, 20)).astype(np.int32)
+    y, aux, cache = M._apply_block(p, cfg, kind, torch.as_tensor(x), torch.as_tensor(pos),
+                                   cache_cap=22, want_cache=True)
+    ry, raux, rcache = RM._apply_block(rp, rcfg, kind, jnp.asarray(x), jnp.asarray(pos),
+                                       cache_cap=22, want_cache=True)
+    _close(y, ry)
+    if cfg.moe:
+        assert float(aux) > 0
+        _close(aux, raux)
+    else:
+        assert aux is None and float(raux) == 0.0
+    for got, want in zip(tree_leaves(cache), tree_leaves(_ref_caches(rcache))):
+        _close_cache(got, want)
+    xt = np.random.default_rng(3).standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    y = M._decode_block(p, cfg, kind, torch.as_tensor(xt), cache, 20)
+    ry, rcache = RM._decode_block(rp, rcfg, kind, jnp.asarray(xt), rcache, jnp.int32(20))
+    _close(y, ry)
+    for got, want in zip(tree_leaves(cache), tree_leaves(_ref_caches(rcache))):
+        _close_cache(got, want)
 
 
 def test_embeds_input_is_not_ported():
@@ -306,8 +330,11 @@ def test_embeds_input_is_not_ported():
     embeddings and its three position streams (by default ``arange`` in
     each, as the reference's), embed_scale scales embeddings too, and a
     decode step continues in text through the table, each as the
-    reference's. ``UNPORTED`` keeps only items 11d and 11e."""
-    assert set(M.UNPORTED) == {'moe', 'mla'}
+    reference's. Items 11d and 11e are ported too, so no block kind is
+    left unported: every config's plan builds (no ``UNPORTED`` table)."""
+    assert not hasattr(M, 'UNPORTED')
+    for arch in ARCHS:
+        assert M.param_count(get_config(arch)) == RM.param_count(ref_config(arch))
     cfg = smoke_config(get_config('qwen2-vl-2b'))
     rcfg = ref_smoke(ref_config('qwen2-vl-2b'))
     params = M.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
@@ -342,3 +369,19 @@ def test_every_causal_token_config_with_ported_kinds_serves():
         np.testing.assert_allclose(logits[:, 0], full[:, 7], atol=2e-3, rtol=2e-3)
         logits, _ = M.decode_step(params, cfg, caches, toks[:, 8:9], 8)
         np.testing.assert_allclose(logits[:, 0], full[:, 8], atol=3e-3, rtol=3e-3)
+
+
+@pytest.mark.parametrize('arch', ['internlm2-1.8b', 'deepseek-v2-236b'])
+def test_prefill_refuses_a_cache_shorter_than_the_prompt(arch):
+    """``prefill(cache_cap=)`` under the prompt length raises ``ValueError``
+    for a dense (GQA) and a compressed (MLA) cache, as the reference's;
+    at the prompt length it serves."""
+    cfg, rcfg, params, rparams, inputs = _setup(arch)
+    with pytest.raises(ValueError):
+        RM.prefill(rparams, rcfg, _jbatch(inputs, 16), cache_cap=12)
+    with pytest.raises(ValueError, match='shorter than the prompt'):
+        M.prefill(params, cfg, _batch(inputs, 16), cache_cap=12)
+    logits, caches = M.prefill(params, cfg, _batch(inputs, 16), cache_cap=16)
+    rlogits, _ = RM.prefill(rparams, rcfg, _jbatch(inputs, 16), cache_cap=16)
+    _close(logits, rlogits)
+    assert all(t.shape[2] == 16 for t in tree_leaves(caches))

@@ -11,7 +11,10 @@ the reference's tokens, agree within max abs 1e-5 and relative L2 1e-5.
 recurrentgemma-9b's prompt (24) is longer than its smoke window (16),
 so prefill folds the ring and decode writes across it; qwen2-vl-2b's
 prompt is embeddings with three distinct position streams (a 4 x 4
-patch grid, then text), its decode text.
+patch grid, then text), its decode text; dbrx-132b and deepseek-v2-236b
+serve through the MoE feed-forward at its published capacity factor
+(both engines drop the same pairs) and deepseek-v2-236b through MLA's
+compressed cache.
 The launcher runs on the CPU as a user runs it; a mesh of more than one
 rank, and ``cuda`` without a card, raise.
 """
@@ -42,7 +45,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_lm_model import mrope_positions  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCH_IDS = ['internlm2-1.8b', 'mamba2-1.3b', 'recurrentgemma-9b', 'qwen2-vl-2b']
+ARCH_IDS = ['internlm2-1.8b', 'mamba2-1.3b', 'recurrentgemma-9b', 'qwen2-vl-2b',
+            'dbrx-132b', 'deepseek-v2-236b']
 B, STEPS = 2, 6
 #: prompt lengths: recurrentgemma-9b's past its smoke window of 16;
 #: qwen2-vl-2b's a 4 x 4 patch grid and 4 text positions
@@ -182,8 +186,8 @@ def test_launcher_on_the_cpu(arch):
 def test_launcher_refuses_what_it_cannot_serve():
     proc = _launch('--arch', 'internlm2-1.8b', '--device', 'cpu', '--mesh', '2x2')
     assert proc.returncode != 0 and 'item 11g' in proc.stderr
-    proc = _launch('--arch', 'dbrx-132b', '--device', 'cpu')
-    assert proc.returncode != 0 and 'NotImplementedError' in proc.stderr
+    proc = _launch('--arch', 'dbrx-132b', '--device', 'cpu')      # ported (11d)
+    assert proc.returncode == 0 and proc.stdout.startswith('[serve] arch=dbrx-132b ')
     proc = _launch('--arch', 'hubert-xlarge', '--device', 'cpu')
     assert proc.returncode != 0 and 'encoder-only' in proc.stderr
     if not torch.cuda.is_available():

@@ -192,12 +192,14 @@ def test_launcher_refuses_cuda_without_a_card_and_a_multi_rank_mesh(tmp_path):
     assert run.returncode != 0 and '11g' in run.stderr
 
 
-@pytest.mark.parametrize('arch', ['hubert-xlarge', 'qwen2-vl-2b', 'recurrentgemma-9b'])
+@pytest.mark.parametrize('arch', ['hubert-xlarge', 'qwen2-vl-2b', 'recurrentgemma-9b',
+                                  'dbrx-132b', 'deepseek-v2-236b'])
 def test_launcher_trains_the_embeds_and_recurrent_configs(tmp_path, arch):
     """hubert-xlarge and qwen2-vl-2b train from embeds-mode batches (and
     M-RoPE positions), recurrentgemma-9b through the RG-LRU and local
-    attention, as the reference's launcher trains them; the last
-    checkpoint holds the final step."""
+    attention, dbrx-132b and deepseek-v2-236b through the MoE feed-forward
+    (the router's aux loss in the loss) and MLA, as the reference's
+    launcher trains them; the last checkpoint holds the final step."""
     run = _launch('--arch', arch, '--device', 'cpu', '--steps', '3', '--ckpt-every', '3',
                   '--seq', '24', '--batch', '2', '--ckpt-dir', str(tmp_path))
     assert run.returncode == 0, run.stderr[-2000:]

@@ -4,8 +4,10 @@
 
 internlm2-1.8b, mamba2-1.3b, recurrentgemma-9b (RG-LRU + local
 attention), qwen2-vl-2b (embeds, M-RoPE with three distinct position
-streams, untied head) and hubert-xlarge (embeds, encoder-only,
-LayerNorm) at smoke size run the reference's step,
+streams, untied head), hubert-xlarge (embeds, encoder-only,
+LayerNorm), dbrx-132b (MoE: the router's aux loss in the loss and its
+gradient) and deepseek-v2-236b (MLA + MoE with a shared expert) at
+smoke size run the reference's step,
 jitted on an Auto-axes 1 x 1 ``jax.sharding.Mesh`` (its Explicit-axes
 ``jax.make_mesh`` fails in ``with_sharding_constraint`` on jax 0.9). The
 FFT-conv LM's reference mesh path cannot run on jax 0.9 (``plan_op``
@@ -137,7 +139,8 @@ def _data(cfg):
 
 @pytest.mark.parametrize('microbatches', [1, 2])
 @pytest.mark.parametrize('case', ['internlm2-1.8b', 'mamba2-1.3b', 'fftconv',
-                                  'recurrentgemma-9b', 'qwen2-vl-2b', 'hubert-xlarge'])
+                                  'recurrentgemma-9b', 'qwen2-vl-2b', 'hubert-xlarge',
+                                  'dbrx-132b', 'deepseek-v2-236b'])
 def test_three_steps_match_reference(case, microbatches):
     cfg, rcfg = _configs(case)
     mesh = make_host_mesh(1, 1, device='cpu')
