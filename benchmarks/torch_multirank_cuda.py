@@ -3,7 +3,7 @@
 Run from the root of a checkout, on a machine with four cards:
 
     python3 benchmarks/torch_multirank_cuda.py [--out build/multirank_cuda]
-        [--suite base|strategies|pod|op|serve ...]
+        [--suite base|strategies|pod|op|serve|lm ...] [--lm-rows ARCH:DTYPE[:LAYERS] ...]
 
 It builds the CUDA kernels once, runs ``tests/_torch_multirank_worker.py``
 with ``cuda`` (four NCCL ranks, one card each, so every pencil runs the
@@ -16,7 +16,17 @@ on 2 x 2 and 1 x 4, and the ``serve`` suite on 2 x 2 at 512^3 (one
 ``FFTEngine`` a rank, 8 complex requests, ``flush()``: every result
 bitwise equal to the rank's per-request ``plan.forward``, and the
 slowest rank's time a request, the engine's beside the sequential
-calls'). ``--suite`` runs only the named suites. Each case's record is
+calls'). The ``lm`` suite runs ``tests/_torch_lm_multirank_worker.py``'s
+``bench`` rows (the sharded LM server at published widths and depths,
+64 new tokens after 8 prompts of 2048): qwen1.5-32b whole in fp32 and
+dbrx-132b's 40 layers in bf16 on 1 x 4, dbrx-132b's first 16 layers in
+fp32 on 2 prompts (its routing checked free), internlm2-1.8b in fp32 on
+2 x 2 held against one card (``--lm-rows`` picks rows by name, as
+``dbrx-132b:float32:16``); each row (``[lm4]``) is the slowest
+rank's times and the largest peak, the bounds of ``chip_smoke.py``'s
+``_lm_bounds`` over four cards, and its self-check against its own
+sharded full forward at ``chip_smoke.py``'s limits. ``--suite`` runs
+only the named suites (``lm`` runs only when named). Each case's record is
 held to the checks of ``tests/test_torch_multirank.py`` (the same
 functions, the same bounds: bitwise where they are bitwise). Printed:
 the cards' names and power limits, one line per case, and a last line
@@ -39,6 +49,7 @@ TESTS = os.path.join(ROOT, 'tests')
 sys.path.insert(0, os.path.join(ROOT, 'src'))
 sys.path.insert(0, TESTS)
 
+import _torch_lm_multirank_worker as lm_worker  # noqa: E402
 import _torch_multirank_worker as worker  # noqa: E402
 import test_torch_multirank as checks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -53,8 +64,10 @@ def main() -> None:
     ap.add_argument('--out', default=os.path.join(ROOT, 'build', 'multirank_cuda'),
                     help='directory of the per-run JSON records')
     ap.add_argument('--suite', nargs='+', default=None,
-                    choices=('base', 'strategies', 'pod', 'op', 'serve'),
+                    choices=('base', 'strategies', 'pod', 'op', 'serve', 'lm'),
                     help='run only these suites')
+    ap.add_argument('--lm-rows', nargs='+', default=None,
+                    help='the lm suite: only these rows (arch:dtype[:layers])')
     args = ap.parse_args()
     if not torch.cuda.is_available() or torch.cuda.device_count() < WORLD:
         sys.exit(f"torch_multirank_cuda: needs {WORLD} CUDA devices")
@@ -63,7 +76,8 @@ def main() -> None:
                            text=True).stdout.strip().splitlines()
     for c in cards:
         print(f"[card] {c}", flush=True)
-    _build.build()           # once, before the ranks start
+    if not args.suite or set(args.suite) - {'lm'}:
+        _build.build()       # once, before the ranks start (the LM path runs no kernel)
     os.makedirs(args.out, exist_ok=True)
     passed = total = 0
     runs = (('2x2', 'base', 1), ('2x2', 'strategies', 1), ('1x4', 'strategies', 1),
@@ -91,9 +105,40 @@ def main() -> None:
                 continue
             passed += 1
             print(f"[case] {mesh} {name} passed {json.dumps(results[name])}", flush=True)
+    if args.suite and 'lm' in args.suite:
+        for mesh, rows in lm_worker.BENCH_ROWS.items():
+            if args.lm_rows and not {lm_worker.row_name(a, d, n) for a, d, _, n in rows} \
+                    & set(args.lm_rows):
+                continue
+            total += 1
+            passed += _lm_rows(args.out, mesh, args.lm_rows)
     print(f"[multirank] cuda: {passed} of {total} cases passed", flush=True)
     if passed != total:
         sys.exit(1)
+
+
+def _lm_rows(out_dir: str, mesh: str, only=None) -> int:
+    """The worker's ``bench`` rows on ``mesh`` (those ``only`` names,
+    where given); 1 if every row held its checks (the worker raises where
+    one does not), else 0."""
+    out = os.path.join(out_dir, f'lm_{mesh}.json')
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run([sys.executable, os.path.join(TESTS, '_torch_lm_multirank_worker.py'),
+                           out, str(port), 'cuda', '--mesh', mesh, '--suite', 'bench',
+                           *(['--rows', *only] if only else [])],
+                          timeout=1500)
+    if proc.returncode != 0:
+        print(f"[case] {mesh} lm FAILED: the worker exited {proc.returncode}", flush=True)
+        return 0
+    with open(out) as fh:
+        rows = json.load(fh)
+    ok = all(r['self_check'] == 'ok' for r in rows)
+    for r in rows:
+        print(f"[case] {mesh} lm/{r['arch']} {'passed' if ok else 'FAILED'} {json.dumps(r)}",
+              flush=True)
+    return int(ok)
 
 
 def _checks(mesh: str, suite: str):

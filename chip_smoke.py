@@ -136,7 +136,15 @@ Phases, each printing one line and raising on any failure:
    and the CPU at ``LM_BF16_REL`` / ``LM_BF16_ATOL``; an MoE config
    prints the share of (token, expert) pairs its prefill dropped at the
    published capacity factor and runs its self-check on two rows at a
-   factor at which none drops. Then hubert-xlarge, encoder-only: its forward
+   factor at which none drops. internlm2-1.8b also runs the sharded
+   steps (``[lm] mesh=1x1 path=sharded``): ``make_prefill_step`` and
+   ``make_decode_step`` under the serve rules on a 1 x 1 mesh, where
+   every spec is the whole leaf and no collective runs, with
+   ``weights.shard_params``'s tree, their tokens and every step's logits
+   bitwise equal to the one-rank model code's without rules
+   (``models.model.prefill`` and ``decode_step``) on the same weights.
+   Then
+   hubert-xlarge, encoder-only: its forward
    over 8 x 2048 frame embeddings at full width (time, bound, peak
    memory, finite logits of the expected shape, one forward under the
    profiler) and the card against the CPU at smoke size (relative L2
@@ -220,7 +228,10 @@ from repro_torch.configs import get_config, make_batch  # noqa: E402
 from repro_torch.models import attention as lm_attn, layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model, moe as lm_moe, ssd as lm_ssd  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.parallel import make_rules  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve.engine import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.weights import shard_params  # noqa: E402
 
 N = 512
 SEED = 0
@@ -1785,6 +1796,60 @@ def _lm_cpu_check(cfg, params) -> dict:
     return dict(cpu_rel_l2=f"{rel:.3g}", cpu_tol=tol, cpu_layers=layers)
 
 
+#: the config whose sharded steps run on a 1 x 1 mesh beside its engine
+LM_SHARDED_ARCH = 'internlm2-1.8b'
+
+
+def _greedy(prefill, decode, params, batch, S: int):
+    """A greedy run through step functions under CUDA events: (tokens
+    (B, LM_GEN), every step's logits, prefill ms, decode ms a token)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, caches = prefill(params, batch)
+    ev[1].record()
+    kept = [logits]
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    toks = [tok]
+    for pos in range(S, S + LM_GEN - 1):
+        logits, caches = decode(params, caches, tok, pos)
+        kept.append(logits)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks.append(tok)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (torch.cat(toks, 1), kept, ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / (LM_GEN - 1))
+
+
+def lm_sharded_1x1(cfg, params, batch) -> None:
+    """``[lm] mesh=1x1 path=sharded``: the sharded server's steps under
+    the serve rules on a 1 x 1 mesh (no process group: a collective would
+    raise), on ``shard_params``'s tree of the same weights, against the
+    one-rank model code without rules (``lm_model.prefill`` and
+    ``decode_step`` on ``params``): the tokens and every step's logits
+    bitwise equal."""
+    mesh = make_host_mesh(1, 1)
+    rules = make_rules(mesh, mode='serve')
+    local = shard_params(params, cfg, rules, mesh)
+    B, S = batch['tokens'].shape
+    prefill, specs = make_prefill_step(cfg, mesh, {'tokens': (B, S)},
+                                       {'tokens': ('batch', 'seq')}, cache_cap=S + LM_GEN)
+    decode, _ = make_decode_step(cfg, mesh, batch=B, cache_cap=S + LM_GEN)
+    toks, kept, pre_ms, dec_ms = _greedy(prefill, decode, local, batch, S)
+    with torch.inference_mode():
+        ptoks, pkept, *_ = _greedy(
+            lambda p, b: lm_model.prefill(p, cfg, b, cache_cap=S + LM_GEN),
+            lambda p, c, t, pos: lm_model.decode_step(p, cfg, c, t, pos), params, batch, S)
+    same = torch.equal(toks, ptoks) and all(torch.equal(a, b) for a, b in zip(kept, pkept))
+    if not same:
+        raise AssertionError(f"lm {cfg.name}: the sharded steps on 1 x 1 differ from the "
+                             "one-rank model code's")
+    sharded = sum(any(ma is not None for ma in sh[1]) for sh in tree_leaves(specs['p_sh']))
+    say('lm', mesh='1x1', path='sharded', arch=cfg.name, batch=B, prompt=S, gen=LM_GEN,
+        bitwise_vs_one_rank='true', specs_naming_a_mesh_axis=sharded, process_group='none',
+        prefill_ms=f"{pre_ms:.6g}", decode_ms_per_token=f"{dec_ms:.6g}")
+
+
 def lm_serve(arch: str) -> list:
     """One config at full width (the depth LM_LAYERS cuts, in
     LM_DTYPE): serve, check the card against itself and against the CPU,
@@ -1855,6 +1920,8 @@ def lm_serve(arch: str) -> list:
     if cfg.block_pattern == ('attn',) and 'tokens' in batch:
         checks.update(_lm_yardstick(cfg, params, batch))
     say('lm', arch=arch, **checks)
+    if arch == LM_SHARDED_ARCH:
+        lm_sharded_1x1(cfg, params, batch)
     return toks[0].tolist()
 
 

@@ -35,8 +35,9 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import plan as planlib
 from repro_torch.core import wse_model as wm
-from repro_torch.core.plan import WIRE_DTYPES, MeshAxis
+from repro_torch.core.plan import WIRE_DTYPES, Layout, MeshAxis
 
 
 def axis_tuple(mesh_axis: MeshAxis) -> Tuple[str, ...]:
@@ -52,6 +53,18 @@ def static_group_size(mesh_axis: MeshAxis, mesh_shape) -> int:
     for a in axis_tuple(mesh_axis):
         p *= mesh_shape[a]
     return p
+
+
+def group_size(mesh, mesh_axis: MeshAxis) -> int:
+    """The extent of a (tuple) mesh-axis group. The reference reads it
+    from the ``shard_map`` context; here the mesh is passed."""
+    return static_group_size(mesh_axis, mesh.shape)
+
+
+def group_index(mesh, mesh_axis: MeshAxis) -> int:
+    """This rank's row-major flat index within the (tuple) mesh-axis
+    group, the member order of every swap: 0 on a one-rank mesh."""
+    return mesh.group_index(mesh_axis)
 
 
 def _group_bw(mesh_axis: MeshAxis,
@@ -167,6 +180,72 @@ class _Swapped(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# Gather and sum over a group (the LM stack's tensor-parallel collectives)
+# ---------------------------------------------------------------------------
+
+def _gather(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int) -> torch.Tensor:
+    pg, members = mesh.group(mesh_axis)
+    by_rank = dist.get_process_group_ranks(pg)
+    got = [torch.empty_like(x) for _ in by_rank]
+    dist.all_gather(got, x.contiguous(), group=pg)
+    return torch.cat([got[by_rank.index(r)] for r in members], dim)
+
+
+class _Gathered(torch.autograd.Function):
+    """An all-gather as autograd sees it: the gathered tensor is used
+    alike on every rank (replicated), so the cotangent of this rank's
+    block is its own slice of the result's cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_axis, dim):
+        ctx.block = (group_index(mesh, mesh_axis) * x.shape[dim], x.shape[dim], dim)
+        return _gather(x, mesh, mesh_axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, n, dim = ctx.block
+        return g.narrow(dim, start, n), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int) -> torch.Tensor:
+    """Every group member's block of ``x`` concatenated along ``dim`` in
+    the group's row-major member order (``lax.all_gather(..., tiled=True)``).
+    A group of one returns ``x``. Differentiable (:class:`_Gathered`)."""
+    if static_group_size(mesh_axis, mesh.shape) == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gathered.apply(x, mesh, mesh_axis, dim)
+    return _gather(x, mesh, mesh_axis, dim)
+
+
+class _Summed(torch.autograd.Function):
+    """A sum over the group whose result every rank uses alike: the
+    cotangent passes through (the row-parallel product's backward)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_axis):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=mesh.group(mesh_axis)[0])
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def all_reduce(x: torch.Tensor, mesh, mesh_axis: MeshAxis) -> torch.Tensor:
+    """The sum of ``x`` over the group (``lax.psum``), IN PLACE where
+    ``x`` needs no gradient; a group of one returns ``x``."""
+    if static_group_size(mesh_axis, mesh.shape) == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Summed.apply(x, mesh, mesh_axis)
+    x = x.contiguous()
+    dist.all_reduce(x, group=mesh.group(mesh_axis)[0])
+    return x
+
+
+# ---------------------------------------------------------------------------
 # Pod-tree specs: 'pod_tree:x.4*y.2*y.2' <-> {'x': (4,), 'y': (2, 2)}
 # ---------------------------------------------------------------------------
 
@@ -203,10 +282,26 @@ def format_tree_spec(tree: Mapping[str, Tuple[int, ...]]) -> str:
 
 class Strategy:
     """One registered redistribution schedule: ``swap_start`` moves the
-    bytes, ``cost`` prices one swap in the paper's cycle model for the
-    selector."""
+    bytes (``swap_axes`` and ``swap`` are its blocking forms), ``cost``
+    prices one swap in the paper's cycle model for the selector."""
     name: str = ''
     description: str = ''
+
+    def swap_axes(self, x: torch.Tensor, mesh, mesh_axis: MeshAxis, *,
+                  shard_pos: int, mem_pos: int) -> torch.Tensor:
+        """Exchange ownership: split local axis ``mem_pos`` across the
+        group, concatenate the received blocks (in group order) along
+        ``shard_pos``. Blocking; differentiable, its adjoint the reverse
+        swap (:class:`_Swapped`)."""
+        return swap_start_wire(self, x, mesh, mesh_axis, shard_pos=shard_pos,
+                               mem_pos=mem_pos).wait()
+
+    def swap(self, x: torch.Tensor, layout: Layout, mesh, mesh_axis: MeshAxis,
+             mem_pos: int) -> Tuple[torch.Tensor, Layout]:
+        """:meth:`swap_axes` plus the layout bookkeeping the planners thread."""
+        y = self.swap_axes(x, mesh, mesh_axis, shard_pos=planlib.owner_pos(layout, mesh_axis),
+                           mem_pos=mem_pos)
+        return y, planlib.swap(layout, mesh_axis, mem_pos)
 
     def swap_start(self, x: torch.Tensor, mesh, mesh_axis: MeshAxis, *,
                    shard_pos: int, mem_pos: int) -> PendingSwap:
@@ -459,9 +554,21 @@ def _pod_tree_strategy(name: str) -> Strategy:
     return PodTreeStrategy(parse_tree_spec(name[len(POD_TREE_PREFIX):]))
 
 
-_A2A = AllToAllStrategy()
-_REGISTRY: Dict[str, Strategy] = {
-    s.name: s for s in (_A2A, PpermuteStrategy(), HierarchicalStrategy())}
+_REGISTRY: Dict[str, Strategy] = {}
+
+
+def register(strategy: Strategy) -> Strategy:
+    """Add ``strategy`` to the registry under its name (a name already
+    taken raises ``ValueError``); returns it."""
+    if strategy.name in _REGISTRY:
+        raise ValueError(f"comm strategy {strategy.name!r} already registered")
+    _REGISTRY[strategy.name] = strategy
+    return strategy
+
+
+_A2A = register(AllToAllStrategy())
+register(PpermuteStrategy())
+register(HierarchicalStrategy())
 
 
 def names() -> Tuple[str, ...]:

@@ -5,8 +5,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs.base import (ArchConfig, ShapeSpec, SHAPES, make_batch,
-                                      skip_reason, smoke_config)
+from repro_torch.configs.base import (ArchConfig, ShapeSpec, SHAPES, input_specs,
+                                      make_batch, skip_reason, smoke_config)
 
 from repro_torch.configs import (mamba2_1_3b, recurrentgemma_9b, codeqwen1_5_7b,
                                  granite_3_8b, qwen1_5_32b, internlm2_1_8b,
@@ -19,7 +19,8 @@ _MODULES = (mamba2_1_3b, recurrentgemma_9b, codeqwen1_5_7b, granite_3_8b,
 
 ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
-__all__ = ['ARCHS', 'ArchConfig', 'SHAPES', 'ShapeSpec', 'get_config', 'list_archs',
+__all__ = ['ARCHS', 'ArchConfig', 'SHAPES', 'ShapeSpec', 'get_config', 'input_specs',
+           'list_archs',
            'make_batch', 'skip_reason', 'smoke_config']
 
 

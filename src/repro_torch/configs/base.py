@@ -5,8 +5,8 @@ Port of ``repro.configs.base``, data only: the fields, ``SHAPES``,
 ``skip_reason`` and ``smoke_config`` are the reference's, with
 ``cache_dtype`` a torch dtype. ``make_batch`` draws from numpy given a
 seed (the reference draws from ``jax.random``), so a test hands the same
-arrays to both packages. ``input_specs`` serves the reference's dry run
-and is not ported.
+arrays to both packages. ``input_specs`` gives the batch's shapes on the
+``meta`` device with their logical axes, for the sharded steps.
 """
 from __future__ import annotations
 
@@ -105,6 +105,37 @@ def skip_reason(cfg: ArchConfig, shape: ShapeSpec) -> Optional[str]:
     if shape.name == 'long_500k' and cfg.family not in SUBQUADRATIC_FAMILIES:
         return 'needs sub-quadratic attention; pure full-attention arch'
     return None
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                dtype=torch.bfloat16) -> Tuple[Dict, Dict]:
+    """(the batch's tensors on the ``meta`` device, their logical axes)
+    for one (arch, shape) cell, the reference's ``ShapeDtypeStruct``s.
+
+    train:   tokens/embeds + labels (+ mrope positions)
+    prefill: tokens/embeds (+ positions)
+    decode:  one new token + the 0-d cache length (the caches come from
+             ``model.abstract_cache``)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device='meta')
+    batch: Dict[str, Any] = {}
+    axes: Dict[str, Any] = {}
+    if shape.kind == 'decode':
+        batch['tokens'], axes['tokens'] = meta((B, 1), torch.int32), ('batch', None)
+        batch['cache_len'], axes['cache_len'] = meta((), torch.int32), ()
+        return batch, axes
+    if cfg.input_mode == 'embeds':
+        batch['embeds'], axes['embeds'] = meta((B, S, cfg.d_model), dtype), ('batch', 'seq', None)
+    else:
+        batch['tokens'], axes['tokens'] = meta((B, S), torch.int32), ('batch', 'seq')
+    if cfg.pos_kind == 'mrope':
+        batch['positions'] = meta((3, B, S), torch.int32)
+        axes['positions'] = (None, 'batch', 'seq')
+    if shape.kind == 'train':
+        batch['labels'], axes['labels'] = meta((B, S), torch.int32), ('batch', 'seq')
+    return batch, axes
 
 
 def make_batch(cfg: ArchConfig, *, batch: int, seq: int, seed: int = 0,

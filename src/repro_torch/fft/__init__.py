@@ -24,7 +24,23 @@ Local pencil algorithms live in the registry :mod:`repro_torch.fft.methods`;
 the swaps dispatch through :mod:`repro_torch.comm.strategies`
 (``plan(..., comm='auto')`` picks one with the cost model).
 """
+from repro_torch import comm as _comm
 from repro_torch.fft import methods
 from repro_torch.fft.api import FFT, SpectralOp, plan, plan_op, rplan, spectral_mul
+from repro_torch.fft.methods import apply as apply_method
+from repro_torch.fft.methods import apply_real as apply_real_method
 
-__all__ = ['FFT', 'SpectralOp', 'plan', 'rplan', 'plan_op', 'spectral_mul', 'methods']
+
+def available_methods():
+    """Concrete method names the registry knows (plus the 'auto' alias)."""
+    return methods.names() + ('auto',)
+
+
+def available_comm_strategies():
+    """Registered redistribution strategies (plus the 'auto' alias)."""
+    return _comm.names() + ('auto',)
+
+
+__all__ = ['FFT', 'SpectralOp', 'plan', 'rplan', 'plan_op', 'spectral_mul', 'methods',
+           'apply_method', 'apply_real_method', 'available_methods',
+           'available_comm_strategies']

@@ -739,17 +739,10 @@ class FFT:
 
 def _gather_rows(t: torch.Tensor, mesh, mesh_axis) -> torch.Tensor:
     """Every rank's (B, r, c) block of ``mesh_axis``'s group stacked along
-    axis 1 in the group's row-major member order: (B, p*r, c). It has no
-    backward yet: it refuses an operand that requires grad rather than
-    drop the gradient (ROADMAP queue 1 item 10)."""
-    if torch.is_grad_enabled() and t.requires_grad:
-        raise RuntimeError("a real rank-1 plan's spectrum gather on a multi-rank mesh is "
-                           "not differentiable yet; run it on one rank or without grad")
-    pg, members = mesh.group(mesh_axis)
-    by_rank = torch.distributed.get_process_group_ranks(pg)
-    got = [torch.empty_like(t) for _ in by_rank]
-    torch.distributed.all_gather(got, t.contiguous(), group=pg)
-    return torch.cat([got[by_rank.index(r)] for r in members], 1)
+    axis 1 in the group's row-major member order: (B, p*r, c). Its
+    gradient is this rank's own rows of the cotangent (every rank uses the
+    gathered spectrum alike)."""
+    return strategies.all_gather(t, mesh, mesh_axis, 1)
 
 
 class SpectralOp(FFT):

@@ -138,22 +138,32 @@ def make_fft_mesh(rows: int = 1, cols: int = 1, *, pods: int = 1,
     return _make_mesh(_axes_of(rows, cols, pods), device, 'make_fft_mesh')
 
 
-def require_one_rank(mesh_shape: Dict[str, int], what: str = 'the LM stack') -> None:
-    """Raise ``ValueError`` for a mesh of more than one rank: the LM
-    server and trainer (``what``) run on one rank until the sharded
-    versions (ROADMAP queue 1 item 11g)."""
+def require_one_rank(mesh_shape: Dict[str, int], what: str = 'the trainer') -> None:
+    """Raise ``ValueError`` for a mesh of more than one rank: the trainer
+    (``what``) runs on one rank until the sharded trainer (ROADMAP queue
+    1 item 11i, the training half of 11g). The server runs on any mesh."""
     if any(n != 1 for n in mesh_shape.values()):
         dims = 'x'.join(str(n) for n in mesh_shape.values())
-        raise ValueError(f'{what} runs on a 1x1 mesh only, not {dims}: the sharded LM '
-                         'server and trainer are not ported yet (ROADMAP queue 1 item 11g)')
+        raise ValueError(f'{what} runs on a 1x1 mesh only, not {dims}: the sharded trainer '
+                         'is not ported yet (ROADMAP queue 1 item 11i, the training half '
+                         'of 11g)')
 
 
 def make_host_mesh(rows: int = 1, cols: int = 1, *, device: Optional[str] = None) -> FFTMesh:
     """The language models' ('data', 'model') mesh, port of the
     reference's ``make_host_mesh``; ``device`` and process groups as
-    :func:`make_fft_mesh`'s. The LM server runs on 1 x 1 only
-    (``repro_torch.serve.engine``)."""
+    :func:`make_fft_mesh`'s: a mesh of more than one rank needs a
+    default process group of at least ``rows * cols`` ranks."""
     return _make_mesh({'data': rows, 'model': cols}, device, 'make_host_mesh')
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: Optional[str] = None) -> FFTMesh:
+    """The reference's production mesh: 16 x 16 ('data', 'model'), 256
+    ranks; ``multi_pod`` adds a leading 2-pod axis, (2, 16, 16) ('pod',
+    'data', 'model'), 512 ranks. Process groups as :func:`make_host_mesh`'s."""
+    if multi_pod:
+        return _make_mesh({'pod': 2, 'data': 16, 'model': 16}, device, 'make_production_mesh')
+    return _make_mesh({'data': 16, 'model': 16}, device, 'make_production_mesh')
 
 
 def _make_mesh(shape: Dict[str, int], device: Optional[str], who: str) -> FFTMesh:
@@ -168,6 +178,9 @@ def _make_mesh(shape: Dict[str, int], device: Optional[str], who: str) -> FFTMes
             raise RuntimeError(
                 f"{who}({_describe(shape)}) needs an initialised default "
                 "process group (torch.distributed.init_process_group)")
+        if dist.get_world_size() < math.prod(shape.values()):
+            raise RuntimeError(f"{who}({_describe(shape)}) needs {math.prod(shape.values())} "
+                               f"ranks; the process group has {dist.get_world_size()}")
         from torch.distributed.device_mesh import init_device_mesh
         dm = init_device_mesh(dev_type, tuple(shape.values()),
                               mesh_dim_names=tuple(shape))

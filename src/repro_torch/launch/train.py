@@ -8,7 +8,7 @@ Port of ``repro.launch.train``, with these differences:
 * ``--device cuda|cpu`` (default ``cuda``, which raises without a card)
   and ``--mesh RxC`` name the port's ('data', 'model') mesh where the
   reference took ``--devices`` (fake host devices). The port trains on
-  1x1; a larger mesh raises, naming ROADMAP queue 1 item 11g.
+  1x1; a larger mesh raises, naming ROADMAP queue 1 item 11i.
 * ``--seed`` seeds the parameters (a ``torch.Generator`` on the device)
   and the synthetic data (the reference's data seed is 0, the default).
 * ``--ckpt-dir`` defaults to ``repro_torch_ckpt`` under the temporary

@@ -1,11 +1,11 @@
 """Attention: flash-chunked GQA, sliding-window attention and MLA for
 full sequences, prefill and decode.
 
-Port of ``repro.models.attention``, except its Ulysses attention.
-``flash_attention`` is the reference's online-softmax algorithm in plain
-PyTorch: an outer loop over ``q_chunk`` query blocks, an inner loop over
-``chunk`` KV chunks, fp32 accumulators, GQA through a (kv_heads, group)
-head split so repeated KV is never materialized. Every masked block is
+Port of ``repro.models.attention``. ``flash_attention`` is the
+reference's online-softmax algorithm in plain PyTorch: an outer loop
+over ``q_chunk`` query blocks, an inner loop over ``chunk`` KV chunks,
+fp32 accumulators, GQA through a (kv_heads, group) head split so
+repeated KV is never materialized. Every masked block is
 computed in full, as in the reference (windowed attention too). The
 blocking conditions are the reference's: query blocks only when
 ``Sq > q_chunk`` and ``q_chunk`` divides ``Sq``, KV chunks only when
@@ -25,8 +25,20 @@ one, the normalized latent and the shared roped key of each token,
 written in place; each decode step decompresses the whole cache, as the
 reference's (no absorbed-weight decode).
 
-Sequence parallelism (``sp=True``, Ulysses) is not ported yet (ROADMAP
-queue 1 item 10).
+On a mesh (``par``, a :class:`repro_torch.parallel.Parallel` whose
+'model' group has several ranks) attention is tensor-parallel over
+heads: ``wq`` (and ``wk``/``wv`` where the kv heads divide the group)
+column-parallel, so each rank attends with its H/p query heads, ``wo``
+row-parallel and summed (``all_reduce``). Where the kv heads do not
+divide the group (MQA: recurrentgemma-9b's one kv head) ``wk``/``wv``
+are gathered at use, every rank computes all kv heads, its cache keeps
+them all, and it attends with the ones its query heads pair with. MLA
+shards ``wq_b``, ``wkv_b`` and ``wo`` by heads; its latent is computed
+whole. Decode caches are laid out by heads (each rank its kv heads),
+not by the reference's ``kv_seq``.
+
+Sequence parallelism (``sp=True``): :func:`ulysses_attention`, the
+reference's, on this rank's sequence block, through ``comm.swap_axes``.
 """
 from __future__ import annotations
 
@@ -35,17 +47,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import comm
+from repro_torch.comm import overlap as ov
 from repro_torch.core.fft1d import full_fp32_matmul
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
-
-
-def _no_sp(sp: bool) -> None:
-    if sp:
-        raise NotImplementedError(
-            'sequence-parallel (Ulysses) attention is not ported yet: it needs the '
-            'comm surface (ROADMAP queue 1 item 10), which goes with training')
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +135,72 @@ def _cache_pad(cache_cap: Optional[int], S: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Ulysses sequence parallelism (the FFT's ownership swap)
+# ---------------------------------------------------------------------------
+
+def ulysses_attention(q, k, v, mesh, *, seq_axis: str = 'model', causal: bool = True,
+                      window: int = 0, chunk: int = 1024, comm_strategy: str = 'all_to_all',
+                      overlap_chunks: int = 1) -> torch.Tensor:
+    """Attention over sequence-sharded activations: q, k, v are this
+    rank's (B, S/p, heads, D) sequence block over ``seq_axis``; so is the
+    result.
+
+    One ownership swap (``comm.swap_axes``, any registered
+    ``comm_strategy``) re-shards heads instead of sequence, attention
+    runs over the whole sequence with H/p heads, a second swap restores
+    the sequence blocks. KV heads that the group does not divide are
+    gathered over the sequence instead, and each rank attends with the
+    kv heads its query-head block pairs with (MQA/GQA fallback).
+    ``overlap_chunks > 1`` pipelines exchange, attention and exchange
+    over head groups where both H and KH divide ``overlap_chunks * p``."""
+    p = comm.group_size(mesh, seq_axis)
+    H, KH = q.shape[-2], k.shape[-2]
+    if H % p:
+        raise ValueError(f'{H} heads not divisible by SP degree {p}')
+    # 'auto' means the default schedule here, not cost selection
+    strategy = comm.resolve(comm_strategy)
+
+    def swap_in(t):    # seq (axis -3) sharded -> heads (axis -2) sharded
+        return strategy.swap_axes(t, mesh, seq_axis, shard_pos=t.ndim - 3, mem_pos=t.ndim - 2)
+
+    def swap_out(t):   # heads sharded -> seq sharded
+        return strategy.swap_axes(t, mesh, seq_axis, shard_pos=t.ndim - 2, mem_pos=t.ndim - 3)
+
+    if overlap_chunks > 1 and H % (overlap_chunks * p) == 0 and KH % (overlap_chunks * p) == 0:
+        # q, k, v chunked by the SAME head groups, so the positional GQA
+        # pairing inside each chunk is the global one
+        def stage(qc, kc, vc):
+            o = flash_attention(swap_in(qc), swap_in(kc), swap_in(vc), causal=causal,
+                                window=window, chunk=chunk)
+            return swap_out(o)
+        return ov.pipelined(overlap_chunks, q.ndim - 2, stage, q, k, v)
+    ql = swap_in(q)
+    if KH % p == 0:
+        kl, vl = swap_in(k), swap_in(v)
+    else:
+        # gather the sequence, then the kv head(s) this rank's contiguous
+        # q-head block maps to: pairing local q heads positionally with the
+        # gathered kv axis would scramble the GQA grouping
+        kl = comm.all_gather(k, mesh, seq_axis, k.ndim - 3)
+        vl = comm.all_gather(v, mesh, seq_axis, v.ndim - 3)
+        kl, vl = _kv_block(kl, vl, H, comm.group_index(mesh, seq_axis), p)
+    o = flash_attention(ql, kl, vl, causal=causal, window=window, chunk=chunk)
+    return swap_out(o)
+
+
+def _kv_block(k, v, H: int, index: int, p: int):
+    """The kv heads (axis -2 of every kv head) that query heads
+    ``[index H/p, (index+1) H/p)`` pair with."""
+    KH = k.shape[-2]
+    Hl, group = H // p, H // KH                 # local q heads; q heads a kv head
+    if Hl % group and group % Hl:
+        raise ValueError(f'q-head shard {Hl} incompatible with GQA group {group}')
+    count = max(1, Hl // group)
+    start = (index * Hl) // group
+    return k.narrow(-2, start, count), v.narrow(-2, start, count)
+
+
+# ---------------------------------------------------------------------------
 # GQA block (plan + apply)
 # ---------------------------------------------------------------------------
 
@@ -141,13 +214,37 @@ def gqa_plan(cfg) -> Dict:
     }
 
 
+def _kv_whole(par, cfg) -> bool:
+    """Whether this rank computes every kv head: the 'model' group does
+    not divide them (the reference's ``spec_for`` may still cut ``wk``'s
+    flattened column inside a head, so it is gathered at use)."""
+    return par is not None and cfg.num_kv_heads % par.tp != 0
+
+
+def _gqa_weights(p: Dict, cfg, par) -> Dict:
+    """The block's weights as this rank computes with them: its blocks,
+    with ``wk``/``wv`` gathered where it computes every kv head."""
+    if par is not None and cfg.num_heads % par.tp:
+        raise ValueError(f'{cfg.num_heads} heads not divisible by the model axis {par.tp}')
+    if not _kv_whole(par, cfg):
+        return p
+    d, n = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
+    out = dict(p)
+    for name in ('wk', 'wv'):
+        out[name] = {'w': par.whole(p[name]['w'], (d, n), ('embed', 'kv_heads'))}
+        if 'b' in p[name]:
+            out[name]['b'] = par.whole(p[name]['b'], (n,), ('kv_heads',))
+    return out
+
+
 def gqa_qkv(p: Dict, cfg, x, positions):
-    """Project + rope. x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KH,hd)."""
+    """Project + rope. x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KH,hd): the
+    heads of the weights given (a rank's blocks on a mesh)."""
     B, S, _ = x.shape
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = L.apply_linear(p['wq'], x).reshape(B, S, H, hd)
-    k = L.apply_linear(p['wk'], x).reshape(B, S, KH, hd)
-    v = L.apply_linear(p['wv'], x).reshape(B, S, KH, hd)
+    hd = cfg.head_dim
+    q = L.apply_linear(p['wq'], x).reshape(B, S, -1, hd)
+    k = L.apply_linear(p['wk'], x).reshape(B, S, -1, hd)
+    v = L.apply_linear(p['wv'], x).reshape(B, S, -1, hd)
     if cfg.pos_kind == 'mrope':
         q = L.apply_mrope(q, positions, theta=cfg.rope_theta, sections=cfg.mrope_sections)
         k = L.apply_mrope(k, positions, theta=cfg.rope_theta, sections=cfg.mrope_sections)
@@ -157,28 +254,72 @@ def gqa_qkv(p: Dict, cfg, x, positions):
     return q, k, v
 
 
-def gqa_apply(p: Dict, cfg, x, positions, *, window: int = 0, sp: bool = False):
+def _attend_kv(k, v, cfg, par):
+    """The kv heads this rank attends with: all it holds, or where it
+    holds every kv head on a mesh, those its query heads pair with."""
+    if not _kv_whole(par, cfg):
+        return k, v
+    return _kv_block(k, v, cfg.num_heads, par.tp_index, par.tp)
+
+
+def _out(p: Dict, o, par):
+    """The output projection of (B, S, heads, D): row-parallel on a mesh."""
+    B, S = o.shape[:2]
+    return L.row_parallel(o.reshape(B, S, -1), p['wo']['w'], par)
+
+
+def _gqa_sp(p: Dict, cfg, x, positions, *, window: int, par):
+    """``sp=True`` on a mesh: this rank's sequence block projected with
+    the whole (gathered) weights, :func:`ulysses_attention`, the output
+    projection, and the blocks gathered over the sequence. Returns the
+    output and the whole sequence's k, v (every kv head)."""
+    if x.shape[1] % par.tp:
+        raise ValueError(f'sequence {x.shape[1]} not divisible by SP degree {par.tp}')
+    whole = L.tree_map(lambda t, s: par.whole(t, s.shape, s.axes), p, gqa_plan(cfg))
+    xl = par.block(x, 1)
+    pos = None if positions is None else par.block(positions, positions.dim() - 1)
+    q, k, v = gqa_qkv(whole, cfg, xl, pos)
+    o = ulysses_attention(q, k, v, par.mesh, causal=cfg.causal, window=window,
+                          chunk=cfg.attn_chunk)
+    y = L.linear(o.reshape(o.shape[0], o.shape[1], -1), whole['wo']['w'])
+    return par.gather(y, 1), par.gather(k, 1), par.gather(v, 1)
+
+
+def _cache_heads(k, v, cfg, par):
+    """The kv heads a rank's cache keeps of every head's k, v: its block
+    where the group divides them, else all."""
+    if par is None or _kv_whole(par, cfg):
+        return k, v
+    return par.block(k, 2), par.block(v, 2)
+
+
+def gqa_apply(p: Dict, cfg, x, positions, *, window: int = 0, sp: bool = False, par=None):
     """Full-sequence (train/prefill) GQA attention."""
-    _no_sp(sp)
-    B, S, _ = x.shape
-    q, k, v = gqa_qkv(p, cfg, x, positions)
+    if sp and par is not None:
+        return _gqa_sp(p, cfg, x, positions, window=window, par=par)[0]
+    q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x, positions)
+    k, v = _attend_kv(k, v, cfg, par)
     o = flash_attention(q, k, v, causal=cfg.causal, window=window, chunk=cfg.attn_chunk)
-    return L.apply_linear(p['wo'], o.reshape(B, S, -1))
+    return _out(p, o, par)
 
 
 def gqa_prefill(p: Dict, cfg, x, positions, *, window: int = 0,
-                cache_cap: Optional[int] = None, sp: bool = False):
+                cache_cap: Optional[int] = None, sp: bool = False, par=None):
     """Full-sequence attention that also returns the decode cache, k and
     v in their own dtype. Dense (``window`` 0): zero-padded to
     ``cache_cap`` positions. Windowed: the ring cache of the last
     ``W = min(window, cache_cap)`` tokens, slot ``pos % W``, with their
     positions in ``kpos`` (-1 where a prompt shorter than W leaves a slot
-    empty)."""
-    _no_sp(sp)
+    empty). On a mesh the cache holds this rank's kv heads."""
     B, S, _ = x.shape
-    q, k, v = gqa_qkv(p, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=cfg.causal, window=window, chunk=cfg.attn_chunk)
-    out = L.apply_linear(p['wo'], o.reshape(B, S, -1))
+    if sp and par is not None:
+        out, k, v = _gqa_sp(p, cfg, x, positions, window=window, par=par)
+        k, v = _cache_heads(k, v, cfg, par)
+    else:
+        q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x, positions)
+        o = flash_attention(q, *_attend_kv(k, v, cfg, par), causal=cfg.causal, window=window,
+                            chunk=cfg.attn_chunk)
+        out = _out(p, o, par)
     if not window:
         pad = _cache_pad(cache_cap, S)
         return out, {'k': F.pad(k, (0, 0, 0, 0, 0, pad)), 'v': F.pad(v, (0, 0, 0, 0, 0, pad))}
@@ -201,7 +342,7 @@ def gqa_prefill(p: Dict, cfg, x, positions, *, window: int = 0,
     return out, cache
 
 
-def gqa_decode_ring(p: Dict, cfg, x, cache: Dict, cache_len: int, *, window: int):
+def gqa_decode_ring(p: Dict, cfg, x, cache: Dict, cache_len: int, *, window: int, par=None):
     """One-token decode against the sliding-window ring cache
     {'k', 'v': (B, W, KH, hd), 'kpos': (W,) int32}.
 
@@ -209,17 +350,18 @@ def gqa_decode_ring(p: Dict, cfg, x, cache: Dict, cache_len: int, *, window: int
     (the reference's engine donates its caches) and returns (out, cache)."""
     B = x.shape[0]
     W = cache['k'].shape[1]
-    q, k, v = gqa_qkv(p, cfg, x, torch.full((B, 1), cache_len, device=x.device))
+    q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x,
+                      torch.full((B, 1), cache_len, device=x.device))
     slot = cache_len % W
     cache['k'][:, slot] = k[:, 0]
     cache['v'][:, slot] = v[:, 0]
     cache['kpos'][slot] = cache_len
-    o = flash_attention(q, cache['k'], cache['v'], causal=True, window=window,
-                        q_offset=cache_len, kv_positions=cache['kpos'], chunk=W)
-    return L.apply_linear(p['wo'], o.reshape(B, 1, -1)), cache
+    o = flash_attention(q, *_attend_kv(cache['k'], cache['v'], cfg, par), causal=True,
+                        window=window, q_offset=cache_len, kv_positions=cache['kpos'], chunk=W)
+    return _out(p, o, par), cache
 
 
-def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int
+def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int, *, par=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B, 1, D); caches (B, S_max, KH, hd).
 
@@ -229,13 +371,14 @@ def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int
     all three position streams are ``cache_len``."""
     B = x.shape[0]
     shape = (3, B, 1) if cfg.pos_kind == 'mrope' else (B, 1)
-    q, k, v = gqa_qkv(p, cfg, x, torch.full(shape, cache_len, device=x.device))
+    q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x,
+                      torch.full(shape, cache_len, device=x.device))
     cache_k[:, cache_len] = k[:, 0]
     cache_v[:, cache_len] = v[:, 0]
     # single pass (chunk = the whole cache), as the reference
-    o = flash_attention(q, cache_k, cache_v, causal=True, q_offset=cache_len,
-                        kv_len=cache_len + 1, chunk=cache_k.shape[1])
-    return L.apply_linear(p['wo'], o.reshape(B, 1, -1)), cache_k, cache_v
+    o = flash_attention(q, *_attend_kv(cache_k, cache_v, cfg, par), causal=True,
+                        q_offset=cache_len, kv_len=cache_len + 1, chunk=cache_k.shape[1])
+    return _out(p, o, par), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +407,7 @@ def _mla_q(p: Dict, cfg, x, positions):
     B, S, _ = x.shape
     nh, rh = cfg.qk_nope_dim, cfg.rope_head_dim
     q = L.apply_linear(p['wq_b'], L.apply_norm(p['q_norm'], L.apply_linear(p['wq_a'], x)))
-    q = q.reshape(B, S, cfg.num_heads, nh + rh)
+    q = q.reshape(B, S, -1, nh + rh)            # a rank's heads on a mesh
     return torch.cat([q[..., :nh], L.apply_rope(q[..., nh:], positions, theta=cfg.rope_theta)],
                      dim=-1)
 
@@ -281,49 +424,58 @@ def _mla_latent(p: Dict, cfg, x, positions):
 
 def _mla_qkv_from_latent(p: Dict, cfg, latent, k_rope):
     """Keys (B, T, H, nh + rh) and values (B, T, H, vh) decompressed from
-    the latent (B, T, kvr) through ``wkv_b``, the shared roped key
-    (B, T, rh) broadcast to every head."""
+    the latent (B, T, kvr) through ``wkv_b`` (a rank's heads on a mesh),
+    the shared roped key (B, T, rh) broadcast to every head."""
     B, T = latent.shape[:2]
-    H, nh, rh, vh = cfg.num_heads, cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
-    kv = L.apply_linear(p['wkv_b'], latent).reshape(B, T, H, nh + vh)
+    nh, rh, vh = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
+    kv = L.apply_linear(p['wkv_b'], latent).reshape(B, T, -1, nh + vh)
+    H = kv.shape[2]
     k = torch.cat([kv[..., :nh], k_rope[:, :, None].to(kv.dtype).expand(B, T, H, rh)], dim=-1)
     return k, kv[..., nh:]
 
 
-def _mla_attend(p: Dict, cfg, q, latent, k_rope, **flash_kw):
+def _mla_attend(p: Dict, cfg, q, latent, k_rope, par=None, **flash_kw):
     """Causal attention of q over the decompressed latent; v is zero-padded
-    to the query's head width for ``flash_attention`` and sliced after."""
-    B, Sq, H, D = q.shape
+    to the query's head width for ``flash_attention`` and sliced after.
+    On a mesh each rank attends with its heads, ``wo`` row-parallel."""
+    D = q.shape[-1]
     vh = cfg.v_head_dim
     k, v = _mla_qkv_from_latent(p, cfg, latent, k_rope)
     if vh < D:
         v = F.pad(v, (0, D - vh))
     o = flash_attention(q, k, v, causal=True, **flash_kw)[..., :vh]
-    return L.apply_linear(p['wo'], o.reshape(B, Sq, H * vh))
+    return _out(p, o, par)
 
 
-def mla_apply(p: Dict, cfg, x, positions):
+def _mla_check(cfg, par) -> None:
+    if par is not None and cfg.num_heads % par.tp:
+        raise ValueError(f'{cfg.num_heads} heads not divisible by the model axis {par.tp}')
+
+
+def mla_apply(p: Dict, cfg, x, positions, *, par=None):
     """Full-sequence (train/prefill) MLA."""
+    _mla_check(cfg, par)
     q = _mla_q(p, cfg, x, positions)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
-    return _mla_attend(p, cfg, q, latent, k_rope, chunk=cfg.attn_chunk)
+    return _mla_attend(p, cfg, q, latent, k_rope, par, chunk=cfg.attn_chunk)
 
 
-def mla_prefill(p: Dict, cfg, x, positions, *, cache_cap: Optional[int] = None):
+def mla_prefill(p: Dict, cfg, x, positions, *, cache_cap: Optional[int] = None, par=None):
     """Full-sequence MLA that also returns the compressed decode cache
     {'latent': (B, cap, kvr), 'krope': (B, cap, rh)}, zero-padded to
     ``cache_cap`` positions (a cap under the prompt raises). The
     reference recomputes the latent for the cache; here one computation
     serves both."""
+    _mla_check(cfg, par)
     S = x.shape[1]
     pad = _cache_pad(cache_cap, S)
     q = _mla_q(p, cfg, x, positions)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
-    out = _mla_attend(p, cfg, q, latent, k_rope, chunk=cfg.attn_chunk)
+    out = _mla_attend(p, cfg, q, latent, k_rope, par, chunk=cfg.attn_chunk)
     return out, {'latent': F.pad(latent, (0, 0, 0, pad)), 'krope': F.pad(k_rope, (0, 0, 0, pad))}
 
 
-def mla_decode(p: Dict, cfg, x, cache_latent, cache_krope, cache_len: int):
+def mla_decode(p: Dict, cfg, x, cache_latent, cache_krope, cache_len: int, *, par=None):
     """One-token decode with the *compressed* cache: latents (B, S_max,
     kvr) and the roped shared key (B, S_max, rh). Writes the new token's
     at ``cache_len`` IN PLACE (as ``gqa_decode``) and decompresses the
@@ -335,6 +487,6 @@ def mla_decode(p: Dict, cfg, x, cache_latent, cache_krope, cache_len: int):
     latent, k_rope = _mla_latent(p, cfg, x, positions)
     cache_latent[:, cache_len] = latent[:, 0]
     cache_krope[:, cache_len] = k_rope[:, 0]
-    out = _mla_attend(p, cfg, q, cache_latent.to(x.dtype), cache_krope.to(x.dtype),
+    out = _mla_attend(p, cfg, q, cache_latent.to(x.dtype), cache_krope.to(x.dtype), par,
                       q_offset=cache_len, kv_len=cache_len + 1, chunk=cache_latent.shape[1])
     return out, cache_latent, cache_krope

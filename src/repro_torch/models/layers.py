@@ -90,10 +90,13 @@ def _normal(gen, shape, scale: float, dt) -> torch.Tensor:
     return out
 
 
-def _init_leaf(gen: torch.Generator, p: PSpec, dtype) -> torch.Tensor:
+def _init_leaf(gen: torch.Generator, p: PSpec, dtype, fan_in: Optional[int] = None
+               ) -> torch.Tensor:
     """One leaf drawn from ``gen`` on ``gen.device``, as the reference's
     ``_init_leaf`` draws it (another generator, the same distribution),
-    except the fan-in of a layer-stacked linear weight (below)."""
+    except the fan-in of a layer-stacked linear weight (below).
+    ``fan_in`` overrides the 'lin' fan-in (a shard of a leaf is drawn
+    with its whole leaf's)."""
     dt = p.dtype or dtype
     dev = gen.device
     if p.init == 'zeros':
@@ -111,7 +114,8 @@ def _init_leaf(gen: torch.Generator, p: PSpec, dtype) -> torch.Tensor:
         # scales every product by sqrt(d_in / L) (6.5x a linear layer in
         # mamba2-1.3b), and fp32 rounding then grows past the serve
         # contract's 2e-3 on the logits
-        fan_in = p.shape[-2] if len(p.shape) > 1 else p.shape[-1]
+        if fan_in is None:
+            fan_in = p.shape[-2] if len(p.shape) > 1 else p.shape[-1]
         return _normal(gen, p.shape, 1.0 / math.sqrt(max(fan_in, 1)), dt)
     if p.init == 'ssm_a':         # log(-A) ~ U[log 1, log 16]: Mamba2 A_log init
         return _uniform(gen, p.shape, math.log(1.0), math.log(16.0)).to(dt)
@@ -205,6 +209,14 @@ def apply_linear(p: Dict, x):
     return linear(x, p['w'], p.get('b'))
 
 
+def row_parallel(x, w, par=None):
+    """``x @ w`` where x's last axis and w's rows are this rank's block of
+    the 'model' group's: the partial products summed over the group
+    (``par.sum``, an ``all_reduce``); ``par`` None is one rank."""
+    y = linear(x, w)
+    return y if par is None else par.sum(y)
+
+
 def embed_plan(vocab: int, d: int) -> Dict:
     return {'table': PSpec((vocab, d), ('vocab', 'embed'), 'emb')}
 
@@ -215,6 +227,18 @@ def embed_lookup(p: Dict, ids):
     ``index_select``'s adds them with atomics, so a training step gives
     the same bits on every run."""
     return F.embedding(ids, p['table'])
+
+
+def embed_lookup_tp(p: Dict, ids, par):
+    """The vocab-parallel lookup: this rank holds rows ``[r V/p, (r+1) V/p)``
+    of the table; a token outside them looks up zeros, and the sum over
+    the 'model' group (``par.sum``) gives every rank its row (one
+    nonzero term: the bits of the whole table's)."""
+    n = p['table'].shape[0]
+    local = ids.long() - par.tp_index * n
+    inside = (local >= 0) & (local < n)
+    x = F.embedding(torch.where(inside, local, 0), p['table'])
+    return par.sum(x.masked_fill_(~inside[..., None], 0))
 
 
 def unembed(p: Dict, x):
@@ -275,14 +299,18 @@ def mlp_plan(d: int, d_ff: int, *, gated: bool = True) -> Dict:
             'wo': PSpec((d_ff, d), ('mlp', 'embed'))}
 
 
-def apply_mlp(p: Dict, x, *, act: str = 'silu'):
+def apply_mlp(p: Dict, x, *, act: str = 'silu', par=None):
+    """The MLP. With ``par`` (``parallel.Parallel``: a 'model' group of
+    several ranks) it is tensor-parallel: ``wi`` column-parallel, stored
+    as this rank's [gate block ‖ up block] when gated
+    (``weights.shard_params``), ``wo`` row-parallel, then ``all_reduce``."""
     h = linear(x, p['wi'])
     if p['wi'].shape[-1] == 2 * p['wo'].shape[0]:      # gated (SwiGLU/GeGLU)
         g, u = torch.chunk(h, 2, dim=-1)
         h = _act(g, act) * u
     else:
         h = _act(h, act)
-    return linear(h, p['wo'])
+    return row_parallel(h, p['wo'], par)
 
 
 def _act(x, name: str):

@@ -1,8 +1,8 @@
-"""Mixture-of-Experts FFN: top-k routing and capacity-bounded scatter
-dispatch, on one rank.
+"""Mixture-of-Experts FFN: top-k routing, capacity-bounded scatter
+dispatch, expert parallelism over the 'model' mesh axis.
 
 Port of ``repro.models.moe`` (``moe_plan``, ``capacity``, ``route``,
-``_dispatch_indices``, ``moe_apply``). Dispatch is *sort + scatter*:
+``_dispatch_indices``, ``moe_apply``, ``moe_ep_explicit``). Dispatch is *sort + scatter*:
 each batch row's (token, expert) pairs are sorted by expert (stable),
 and the first ``C`` pairs of an expert get its capacity slots; the rest
 go to one drop slot that is discarded. The expert buffer is laid out
@@ -16,9 +16,13 @@ and sums them over K in the order of the router's top-k, so the card's
 result is reproducible run to run; it agrees with the reference's
 within rounding (the reference sums a token's pairs in expert order).
 
-The expert-parallel path (``moe_ep_explicit``) and the sharding
-constraints (``use_gathered``) are not ported: they need the comm
-surface and the sharded server (ROADMAP queue 1 items 10 and 11g).
+On a mesh, :func:`moe_ep_explicit` is the reference's expert-parallel
+path: each rank holds E/ep experts, dispatches its tokens into an
+(E, C, d) buffer, swaps it over the EP axis (``comm.swap_axes``, the
+FFT's ownership swap) so each rank holds its experts' rows from every
+rank, multiplies, and swaps back; the combine is the gathered one above.
+The sharding constraints (``use_gathered``) have no counterpart: the
+port places every block explicitly.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import comm
+from repro_torch.comm import overlap as ov
 from repro_torch.core.fft1d import full_fp32_matmul
 from repro_torch.models import layers as L
 from repro_torch.models.layers import PSpec
@@ -112,11 +118,82 @@ def moe_apply(p: Dict, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     g, u = torch.chunk(h, 2, dim=-1)
     out = torch.bmm(F.silu(g) * u, p['wo'].to(x.dtype))             # (E, B * C, d)
     out = torch.cat([out.reshape(drop, d), out.new_zeros((1, d))])
-    ys = out[slot].reshape(B, S, K, d)
-    gk = gates.to(out.dtype)
-    y = ys[:, :, 0] * gk[..., 0, None]
-    for k in range(1, K):                      # a fixed order: the router's top-k
-        y = y + ys[:, :, k] * gk[..., k, None]
+    y = _combine(out[slot].reshape(B, S, K, d), gates.to(out.dtype))
     if 'shared' in p:
         y = y + L.apply_mlp(p['shared'], x)
+    return y, aux_loss(idx, probs, cfg)
+
+
+def _combine(ys, gates):
+    """(..., K, d) expert outputs and (..., K) gates -> (..., d), summed in
+    the router's top-k order (a fixed order)."""
+    y = ys[..., 0, :] * gates[..., 0, None]
+    for k in range(1, ys.shape[-2]):
+        y = y + ys[..., k, :] * gates[..., k, None]
+    return y
+
+
+def moe_ep_explicit(p: Dict, cfg, x, par, *, ep_axis: str = 'model',
+                    comm_strategy: str = 'all_to_all', overlap_chunks: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism with explicit swaps on ``par.mesh``
+    (``parallel.Parallel``; the reference takes the mesh). ``x``: this
+    rank's (B, S, d) tokens (its batch block, whole over ``ep_axis``);
+    ``p['wi']``, ``p['wo']``: its E/ep experts, whole over d_model (the
+    reference's FSDP gather of their d_model blocks, ``fsdp_axes``, comes
+    with the sharded trainer); the router and any shared experts as on
+    one rank (the shared MLP tensor-parallel over 'model').
+
+    As the reference: the sequence is sharded over the EP axis into the
+    dispatch where ep divides it and S > 1 (tokens arriving replicated
+    would make every EP rank dispatch identical copies), the capacity is
+    taken from the local tokens and rounded up to a multiple of ep, and
+    ``overlap_chunks > 1`` pipelines swap, expert products and swap over
+    capacity chunks where the capacity splits evenly (the capacity never
+    depends on the knob). Its drops differ from :func:`moe_apply`'s,
+    whose groups are batch rows. Returns (y (B, S, d) whole over the EP
+    axis, aux loss)."""
+    strategy, mesh = comm.resolve(comm_strategy), par.mesh
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    ep = comm.group_size(mesh, ep_axis)
+    if E % ep:
+        raise ValueError(f'{E} experts not divisible by the EP degree {ep}')
+    gates, idx, probs = route(p['router'], x, cfg)
+    seq_shard = S % ep == 0 and S > 1
+    xl, gl, il = x, gates.to(x.dtype), idx
+    if seq_shard:
+        n = S // ep
+        start = comm.group_index(mesh, ep_axis) * n
+        xl, gl, il = (t.narrow(1, start, n) for t in (xl, gl, il))
+    wi, wo = p['wi'], p['wo']
+    Bl, Sl = xl.shape[:2]
+    T = Bl * Sl
+    C = capacity(T, cfg)
+    C = -(-C // ep) * ep                       # divisible for the swap
+    chunks = overlap_chunks if C % max(1, overlap_chunks) == 0 else 1
+    order, dest, keep = _dispatch_indices(il.reshape(T, K), E, C)
+    # each (token, k) pair's slot in the (E * C + 1) buffer, in pair order
+    slot = torch.empty_like(dest).scatter_(0, order, dest)
+    buf = xl.new_zeros((E * C + 1, d))
+    buf[slot] = xl.reshape(T, 1, d).expand(T, K, d).reshape(T * K, d)
+    full_fp32_matmul(x.device)
+
+    def expert_ffn(bufc):
+        # E sharded, capacity gathered: split axis 0, concatenate axis 1
+        bufc = strategy.swap_axes(bufc, mesh, ep_axis, shard_pos=1, mem_pos=0)
+        h = torch.bmm(bufc, wi.to(bufc.dtype))
+        g, u = torch.chunk(h, 2, dim=-1)
+        o = torch.bmm(F.silu(g) * u, wo.to(bufc.dtype))
+        return strategy.swap_axes(o, mesh, ep_axis, shard_pos=0, mem_pos=1)   # (E, C, d)
+
+    # every capacity row is independent through the experts: the
+    # swap -> products -> swap pipeline chunks along capacity
+    out = ov.pipelined(chunks, 1, expert_ffn, buf[:E * C].view(E, C, d))
+    out = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
+    y = _combine(out[slot].reshape(Bl, Sl, K, d), gl.to(out.dtype))
+    if seq_shard:
+        y = comm.all_gather(y, mesh, ep_axis, 1)
+    if 'shared' in p:
+        y = y + L.apply_mlp(p['shared'], x, par=par)
     return y, aux_loss(idx, probs, cfg)

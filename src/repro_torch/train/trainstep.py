@@ -11,7 +11,7 @@ applied by :func:`repro_torch.train.optim.adamw_update` at the
 The reference constrains gradients to the parameters' shardings and
 jits the step with explicit shardings (``jit_train_step``); on one rank
 there is nothing to constrain. Sharded training is ROADMAP queue 1 item
-11g: a mesh of more than one rank raises here rather than train on one.
+11i: a mesh of more than one rank raises here rather than train on one.
 """
 from __future__ import annotations
 

@@ -651,18 +651,23 @@ def _serve_bench(mesh, n):
 
 
 def _grad_gather(mesh):
-    """A real rank-1 plan's forward gathers the spectrum, which has no
-    backward: asked for a gradient, it raises."""
-    p = fft.rplan((4096,), mesh, method='four_step')
-    x = mesh.shard(torch.as_tensor(operands((4096,), True, BATCH, 11), device=mesh.device),
-                   p.in_layout, batch_ndim=1)
-    try:
-        p.forward(x.requires_grad_())
-    except RuntimeError as e:
-        refused = 'not differentiable' in str(e)
-    else:
-        refused = False
-    return {'refused': refused, 'shape_ok': True, 'resolved': [p.comm]}
+    """A real rank-1 plan's forward gathers the spectrum: the gradient
+    of a loss of the whole spectrum (every rank's alike) through it
+    against the one-rank plan's, this rank's block of the operand."""
+    single = make_fft_mesh(1, 1, device=mesh.device.type)
+    x = torch.as_tensor(operands((4096,), True, BATCH, 11), device=mesh.device)
+    c = torch.as_tensor(np.random.default_rng(12).random((BATCH, 2049)).astype(np.float32),
+                        device=mesh.device)
+    grads = []
+    for m in (mesh, single):
+        p = fft.rplan((4096,), m, method='four_step')
+        xl = m.shard(x, p.in_layout, batch_ndim=1).requires_grad_()
+        g, = torch.autograd.grad((c * p.forward(xl).abs() ** 2).sum(), xl)
+        grads.append((g, p))
+    (g, p), (want, _) = grads
+    return {'l2_gather': _l2(g, mesh.shard(want, p.in_layout, batch_ndim=1)),
+            'refused': False, 'shape_ok': g.shape == (BATCH, 4096 // mesh.size),
+            'resolved': [p.comm]}
 
 
 def _suite(mesh, single, mesh_name: str, suite: str, refs=None, serve_n=0) -> dict:

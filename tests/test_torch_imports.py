@@ -94,3 +94,24 @@ def test_the_check_sees_the_trainer():
     for name in ('torch_train_lm.py', 'torch_fftconv_lm.py', 'torch_serve_batched.py'):
         bad = [m for m in _imported(ROOT / 'examples' / name) if m.split('.')[0] in BANNED]
         assert not bad, f"examples/{name} imports {bad}"
+
+
+def test_the_check_sees_the_sharded_server():
+    """The comm surface, the sharding rules and the sharded server's
+    modules are under the check, and importing them in a fresh
+    interpreter loads no jax and no ``repro`` module."""
+    import subprocess
+    import sys
+    port = ROOT / 'src' / 'repro_torch'
+    rel = {str(p.relative_to(port)) for p in FILES if port in p.parents}
+    assert {'comm/__init__.py', 'comm/strategies.py', 'parallel/__init__.py',
+            'parallel/sharding.py', 'serve/engine.py', 'models/moe.py', 'weights.py'} <= rel
+    code = ("import sys; sys.path.insert(0, 'src'); import repro_torch.comm, "
+            "repro_torch.parallel, repro_torch.serve.engine, repro_torch.weights, "
+            "repro_torch.models.moe, repro_torch.configs; "
+            "bad = sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -144,13 +144,17 @@ def test_gqa_decode_writes_the_cache_in_place():
 
 
 def test_sequence_parallel_attention_is_not_ported():
+    """Sequence parallelism is ported (Ulysses on a mesh,
+    ``tests/test_torch_lm_sharded.py``); on one rank, with no mesh,
+    ``sp=True`` is the plain attention, as the reference's."""
     cfg = _cfg()
     p, _ = _params(cfg)
-    x = torch.zeros((1, 4, cfg.d_model))
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(3))
     pos = torch.arange(4)[None]
-    for fn in (A.gqa_apply, A.gqa_prefill):
-        with pytest.raises(NotImplementedError, match='item 10'):
-            fn(p, cfg, x, pos, sp=True)
+    assert torch.equal(A.gqa_apply(p, cfg, x, pos, sp=True), A.gqa_apply(p, cfg, x, pos))
+    out, cache = A.gqa_prefill(p, cfg, x, pos, sp=True)
+    want, wcache = A.gqa_prefill(p, cfg, x, pos)
+    assert torch.equal(out, want) and torch.equal(cache['k'], wcache['k'])
 
 
 # ---------------------------------------------------------------------------

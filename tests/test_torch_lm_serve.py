@@ -38,7 +38,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.models.layers import tree_map
 from repro_torch.serve import ServeEngine
-from repro_torch.serve.engine import require_one_rank
+from repro_torch.launch.mesh import require_one_rank
 from repro_torch.weights import params_to_reference
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -145,7 +145,11 @@ def test_engine_validates_its_inputs():
 @pytest.mark.parametrize('shape', [{'data': 2, 'model': 2}, {'data': 1, 'model': 4},
                                    {'data': 2, 'model': 1}])
 def test_a_mesh_of_several_ranks_raises(shape):
-    with pytest.raises(ValueError, match='item 11g'):
+    """The server builds on a mesh of several ranks (its steps and specs
+    need no process group until they run: ``tests/test_torch_lm_sharded.py``
+    runs them); the trainer still refuses one, naming the sharded
+    trainer's item."""
+    with pytest.raises(ValueError, match='item 11i'):
         require_one_rank(shape)
 
     class Mesh4:
@@ -153,8 +157,11 @@ def test_a_mesh_of_several_ranks_raises(shape):
 
     Mesh4.shape = shape
     cfg = smoke_config(get_config('internlm2-1.8b'))
+    eng = ServeEngine(cfg, Mesh4(), {}, batch=4, prompt_len=8, max_len=12)
+    assert eng.mesh.shape == shape and eng.batch == 4
+    from repro_torch.train import make_train_step
     with pytest.raises(ValueError, match='1x1 mesh only'):
-        ServeEngine(cfg, Mesh4(), {}, batch=1, prompt_len=1, max_len=2)
+        make_train_step(cfg, Mesh4())
 
 
 def test_cuda_without_a_card_raises():
@@ -185,7 +192,8 @@ def test_launcher_on_the_cpu(arch):
 
 def test_launcher_refuses_what_it_cannot_serve():
     proc = _launch('--arch', 'internlm2-1.8b', '--device', 'cpu', '--mesh', '2x2')
-    assert proc.returncode != 0 and 'item 11g' in proc.stderr
+    assert proc.returncode != 0
+    assert 'python -m torch.distributed.run --standalone --nproc-per-node 4' in proc.stderr
     proc = _launch('--arch', 'dbrx-132b', '--device', 'cpu')      # ported (11d)
     assert proc.returncode == 0 and proc.stdout.startswith('[serve] arch=dbrx-132b ')
     proc = _launch('--arch', 'hubert-xlarge', '--device', 'cpu')
@@ -193,6 +201,26 @@ def test_launcher_refuses_what_it_cannot_serve():
     if not torch.cuda.is_available():
         proc = _launch('--arch', 'internlm2-1.8b')
         assert proc.returncode != 0 and 'no CUDA device' in proc.stderr
+
+
+@pytest.mark.parametrize('arch', ['internlm2-1.8b', 'recurrentgemma-9b'])
+def test_launcher_under_torch_distributed_run(arch):
+    """``--mesh 2x2`` under ``torch.distributed.run``: four gloo ranks,
+    rank 0 prints, and the first row is the 1x1 run's (the same seeded
+    weights, cut to each rank's blocks; recurrentgemma-9b's one kv head
+    and RG-LRU weights gathered at use)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, 'src'))
+    args = ['--arch', arch, '--device', 'cpu', '--batch', '4', '--prompt-len', '8',
+            '--gen', '4']
+    proc = subprocess.run([sys.executable, '-m', 'torch.distributed.run', '--standalone',
+                           '--nproc-per-node', '4', '-m', 'repro_torch.launch.serve',
+                           '--mesh', '2x2', *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('[serve]')]
+    assert len(lines) == 2 and lines[0].endswith(' mesh=2x2')
+    one = _launch(*args)
+    assert one.returncode == 0 and one.stdout.splitlines()[1] == lines[1]
 
 
 @pytest.mark.parametrize('arch', ['recurrentgemma-9b', 'qwen2-vl-2b', 'mamba2-1.3b',
