@@ -3,7 +3,7 @@
 Run from the root of a checkout, on a machine with four cards:
 
     python3 benchmarks/torch_multirank_cuda.py [--out build/multirank_cuda]
-        [--suite base|strategies|pod|op|serve|lm ...] [--lm-rows ARCH:DTYPE[:LAYERS] ...]
+        [--suite base|strategies|pod|op|serve|lm|train ...] [--lm-rows ARCH:DTYPE[:LAYERS] ...]
 
 It builds the CUDA kernels once, runs ``tests/_torch_multirank_worker.py``
 with ``cuda`` (four NCCL ranks, one card each, so every pencil runs the
@@ -64,7 +64,7 @@ def main() -> None:
     ap.add_argument('--out', default=os.path.join(ROOT, 'build', 'multirank_cuda'),
                     help='directory of the per-run JSON records')
     ap.add_argument('--suite', nargs='+', default=None,
-                    choices=('base', 'strategies', 'pod', 'op', 'serve', 'lm'),
+                    choices=('base', 'strategies', 'pod', 'op', 'serve', 'lm', 'train'),
                     help='run only these suites')
     ap.add_argument('--lm-rows', nargs='+', default=None,
                     help='the lm suite: only these rows (arch:dtype[:layers])')
@@ -77,7 +77,7 @@ def main() -> None:
     for c in cards:
         print(f"[card] {c}", flush=True)
     if not args.suite or set(args.suite) - {'lm'}:
-        _build.build()       # once, before the ranks start (the LM path runs no kernel)
+        _build.build()       # once, before the ranks start (the LM server runs no kernel)
     os.makedirs(args.out, exist_ok=True)
     passed = total = 0
     runs = (('2x2', 'base', 1), ('2x2', 'strategies', 1), ('1x4', 'strategies', 1),
@@ -112,6 +112,9 @@ def main() -> None:
                 continue
             total += 1
             passed += _lm_rows(args.out, mesh, args.lm_rows)
+    if args.suite and 'train' in args.suite:
+        ok, n = _train_rows(args.out)
+        passed, total = passed + ok, total + n
     print(f"[multirank] cuda: {passed} of {total} cases passed", flush=True)
     if passed != total:
         sys.exit(1)
@@ -139,6 +142,47 @@ def _lm_rows(out_dir: str, mesh: str, only=None) -> int:
         print(f"[case] {mesh} lm/{r['arch']} {'passed' if ok else 'FAILED'} {json.dumps(r)}",
               flush=True)
     return int(ok)
+
+
+#: recurrentgemma-9b's 2 x 2 run against its 1 x 4 run: each step's loss
+#: and grad norm, relative
+TRAIN_MESH_REL = 1e-5
+
+
+def _train_rows(out_dir: str) -> tuple:
+    """The worker's ``trainbench`` rows on 2 x 2, then 1 x 4: (cases
+    passed, cases). A mesh's run is a case (the worker raises where a row
+    misses its checks), and so is recurrentgemma-9b's 2 x 2 run against
+    its 1 x 4 run."""
+    rows, passed = {}, 0
+    for mesh in lm_worker.TRAIN_BENCH_ROWS:
+        out = os.path.join(out_dir, f'train_{mesh}.json')
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            port = s.getsockname()[1]
+        proc = subprocess.run([sys.executable,
+                               os.path.join(TESTS, '_torch_lm_multirank_worker.py'), out,
+                               str(port), 'cuda', '--mesh', mesh, '--suite', 'trainbench'],
+                              timeout=1500)
+        if proc.returncode != 0:
+            print(f"[case] {mesh} train FAILED: the worker exited {proc.returncode}",
+                  flush=True)
+            continue
+        with open(out) as fh:
+            rows[mesh] = {r['arch']: r for r in json.load(fh)}
+        passed += 1
+        for r in rows[mesh].values():
+            print(f"[case] {mesh} train/{r['arch']} passed {json.dumps(r)}", flush=True)
+    try:
+        a, b = rows['2x2']['recurrentgemma-9b'], rows['1x4']['recurrentgemma-9b']
+        gaps = {k: max(abs(x - y) / abs(y) for x, y in zip(a[k], b[k]))
+                for k in ('loss', 'grad_norm')}
+        ok = all(v <= TRAIN_MESH_REL for v in gaps.values())
+    except KeyError:
+        gaps, ok = 'a mesh did not run', False
+    print(f"[case] train/recurrentgemma-9b 2x2_vs_1x4 {'passed' if ok else 'FAILED'} "
+          f"{json.dumps(gaps)} tol={TRAIN_MESH_REL}", flush=True)
+    return passed + int(ok), len(lm_worker.TRAIN_BENCH_ROWS) + 1
 
 
 def _checks(mesh: str, suite: str):

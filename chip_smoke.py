@@ -109,8 +109,9 @@ Phases, each printing one line and raising on any failure:
    metrics, a drained close, and the launcher's ``--smoke``;
 13. ``[grad]``: every kernel refuses an operand that requires grad;
 14. ``[lm]``: the language-model server (``ServeEngine``) at full width
-   in fp32, parameters from a seeded generator on the card, 64 new
-   tokens after each prompt: internlm2-1.8b and mamba2-1.3b (8
+   in fp32, parameters drawn on the card by ``weights.draw_params``
+   (seeded, as the launcher draws them), 64 new tokens after each
+   prompt: internlm2-1.8b and mamba2-1.3b (8
    prompts of 2048 tokens), recurrentgemma-9b (RG-LRU and local
    attention, 4 prompts of 4096, twice its 2048-token window: prefill
    masks the window and folds the ring cache, decode writes across it),
@@ -156,7 +157,9 @@ Phases, each printing one line and raising on any failure:
 15. ``[train]``: ``fft_pencil`` and ``fft_matmul`` at the train path's
    shapes against their plain versions (524,288 pencils of 32 and
    270,336 of 64, with times, listed under ``train`` in the ``kernels``
-   line); then the trainer (``make_train_step``) at full width in fp32,
+   line); then the trainer (``make_train_step`` on a 1 x 1 mesh: the
+   sharded trainer's step under the train rules, which on one rank runs
+   every operation of the one-rank step) at full width in fp32,
    TF32 off, after freeing what earlier phases hold (``base_gib``):
    internlm2-1.8b and hubert-xlarge (embeds-mode batches; remat, 8 x
    2048 tokens in 2 microbatches, 4 steps at the default schedule,
@@ -175,7 +178,10 @@ Phases, each printing one line and raising on any failure:
    (relative L2 <= 1e-5), timed beside both; one step at smoke size on
    the card against one on the CPU for internlm2, mamba2, hubert-xlarge
    and the fftconv model (ce, grad norm, parameters and moments, relative
-   <= 1e-5); ``python -m repro_torch.launch.train --arch mamba2-1.3b
+   <= 1e-5); ``mesh=1x1 path=sharded``: internlm2-1.8b at full width
+   and ``TRAIN_BITWISE_LAYERS`` layers, two steps of the step on a 1 x 1
+   mesh against two of the step without a mesh (no rules), the losses
+   and every parameter bitwise; ``python -m repro_torch.launch.train --arch mamba2-1.3b
    --steps 20 --ckpt-every 5 --fail-at 13`` as a subprocess beside an
    uninterrupted run (``restarts=1``, the final checkpoints equal
    byte for byte); and ``examples/torch_fftconv_lm.py`` as a subprocess
@@ -231,7 +237,7 @@ from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.parallel import make_rules  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.engine import make_decode_step, make_prefill_step  # noqa: E402
-from repro_torch.weights import shard_params  # noqa: E402
+from repro_torch.weights import draw_params, shard_params  # noqa: E402
 
 N = 512
 SEED = 0
@@ -674,7 +680,10 @@ def profile(fn, sums: dict = None) -> dict:
     """One call under ``torch.profiler``: device time per kernel, the
     device's busy time and its idle share of the call's wall time (the
     profiler's own overhead is in the wall time); ``sums`` names the
-    kernels (a regex each) whose device time is also added up."""
+    kernels (a regex each) whose device time is also added up. Only
+    kernels and copies count: the device-side spans of annotations (a
+    collective's ``nccl:all_reduce`` beside its ``ncclDevKernel_*``)
+    would count their kernels' time twice."""
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -685,7 +694,9 @@ def profile(fn, sums: dict = None) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, 'is_user_annotation', False)
+                and not e.key.startswith('nccl:')):
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
     busy_us = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -1861,8 +1872,8 @@ def lm_serve(arch: str) -> list:
     dtype = LM_DTYPE.get(arch, torch.float32)
     B, S = LM_SHAPES[arch]
     base = torch.cuda.memory_allocated()     # what earlier phases still hold
-    gen = torch.Generator(device='cuda').manual_seed(SEED)
-    params = lm_model.init_params(gen, cfg, dtype)
+    one = make_host_mesh(1, 1)               # the weights the launcher draws
+    params = draw_params(SEED, cfg, dtype, make_rules(one, mode='serve'), one)
     n = sum(t.numel() for t in tree_leaves(params))
     if n != lm_model.param_count(cfg):
         raise AssertionError(f"lm {arch}: {n} parameters, the plan counts "
@@ -2047,6 +2058,9 @@ FFTCONV_GRAD_REL = 1e-5
 #: the first AdamW step's sign-like moves stay small)
 TRAIN_CPU_REL = 1e-5
 TRAIN_CPU_LR = dict(peak_lr=1e-3, warmup_steps=5, total_steps=100)
+#: the depth of the bitwise check of the step on a 1 x 1 mesh (the train
+#: rules) against the step without rules
+TRAIN_BITWISE_LAYERS = 2
 
 
 def kernels_train(gen) -> dict:
@@ -2294,6 +2308,44 @@ def train_cpu_check(arch: str, seq: int) -> None:
         **{k: f"{v:.3g}" for k, v in errs.items()})
 
 
+def train_sharded_1x1() -> None:
+    """The sharded trainer's step on a 1 x 1 mesh (``make_train_step(cfg,
+    make_host_mesh(1, 1))``, the train rules) against the step without
+    rules (``mesh=None``): internlm2-1.8b at full width and
+    ``TRAIN_BITWISE_LAYERS`` layers, two steps of the phase's batch in its
+    microbatches from the same parameters; each step's loss and every
+    parameter and moment after them must be bitwise equal."""
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.trainstep import make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_BITWISE_LAYERS)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    t0 = time.perf_counter()
+    runs = []
+    for mesh in (make_host_mesh(1, 1), None):
+        params = lm_model.init_params(torch.Generator(device='cuda').manual_seed(SEED), cfg,
+                                      torch.float32)
+        opt = adamw_init(params)
+        step = make_train_step(cfg, mesh, microbatches=TRAIN_MICRO, param_dtype=torch.float32)
+        losses = []
+        for i in range(2):
+            params, opt, m = step(params, opt, shard_batch(data.batch_at(i), 'cuda'))
+            losses.append(m['loss'])
+        runs.append((torch.stack(losses), params, opt))
+        del params, opt
+    (la, pa, oa), (lb, pb, ob) = runs
+    same = bool(torch.equal(la, lb)) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves({'p': pa, 'm': oa['m'], 'v': oa['v']}),
+                                           tree_leaves({'p': pb, 'm': ob['m'], 'v': ob['v']})))
+    if not same:
+        raise AssertionError("train: the step on a 1x1 mesh differs from the step without "
+                             "rules")
+    say('train', mesh='1x1', path='sharded', bitwise_vs_one_rank=True,
+        layers=cfg.num_layers, steps=2, loss=json.dumps([round(float(v), 6) for v in la]),
+        seconds=f"{time.perf_counter() - t0:.3g}")
+    del runs, pa, oa, pb, ob
+
+
 def _run(cmd: list, timeout: int) -> subprocess.CompletedProcess:
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
                           env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, 'src')))
@@ -2358,6 +2410,9 @@ def phase_train(gen) -> tuple:
     for arch, seq in (('internlm2-1.8b', 64), ('mamba2-1.3b', 64), (ENCODE_ARCH, 64),
                       ('fftconv', TRAIN_SEQ)):
         train_cpu_check(arch, seq)
+    _free_card()
+    train_sharded_1x1()
+    _free_card()
     train_launcher_restart()
     t1 = time.perf_counter()
     ex = _run([sys.executable, os.path.join('examples', 'torch_fftconv_lm.py')], 600)

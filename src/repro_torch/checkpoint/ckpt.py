@@ -1,7 +1,8 @@
-"""Checkpoints: atomic manifests, async writes, restore onto a device.
+"""Checkpoints: atomic manifests, async writes, sharded saves, restore
+onto a device and reshard on load.
 
-Port of ``repro.checkpoint.ckpt``, with the reference's directory
-layout, so either package restores the other's checkpoint:
+Port of ``repro.checkpoint.ckpt``. A one-rank checkpoint has the
+reference's directory layout, so either package restores the other's:
 
     <dir>/step_<n>.tmp/...  ->  rename  ->  <dir>/step_<n>/
       flat_<i>.npy    leaf i in sorted-key order, a flat uint8 view of
@@ -9,12 +10,26 @@ layout, so either package restores the other's checkpoint:
       manifest.json   {step, num_leaves, treedef, leaves: [{shape, dtype}]}
 
 ``treedef`` is a description for readers; restore takes the structure
-from ``like``. One rank holds every leaf whole, as the reference's
-single-host container does.
+from ``like``.
+
+A sharded run (a mesh of several ranks, each leaf's cut given as
+``weights.Cut``) writes per-block files, as the reference says a fleet
+does (its single-host container writes the gathered leaf): every rank
+writes the blocks it is the first holder of, ``flat_<i>.<b>.npy`` with
+``b`` the block's index under the leaf's spec (``sharding.shard_index``),
+and after a barrier rank 0 writes the manifest, now with the mesh's
+extents and each leaf's global shape, spec and whether it is a gated
+``wi`` stored as [gate block ‖ up block], and renames the directory
+(atomic). Restore joins a leaf's blocks on the host and cuts the
+target rank's block under the target mesh's cut: a checkpoint restores
+onto any mesh (the reference's reshard-on-load), a one-rank
+checkpoint included, and onto one rank whole.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import queue
 import shutil
@@ -58,9 +73,66 @@ def _treedef(tree) -> str:
     return '*'
 
 
-def save_checkpoint(path: str, step: int, tree: Any) -> str:
+def _mesh_axes(spec) -> set:
+    out = set()
+    for ma in spec:
+        if ma is not None:
+            out.update((ma,) if isinstance(ma, str) else ma)
+    return out
+
+
+def _first_holder(spec, mesh) -> bool:
+    """Whether this rank is the first of the ranks that hold its block:
+    coordinate 0 on every mesh axis the spec does not cut."""
+    used = _mesh_axes(spec)
+    return all(c == 0 for a, c in mesh.coordinate.items() if a not in used)
+
+
+def _save_sharded(path: str, step: int, tree: Any, cuts: Any, mesh) -> str:
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import shard_index
+    final = os.path.join(path, f'step_{step:08d}')
+    tmp = final + '.tmp'
+    rank0 = dist.get_rank() == 0
+    if rank0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+    dist.barrier()
+    leaves, cut_leaves = tree_leaves(tree), tree_leaves(cuts)
+    if len(cut_leaves) != len(leaves):
+        raise ValueError(f'{len(leaves)} leaves, {len(cut_leaves)} cuts')
+    for i, (leaf, cut) in enumerate(zip(leaves, cut_leaves)):
+        if _first_holder(cut.spec, mesh):
+            np.save(os.path.join(tmp, f'flat_{i}.{shard_index(cut.spec, mesh)}.npy'),
+                    _raw(leaf.detach().cpu()))
+    dist.barrier()
+    if rank0:
+        meta = {'step': step, 'num_leaves': len(leaves), 'treedef': _treedef(tree),
+                'mesh': dict(mesh.shape),
+                'leaves': [{'shape': list(cut.shape), 'dtype': _NAMES[leaf.dtype],
+                            'spec': [list(ma) if isinstance(ma, tuple) else ma
+                                     for ma in cut.spec], 'gated': cut.gated}
+                           for leaf, cut in zip(leaves, cut_leaves)]}
+        with open(os.path.join(tmp, 'manifest.json'), 'w') as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)          # atomic publish
+    dist.barrier()
+    return final
+
+
+def save_checkpoint(path: str, step: int, tree: Any, *, cuts: Any = None, mesh=None) -> str:
     """Blocking save of a tree of tensors (any device). Returns the
-    final directory."""
+    final directory. With ``mesh`` of several ranks, ``tree`` is this
+    rank's blocks and ``cuts`` their twin tree of ``weights.Cut``: a
+    sharded save, a collective every rank calls."""
+    if mesh is not None and mesh.size > 1:
+        if cuts is None:
+            raise ValueError('a sharded save needs each leaf\'s cut')
+        return _save_sharded(path, step, tree, cuts, mesh)
     final = os.path.join(path, f'step_{step:08d}')
     tmp = final + '.tmp'
     if os.path.exists(tmp):
@@ -87,10 +159,43 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(path: str, step: int, like: Any, device=None) -> Any:
+def _join(d: str, i: int, lm: dict, mesh_shape: dict) -> torch.Tensor:
+    """Leaf ``i`` whole from its block files under its saved spec."""
+    spec = [tuple(ma) if isinstance(ma, list) else ma for ma in lm['spec']]
+    spec += [None] * (len(lm['shape']) - len(spec))
+    sizes = [1 if ma is None else math.prod(mesh_shape[a] for a in
+                                            ((ma,) if isinstance(ma, str) else ma))
+             for ma in spec]
+    shape = tuple(lm['shape'])
+    whole = torch.empty(shape, dtype=_DTYPES[lm['dtype']])
+    local = tuple(n // p for n, p in zip(shape, sizes))
+    cut = [d_ for d_, p in enumerate(sizes) if p > 1]
+    for b, coords in enumerate(itertools.product(*(range(sizes[d_]) for d_ in cut))):
+        # a block's index: row-major over the cut dimensions (shard_index)
+        blk = _load_leaf(os.path.join(d, f'flat_{i}.{b}.npy'), local, lm['dtype'])
+        where = [slice(None)] * len(shape)
+        for d_, r in zip(cut, coords):
+            where[d_] = slice(r * local[d_], (r + 1) * local[d_])
+        if lm['gated'] and cut and cut[-1] == len(shape) - 1:
+            r, n, f = coords[-1], local[-1] // 2, shape[-1] // 2
+            for part, off in ((blk[..., :n], 0), (blk[..., n:], f)):
+                where[-1] = slice(off + r * n, off + (r + 1) * n)
+                whole[tuple(where)] = part
+        else:
+            whole[tuple(where)] = blk
+    return whole
+
+
+def restore_checkpoint(path: str, step: int, like: Any, device=None, *, cuts: Any = None,
+                       mesh=None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors, meta
     tensors included): new tensors of each ``like`` leaf's dtype, on
-    ``device`` or else on that leaf's device."""
+    ``device`` or else on that leaf's device. A sharded checkpoint's
+    leaves are joined whole on the host; with ``mesh`` of several ranks
+    and ``cuts`` (``weights.Cut`` of each leaf under the target mesh's
+    rules) each is cut to this rank's block, ``like`` holding the blocks'
+    shapes."""
+    from repro_torch.weights import block_of
     d = os.path.join(path, f'step_{step:08d}')
     with open(os.path.join(d, 'manifest.json')) as f:
         meta = json.load(f)
@@ -98,12 +203,20 @@ def restore_checkpoint(path: str, step: int, like: Any, device=None) -> Any:
     if meta['num_leaves'] != n:
         raise ValueError(f"checkpoint {d} holds {meta['num_leaves']} leaves, the "
                          f"structure to restore has {n}")
+    target = tree_leaves(cuts) if (mesh is not None and mesh.size > 1) else None
+    if target is not None and len(target) != n:
+        raise ValueError(f'{n} leaves to restore, {len(target)} cuts')
     it = iter(range(n))
 
     def load(lk: torch.Tensor) -> torch.Tensor:
         i = next(it)
         lm = meta['leaves'][i]
-        t = _load_leaf(os.path.join(d, f'flat_{i}.npy'), lm['shape'], lm['dtype'])
+        if 'mesh' in meta:
+            t = _join(d, i, lm, meta['mesh'])
+        else:
+            t = _load_leaf(os.path.join(d, f'flat_{i}.npy'), lm['shape'], lm['dtype'])
+        if target is not None:
+            t = block_of(t, target[i], mesh)
         if tuple(t.shape) != tuple(lk.shape):
             raise ValueError(f"leaf {i} of {d} has shape {tuple(t.shape)}, the "
                              f"structure to restore {tuple(lk.shape)}")

@@ -5,8 +5,9 @@
 Port of ``repro.comm``. The module-level helpers below run on this
 rank's local blocks, as the reference's run inside ``shard_map``; where
 the reference reads the mesh from the ``shard_map`` context, they take
-it as an argument. ``all_gather`` and ``all_reduce`` are the language
-models' tensor-parallel collectives.
+it as an argument. ``all_gather``, ``all_reduce``, ``reduce_scatter``
+and ``enter`` are the language models' tensor- and data-parallel
+collectives.
 """
 from __future__ import annotations
 
@@ -20,10 +21,12 @@ from repro_torch.comm.strategies import (  # noqa: F401  (re-exported API)
     all_gather,
     all_reduce,
     axis_tuple,
+    enter,
     get,
     group_index,
     group_size,
     names,
+    reduce_scatter,
     register,
     resolve,
     validate,
@@ -70,6 +73,6 @@ def pod_fold(x: torch.Tensor, mesh, pod_axis: str, batch_pos: int = 0) -> torch.
 
 __all__ = [
     'DEFAULT_STRATEGY', 'Strategy', 'all_gather', 'all_reduce', 'apply_swap', 'axis_tuple',
-    'cost', 'get', 'group_index', 'group_size', 'names', 'overlap', 'pod_fold',
-    'redistribute', 'register', 'resolve', 'strategies', 'swap_axes', 'validate',
+    'cost', 'enter', 'get', 'group_index', 'group_size', 'names', 'overlap', 'pod_fold',
+    'redistribute', 'reduce_scatter', 'register', 'resolve', 'strategies', 'swap_axes', 'validate',
 ]

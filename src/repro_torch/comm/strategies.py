@@ -180,8 +180,16 @@ class _Swapped(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Gather and sum over a group (the LM stack's tensor-parallel collectives)
+# Gather, sum and reduce-scatter over a group (the language models'
+# tensor- and data-parallel collectives)
 # ---------------------------------------------------------------------------
+#
+# Each collective's backward follows from how the ranks of the group use
+# its result. A result every rank uses alike (the same computation on
+# the same data) has the same, complete cotangent on every rank; a
+# result the ranks use apart (each on its own batch block, or each with
+# its own heads) has a partial cotangent on each rank, and the group's
+# sum of them is the whole.
 
 def _gather(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int) -> torch.Tensor:
     pg, members = mesh.group(mesh_axis)
@@ -191,10 +199,20 @@ def _gather(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int) -> torch.Tenso
     return torch.cat([got[by_rank.index(r)] for r in members], dim)
 
 
+def _reduce_scatter(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int) -> torch.Tensor:
+    pg, members = mesh.group(mesh_axis)
+    by_rank = dist.get_process_group_ranks(pg)
+    blocks = x.chunk(len(members), dim)
+    # reduce_scatter_tensor hands group rank i the i-th block of dim 0
+    send = torch.cat([blocks[members.index(r)].movedim(dim, 0) for r in by_rank]).contiguous()
+    out = send.new_empty((send.shape[0] // len(members),) + tuple(send.shape[1:]))
+    dist.reduce_scatter_tensor(out, send, group=pg)
+    return out.movedim(0, dim)
+
+
 class _Gathered(torch.autograd.Function):
-    """An all-gather as autograd sees it: the gathered tensor is used
-    alike on every rank (replicated), so the cotangent of this rank's
-    block is its own slice of the result's cotangent."""
+    """An all-gather whose result the group uses alike: the cotangent of
+    this rank's block is its own slice of the result's cotangent."""
 
     @staticmethod
     def forward(ctx, x, mesh, mesh_axis, dim):
@@ -207,15 +225,50 @@ class _Gathered(torch.autograd.Function):
         return g.narrow(dim, start, n), None, None, None
 
 
-def all_gather(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int) -> torch.Tensor:
+class _GatheredApart(torch.autograd.Function):
+    """An all-gather whose result the ranks of the group use apart (an
+    FSDP leaf gathered over 'data', each rank on its batch block; MQA's
+    key and value weights, each rank with its heads): the cotangent of
+    this rank's block is its slice of the group's sum of the result's
+    cotangents (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_axis, dim):
+        ctx.args = (mesh, mesh_axis, dim)
+        return _gather(x, mesh, mesh_axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int, *,
+               alike: bool = True) -> torch.Tensor:
     """Every group member's block of ``x`` concatenated along ``dim`` in
     the group's row-major member order (``lax.all_gather(..., tiled=True)``).
-    A group of one returns ``x``. Differentiable (:class:`_Gathered`)."""
+    A group of one returns ``x``. Differentiable: ``alike`` says how the
+    group uses the result, alike on every rank (the backward takes this
+    rank's slice, :class:`_Gathered`) or apart (the backward is a
+    reduce-scatter, :class:`_GatheredApart`)."""
     if static_group_size(mesh_axis, mesh.shape) == 1:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Gathered.apply(x, mesh, mesh_axis, dim)
+        return (_Gathered if alike else _GatheredApart).apply(x, mesh, mesh_axis, dim)
     return _gather(x, mesh, mesh_axis, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, mesh_axis: MeshAxis, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the group
+    (``lax.psum_scatter(..., tiled=True)``): ``dist.reduce_scatter_tensor``;
+    the blocks in the group's row-major member order, as
+    :func:`all_gather`'s. A group of one returns ``x``. Not
+    differentiable (it is a backward)."""
+    if static_group_size(mesh_axis, mesh.shape) == 1:
+        return x
+    if x.shape[dim] % static_group_size(mesh_axis, mesh.shape):
+        raise ValueError(f'reduce_scatter: dim {dim} of {tuple(x.shape)} does not split '
+                         f'over {static_group_size(mesh_axis, mesh.shape)} ranks')
+    return _reduce_scatter(x, mesh, mesh_axis, dim)
 
 
 class _Summed(torch.autograd.Function):
@@ -243,6 +296,35 @@ def all_reduce(x: torch.Tensor, mesh, mesh_axis: MeshAxis) -> torch.Tensor:
     x = x.contiguous()
     dist.all_reduce(x, group=mesh.group(mesh_axis)[0])
     return x
+
+
+class _Entered(torch.autograd.Function):
+    """A value every rank of the group holds alike entering a computation
+    the ranks split (a column-parallel product, a rank's heads or
+    sequence block): the identity forward, and the sum of the ranks'
+    partial cotangents backward (Megatron's ``f``, the conjugate of
+    :class:`_Summed`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_axis):
+        ctx.args = (mesh, mesh_axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.args[0].group(ctx.args[1])[0])
+        return g, None, None
+
+
+def enter(x: torch.Tensor, mesh, mesh_axis: MeshAxis) -> torch.Tensor:
+    """``x``, whose cotangent is summed over the group in the backward
+    (:class:`_Entered`); ``x`` itself where no gradient is wanted or the
+    group has one rank."""
+    if (static_group_size(mesh_axis, mesh.shape) == 1
+            or not (torch.is_grad_enabled() and x.requires_grad)):
+        return x
+    return _Entered.apply(x, mesh, mesh_axis)
 
 
 # ---------------------------------------------------------------------------

@@ -85,16 +85,48 @@ class SyntheticLM:
             step += 1
 
 
-def shard_batch(batch: Dict[str, np.ndarray], mesh,
-                dtype_map: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    """Place a host batch on the mesh's device (one rank: the whole
-    batch), casting the keys ``dtype_map`` names. ``mesh`` is a mesh of
-    :mod:`repro_torch.launch.mesh` or a device."""
+def shard_batch(batch: Dict[str, np.ndarray], mesh, dtype_map: Optional[Dict] = None, *,
+                shardings: Optional[Dict] = None, microbatches: int = 1
+                ) -> Dict[str, torch.Tensor]:
+    """Place a host batch on the mesh's device, casting the keys
+    ``dtype_map`` names. ``mesh`` is a mesh of :mod:`repro_torch.launch.mesh`
+    or a device.
+
+    Without ``shardings`` every rank gets the whole batch (one rank).
+    With ``shardings`` (``trainstep.batch_shardings``: each key's
+    ``(mesh, spec)``) each rank gets its block: the dimension the batch
+    axes cut (the leading one; M-RoPE ``positions``' second), cut
+    microbatch by microbatch, so that the step's split of this block
+    into ``microbatches`` gives this rank's block of each of the global
+    batch's microbatches, as the reference's step shards each one. Only
+    the batch axes may cut a batch leaf."""
     device = getattr(mesh, 'device', mesh)
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(np.ascontiguousarray(v))
+        if shardings is not None:
+            t = _batch_block(t, shardings[k], microbatches)
         if dtype_map and k in dtype_map:
             t = t.to(dtype_map[k])
         out[k] = t.to(device)
     return out
+
+
+def _batch_block(t: torch.Tensor, sharding, microbatches: int) -> torch.Tensor:
+    from repro_torch import comm
+    mesh, spec = sharding
+    batch_axes = ('pod', 'data') if 'pod' in mesh.shape else ('data',)
+    for d, ma in enumerate(spec):
+        if ma is None or comm.group_size(mesh, ma) == 1:
+            continue
+        if comm.axis_tuple(ma) != batch_axes:
+            raise ValueError(f'shard_batch cuts a batch leaf over its batch axes {batch_axes} '
+                             f'only, not {ma}')
+        p, r, B = comm.group_size(mesh, ma), comm.group_index(mesh, ma), t.shape[d]
+        if B % (microbatches * p):
+            raise ValueError(f'a batch of {B} does not split into {microbatches} microbatches '
+                             f'over {p} ranks')
+        n = B // microbatches // p
+        t = t.unflatten(d, (microbatches, B // microbatches)).narrow(d + 1, r * n, n)
+        t = t.flatten(d, d + 1)
+    return t.contiguous()

@@ -138,17 +138,6 @@ def make_fft_mesh(rows: int = 1, cols: int = 1, *, pods: int = 1,
     return _make_mesh(_axes_of(rows, cols, pods), device, 'make_fft_mesh')
 
 
-def require_one_rank(mesh_shape: Dict[str, int], what: str = 'the trainer') -> None:
-    """Raise ``ValueError`` for a mesh of more than one rank: the trainer
-    (``what``) runs on one rank until the sharded trainer (ROADMAP queue
-    1 item 11i, the training half of 11g). The server runs on any mesh."""
-    if any(n != 1 for n in mesh_shape.values()):
-        dims = 'x'.join(str(n) for n in mesh_shape.values())
-        raise ValueError(f'{what} runs on a 1x1 mesh only, not {dims}: the sharded trainer '
-                         'is not ported yet (ROADMAP queue 1 item 11i, the training half '
-                         'of 11g)')
-
-
 def make_host_mesh(rows: int = 1, cols: int = 1, *, device: Optional[str] = None) -> FFTMesh:
     """The language models' ('data', 'model') mesh, port of the
     reference's ``make_host_mesh``; ``device`` and process groups as

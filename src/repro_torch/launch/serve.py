@@ -10,12 +10,11 @@ Port of ``repro.launch.serve``, with these differences:
   one rank runs one process a rank under ``torch.distributed.run``
   (NCCL on ``cuda``, gloo on ``cpu``); outside it, it raises and names
   the command. Rank 0 prints.
-* ``--seed`` seeds the parameters (a ``torch.Generator`` on the device)
-  and the prompts (numpy): tokens, or for an embeds-mode config
-  (qwen2-vl-2b) embeddings with M-RoPE positions. On a mesh a smoke
-  config's parameters are drawn whole on every rank and cut to its
-  blocks (the 1x1 run's weights); ``--no-smoke`` draws each rank's
-  blocks alone (``weights.draw_params``).
+* ``--seed`` seeds the parameters and the prompts (numpy): tokens, or
+  for an embeds-mode config (qwen2-vl-2b) embeddings with M-RoPE
+  positions. Each rank draws its blocks alone (``weights.draw_params``:
+  the same whole tree on every mesh, so a mesh serves the 1x1 run's
+  weights).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --no-smoke \\
@@ -49,10 +48,9 @@ def main(argv=None) -> None:
 
     from repro_torch.configs import get_config, make_batch, smoke_config
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import model as M
     from repro_torch.parallel import make_rules
     from repro_torch.serve import ServeEngine
-    from repro_torch.weights import draw_params, shard_params
+    from repro_torch.weights import draw_params
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -72,12 +70,8 @@ def main(argv=None) -> None:
         dist.init_process_group('nccl' if args.device == 'cuda' else 'gloo')
     try:
         mesh = make_host_mesh(rows, cols, device=args.device)
-        rules = make_rules(mesh, mode='serve')
-        if args.smoke or ranks == 1:
-            gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
-            params = shard_params(M.init_params(gen, cfg, torch.float32), cfg, rules, mesh)
-        else:
-            params = draw_params(args.seed, cfg, torch.float32, rules, mesh)
+        params = draw_params(args.seed, cfg, torch.float32, make_rules(mesh, mode='serve'),
+                             mesh)
         batch = make_batch(cfg, batch=args.batch, seq=args.prompt_len, seed=args.seed,
                            device=mesh.device)
         with ServeEngine(cfg, mesh, params, batch=args.batch, prompt_len=args.prompt_len,

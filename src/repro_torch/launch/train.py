@@ -7,14 +7,22 @@ Port of ``repro.launch.train``, with these differences:
   default) or the published widths.
 * ``--device cuda|cpu`` (default ``cuda``, which raises without a card)
   and ``--mesh RxC`` name the port's ('data', 'model') mesh where the
-  reference took ``--devices`` (fake host devices). The port trains on
-  1x1; a larger mesh raises, naming ROADMAP queue 1 item 11i.
-* ``--seed`` seeds the parameters (a ``torch.Generator`` on the device)
-  and the synthetic data (the reference's data seed is 0, the default).
+  reference took ``--devices`` (fake host devices). A mesh of more than
+  one rank runs one process a rank under ``torch.distributed.run``
+  (NCCL on ``cuda``, gloo on ``cpu``); outside it, it raises and names
+  the command. Each rank draws its blocks under the train rules alone
+  (``weights.draw_params``: the same whole tree on every mesh), reads
+  its block of each batch, and writes its blocks to sharded
+  checkpoints. Rank 0 prints.
+* ``--seed`` seeds the parameters (``weights.draw_params``) and the
+  synthetic data (the reference's data seed is 0, the default).
 * ``--ckpt-dir`` defaults to ``repro_torch_ckpt`` under the temporary
   directory.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --device cpu \\
+        --steps 20 --ckpt-every 5 --fail-at 13
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch internlm2-1.8b --mesh 2x2 --device cpu \\
         --steps 20 --ckpt-every 5 --fail-at 13
 
 The last line is ``[train] arch=... steps=... loss first=... last=...
@@ -51,52 +59,72 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
-    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs import get_config, input_specs, smoke_config
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import SyntheticLM, shard_batch
-    from repro_torch.launch.mesh import make_host_mesh, require_one_rank
-    from repro_torch.models import model as M
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.runtime import FailureInjector, StragglerMonitor, TrainDriver
     from repro_torch.train.optim import adamw_init
-    from repro_torch.train.trainstep import make_train_step
+    from repro_torch.train.trainstep import jit_train_step
+    from repro_torch.weights import draw_params, opt_cuts, param_cuts
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     rows, cols = (int(t) for t in args.mesh.split('x'))
-    require_one_rank({'data': rows, 'model': cols}, 'the trainer')
-    mesh = make_host_mesh(rows, cols, device=args.device)
+    ranks = rows * cols
+    if ranks > 1:
+        if 'LOCAL_RANK' not in os.environ:
+            raise SystemExit(
+                f'--mesh {args.mesh} runs {ranks} processes: python -m torch.distributed.run '
+                f'--standalone --nproc-per-node {ranks} -m repro_torch.launch.train '
+                f'--mesh {args.mesh} ...')
+        if args.device == 'cuda':
+            torch.cuda.set_device(int(os.environ['LOCAL_RANK']))
+        dist.init_process_group('nccl' if args.device == 'cuda' else 'gloo')
+    try:
+        mesh = make_host_mesh(rows, cols, device=args.device)
+        sds, axes = input_specs(cfg, ShapeSpec('train', 'train', args.seq, args.batch),
+                                torch.float32)
+        step_fn, aux = jit_train_step(
+            cfg, mesh, sds, axes, peak_lr=args.lr, warmup_steps=max(args.steps // 10, 5),
+            total_steps=args.steps, microbatches=args.microbatches, param_dtype=torch.float32)
+        rules = aux['rules']
+        params = draw_params(args.seed, cfg, torch.float32, rules, mesh)
+        opt = adamw_init(params)
+        data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
+                           input_mode=cfg.input_mode, d_model=cfg.d_model,
+                           mrope=cfg.pos_kind == 'mrope')
+        driver = TrainDriver(
+            step_fn, args.ckpt_dir, ckpt_every=args.ckpt_every,
+            injector=FailureInjector([args.fail_at] if args.fail_at >= 0 else []),
+            monitor=StragglerMonitor(on_trip=lambda s, dt, e: driver.log(
+                f'[straggler] step {s}: {dt:.3f}s vs EWMA {e:.3f}s')),
+            log=print, mesh=mesh,
+            cuts={'params': param_cuts(cfg, rules), 'opt': opt_cuts(cfg, rules)})
 
-    step_fn = make_train_step(cfg, mesh, peak_lr=args.lr,
-                              warmup_steps=max(args.steps // 10, 5), total_steps=args.steps,
-                              microbatches=args.microbatches, param_dtype=torch.float32)
-    gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
-    params = M.init_params(gen, cfg, torch.float32)
-    opt = adamw_init(params)
-    data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
-                       input_mode=cfg.input_mode, d_model=cfg.d_model,
-                       mrope=cfg.pos_kind == 'mrope')
-    driver = TrainDriver(
-        step_fn, args.ckpt_dir, ckpt_every=args.ckpt_every,
-        injector=FailureInjector([args.fail_at] if args.fail_at >= 0 else []),
-        monitor=StragglerMonitor(on_trip=lambda s, dt, e: print(
-            f'[straggler] step {s}: {dt:.3f}s vs EWMA {e:.3f}s')),
-        log=print)
+        start = 0
+        if args.resume:
+            restored = driver.restore(params, opt)
+            if restored is not None:
+                params, opt, start = restored
+                driver.log(f'[train] resumed from step {start}')
 
-    start = 0
-    if args.resume:
-        restored = driver.restore(params, opt)
-        if restored is not None:
-            params, opt, start = restored
-            print(f'[train] resumed from step {start}')
-
-    params, opt, end = driver.run(params, opt,
-                                  lambda step: shard_batch(data.batch_at(step), mesh),
-                                  steps=args.steps, start_step=start)
-    hist = driver.history
-    print(f"[train] arch={cfg.name} steps={end} "
-          f"loss first={hist[0]['ce']:.4f} last={hist[-1]['ce']:.4f} "
-          f"restarts={driver.restarts} straggler_trips={driver.monitor.trips}")
+        params, opt, end = driver.run(
+            params, opt, lambda step: shard_batch(data.batch_at(step), mesh,
+                                                  shardings=aux['b_sh'],
+                                                  microbatches=args.microbatches),
+            steps=args.steps, start_step=start)
+        hist = driver.history
+        driver.log(f"[train] arch={cfg.name} steps={end} "
+                   f"loss first={hist[0]['ce']:.4f} last={hist[-1]['ce']:.4f} "
+                   f"restarts={driver.restarts} straggler_trips={driver.monitor.trips}"
+                   + (f' mesh={args.mesh}' if ranks > 1 else ''))
+    finally:
+        if ranks > 1:
+            dist.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -35,7 +35,11 @@ are gathered at use, every rank computes all kv heads, its cache keeps
 them all, and it attends with the ones its query heads pair with. MLA
 shards ``wq_b``, ``wkv_b`` and ``wo`` by heads; its latent is computed
 whole. Decode caches are laid out by heads (each rank its kv heads),
-not by the reference's ``kv_seq``.
+not by the reference's ``kv_seq``. For training, what every rank holds
+alike enters the heads split through ``par.enter`` (the block's input;
+MLA's normalized low-rank query, latent and roped key), and MQA's
+gathered ``wk``/``wv`` are reduce-scattered in the backward
+(``parallel.sharding``'s rule).
 
 Sequence parallelism (``sp=True``): :func:`ulysses_attention`, the
 reference's, on this rank's sequence block, through ``comm.swap_axes``.
@@ -181,8 +185,9 @@ def ulysses_attention(q, k, v, mesh, *, seq_axis: str = 'model', causal: bool = 
         # gather the sequence, then the kv head(s) this rank's contiguous
         # q-head block maps to: pairing local q heads positionally with the
         # gathered kv axis would scramble the GQA grouping
-        kl = comm.all_gather(k, mesh, seq_axis, k.ndim - 3)
-        vl = comm.all_gather(v, mesh, seq_axis, v.ndim - 3)
+        # each rank attends with its own kv heads of the gathered sequence
+        kl = comm.all_gather(k, mesh, seq_axis, k.ndim - 3, alike=False)
+        vl = comm.all_gather(v, mesh, seq_axis, v.ndim - 3, alike=False)
         kl, vl = _kv_block(kl, vl, H, comm.group_index(mesh, seq_axis), p)
     o = flash_attention(ql, kl, vl, causal=causal, window=window, chunk=chunk)
     return swap_out(o)
@@ -223,7 +228,8 @@ def _kv_whole(par, cfg) -> bool:
 
 def _gqa_weights(p: Dict, cfg, par) -> Dict:
     """The block's weights as this rank computes with them: its blocks,
-    with ``wk``/``wv`` gathered where it computes every kv head."""
+    with ``wk``/``wv`` gathered where it computes every kv head (and
+    attends with its own: the gathers' backward is a reduce-scatter)."""
     if par is not None and cfg.num_heads % par.tp:
         raise ValueError(f'{cfg.num_heads} heads not divisible by the model axis {par.tp}')
     if not _kv_whole(par, cfg):
@@ -231,9 +237,9 @@ def _gqa_weights(p: Dict, cfg, par) -> Dict:
     d, n = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
     out = dict(p)
     for name in ('wk', 'wv'):
-        out[name] = {'w': par.whole(p[name]['w'], (d, n), ('embed', 'kv_heads'))}
+        out[name] = {'w': par.whole(p[name]['w'], (d, n), ('embed', 'kv_heads'), alike=False)}
         if 'b' in p[name]:
-            out[name]['b'] = par.whole(p[name]['b'], (n,), ('kv_heads',))
+            out[name]['b'] = par.whole(p[name]['b'], (n,), ('kv_heads',), alike=False)
     return out
 
 
@@ -272,11 +278,14 @@ def _gqa_sp(p: Dict, cfg, x, positions, *, window: int, par):
     """``sp=True`` on a mesh: this rank's sequence block projected with
     the whole (gathered) weights, :func:`ulysses_attention`, the output
     projection, and the blocks gathered over the sequence. Returns the
-    output and the whole sequence's k, v (every kv head)."""
+    output and the whole sequence's k, v (every kv head). Each rank uses
+    the weights and ``x`` on its own sequence block: the gathers'
+    backward is a reduce-scatter, and ``x`` enters the split."""
     if x.shape[1] % par.tp:
         raise ValueError(f'sequence {x.shape[1]} not divisible by SP degree {par.tp}')
-    whole = L.tree_map(lambda t, s: par.whole(t, s.shape, s.axes), p, gqa_plan(cfg))
-    xl = par.block(x, 1)
+    whole = L.tree_map(lambda t, s: par.whole(t, s.shape, s.axes, alike=False), p,
+                       gqa_plan(cfg))
+    xl = par.block(par.enter(x), 1)
     pos = None if positions is None else par.block(positions, positions.dim() - 1)
     q, k, v = gqa_qkv(whole, cfg, xl, pos)
     o = ulysses_attention(q, k, v, par.mesh, causal=cfg.causal, window=window,
@@ -294,9 +303,12 @@ def _cache_heads(k, v, cfg, par):
 
 
 def gqa_apply(p: Dict, cfg, x, positions, *, window: int = 0, sp: bool = False, par=None):
-    """Full-sequence (train/prefill) GQA attention."""
+    """Full-sequence (train/prefill) GQA attention. On a mesh ``x``
+    enters the heads split (``par.enter``)."""
     if sp and par is not None:
         return _gqa_sp(p, cfg, x, positions, window=window, par=par)[0]
+    if par is not None:
+        x = par.enter(x)
     q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x, positions)
     k, v = _attend_kv(k, v, cfg, par)
     o = flash_attention(q, k, v, causal=cfg.causal, window=window, chunk=cfg.attn_chunk)
@@ -316,6 +328,8 @@ def gqa_prefill(p: Dict, cfg, x, positions, *, window: int = 0,
         out, k, v = _gqa_sp(p, cfg, x, positions, window=window, par=par)
         k, v = _cache_heads(k, v, cfg, par)
     else:
+        if par is not None:
+            x = par.enter(x)
         q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x, positions)
         o = flash_attention(q, *_attend_kv(k, v, cfg, par), causal=cfg.causal, window=window,
                             chunk=cfg.attn_chunk)
@@ -400,13 +414,19 @@ def mla_plan(cfg) -> Dict:
     }
 
 
-def _mla_q(p: Dict, cfg, x, positions):
+def _enter(t, par):
+    return t if par is None else par.enter(t)
+
+
+def _mla_q(p: Dict, cfg, x, positions, par=None):
     """The queries (B, S, H, nh + rh): the low-rank projection through
     ``q_norm`` (eps 1e-6, not ``cfg.norm_eps``, as the reference), RoPE
-    on the last ``rh`` of each head."""
+    on the last ``rh`` of each head. On a mesh the normalized low-rank
+    query, computed alike on every rank, enters the heads split."""
     B, S, _ = x.shape
     nh, rh = cfg.qk_nope_dim, cfg.rope_head_dim
-    q = L.apply_linear(p['wq_b'], L.apply_norm(p['q_norm'], L.apply_linear(p['wq_a'], x)))
+    qa = L.apply_norm(p['q_norm'], L.apply_linear(p['wq_a'], x))
+    q = L.apply_linear(p['wq_b'], _enter(qa, par))
     q = q.reshape(B, S, -1, nh + rh)            # a rank's heads on a mesh
     return torch.cat([q[..., :nh], L.apply_rope(q[..., nh:], positions, theta=cfg.rope_theta)],
                      dim=-1)
@@ -422,12 +442,15 @@ def _mla_latent(p: Dict, cfg, x, positions):
     return latent, k_rope
 
 
-def _mla_qkv_from_latent(p: Dict, cfg, latent, k_rope):
+def _mla_qkv_from_latent(p: Dict, cfg, latent, k_rope, par=None):
     """Keys (B, T, H, nh + rh) and values (B, T, H, vh) decompressed from
     the latent (B, T, kvr) through ``wkv_b`` (a rank's heads on a mesh),
-    the shared roped key (B, T, rh) broadcast to every head."""
+    the shared roped key (B, T, rh) broadcast to every head. On a mesh
+    the latent and the roped key, computed alike on every rank, enter
+    the heads split."""
     B, T = latent.shape[:2]
     nh, rh, vh = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
+    latent, k_rope = _enter(latent, par), _enter(k_rope, par)
     kv = L.apply_linear(p['wkv_b'], latent).reshape(B, T, -1, nh + vh)
     H = kv.shape[2]
     k = torch.cat([kv[..., :nh], k_rope[:, :, None].to(kv.dtype).expand(B, T, H, rh)], dim=-1)
@@ -440,7 +463,7 @@ def _mla_attend(p: Dict, cfg, q, latent, k_rope, par=None, **flash_kw):
     On a mesh each rank attends with its heads, ``wo`` row-parallel."""
     D = q.shape[-1]
     vh = cfg.v_head_dim
-    k, v = _mla_qkv_from_latent(p, cfg, latent, k_rope)
+    k, v = _mla_qkv_from_latent(p, cfg, latent, k_rope, par)
     if vh < D:
         v = F.pad(v, (0, D - vh))
     o = flash_attention(q, k, v, causal=True, **flash_kw)[..., :vh]
@@ -455,7 +478,7 @@ def _mla_check(cfg, par) -> None:
 def mla_apply(p: Dict, cfg, x, positions, *, par=None):
     """Full-sequence (train/prefill) MLA."""
     _mla_check(cfg, par)
-    q = _mla_q(p, cfg, x, positions)
+    q = _mla_q(p, cfg, x, positions, par)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
     return _mla_attend(p, cfg, q, latent, k_rope, par, chunk=cfg.attn_chunk)
 
@@ -469,7 +492,7 @@ def mla_prefill(p: Dict, cfg, x, positions, *, cache_cap: Optional[int] = None, 
     _mla_check(cfg, par)
     S = x.shape[1]
     pad = _cache_pad(cache_cap, S)
-    q = _mla_q(p, cfg, x, positions)
+    q = _mla_q(p, cfg, x, positions, par)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
     out = _mla_attend(p, cfg, q, latent, k_rope, par, chunk=cfg.attn_chunk)
     return out, {'latent': F.pad(latent, (0, 0, 0, pad)), 'krope': F.pad(k_rope, (0, 0, 0, pad))}
@@ -483,7 +506,7 @@ def mla_decode(p: Dict, cfg, x, cache_latent, cache_krope, cache_len: int, *, pa
     Returns (out, cache_latent, cache_krope)."""
     B = x.shape[0]
     positions = torch.full((B, 1), cache_len, device=x.device)
-    q = _mla_q(p, cfg, x, positions)
+    q = _mla_q(p, cfg, x, positions, par)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
     cache_latent[:, cache_len] = latent[:, 0]
     cache_krope[:, cache_len] = k_rope[:, 0]

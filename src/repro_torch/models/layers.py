@@ -303,7 +303,11 @@ def apply_mlp(p: Dict, x, *, act: str = 'silu', par=None):
     """The MLP. With ``par`` (``parallel.Parallel``: a 'model' group of
     several ranks) it is tensor-parallel: ``wi`` column-parallel, stored
     as this rank's [gate block ‖ up block] when gated
-    (``weights.shard_params``), ``wo`` row-parallel, then ``all_reduce``."""
+    (``weights.shard_params``), ``wo`` row-parallel, then ``all_reduce``;
+    ``x`` enters the split (``par.enter``: its cotangent summed over
+    'model')."""
+    if par is not None:
+        x = par.enter(x)
     h = linear(x, p['wi'])
     if p['wi'].shape[-1] == 2 * p['wo'].shape[0]:      # gated (SwiGLU/GeGLU)
         g, u = torch.chunk(h, 2, dim=-1)
@@ -325,12 +329,30 @@ def _act(x, name: str):
 # Loss
 # ---------------------------------------------------------------------------
 
+def token_nll(logits, labels, par=None):
+    """Each token's negative log-likelihood from fp32 logits (..., V);
+    with ``par`` the logits are this rank's block of the vocabulary
+    (``V / tp`` columns, in 'model' order) and the log-sum-exp and the
+    gold logit are summed over 'model' (Megatron's vocab-parallel cross
+    entropy: no rank holds a whole row of logits). Every rank gets every
+    token's loss."""
+    logits = logits.float()
+    if par is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    with torch.no_grad():
+        m = par.amax(logits.amax(dim=-1))
+    lse = torch.log(par.sum(torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+    n = logits.shape[-1]
+    local = labels.long() - par.tp_index * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.take_along_dim(logits, torch.where(inside, local, 0)[..., None], dim=-1)[..., 0]
+    return lse - par.sum(gold.masked_fill(~inside, 0))
+
+
 def softmax_xent(logits, labels, *, mask=None):
     """Mean token cross-entropy; logits fp32 (..., V), labels int (...)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
-    nll = lse - gold
+    nll = token_nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -34,20 +34,36 @@ MoE feed-forward expert-parallel (``moe.moe_ep_explicit``), the SSD's,
 RG-LRU's and FFT-conv mixer's sharded leaves gathered at use
 (``GATHERED_KINDS``). The caches are laid out as :func:`cache_axes`
 says. On a 1 x 1 mesh every step is the one-rank step.
+
+With the train rules (the sharded trainer, ``repro_torch.train``)
+every leaf is also cut over 'data' on its 'embed' dimension (FSDP):
+``forward`` gathers each period's leaves into their serve-rule blocks
+inside the period's ``torch.utils.checkpoint`` (remat gathers them
+again in the backward, and no rank holds more than one period whole),
+the embedding, head and final norm at use; an expert-parallel MoE
+layer's expert weights are gathered inside ``moe.moe_ep_explicit``
+(``fsdp_axes``), as the reference's. Each gather's backward is a
+reduce-scatter over 'data' (``parallel.sharding``'s rule). The FFT-conv
+mixer runs its one-rank plan on each rank's batch block.
+:func:`loss_fn` gives the reference's global token mean and MoE aux
+loss, and the gradient of each rank's share of them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import comm
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, moe, ssd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import PSpec
-from repro_torch.parallel.sharding import Parallel, local_shape, spec_for
+from repro_torch.parallel.sharding import (DataParallel, Parallel, gather_fsdp, local_shape,
+                                           spec_for)
 
 # ---------------------------------------------------------------------------
 # Plans
@@ -157,12 +173,64 @@ GATHERED_KINDS = {'ssd': ssd.ssd_plan, 'rglru': griffin.rglru_plan,
 def _parallel(rules, mesh) -> Optional[Parallel]:
     """The model code's view of a run under ``rules`` (None: one rank, or
     a 'model' group of one: every step is then the one-rank step). A
-    sharded run's mesh is ``rules.mesh``; ``mesh`` is the FFT-conv
-    mixer's plan mesh, which only a one-rank run takes."""
-    if rules is not None and mesh is not None:
-        raise ValueError("a sharded run takes its mesh from rules; mesh= is the FFT-conv "
-                         "mixer's plan mesh of a one-rank run")
+    sharded run's mesh is ``rules.mesh``; ``mesh`` is None or that mesh
+    (the reference passes both), else the FFT-conv mixer's plan mesh of
+    a one-rank run."""
+    if rules is not None and mesh is not None and mesh is not rules.mesh:
+        raise ValueError("a sharded run's mesh is rules.mesh; mesh= is that mesh or the "
+                         "FFT-conv mixer's plan mesh of a one-rank run")
     return Parallel.of(rules)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_rank_mesh(device: torch.device):
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(1, 1, device=device.type)
+
+
+def _plan_mesh(rules, mesh):
+    """The FFT-conv mixer's plan mesh: ``mesh`` on one rank (or a 1 x 1
+    mesh), a one-rank mesh on each rank's device for a sharded run given
+    its mesh (the trainer: each rank transforms its batch block through
+    the kernels), None for a sharded run without it (the server: the
+    local real-pencil path)."""
+    if rules is None or mesh is None or mesh.size == 1:
+        return mesh
+    return _one_rank_mesh(mesh.device)
+
+
+def _fsdp(rules) -> bool:
+    """Whether ``rules`` cut the leaves over an FSDP group of several ranks."""
+    fs = None if rules is None else rules.fsdp_axes
+    return fs is not None and comm.group_size(rules.mesh, fs) > 1
+
+
+def _gather_layer(p: Dict, cfg, kind: str, rules, par):
+    """One layer's leaves gathered over the FSDP axes into their
+    serve-rule blocks (``p`` itself without FSDP). An expert-parallel MoE
+    layer's expert weights stay cut: ``moe_ep_explicit`` gathers them."""
+    if not _fsdp(rules):
+        return p
+    plan = layer_plan(cfg, kind)
+    if par is None or 'moe' not in p:
+        return gather_fsdp(p, plan, rules)
+    keep = ('wi', 'wo')
+    rest = {**p, 'moe': {k: v for k, v in p['moe'].items() if k not in keep}}
+    rplan = {**plan, 'moe': {k: v for k, v in plan['moe'].items() if k not in keep}}
+    out = gather_fsdp(rest, rplan, rules)
+    out['moe'].update({k: p['moe'][k] for k in keep})
+    return out
+
+
+def _gather_top(params, cfg, rules):
+    """The embedding, head and final norm gathered over the FSDP axes
+    (``params`` itself without FSDP)."""
+    if not _fsdp(rules):
+        return params
+    plan = model_plan(cfg)
+    names = [k for k in ('embed', 'head', 'final_norm') if k in params]
+    return {**params, **gather_fsdp({k: params[k] for k in names}, {k: plan[k] for k in names},
+                                    rules)}
 
 
 def _mixer(p: Dict, cfg, kind: str, par):
@@ -173,12 +241,15 @@ def _mixer(p: Dict, cfg, kind: str, par):
 
 
 def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool = False,
-                 cache_cap: Optional[int] = None, want_cache: bool = False, par=None):
+                 cache_cap: Optional[int] = None, want_cache: bool = False, par=None,
+                 dp=None, fsdp_axes=None):
     """One residual block (temporal + optional FFN). Returns
     (x, aux-loss-or-None, cache-or-None); ``fftconv`` has no cache, and
     only the MoE feed-forward has an aux loss. ``mesh``: the FFT-conv
     mixer's plan mesh (None: the local real-pencil path); ``par``: a
-    sharded run's view (``parallel.Parallel``), None on one rank."""
+    sharded run's view (``parallel.Parallel``), None on one rank;
+    ``dp``, ``fsdp_axes``: a training run's batch group
+    (``parallel.DataParallel``) and the FSDP axes of its expert weights."""
     h = L.apply_norm(p['norm1'], x, cfg.norm_eps)
     cache = None
     pk = _mixer(p[kind], cfg, kind, par)
@@ -204,11 +275,11 @@ def _apply_block(p: Dict, cfg, kind: str, x, positions, *, mesh=None, sp: bool =
         y = ssd.fftconv_apply(pk, cfg, h, mesh=mesh)
     else:
         raise ValueError(kind)
-    x, aux = _ffn(p, cfg, x + y, par)
+    x, aux = _ffn(p, cfg, x + y, par, dp, fsdp_axes)
     return x, aux, cache
 
 
-def _ffn(p: Dict, cfg, x, par=None):
+def _ffn(p: Dict, cfg, x, par=None, dp=None, fsdp_axes=None):
     """The block's feed-forward and its residual: (x, the MoE router's
     aux loss, or None for an MLP or no feed-forward)."""
     fk = ffn_kind(cfg)
@@ -217,17 +288,17 @@ def _ffn(p: Dict, cfg, x, par=None):
     h = L.apply_norm(p['norm2'], x, cfg.norm_eps)
     if fk == 'mlp':
         return x + L.apply_mlp(p['mlp'], h, act=cfg.act, par=par), None
-    y, aux = _moe_ffn(p['moe'], cfg, h, par)
+    y, aux = _moe_ffn(p['moe'], cfg, h, par, dp, fsdp_axes)
     return x + y, aux
 
 
-def _moe_ffn(p: Dict, cfg, h, par=None):
+def _moe_ffn(p: Dict, cfg, h, par=None, dp=None, fsdp_axes=None):
     """A 'model' axis of several ranks: the expert-parallel path
     (``moe.moe_ep_explicit``), as the reference's; else the scatter path
     (``moe.moe_apply``)."""
     if par is not None:
-        return moe.moe_ep_explicit(p, cfg, h, par)
-    return moe.moe_apply(p, cfg, h)
+        return moe.moe_ep_explicit(p, cfg, h, par, fsdp_axes=fsdp_axes, dp=dp)
+    return moe.moe_apply(p, cfg, h, dp)
 
 
 def _positions(cfg, batch, B: int, S: int, device):
@@ -282,27 +353,29 @@ def _layers(params, cfg):
         yield params['tail'][str(j)], cfg.block_pattern[j]
 
 
-def forward(params, cfg, batch, *, rules=None, mesh=None, sp: bool = False):
-    """Logits for a full sequence. batch: {'tokens' | 'embeds',
-    ['positions']}. Returns (logits fp32, aux_loss): the MoE router's
-    load-balance loss summed over the layers (0 without MoE).
-
-    ``mesh``: the FFT-conv mixer's plan mesh (one rank). With ``rules``
-    the run is sharded over ``rules.mesh``, the ('data', 'model') mesh:
-    ``params`` are this rank's blocks and ``batch`` its batch block; the
-    logits are whole over the vocabulary, and the aux loss is this batch
-    block's."""
+def _trunk(params, cfg, batch, *, rules=None, mesh=None, sp: bool = False):
+    """Every layer and the final norm: (x, aux, top, par), ``top`` the
+    embedding and head as the logits take them (gathered over the FSDP
+    axes under the train rules)."""
     par = _parallel(rules, mesh)
-    x = _embed_in(params, cfg, batch, par)
+    dp = DataParallel.of(rules)
+    plan_mesh = _plan_mesh(rules, mesh)
+    fsdp_axes = rules.fsdp_axes if _fsdp(rules) else None
+    top = _gather_top(params, cfg, rules)
+    x = _embed_in(top, cfg, batch, par)
     B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
     n_periods, n_tail = split_layers(cfg)
 
+    def block(p, kind, x, aux):
+        p = _gather_layer(p, cfg, kind, rules, par)
+        x, a, _ = _apply_block(p, cfg, kind, x, positions, mesh=plan_mesh, sp=sp, par=par,
+                               dp=dp, fsdp_axes=fsdp_axes)
+        return x, aux if a is None else aux + a
+
     def period(x, aux, pp):
         for j, kind in enumerate(cfg.block_pattern):
-            x, a, _ = _apply_block(pp[f'{j}_{kind}'], cfg, kind, x, positions, mesh=mesh,
-                                   sp=sp, par=par)
-            aux = aux if a is None else aux + a
+            x, aux = block(pp[f'{j}_{kind}'], kind, x, aux)
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -314,28 +387,72 @@ def forward(params, cfg, batch, *, rules=None, mesh=None, sp: bool = False):
         else:
             x, aux = period(x, aux, pp)
     for j in range(n_tail):
-        kind = cfg.block_pattern[j]
-        x, a, _ = _apply_block(params['tail'][str(j)], cfg, kind, x, positions, mesh=mesh,
-                               sp=sp, par=par)
-        aux = aux if a is None else aux + a
-    x = L.apply_norm(params['final_norm'], x, cfg.norm_eps)
-    return _logits(params, cfg, x, par), aux
+        x, aux = block(params['tail'][str(j)], cfg.block_pattern[j], x, aux)
+    x = L.apply_norm(top['final_norm'], x, cfg.norm_eps)
+    return x, aux, top, par
 
 
-def _logits(params, cfg, x, par=None):
-    """fp32 logits; vocab-parallel on a mesh, gathered over 'model'."""
+def forward(params, cfg, batch, *, rules=None, mesh=None, sp: bool = False):
+    """Logits for a full sequence. batch: {'tokens' | 'embeds',
+    ['positions']}. Returns (logits fp32, aux_loss): the MoE router's
+    load-balance loss summed over the layers (0 without MoE).
+
+    ``mesh``: the FFT-conv mixer's plan mesh (one rank). With ``rules``
+    the run is sharded over ``rules.mesh``, the ('data', 'model') mesh
+    (``mesh`` None or that mesh): ``params`` are this rank's blocks and
+    ``batch`` its batch block; the logits are whole over the vocabulary,
+    and the aux loss is this batch block's (under the train rules with
+    several 'data' ranks, this rank's share of the global batch's,
+    ``moe.aux_loss``)."""
+    x, aux, top, par = _trunk(params, cfg, batch, rules=rules, mesh=mesh, sp=sp)
+    return _logits(top, cfg, x, par), aux
+
+
+def _logits(params, cfg, x, par=None, *, gather: bool = True):
+    """fp32 logits; vocab-parallel on a mesh (``x`` entering the split),
+    gathered over 'model' unless ``gather`` is False (this rank's block
+    of the vocabulary)."""
+    vocab_tp = _vocab_tp(cfg, par)
+    if vocab_tp:
+        x = par.enter(x)
     if cfg.tie_embeddings:
         logits = L.unembed(params['embed'], x)
     else:
         logits = L.linear(x, params['head']['w']).float()
-    if _vocab_tp(cfg, par):
+    if vocab_tp and gather:
         logits = par.gather(logits, logits.dim() - 1)
     return logits
 
 
-def loss_fn(params, cfg, batch, *, mesh=None, sp: bool = False):
-    logits, aux = forward(params, cfg, batch, mesh=mesh, sp=sp)
-    loss = L.softmax_xent(logits, batch['labels'], mask=batch.get('mask'))
+def loss_fn(params, cfg, batch, *, rules=None, mesh=None, sp: bool = False):
+    """(total loss, {'loss': mean token cross-entropy, 'aux': the MoE
+    aux loss}), as the reference's. ``rules``, ``mesh``: as
+    :func:`forward`'s.
+
+    With ``rules`` each rank holds its batch block: the cross-entropy
+    is the global token mean over the batch group (a ``mask``'s sum is
+    reduced too) and the aux loss the global batch's, the same value on
+    every rank. Each is the group's sum of the ranks' shares
+    (``DataParallel.sum``, whose backward passes the cotangent through),
+    so each rank differentiates its own share and the sum over 'data'
+    of the ranks' gradients is the whole gradient
+    (``parallel.reduce_data_parallel``). Where the vocabulary is split
+    over 'model' the cross-entropy is vocab-parallel
+    (``layers.token_nll``): no rank gathers the logits."""
+    labels, mask = batch['labels'], batch.get('mask')
+    dp = DataParallel.of(rules)
+    x, aux, top, par = _trunk(params, cfg, batch, rules=rules, mesh=mesh, sp=sp)
+    nll = L.token_nll(_logits(top, cfg, x, par, gather=False), labels,
+                      par if _vocab_tp(cfg, par) else None)
+    if mask is None:
+        num, count = nll.sum(), nll.numel() * (1 if dp is None else dp.size)
+    else:
+        mask = mask.float()
+        num, count = (nll * mask).sum(), mask.sum()
+        count = torch.clamp(count if dp is None else dp.sum(count), min=1.0)
+    loss = num / count
+    if dp is not None:
+        loss, aux = dp.sum(loss), dp.sum(aux)
     total = loss + cfg.aux_coef * aux
     return total, {'loss': loss, 'aux': aux}
 

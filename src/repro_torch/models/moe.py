@@ -85,21 +85,34 @@ def _dispatch_indices(idx, E: int, C: int):
     return order, dest, keep
 
 
-def aux_loss(idx, probs, cfg):
+def aux_loss(idx, probs, cfg, dp=None):
     """The load-balance loss E * sum_e frac_e * mean_prob_e: frac_e the
     share of (token, k) pairs routed to expert e, mean_prob_e the mean
-    router probability of e, both over every token."""
+    router probability of e, both over every token.
+
+    With ``dp`` (a training run's batch group, ``parallel.DataParallel``)
+    the tokens are this rank's batch block of the reference's global
+    batch: the routed counts are summed over the group and the result is
+    this rank's share, its probabilities' sum over the global token
+    count, so the shares summed over the group (``model.loss_fn``) are
+    the reference's value and each rank differentiates its own."""
     E, K = cfg.num_experts, cfg.top_k
     tokens = idx.numel() // K
     counts = F.one_hot(idx.long(), E).sum(dim=tuple(range(idx.dim())))
-    frac = counts.float() / tokens / K
-    pmean = probs.reshape(-1, E).mean(dim=0)
-    return E * torch.sum(frac * pmean)
+    if dp is None:
+        frac = counts.float() / tokens / K
+        pmean = probs.reshape(-1, E).mean(dim=0)
+        return E * torch.sum(frac * pmean)
+    n = tokens * dp.size
+    frac = dp.sum(counts.float()) / n / K
+    return E * torch.sum(frac * (probs.reshape(-1, E).sum(dim=0) / n))
 
 
-def moe_apply(p: Dict, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: Dict, cfg, x, dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss). Groups = batch rows: each row's
-    tokens share a capacity pool of ``capacity(S)`` slots an expert."""
+    tokens share a capacity pool of ``capacity(S)`` slots an expert.
+    ``dp``: the training run's batch group, for the aux loss
+    (:func:`aux_loss`)."""
     B, S, d = x.shape
     K, E = cfg.top_k, cfg.num_experts
     C = capacity(S, cfg)
@@ -121,7 +134,7 @@ def moe_apply(p: Dict, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     y = _combine(out[slot].reshape(B, S, K, d), gates.to(out.dtype))
     if 'shared' in p:
         y = y + L.apply_mlp(p['shared'], x)
-    return y, aux_loss(idx, probs, cfg)
+    return y, aux_loss(idx, probs, cfg, dp)
 
 
 def _combine(ys, gates):
@@ -133,16 +146,19 @@ def _combine(ys, gates):
     return y
 
 
-def moe_ep_explicit(p: Dict, cfg, x, par, *, ep_axis: str = 'model',
-                    comm_strategy: str = 'all_to_all', overlap_chunks: int = 1
+def moe_ep_explicit(p: Dict, cfg, x, par, *, ep_axis: str = 'model', fsdp_axes=None,
+                    dp=None, comm_strategy: str = 'all_to_all', overlap_chunks: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism with explicit swaps on ``par.mesh``
     (``parallel.Parallel``; the reference takes the mesh). ``x``: this
     rank's (B, S, d) tokens (its batch block, whole over ``ep_axis``);
-    ``p['wi']``, ``p['wo']``: its E/ep experts, whole over d_model (the
-    reference's FSDP gather of their d_model blocks, ``fsdp_axes``, comes
-    with the sharded trainer); the router and any shared experts as on
-    one rank (the shared MLP tensor-parallel over 'model').
+    ``p['wi']``, ``p['wo']``: its E/ep experts, whole over d_model, or
+    with ``fsdp_axes`` (the train rules' FSDP axes, as the reference's)
+    their d_model blocks over those axes, gathered here at use (each rank
+    of the FSDP group runs its own tokens: the gathers' backward is a
+    reduce-scatter); the router and any shared experts as on one rank
+    (the shared MLP tensor-parallel over 'model'). ``dp``: the training
+    run's batch group, for the aux loss (:func:`aux_loss`).
 
     As the reference: the sequence is sharded over the EP axis into the
     dispatch where ep divides it and S > 1 (tokens arriving replicated
@@ -152,7 +168,14 @@ def moe_ep_explicit(p: Dict, cfg, x, par, *, ep_axis: str = 'model',
     capacity chunks where the capacity splits evenly (the capacity never
     depends on the knob). Its drops differ from :func:`moe_apply`'s,
     whose groups are batch rows. Returns (y (B, S, d) whole over the EP
-    axis, aux loss)."""
+    axis, aux loss).
+
+    Training (a gradient wanted) needs the sequence sharded: the tokens
+    and gates, held alike on every EP rank, enter the split
+    (``comm.enter``), and the expert swaps' backward is the reverse
+    swap. A sequence the EP degree does not divide would have every EP
+    rank dispatch the same tokens, and the experts' gradients would
+    count each token ``ep`` times: it raises."""
     strategy, mesh = comm.resolve(comm_strategy), par.mesh
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
@@ -165,8 +188,15 @@ def moe_ep_explicit(p: Dict, cfg, x, par, *, ep_axis: str = 'model',
     if seq_shard:
         n = S // ep
         start = comm.group_index(mesh, ep_axis) * n
+        xl, gl = (comm.enter(t, mesh, ep_axis) for t in (xl, gl))
         xl, gl, il = (t.narrow(1, start, n) for t in (xl, gl, il))
+    elif torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(f'moe_ep_explicit: training needs a sequence the EP degree {ep} '
+                         f'divides, not {S}')
     wi, wo = p['wi'], p['wo']
+    if fsdp_axes is not None:             # the experts' d_model blocks, whole
+        wi = comm.all_gather(wi, mesh, fsdp_axes, 1, alike=False)
+        wo = comm.all_gather(wo, mesh, fsdp_axes, 2, alike=False)
     Bl, Sl = xl.shape[:2]
     T = Bl * Sl
     C = capacity(T, cfg)
@@ -196,4 +226,4 @@ def moe_ep_explicit(p: Dict, cfg, x, par, *, ep_axis: str = 'model',
         y = comm.all_gather(y, mesh, ep_axis, 1)
     if 'shared' in p:
         y = y + L.apply_mlp(p['shared'], x, par=par)
-    return y, aux_loss(idx, probs, cfg)
+    return y, aux_loss(idx, probs, cfg, dp)

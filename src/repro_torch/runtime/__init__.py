@@ -1,4 +1,5 @@
 """``repro_torch.runtime`` — the fault-tolerant training driver, port of ``repro.runtime``."""
-from repro_torch.runtime.driver import FailureInjector, StragglerMonitor, TrainDriver
+from repro_torch.runtime.driver import (FailureInjector, InjectedFailure, StragglerMonitor,
+                                       TrainDriver)
 
-__all__ = ['TrainDriver', 'StragglerMonitor', 'FailureInjector']
+__all__ = ['TrainDriver', 'StragglerMonitor', 'FailureInjector', 'InjectedFailure']

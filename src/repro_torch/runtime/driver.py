@@ -17,6 +17,15 @@ semantics:
 A step ends when its loss reaches the host (``float(metrics['loss'])``,
 the reference's ``block_until_ready``). A restore builds new tensors on
 the device of the ones it replaces.
+
+On a mesh of several ranks (``mesh``, with each leaf's ``cuts``) every
+rank runs the loop on its blocks: checkpoints are sharded saves (a
+collective, so written on the training thread), an injected failure
+fires on every rank at the same step and they restore and resume in
+step (after a barrier), and only rank 0 logs. Any other exception
+fails the run: a rank cannot rejoin peers that are inside a collective,
+so it propagates (``torch.distributed.run`` then stops every rank, and
+``--resume`` restarts them from the latest checkpoint).
 """
 from __future__ import annotations
 
@@ -24,13 +33,20 @@ import dataclasses
 import time
 from typing import Callable, Dict, Optional
 
+import torch.distributed as dist
+
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step, restore_checkpoint,
                                     save_checkpoint)
 
 
+class InjectedFailure(RuntimeError):
+    """The :class:`FailureInjector`'s fault."""
+
+
 class FailureInjector:
-    """Deterministic fault: raises RuntimeError at the given steps
-    (once each), the test double for a lost node."""
+    """Deterministic fault: raises :class:`InjectedFailure` (a
+    RuntimeError) at the given steps (once each), the test double for a
+    lost node; on a mesh, on every rank at once."""
 
     def __init__(self, fail_at=()):
         self.fail_at = set(fail_at)
@@ -38,7 +54,7 @@ class FailureInjector:
     def check(self, step: int) -> None:
         if step in self.fail_at:
             self.fail_at.discard(step)
-            raise RuntimeError(f'injected node failure at step {step}')
+            raise InjectedFailure(f'injected node failure at step {step}')
 
 
 @dataclasses.dataclass
@@ -68,21 +84,26 @@ class StragglerMonitor:
 
 
 class TrainDriver:
-    """step_fn(params, opt, batch) -> (params, opt, metrics)."""
+    """step_fn(params, opt, batch) -> (params, opt, metrics). ``mesh``
+    and ``cuts`` (``{'params': ..., 'opt': ...}`` of ``weights.Cut``): a
+    sharded run's mesh and each leaf's cut, for its checkpoints."""
 
     def __init__(self, step_fn, ckpt_dir: str, *, ckpt_every: int = 50,
                  monitor: Optional[StragglerMonitor] = None,
                  injector: Optional[FailureInjector] = None,
                  max_restarts: int = 3, async_ckpt: bool = True,
-                 log: Optional[Callable[[str], None]] = None):
+                 log: Optional[Callable[[str], None]] = None, mesh=None, cuts=None):
         self.step_fn = step_fn
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.monitor = monitor or StragglerMonitor()
         self.injector = injector
         self.max_restarts = max_restarts
-        self.async_ckpt = async_ckpt
-        self.log = log or (lambda s: None)
+        self.sharded = mesh is not None and mesh.size > 1
+        self.mesh, self.cuts = mesh, cuts
+        self.async_ckpt = async_ckpt and not self.sharded
+        log = log or (lambda s: None)
+        self.log = log if not self.sharded or dist.get_rank() == 0 else (lambda s: None)
         self.restarts = 0
         self.history: list = []
 
@@ -92,7 +113,7 @@ class TrainDriver:
         if ckpter is not None:
             ckpter.save(step, tree)
         else:
-            save_checkpoint(self.ckpt_dir, step, tree)
+            save_checkpoint(self.ckpt_dir, step, tree, cuts=self.cuts, mesh=self.mesh)
 
     def restore(self, like_params, like_opt):
         """Latest checkpoint -> (params, opt, step), new tensors on the
@@ -100,8 +121,8 @@ class TrainDriver:
         step = latest_step(self.ckpt_dir)
         if step is None:
             return None
-        tree = restore_checkpoint(self.ckpt_dir, step,
-                                  {'params': like_params, 'opt': like_opt})
+        tree = restore_checkpoint(self.ckpt_dir, step, {'params': like_params, 'opt': like_opt},
+                                  cuts=self.cuts, mesh=self.mesh)
         return tree['params'], tree['opt'], step
 
     # -- the loop ------------------------------------------------------------
@@ -130,6 +151,8 @@ class TrainDriver:
                 if step % self.ckpt_every == 0:
                     self._save(ckpter, step, params, opt)
             except Exception as e:
+                if self.sharded and not isinstance(e, InjectedFailure):
+                    raise
                 self.restarts += 1
                 self.log(f'[driver] failure at step {step}: {e}; '
                          f'restart {self.restarts}/{self.max_restarts}')
@@ -137,6 +160,8 @@ class TrainDriver:
                     raise
                 if ckpter is not None:
                     ckpter.wait()
+                if self.sharded:
+                    dist.barrier()
                 restored = self.restore(params, opt)
                 if restored is None:
                     step = start_step     # no checkpoint yet: from scratch

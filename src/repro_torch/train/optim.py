@@ -15,10 +15,15 @@ Two deliberate differences:
 * ``step`` is a 0-d int32 tensor on the host: the schedule and the bias
   corrections are host arithmetic, and a counter on the device would
   cost a synchronisation a step to read.
+
+On a mesh every rank updates its own blocks (the state is cut as the
+parameters are, ``opt_axes``); only the clip scale needs the whole
+tree, from the mesh-wide norm that the caller passes as ``norm``
+(``parallel.global_norm``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,11 +69,14 @@ def global_norm(grads) -> torch.Tensor:
 def adamw_update(grads, opt_state, *, lr, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.1,
                  grad_clip: Optional[float] = 1.0, param_dtype=torch.bfloat16,
-                 params=None) -> Tuple[Any, Dict[str, Any], torch.Tensor]:
+                 params=None, norm: Optional[Callable] = None
+                 ) -> Tuple[Any, Dict[str, Any], torch.Tensor]:
     """One AdamW step. ``grads`` may be bf16 (they are upcast here) and
     are not written. Updates ``opt_state`` in place and, if given,
     ``params`` (copied from the new master, cast to their dtype); else
-    the new parameters are fresh ``param_dtype`` tensors. Returns
+    the new parameters are fresh ``param_dtype`` tensors. ``norm``: the
+    clip norm of ``grads`` (default :func:`global_norm`; on a mesh,
+    where ``grads`` are this rank's blocks, the mesh-wide norm). Returns
     (params, opt_state, grad_norm); grad_norm is 0 without clipping."""
     opt_state['step'] += 1
     t = np.float32(int(opt_state['step']))
@@ -77,7 +85,7 @@ def adamw_update(grads, opt_state, *, lr, b1: float = 0.9, b2: float = 0.95,
     lr = float(lr)
     flat_g = tree_leaves(grads)
     if grad_clip is not None:
-        gnorm = global_norm(grads)
+        gnorm = (norm or global_norm)(grads)
         scale = torch.clamp(grad_clip / gnorm, max=1.0)
     else:
         gnorm = torch.zeros((), dtype=torch.float32, device=flat_g[0].device)

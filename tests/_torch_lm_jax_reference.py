@@ -4,7 +4,7 @@ devices with Auto axes (``jax.sharding.Mesh``, never ``jax.make_mesh``).
 
 Run in a subprocess, so the test process keeps one device:
 
-    python tests/_torch_lm_jax_reference.py OUT.npz comm|lm|ops
+    python tests/_torch_lm_jax_reference.py OUT.npz comm|lm|ops|train [GROUP]
 
 * ``comm``: ``repro.comm.swap_axes``, ``apply_swap``, ``redistribute``
   and ``pod_fold`` under ``shard_map`` for every registered strategy on
@@ -16,6 +16,13 @@ Run in a subprocess, so the test process keeps one device:
   logits of prefill and each decode step.
 * ``ops``: ``ulysses_attention`` and ``moe_ep_explicit`` on the same
   meshes.
+* ``train``: ``repro.train.trainstep.jit_train_step`` on each case of
+  the worker's ``TRAIN_CASES[GROUP]`` (its mesh of 2 x 2, 1 x 4 or
+  4 x 1, the port's whole parameters carried across, the worker's
+  batches): each step's loss, ce, aux and grad norm, and the parameters
+  and optimizer state after it. The FFT-conv LM's mesh path cannot run
+  on jax 0.9 (ROADMAP queue 3): the worker holds it against the
+  one-rank port instead.
 
 Each result is written under ``<mesh>/<case>``.
 """
@@ -44,6 +51,7 @@ from repro_torch.weights import params_to_reference  # noqa: E402
 import _torch_lm_multirank_worker as W  # noqa: E402
 
 MESHES = {'2x2': (2, 2), '1x4': (1, 4)}
+TRAIN_MESHES = {'2x2': (2, 2), '1x4': (1, 4), '4x1': (4, 1)}
 
 
 def _mesh(shape, names):
@@ -138,7 +146,42 @@ def ops_results():
     return out
 
 
+def train_results(group: str):
+    import dataclasses
+    from repro.configs import input_specs as ref_input_specs
+    from repro.configs.base import ShapeSpec as RefShapeSpec
+    from repro.train import optim as RO
+    from repro.train.trainstep import jit_train_step as ref_jit_train_step
+    out = {}
+    B, S = W.TRAIN_SHAPE
+    for name, arch, mesh_name, sp in W.TRAIN_CASES[group]:
+        if arch == 'fftconv':
+            continue
+        cfg = W.train_config(arch)
+        rcfg = dataclasses.replace(ref_smoke(ref_config(arch)), remat=True)
+        mesh = _mesh(TRAIN_MESHES[mesh_name], ('data', 'model'))
+        sds, axes = ref_input_specs(rcfg, RefShapeSpec('train', 'train', S, B), jnp.float32)
+        with mesh:
+            step, aux = ref_jit_train_step(rcfg, mesh, sds, axes, param_dtype=jnp.float32,
+                                           microbatches=W.TRAIN_MICRO, sp=sp, **W.TRAIN_KW)
+            params = jax.device_put(tree_map(jnp.asarray, params_to_reference(W.lm_params(cfg))),
+                                    aux['p_sh'])
+            opt = jax.device_put(RO.adamw_init(params), aux['o_sh'])
+            for k, batch in enumerate(W.train_batches(cfg)):
+                b = jax.device_put({n: jnp.asarray(v) for n, v in batch.items()}, aux['b_sh'])
+                params, opt, m = step(params, opt, b)
+                for key in ('loss', 'ce', 'aux', 'grad_norm'):
+                    out[f'{name}/step{k}/{key}'] = np.float64(m[key])
+                out.update(W.flat_tree(jax.tree.map(np.asarray, params),
+                                       f'{name}/step{k}/params'))
+                out.update(W.flat_tree(jax.tree.map(np.asarray, opt), f'{name}/step{k}/opt'))
+    return out
+
+
 if __name__ == '__main__':
     suite = sys.argv[2]
-    np.savez(sys.argv[1], **{'comm': comm_results, 'lm': lm_results,
-                             'ops': ops_results}[suite]())
+    if suite == 'train':
+        np.savez(sys.argv[1], **train_results(sys.argv[3]))
+    else:
+        np.savez(sys.argv[1], **{'comm': comm_results, 'lm': lm_results,
+                                 'ops': ops_results}[suite]())

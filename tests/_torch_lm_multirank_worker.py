@@ -5,8 +5,8 @@ Run in a subprocess so the test process never initialises a process
 group:
 
     python tests/_torch_lm_multirank_worker.py OUT PORT [cpu|cuda]
-        [--mesh 2x2|1x4] [--suite comm|lm|ops|bench] [--ref REF.npz]
-        [--rows ARCH:DTYPE[:LAYERS] ...]
+        [--mesh 2x2|1x4] [--suite comm|lm|ops|bench|train|trainbench]
+        [--ref REF.npz] [--rows ARCH:DTYPE[:LAYERS] ...] [--group a|b]
 
 Every rank makes the same global operands and parameters from seeds and
 takes its blocks of them. Rank 0 writes OUT: a JSON of records
@@ -32,12 +32,25 @@ takes its blocks of them. Rank 0 writes OUT: a JSON of records
   ``overlap_chunks`` 1 and 2, gathered whole.
 * ``bench`` (``cuda``, 1 x 4 or 2 x 2): the four-card rows of
   ``benchmarks/torch_multirank_cuda.py --suite lm`` (``BENCH_ROWS``).
+* ``train`` (``--group``, the cases of one test file, ``TRAIN_CASES``):
+  the sharded trainer (``jit_train_step``) on meshes of 2 x 2, 1 x 4 and
+  4 x 1 at smoke size, fp32: each step's metrics and the gathered
+  parameters and optimizer state (the reference's from
+  ``_torch_lm_jax_reference.py train``), the FFT-conv LM beside the
+  one-rank port; group ``a`` also the sharded checkpoint restored on
+  other meshes, the new collectives' backward, and ``draw_params`` on
+  every mesh.
+* ``trainbench`` (``cuda``, 2 x 2 or 1 x 4): the four-card rows of
+  ``benchmarks/torch_multirank_cuda.py --suite train``
+  (``TRAIN_BENCH_ROWS``); on ``cpu`` a rehearsal of them at smoke size.
 """
 import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
+import subprocess
 import sys
 import time
 
@@ -51,7 +64,8 @@ sys.path.insert(0, os.path.join(HERE, '..', 'src'))
 
 from repro_torch import comm  # noqa: E402
 from repro_torch import fft  # noqa: E402
-from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs import get_config, input_specs, make_batch, smoke_config  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch.mesh import make_fft_mesh, make_host_mesh  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -63,7 +77,11 @@ from repro_torch.parallel import (Parallel, gather_tree, make_rules, shard_tree,
 from repro_torch.parallel.sharding import local_block  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.engine import make_prefill_step  # noqa: E402
-from repro_torch.weights import _shard, draw_params, shard_params  # noqa: E402
+from repro_torch.data import shard_batch  # noqa: E402
+from repro_torch.train import jit_train_step, make_train_step  # noqa: E402
+from repro_torch.train.optim import adamw_init  # noqa: E402
+from repro_torch.weights import (_shard, draw_params, opt_to_reference,  # noqa: E402
+                                 params_to_reference, shard_params, unshard_params)
 
 # ---------------------------------------------------------------------------
 # Cases (the reference script imports these)
@@ -168,6 +186,68 @@ def moe_operands(arch):
     p = M._layer(lm_params(cfg)['blocks'], 0)[f'0_{cfg.block_pattern[0]}']['moe']
     x = np.random.default_rng(43).standard_normal(MOE_SHAPE + (cfg.d_model,))
     return cfg, p, x.astype(np.float32)
+
+
+#: the sharded trainer's parity cases by test file: (name, arch, mesh,
+#: sp); the FFT-conv LM ('fftconv') is held against the one-rank port
+TRAIN_CASES = {
+    'a': [('2x2/internlm2-1.8b', 'internlm2-1.8b', '2x2', False),
+          ('2x2/qwen1.5-32b', 'qwen1.5-32b', '2x2', False),
+          ('2x2/dbrx-132b', 'dbrx-132b', '2x2', False),
+          ('2x2/deepseek-v2-236b', 'deepseek-v2-236b', '2x2', False),
+          ('2x2/internlm2-1.8b/sp', 'internlm2-1.8b', '2x2', True),
+          ('2x2/hubert-xlarge', 'hubert-xlarge', '2x2', False)],
+    'b': [('2x2/recurrentgemma-9b', 'recurrentgemma-9b', '2x2', False),
+          ('2x2/mamba2-1.3b', 'mamba2-1.3b', '2x2', False),
+          ('2x2/qwen2-vl-2b', 'qwen2-vl-2b', '2x2', False),
+          ('1x4/internlm2-1.8b', 'internlm2-1.8b', '1x4', False),
+          ('1x4/dbrx-132b', 'dbrx-132b', '1x4', False),
+          ('4x1/internlm2-1.8b', 'internlm2-1.8b', '4x1', False),
+          ('4x1/dbrx-132b', 'dbrx-132b', '4x1', False),
+          ('2x2/fftconv', 'fftconv', '2x2', False)],
+}
+#: a train case's global batch (rows, positions), microbatches, steps,
+#: batch seed (step k draws seed + k) and schedule
+TRAIN_SHAPE, TRAIN_MICRO, TRAIN_STEPS, TRAIN_SEED = (8, 32), 2, 2, 9
+#: the meshes each group's world of four ranks builds (the first, 2 x 2,
+#: also restores the checkpoint of group 'a''s internlm2-1.8b case on the others)
+TRAIN_MESHES = {'a': ('2x2', '1x4', '4x1'), 'b': ('2x2', '1x4', '4x1')}
+TRAIN_KW = dict(peak_lr=1e-4, warmup_steps=2, total_steps=10)
+
+
+def train_config(arch: str):
+    """A train case's config: smoke size, remat on (each period's FSDP
+    gathers recomputed in the backward); 'fftconv' is mamba2-1.3b's
+    smoke config with every block the FFT-conv mixer."""
+    if arch == 'fftconv':
+        cfg = dataclasses.replace(lm_config('mamba2-1.3b'), block_pattern=('fftconv',))
+    else:
+        cfg = lm_config(arch)
+    return dataclasses.replace(cfg, remat=True)
+
+
+def train_batches(cfg) -> list:
+    """Each step's global batch (numpy, ``make_batch`` from a seed; M-RoPE
+    positions over a 4 x 4 patch grid)."""
+    B, S = TRAIN_SHAPE
+    out = []
+    for k in range(TRAIN_STEPS):
+        b = {n: t.numpy() for n, t in make_batch(cfg, batch=B, seq=S, seed=TRAIN_SEED + k,
+                                                 device='cpu').items()}
+        if 'positions' in b:
+            b['positions'] = mrope_positions(B, S, 4)
+        out.append(b)
+    return out
+
+
+def flat_tree(tree, prefix: str) -> dict:
+    """A nested dict of arrays as ``{prefix/key/...: array}``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f'{prefix}/{k}'))
+        return out
+    return {prefix: np.asarray(tree)}
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +387,243 @@ def _ops_suite(mesh, mesh_name) -> dict:
         y, _ = MoE.moe_ep_explicit(pl, cfg, xl, Parallel(rules), overlap_chunks=chunks)
         out[name] = comm.all_gather(y, mesh, 'data', 0)
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+#: the train suite's records' trees and metrics
+TRAIN_TREES = ('params', 'opt/master', 'opt/m', 'opt/v')
+TRAIN_METRICS = ('loss', 'ce', 'aux', 'grad_norm')
+
+
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f'shapes {got.shape} and {want.shape}')
+    n = np.linalg.norm(want)
+    return float(np.linalg.norm(got - want) / (n if n > 0 else 1.0))
+
+
+def train_gaps(got, want, case: str, got_case: str = None) -> dict:
+    """A train case's gaps, relative L2, between two records (npz
+    dicts): ``step<k>/<metric>``, ``step<k>/<tree>`` (the whole tree as
+    one vector), and ``step<k>/<tree>/leaf`` (its worst leaf)."""
+    got_case = got_case or case
+    out = {}
+    for k in range(TRAIN_STEPS):
+        for m in TRAIN_METRICS:
+            out[f'step{k}/{m}'] = rel_l2(got[f'{got_case}/step{k}/{m}'],
+                                         want[f'{case}/step{k}/{m}'])
+        for t in TRAIN_TREES:
+            keys = sorted(x[len(case) + 1:] for x in want if x.startswith(f'{case}/step{k}/{t}/'))
+            if not keys:
+                raise AssertionError(f'{case}: no {t} at step {k}')
+            a = [np.ravel(got[f'{got_case}/{x}']) for x in keys]
+            b = [np.ravel(want[f'{case}/{x}']) for x in keys]
+            out[f'step{k}/{t}'] = rel_l2(np.concatenate(a), np.concatenate(b))
+            out[f'step{k}/{t}/leaf'] = max(rel_l2(x, y) for x, y in zip(a, b))
+    return out
+
+
+def run_train_group(tmp, group: str):
+    """(the reference's record, this worker's) for ``TRAIN_CASES[group]``:
+    ``_torch_lm_jax_reference.py train`` and the ``train`` suite as two
+    subprocesses side by side, writing under ``tmp``."""
+    import socket
+    import subprocess
+    ref, got = os.path.join(tmp, 'reference.npz'), os.path.join(tmp, 'worker.npz')
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, '_torch_lm_jax_reference.py'),
+                               ref, 'train', group]),
+             subprocess.Popen([sys.executable, os.path.abspath(__file__), got, str(port),
+                               '--suite', 'train', '--group', group])]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if codes != [0, 0]:
+        raise AssertionError(f'reference and worker exited {codes}')
+    return dict(np.load(ref)), dict(np.load(got))
+
+
+def _train_case(cfg, mesh, sp: bool, batches) -> tuple:
+    """The sharded step (``jit_train_step``) for ``TRAIN_STEPS`` steps from
+    the whole parameters (``lm_params``) cut by ``shard_params``: each
+    step's metrics and the gathered parameters and optimizer state after
+    it (rank 0's record), and the final blocks."""
+    B, S = TRAIN_SHAPE
+    sds, axes = input_specs(cfg, ShapeSpec('train', 'train', S, B), torch.float32)
+    step, aux = jit_train_step(cfg, mesh, sds, axes, param_dtype=torch.float32,
+                               microbatches=TRAIN_MICRO, sp=sp, **TRAIN_KW)
+    rules = aux['rules']
+    params = shard_params(lm_params(cfg), cfg, rules, mesh)
+    opt = adamw_init(params)
+    out = {}
+    for k, batch in enumerate(batches):
+        b = shard_batch(batch, mesh, shardings=aux['b_sh'], microbatches=TRAIN_MICRO)
+        params, opt, m = step(params, opt, b)
+        for key in ('loss', 'ce', 'aux', 'grad_norm'):
+            out[f'step{k}/{key}'] = np.float64(m[key])
+        out.update(flat_tree(params_to_reference(params, rules, mesh, cfg), f'step{k}/params'))
+        out.update(flat_tree(opt_to_reference(opt, rules, mesh, cfg), f'step{k}/opt'))
+    return out, params, opt, rules
+
+
+def _one_rank_case(cfg, batches) -> dict:
+    """The one-rank port's steps on a 1 x 1 CPU mesh, recorded as
+    :func:`_train_case`'s."""
+    mesh = make_host_mesh(1, 1, device='cpu')
+    step = make_train_step(cfg, mesh, param_dtype=torch.float32, microbatches=TRAIN_MICRO,
+                           **TRAIN_KW)
+    params = lm_params(cfg)
+    opt = adamw_init(params)
+    out = {}
+    for k, batch in enumerate(batches):
+        params, opt, m = step(params, opt, shard_batch(batch, mesh))
+        for key in ('loss', 'ce', 'aux', 'grad_norm'):
+            out[f'step{k}/{key}'] = np.float64(m[key])
+        out.update(flat_tree(params_to_reference(params), f'step{k}/params'))
+        out.update(flat_tree(opt_to_reference(opt), f'step{k}/opt'))
+    return out
+
+
+def _local_like(cfg, rules, mesh) -> dict:
+    """``{'params', 'opt'}`` of this rank's block shapes on the ``meta``
+    device (fp32; the step a host int32)."""
+    from repro_torch.parallel.sharding import local_shape
+
+    def meta(p):
+        return torch.empty(local_shape(p.shape, spec_for(rules, p.shape, p.axes), mesh),
+                           device='meta')
+    blocks = L.tree_map(meta, M.model_plan(cfg))
+    return {'params': blocks, 'opt': {'step': torch.empty((), dtype=torch.int32, device='meta'),
+                                      'master': blocks, 'm': blocks, 'v': blocks}}
+
+
+def _ckpt_case(cfg, params, opt, rules, mesh, meshes, tmp) -> dict:
+    """The state after the steps saved sharded on ``mesh`` and restored
+    whole (one rank), on each mesh of ``meshes``, and from a one-rank
+    checkpoint onto ``mesh``: each gathered tree bitwise equal to the
+    saved state's."""
+    from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.weights import opt_cuts, param_cuts
+    tree = {'params': params, 'opt': opt}
+    cuts = {'params': param_cuts(cfg, rules), 'opt': opt_cuts(cfg, rules)}
+    want = {'params': unshard_params(params, cfg, rules, mesh),
+            'opt': {'step': opt['step'], **{k: unshard_params(opt[k], cfg, rules, mesh)
+                                           for k in ('master', 'm', 'v')}}}
+    sharded, single = os.path.join(tmp, 'sharded'), os.path.join(tmp, 'single')
+    save_checkpoint(sharded, 7, tree, cuts=cuts, mesh=mesh)
+    if dist.get_rank() == 0:
+        save_checkpoint(single, 7, want)           # the one-rank layout
+    dist.barrier()
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    out = {'ckpt/latest': latest_step(sharded) == 7,
+           'ckpt/files': len(os.listdir(os.path.join(sharded, 'step_00000007')))}
+    whole_like = L.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device='meta'), want)
+    out['ckpt/restore_1x1'] = same(restore_checkpoint(sharded, 7, whole_like, device='cpu'),
+                                      want)
+    for name, m in meshes.items():
+        r = make_rules(m, mode='train')
+        got = restore_checkpoint(sharded, 7, _local_like(cfg, r, m), device='cpu',
+                                 cuts={'params': param_cuts(cfg, r), 'opt': opt_cuts(cfg, r)},
+                                 mesh=m)
+        back = {'params': unshard_params(got['params'], cfg, r, m),
+                'opt': {'step': got['opt']['step'],
+                        **{k: unshard_params(got['opt'][k], cfg, r, m)
+                           for k in ('master', 'm', 'v')}}}
+        out[f'ckpt/restore_{name}'] = same(back, want)
+    got = restore_checkpoint(single, 7, _local_like(cfg, rules, mesh), device='cpu',
+                             cuts=cuts, mesh=mesh)
+    out['ckpt/reshard_one_rank'] = same(got, tree)
+    return out
+
+
+def _collective_grads(mesh) -> dict:
+    """The new collectives and their backward on this mesh against what
+    one rank computes from every rank's seeded operands: per check, the
+    largest absolute gap (0 where they are bitwise)."""
+    rank = dist.get_rank()
+
+    def operand(r, shape, salt):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(100 * salt + r),
+                           dtype=torch.float64)
+
+    def members(axis):
+        return mesh.group(axis)[1]
+    out = {}
+    for axis in ('data', 'model', ('data', 'model')):
+        key = axis if isinstance(axis, str) else '+'.join(axis)
+        ms, me = members(axis), comm.group_index(mesh, axis)
+        p = len(ms)
+        # reduce_scatter: this rank's block of the group's sum
+        x = operand(rank, (4 * p, 3), 1)
+        want = sum(operand(r, (4 * p, 3), 1) for r in ms).narrow(0, 4 * me, 4)
+        out[f'reduce_scatter/{key}'] = float((comm.reduce_scatter(x, mesh, axis, 0)
+                                              - want).abs().max())
+        # the gather used apart: its cotangent the group's sum, sliced
+        x = operand(rank, (3, 2), 2).requires_grad_()
+        c = operand(rank, (3, 2 * p), 3)
+        g, = torch.autograd.grad((c * comm.all_gather(x, mesh, axis, 1, alike=False)).sum(), x)
+        want = sum(operand(r, (3, 2 * p), 3) for r in ms).narrow(1, 2 * me, 2)
+        out[f'gather_apart/{key}'] = float((g - want).abs().max())
+        # the gather used alike: its cotangent this rank's own slice
+        g, = torch.autograd.grad((c * comm.all_gather(x, mesh, axis, 1)).sum(), x)
+        out[f'gather_alike/{key}'] = float((g - c.narrow(1, 2 * me, 2)).abs().max())
+        # enter: identity forward, the group's sum of the cotangents
+        x = operand(0, (5,), 4).requires_grad_()
+        y = comm.enter(x, mesh, axis)
+        g, = torch.autograd.grad((operand(rank, (5,), 5) * y).sum(), x)
+        want = sum(operand(r, (5,), 5) for r in ms)
+        out[f'enter/{key}'] = max(float((g - want).abs().max()),
+                                  float((y - x).detach().abs().max()))
+    return out
+
+
+def _train_suite(meshes, group: str, tmp: str) -> dict:
+    out = {}
+    for name, arch, mesh_name, sp in TRAIN_CASES[group]:
+        cfg, mesh = train_config(arch), meshes[mesh_name]
+        batches = train_batches(cfg)
+        t0 = time.perf_counter()
+        rec, params, opt, rules = _train_case(cfg, mesh, sp, batches)
+        out.update({f'{name}/{k}': v for k, v in rec.items()})
+        if arch == 'fftconv' and dist.get_rank() == 0:
+            out.update({f'{name}/one/{k}': v for k, v in _one_rank_case(cfg, batches).items()})
+        if name == '2x2/internlm2-1.8b':
+            out.update(_ckpt_case(cfg, params, opt, rules, mesh,
+                                  {k: v for k, v in meshes.items() if k != mesh_name}, tmp))
+        out[f'{name}/seconds'] = time.perf_counter() - t0
+    if group == 'a':
+        out.update(_collective_grads(meshes['2x2']))
+        out.update(_draws(meshes))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+#: the configs whose ``draw_params`` trees are compared across meshes
+DRAW_ARCHS = ('internlm2-1.8b', 'dbrx-132b', 'recurrentgemma-9b')
+
+
+def _draws(meshes) -> dict:
+    """``draw_params`` on each mesh under the train and the serve rules,
+    gathered whole (``unshard_params``): bitwise the 1 x 1 draw."""
+    out = {}
+    one = make_host_mesh(1, 1, device='cpu')
+    for arch in DRAW_ARCHS:
+        cfg = lm_config(arch)
+        want = draw_params(3, cfg, torch.float32, make_rules(one, mode='train'), one)
+        for name, mesh in meshes.items():
+            for mode in ('train', 'serve'):
+                rules = make_rules(mesh, mode=mode)
+                got = unshard_params(draw_params(3, cfg, torch.float32, rules, mesh), cfg,
+                                     rules, mesh)
+                out[f'draw/{arch}/{name}/{mode}'] = all(
+                    torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -552,8 +869,238 @@ def _bench_suite(mesh, mesh_name, only=None) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The sharded trainer's four-card rows (cuda)
+# ---------------------------------------------------------------------------
+
+#: by mesh: (config, global batch (rows, positions), microbatches, steps,
+#: held against rank 0 alone on its card); every config at its published
+#: widths and depth ('fftconv': ``chip_smoke._fftconv_cfg``), fp32, remat
+#: on, each rank drawing its blocks (``draw_params``, the same whole tree
+#: on every mesh)
+TRAIN_BENCH_ROWS = {'2x2': [('recurrentgemma-9b', (4, 4096), 2, 3, False),
+                            ('internlm2-1.8b', (8, 2048), 2, 6, True),
+                            ('fftconv', (4, 2048), 1, 6, True)],
+                    '1x4': [('recurrentgemma-9b', (4, 4096), 2, 3, False)]}
+TRAIN_BENCH_SEED = 0
+#: the mesh's run against one card's: each step's loss, ce and grad norm,
+#: and the gathered parameters after the last step, relative L2
+TRAIN_ONE_CARD_REL = 1e-5
+#: a rehearsal on gloo CPU ranks (``cpu``) runs each row's smoke config
+#: at this many positions
+TRAIN_REHEARSAL_SEQ = 32
+
+
+def _bench_train_cfg(cs, arch: str, cuda: bool):
+    cfg = (cs._fftconv_cfg(get_config('mamba2-1.3b')) if arch == 'fftconv'
+           else get_config(arch))
+    return cfg if cuda else dataclasses.replace(smoke_config(cfg), remat=True)
+
+
+def _timed(fn, cuda: bool) -> float:
+    """``fn()``'s time in ms: CUDA events on a card, the host clock on
+    the CPU."""
+    if not cuda:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+class _CardSampler:
+    """The card's SM clock (MHz) and power draw (W), read by ``nvidia-smi``
+    every 100 ms while the block runs: ``.sm_mhz`` the median clock,
+    ``.power_w`` the median draw (None where nothing was read)."""
+
+    def __init__(self, index: int):
+        self.cmd = ['nvidia-smi', '-i', str(index), '--query-gpu=clocks.sm,power.draw',
+                    '--format=csv,noheader,nounits', '-lms', '100']
+        self.sm_mhz = self.power_w = None
+
+    def __enter__(self):
+        try:
+            self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.DEVNULL, text=True)
+        except OSError:         # no nvidia-smi: nothing read
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return False
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(',')])
+            except ValueError:
+                pass
+        if rows:
+            self.sm_mhz, self.power_w = (sorted(c)[len(c) // 2] for c in zip(*rows))
+        return False
+
+
+def _train_steps(step, params, opt, batches, cuda: bool):
+    """Run the steps: (params, opt, each step's ms, each step's metrics as
+    host floats; on a card each step's median SM clock and power draw
+    under ``sm_mhz`` and ``power_w``)."""
+    ms, mets = [], []
+    for b in batches:
+        box = {}
+
+        def one(b=b):
+            box['out'] = step(params, opt, b)
+        with (_CardSampler(torch.cuda.current_device()) if cuda
+              else contextlib.nullcontext()) as card:
+            ms.append(_timed(one, cuda))
+        params, opt, m = box['out']
+        mets.append({k: float(v) for k, v in m.items()})
+        if cuda:
+            mets[-1].update(sm_mhz=card.sm_mhz, power_w=card.power_w)
+    return params, opt, ms, mets
+
+
+def _bench_train_row(cs, mesh, arch, shape, micro, steps, one_card) -> dict:
+    """One four-card row: ``steps`` sharded steps of ``arch`` on ``mesh``,
+    timed, with the card's clock and power draw during each; the FFT
+    kernels' launches; on a card one more step under the profiler; for
+    ``one_card`` rows, rank 0's run of the same whole parameters and
+    batches alone on its card. Returns this rank's record."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import fft_matmul, fft_pencil
+    cuda = mesh.device.type == 'cuda'
+    cfg = _bench_train_cfg(cs, arch, cuda)
+    B, S = shape if cuda else (shape[0], TRAIN_REHEARSAL_SEQ)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sds, axes = input_specs(cfg, ShapeSpec('train', 'train', S, B), torch.float32)
+    step, aux = jit_train_step(cfg, mesh, sds, axes, param_dtype=torch.float32,
+                               microbatches=micro)
+    rules = aux['rules']
+    t0 = time.perf_counter()
+    params = draw_params(TRAIN_BENCH_SEED, cfg, torch.float32, rules, mesh)
+    opt = adamw_init(params)
+    draw_s = time.perf_counter() - t0
+    data = SyntheticLM(cfg.vocab_size, S, B, seed=TRAIN_BENCH_SEED, input_mode=cfg.input_mode,
+                       d_model=cfg.d_model, mrope=cfg.pos_kind == 'mrope')
+    host = [data.batch_at(i) for i in range(steps)]
+    batches = [shard_batch(h, mesh, shardings=aux['b_sh'], microbatches=micro) for h in host]
+    kernels.reset_launch_counts()
+    params, opt, ms, mets = _train_steps(step, params, opt, batches, cuda)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    mma, radix8 = fft_matmul.launches_mma, fft_pencil.launches_radix8
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    for m in mets:
+        if not (all(math.isfinite(v) for k, v in m.items() if k not in ('sm_mhz', 'power_w'))
+                and m['grad_norm'] > 0
+                and 0 < m['ce'] < 2 * math.log(cfg.vocab_size)):
+            raise AssertionError(f"train {arch} on {mesh}: a step's metrics {m}")
+    if arch == 'fftconv' and cuda:
+        # each rank transforms its batch block: 12 of each kernel a layer a
+        # step, every one on the tensor-core or radix-8 body
+        per_step = {k: v * cs.FFTCONV_APPLIES * cfg.num_layers
+                    for k, v in cs.FFTCONV_PER_APPLY.items()}
+        if (launches != {k: v * steps for k, v in per_step.items()}
+                or mma != launches['fft_matmul'] or radix8 != launches['fft_pencil']):
+            raise AssertionError(f'train fftconv on {mesh}: launched {launches} (mma {mma}, '
+                                 f'radix8 {radix8}), want {per_step} a step')
+    tokens = B * S
+    flops = cs._train_flops(cfg, tokens, S)
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    rec = dict(arch=arch, mesh='x'.join(str(n) for n in mesh.shape.values()),
+               layers=cfg.num_layers, d_model=cfg.d_model, batch=B, seq=S, microbatches=micro,
+               steps=steps, step_ms=med, steps_ms=ms, tok_per_s=tokens / med * 1e3,
+               peak_gib=peak, draw_s=draw_s, flop=flops,
+               bound_ms=flops / cs.FP32_FLOP_PER_S * 1e3 / mesh.size,
+               loss=[m['loss'] for m in mets], ce=[m['ce'] for m in mets],
+               grad_norm=[m['grad_norm'] for m in mets], launches=launches,
+               launches_mma=mma, launches_radix8=radix8,
+               sm_mhz=[m.get('sm_mhz') for m in mets], power_w=[m.get('power_w') for m in mets])
+    whole = unshard_params(params, cfg, rules, mesh) if one_card else None
+    if cuda:
+        # where the time goes: one more step under the profiler, every rank
+        rec['profile'] = cs.profile(lambda: step(params, opt, batches[0]),
+                                    sums={'nccl_ms': r'^ncclDevKernel',
+                                          'gemm_ms': r'gemm|cutlass|sm90'})
+    del params, opt
+    if one_card:
+        rec.update(_train_one_card(cfg, mesh, whole, host, micro, mets, cuda))
+    return rec
+
+
+def _train_one_card(cfg, mesh, whole, host, micro, mets, cuda) -> dict:
+    """Rank 0 trains the same whole parameters (drawn on a 1 x 1 mesh: the
+    same tree) on the same batches alone on its card; its loss, ce and
+    grad norm each step, and its parameters after the last, against the
+    mesh's (held to ``TRAIN_ONE_CARD_REL``)."""
+    out = {}
+    if dist.get_rank() == 0:
+        one = make_host_mesh(1, 1, device=mesh.device.type)
+        params = draw_params(TRAIN_BENCH_SEED, cfg, torch.float32,
+                             make_rules(one, mode='train'), one)
+        opt = adamw_init(params)
+        step = make_train_step(cfg, one, microbatches=micro, param_dtype=torch.float32)
+        params, opt, ms, want = _train_steps(step, params, opt,
+                                             [shard_batch(h, one) for h in host], cuda)
+        del opt
+        gaps = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mets, want))
+                for k in ('loss', 'ce', 'grad_norm')}
+        num = sum(float(torch.sum((a.double() - b.double()) ** 2))
+                  for a, b in zip(tree_leaves(whole), tree_leaves(params)))
+        den = sum(float(torch.sum(b.double() ** 2)) for b in tree_leaves(params))
+        gaps['params'] = (num / den) ** 0.5
+        if not all(v <= TRAIN_ONE_CARD_REL for v in gaps.values()):
+            raise AssertionError(f'{cfg.name}: the mesh against one card: {gaps}')
+        out = dict(one_card_rel={k: f'{v:.3g}' for k, v in gaps.items()},
+                   one_card_step_ms=sorted(ms[1:])[len(ms[1:]) // 2], one_card_steps_ms=ms,
+                   one_card_sm_mhz=[m.get('sm_mhz') for m in want])
+        del params
+    del whole
+    dist.barrier()
+    return out
+
+
+def _trainbench_suite(mesh, mesh_name) -> list:
+    """Every row of ``TRAIN_BENCH_ROWS[mesh_name]``: per row, the slowest
+    rank's step time and the largest peak, rank 0's record otherwise."""
+    sys.path.insert(0, os.path.join(HERE, '..'))
+    if mesh.device.type == 'cuda':
+        import chip_smoke as cs      # its bounds and profiler
+    else:                            # a rehearsal: chip_smoke refuses a host without a card
+        available, torch.cuda.is_available = torch.cuda.is_available, lambda: True
+        try:
+            import chip_smoke as cs
+        finally:
+            torch.cuda.is_available = available
+    rows = []
+    for arch, shape, micro, steps, one_card in TRAIN_BENCH_ROWS[mesh_name]:
+        mine = _bench_train_row(cs, mesh, arch, shape, micro, steps, one_card)
+        every = [None] * mesh.size
+        dist.all_gather_object(every, mine)
+        row = dict(every[0])
+        for k in ('step_ms', 'peak_gib', 'draw_s'):
+            row[k] = max(r[k] for r in every)
+        row['tok_per_s'] = min(r['tok_per_s'] for r in every)
+        row['launches_by_rank'] = [r['launches'] for r in every]
+        for k in ('steps_ms', 'sm_mhz', 'power_w'):
+            row[f'{k}_by_rank'] = [r[k] for r in every]
+        rows.append(row)
+        if dist.get_rank() == 0:
+            print('[train4] ' + ' '.join(f'{k}={v}' for k, v in row.items()), flush=True)
+        if mesh.device.type == 'cuda':
+            cs._free_card()
+    return rows
+
+
 def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str,
-        ref=None, rows_only=None) -> None:
+        ref=None, rows_only=None, train_group='a') -> None:
     rows, cols = (int(v) for v in mesh_name.split('x'))
     world = rows * cols
     if device == 'cuda':
@@ -578,9 +1125,18 @@ def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str,
                 with open(out, 'w') as fh:
                     json.dump(merged, fh)
             return
+        if suite == 'train':
+            meshes = {m: make_host_mesh(*(int(v) for v in m.split('x')), device=device)
+                      for m in TRAIN_MESHES[train_group]}
+            t0 = time.perf_counter()
+            mine = _train_suite(meshes, train_group, os.path.dirname(os.path.abspath(out)))
+            if rank == 0:
+                np.savez(out, seconds=time.perf_counter() - t0, **mine)
+            return
         mesh = make_host_mesh(rows, cols, device=device)
-        if suite == 'bench':
-            rec = _bench_suite(mesh, mesh_name, rows_only)
+        if suite in ('bench', 'trainbench'):
+            rec = (_bench_suite(mesh, mesh_name, rows_only) if suite == 'bench'
+                   else _trainbench_suite(mesh, mesh_name))
             if rank == 0:
                 with open(out, 'w') as fh:
                     json.dump(rec, fh)
@@ -601,12 +1157,15 @@ if __name__ == '__main__':
     ap.add_argument('port', type=int)
     ap.add_argument('device', nargs='?', default='cpu', choices=('cpu', 'cuda'))
     ap.add_argument('--mesh', default='2x2', choices=('2x2', '1x4'))
-    ap.add_argument('--suite', default='lm', choices=('comm', 'lm', 'ops', 'bench'))
+    ap.add_argument('--suite', default='lm',
+                    choices=('comm', 'lm', 'ops', 'bench', 'train', 'trainbench'))
+    ap.add_argument('--group', default='a', choices=tuple(TRAIN_CASES),
+                    help='train: the cases of this test file (TRAIN_CASES)')
     ap.add_argument('--ref', default=None, help='.npz of the reference results')
     ap.add_argument('--rows', nargs='+', default=None,
                     help='bench: only these rows (arch:dtype[:layers])')
     args = ap.parse_args()
     rows, cols = (int(v) for v in args.mesh.split('x'))
     mp.spawn(run, args=(args.port, args.out, args.device, args.mesh, args.suite, args.ref,
-                        args.rows),
+                        args.rows, args.group),
              nprocs=rows * cols, join=True)

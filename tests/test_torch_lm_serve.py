@@ -18,6 +18,7 @@ compressed cache.
 The launcher runs on the CPU as a user runs it; a mesh of more than one
 rank, and ``cuda`` without a card, raise.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -38,7 +39,6 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.models.layers import tree_map
 from repro_torch.serve import ServeEngine
-from repro_torch.launch.mesh import require_one_rank
 from repro_torch.weights import params_to_reference
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -147,21 +147,27 @@ def test_engine_validates_its_inputs():
 def test_a_mesh_of_several_ranks_raises(shape):
     """The server builds on a mesh of several ranks (its steps and specs
     need no process group until they run: ``tests/test_torch_lm_sharded.py``
-    runs them); the trainer still refuses one, naming the sharded
-    trainer's item."""
-    with pytest.raises(ValueError, match='item 11i'):
-        require_one_rank(shape)
-
+    runs them), and so does the trainer, which once refused one: its
+    specs exist for the mesh (``jit_train_step``), every leaf cut over
+    'data' on its 'embed' dimension where 'data' divides it."""
     class Mesh4:
         device = torch.device('cpu')
 
     Mesh4.shape = shape
+    Mesh4.size = shape['data'] * shape['model']
     cfg = smoke_config(get_config('internlm2-1.8b'))
     eng = ServeEngine(cfg, Mesh4(), {}, batch=4, prompt_len=8, max_len=12)
     assert eng.mesh.shape == shape and eng.batch == 4
-    from repro_torch.train import make_train_step
-    with pytest.raises(ValueError, match='1x1 mesh only'):
-        make_train_step(cfg, Mesh4())
+    from repro_torch.configs import SHAPES, input_specs
+    from repro_torch.train import jit_train_step
+    sds, axes = input_specs(cfg, dataclasses.replace(SHAPES['train_4k'], seq_len=8,
+                                                     global_batch=4))
+    mesh = Mesh4()
+    step, aux = jit_train_step(cfg, mesh, sds, axes, param_dtype=torch.float32)
+    assert callable(step) and aux['rules'].mode == 'train'
+    assert aux['p_sh']['blocks']['0_attn']['mlp']['wi'] == (mesh, (None, 'data', 'model'))
+    assert aux['b_sh']['tokens'][1] == ('data',)
+    assert aux['o_sh']['master']['embed']['table'] == aux['p_sh']['embed']['table']
 
 
 def test_cuda_without_a_card_raises():

@@ -32,7 +32,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.parallel import gather_tree, make_rules, named_sharding, shard_tree, spec_for
 from repro_torch.parallel import tree_specs
-from repro_torch.weights import shard_params
+from repro_torch.weights import draw_params, shard_params
 
 MESHES = {'1x1': {'data': 1, 'model': 1}, '2x2': {'data': 2, 'model': 2},
           '1x4': {'data': 1, 'model': 4}, '2x4': {'data': 2, 'model': 4},
@@ -168,6 +168,28 @@ def test_shard_tree_blocks_tile_the_whole_tree(arch, mesh):
     r1 = make_rules(one, mode='serve')
     back = gather_tree(shard_tree(params, axes, r1, one), M.abstract_params(cfg), axes, r1, one)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(params)))
+
+
+@pytest.mark.parametrize('mode', ['serve', 'train'])
+def test_draw_params_fills_every_block_on_a_group_of_three(monkeypatch, mode):
+    """On a 1 x 3 mesh 'model' cuts the smoke qwen1.5-32b's MLP width of
+    96 (4 cells, and 4 a half of the packed ``wi``) in three: each rank
+    draws one cell of its own, so every element of its blocks is drawn
+    (``torch.empty`` filled with NaN here shows one left undrawn)."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, 'empty', lambda *a, **kw: empty(*a, **kw).fill_(float('nan')))
+    cfg = smoke_config(get_config('qwen1.5-32b'))
+    shape = {'data': 1, 'model': 3}
+    rules = make_rules(_mesh(shape), mode=mode)
+    whole = M.abstract_params(cfg, torch.float32)
+    for r in range(3):
+        rank = FFTMesh(shape, torch.device('cpu'))
+        rank._coord = (0, r)
+        tree = draw_params(0, cfg, torch.float32, rules, rank)
+        cut = [k for k, (a, b) in enumerate(zip(tree_leaves(tree), tree_leaves(whole)))
+               if tuple(a.shape) != tuple(b.shape)]
+        assert cut, 'no leaf is cut over the group of three'
+        assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
 
 
 @pytest.mark.parametrize('shape', list(SHAPES))
