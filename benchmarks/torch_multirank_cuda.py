@@ -12,11 +12,20 @@ pencil, real, overlap and rank-1 cases), the ``strategies`` suite on
 2 x 2 and 1 x 4 (every plan on ppermute, hierarchical and the mesh's pod
 tree, held against all_to_all; the bare swaps), the ``pod`` suite on
 1 x 2 x 2 pods (``batch_spec='pod'``), the ``op`` suite (``plan_op``)
-on 2 x 2 and 1 x 4, and the ``serve`` suite on 2 x 2 at 512^3 (one
-``FFTEngine`` a rank, 8 complex requests, ``flush()``: every result
-bitwise equal to the rank's per-request ``plan.forward``, and the
-slowest rank's time a request, the engine's beside the sequential
-calls'). The ``lm`` suite runs ``tests/_torch_lm_multirank_worker.py``'s
+on 2 x 2 and 1 x 4, and the ``serve`` suite on 2 x 2 and 1 x 4 at 512^3:
+one ``FFTEngine`` a rank, 8 complex requests through ``flush()`` and
+through a background engine with no ``flush()`` (position 0's drainer
+leading), every result bitwise equal to the rank's per-request
+``plan.forward``, each group's ``fft_matmul`` launches those of one call
+of the plan on it, all on the tensor-core body, and the slowest rank's
+time a request beside the sequential calls'; then
+``tests/_torch_serve_mesh_worker.py``'s cases on 2 x 2 (the drainer and
+the service at small shapes, on NCCL) and its ``bench`` on 2 x 2 and
+1 x 4 (``[serve4]``: ``FFTService`` at the client, real 512^3 requests
+from two tenants over a unix socket on position 0, the host split with
+the scatter and the gather, each card's peak; 3 ``fft_matmul`` a group on
+every rank; every result bitwise equal to the ranks' per-request calls
+and to a one-card service's frame). The ``lm`` suite runs ``tests/_torch_lm_multirank_worker.py``'s
 ``bench`` rows (the sharded LM server at published widths and depths,
 64 new tokens after 8 prompts of 2048): qwen1.5-32b whole in fp32 and
 dbrx-132b's 40 layers in bf16 on 1 x 4, dbrx-132b's first 16 layers in
@@ -51,7 +60,9 @@ sys.path.insert(0, TESTS)
 
 import _torch_lm_multirank_worker as lm_worker  # noqa: E402
 import _torch_multirank_worker as worker  # noqa: E402
+import _torch_serve_mesh_worker as mesh_worker  # noqa: E402
 import test_torch_multirank as checks  # noqa: E402
+import test_torch_serve_mesh as serve_checks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 WORLD = 4
@@ -81,7 +92,8 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     passed = total = 0
     runs = (('2x2', 'base', 1), ('2x2', 'strategies', 1), ('1x4', 'strategies', 1),
-            ('1x2', 'pod', 2), ('2x2', 'op', 1), ('1x4', 'op', 1), ('2x2', 'serve', 1))
+            ('1x2', 'pod', 2), ('2x2', 'op', 1), ('1x4', 'op', 1), ('2x2', 'serve', 1),
+            ('1x4', 'serve', 1))
     for mesh, suite, pods in runs:
         if args.suite and suite not in args.suite:
             continue
@@ -105,6 +117,9 @@ def main() -> None:
                 continue
             passed += 1
             print(f"[case] {mesh} {name} passed {json.dumps(results[name])}", flush=True)
+    if not args.suite or 'serve' in args.suite:
+        ok, n = _serve_mesh_rows(args.out)
+        passed, total = passed + ok, total + n
     if args.suite and 'lm' in args.suite:
         for mesh, rows in lm_worker.BENCH_ROWS.items():
             if args.lm_rows and not {lm_worker.row_name(a, d, n) for a, d, _, n in rows} \
@@ -185,6 +200,81 @@ def _train_rows(out_dir: str) -> tuple:
     return passed + int(ok), len(lm_worker.TRAIN_BENCH_ROWS) + 1
 
 
+#: tests/_torch_serve_mesh_worker.py's runs: (mesh, --cases)
+SERVE_MESH_RUNS = (('2x2', 'all'), ('2x2', 'bench'), ('1x4', 'bench'))
+
+
+def _serve_mesh_rows(out_dir: str) -> tuple:
+    """The serving worker's runs on NCCL: (cases passed, cases). Each
+    case of the 2 x 2 'all' run is held to its test's checks; each bench
+    to :func:`check_service_bench`."""
+    passed = total = 0
+    for mesh, cases in SERVE_MESH_RUNS:
+        out = os.path.join(out_dir, f'serve_mesh_{cases}_{mesh}.json')
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            port = s.getsockname()[1]
+        proc = subprocess.run([sys.executable, os.path.join(TESTS, '_torch_serve_mesh_worker.py'),
+                               out, str(port), 'cuda', '--mesh', mesh, '--cases', cases],
+                              timeout=1200)
+        named = _serve_mesh_checks(cases)
+        if proc.returncode != 0:
+            total += len(named)
+            print(f"[case] {mesh} serve_mesh/{cases} FAILED: the worker exited "
+                  f"{proc.returncode}", flush=True)
+            continue
+        with open(out) as fh:
+            rec = json.load(fh)
+        for name, check in named:
+            total += 1
+            try:
+                check(rec)
+            except AssertionError as e:
+                print(f"[case] {mesh} serve_mesh/{name} FAILED {e!r}", flush=True)
+                continue
+            passed += 1
+            print(f"[case] {mesh} serve_mesh/{name} passed", flush=True)
+        if cases == 'bench':
+            print(f"[serve4] mesh={mesh} {json.dumps(rec['bench'])}", flush=True)
+    return passed, total
+
+
+def _serve_mesh_checks(cases: str):
+    """(name, check of the worker's record) of one serving worker run."""
+    if cases == 'bench':
+        return [('bench', lambda rec: check_service_bench(rec['bench']))]
+    runs = lambda rec: {'2x2': (rec, None)}  # noqa: E731
+    c = serve_checks
+    return [('stream', lambda r: c.test_drainer_stream_is_bitwise_per_request(runs(r), '2x2')),
+            ('groups', lambda r: c.test_drainer_groups_pair_on_every_rank(runs(r), '2x2')),
+            ('deadline', c.test_deadline_only_load_dispatches),
+            ('watermark', c.test_watermark_only_load_dispatches),
+            ('fault', c.test_dispatch_fault_is_retried_on_every_rank),
+            ('persistent_fault', c.test_persistent_dispatch_fault_surfaces_on_every_rank),
+            ('stall', c.test_drainer_stall_delays_but_serves),
+            ('multi_tenant', c.test_service_multi_tenant_bit_identity),
+            ('quota', c.test_service_quota_isolation),
+            ('slo', c.test_service_slo_ordering),
+            ('one_rank_bytes', c.test_service_bytes_equal_the_one_rank_service),
+            ('close', c.test_close_drain_ends_every_process)]
+
+
+def check_service_bench(r):
+    """The timed service: every request served to its tenant, none
+    rejected; on every rank 3 fft_matmul launches a group, all on the
+    tensor-core body, the groups in one order; every result bitwise equal
+    to the ranks' per-request calls and, where the method is the same, to
+    the one-card service's frame."""
+    lead = r[0]
+    assert not lead['errors'] and lead['rejected'] == 0, lead['errors']
+    # the stream and three requests one at a time
+    assert sum(lead['tenants'].values()) == mesh_worker.BENCH_REQUESTS + 3, lead['tenants']
+    assert all(x['launches_ok'] is True and x['bitwise'] is True for x in r)
+    assert len({x['digest'] for x in r}) == 1 and len({x['groups'] for x in r}) == 1
+    if lead['one_card_method'] == lead['method']:
+        assert lead['one_card_bytes'] is True, lead.get('one_card_max_abs')
+
+
 def _checks(mesh: str, suite: str):
     """(case name, check of its record) of one worker run."""
     if suite == 'pod':
@@ -218,11 +308,15 @@ def _checks(mesh: str, suite: str):
 
 def check_serve(r):
     """The timed serve suite: every coalesced result on every rank
-    bitwise equal to its per-request call, groups of 4 (the model's pick
-    under the cap) in 2 groups."""
+    bitwise equal to its per-request call, through flush() and through
+    the drainer, groups of 4 (the model's pick under the cap) in 2
+    groups, each launching what one call of the plan on it launches, all
+    on the tensor-core body, in one order on every rank."""
     assert r['bitwise'] is True and r['shape_ok']
-    (w, _), _, _, groups = r['resolved']
-    assert w == 4 and groups == 2
+    assert r['drainer_bitwise'] is True and r['drainer_paired'] is True
+    assert r['launches_ok'] is True
+    (w, _), _, _, groups, (dw, _), dgroups, _ = r['resolved']
+    assert w == 4 and groups == 2 and dw == 4 and dgroups == 2
 
 
 def _true(r):

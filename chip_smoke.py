@@ -1270,6 +1270,8 @@ def phase_service(gen) -> list:
     path = os.path.join(tmp, 'fft.sock')
     svc = FFTService(engine=eng, ops={'solver': op_plan}, persist_policy=False,
                      tenants=[TenantConfig(n, slo=slo) for n, slo in SERVICE_TENANTS]).start(path)
+    if eng._side is not None or svc._link is not None:
+        raise AssertionError("service: a one-rank engine made a side group")
     for kw in (dict(real=True, shape=shape), dict(shape=shape_c), dict(op='solver')):
         eng.set_schedule(SERVE_COALESCE, 1, **kw)
     real_plan, cplx_plan = eng.plan_for(True, shape=shape), eng.plan_for(False, shape=shape_c)
@@ -1424,7 +1426,7 @@ def phase_service(gen) -> list:
         tenants=json.dumps({n: m['tenants'][n]['completed'] for n, _ in SERVICE_TENANTS}),
         rejected=0, groups=dispatch['groups'], width_hist=json.dumps(dispatch['width_hist']),
         policy=json.dumps(m['service']['policy']), peak_gib=f"{peak:.4g}",
-        peak_host_gib=f"{peak_host:.4g}")
+        peak_host_gib=f"{peak_host:.4g}", side_groups=len(mesh._side_groups))
     del reqs
 
     # the launcher's CI smoke, on the card, in its own process

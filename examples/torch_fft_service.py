@@ -15,8 +15,8 @@ same batched dispatches — while keeping the tenants isolated at the edge:
 
 Outputs are bit-identical to per-request plan calls — the service only
 changes who may enter and when groups dispatch, never the math. The
-service runs on one rank (its engine's drainer does), on the card by
-default:
+service runs here on one rank, on the card by default (a mesh's is the
+launcher's ``--mesh``):
 
     PYTHONPATH=src python examples/torch_fft_service.py --n 64 --requests 10
     PYTHONPATH=src python examples/torch_fft_service.py --device cpu

@@ -478,10 +478,11 @@ class FFT:
         return tuple(s // strategies.static_group_size(o, self.mesh.shape)
                      for s, o in zip(self.shape, layout))
 
-    def spectrum_local_shape(self) -> Tuple[int, ...]:
-        """This rank's block of the forward's output. For an unpadded real
-        spectrum the pad lies in the trailing shards of the half axis, so
-        a rank keeps the bins below n//2 + 1 of its padded block."""
+    def spectrum_local_shape(self, position: Optional[int] = None) -> Tuple[int, ...]:
+        """This rank's block of the forward's output (or the block of the
+        rank at mesh ``position``). For an unpadded real spectrum the pad
+        lies in the trailing shards of the half axis, so a rank keeps the
+        bins below n//2 + 1 of its padded block."""
         if not self.real:
             return self.local_shape(self.out_layout)
         if self.rank == 1:
@@ -493,7 +494,7 @@ class FFT:
         owner = lay[-1]
         first = 0
         if strategies.static_group_size(owner, self.mesh.shape) > 1:
-            first = self.mesh.group_index(owner) * blk[-1]
+            first = self.mesh.group_index(owner, position) * blk[-1]
         keep = min(blk[-1], max(0, pencil.real_half_extent(self.shape[-1]) - first))
         return blk[:-1] + (keep,)
 

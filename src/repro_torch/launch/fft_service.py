@@ -4,8 +4,11 @@ Port of ``repro.launch.fft_service``, with the same subcommands and
 flags, except that ``--mesh RxC`` and ``--device cuda|cpu`` name the
 port's mesh (``make_fft_mesh``) where the reference took ``--devices``
 (its fake host devices). The default device is ``cuda``, which raises
-without a card. The service serves on one rank (``--mesh 1x1``): its
-engine's drainer refuses a larger mesh.
+without a card. A mesh of more than one rank runs one process a rank
+under ``torch.distributed.run`` (NCCL on ``cuda``, gloo on ``cpu``;
+outside it, it raises and names the command): every rank builds the
+service, mesh position 0 binds the socket, serves and prints, and the
+other ranks serve their blocks until it closes.
 
 Three entry points:
 
@@ -20,16 +23,21 @@ Three entry points:
 * ``client`` — connect as one tenant, stream a mixed workload of
   complex and real transforms, verify every result numerically, and
   print the server's metrics document.
-* ``--smoke`` (also the ``smoke`` subcommand) — one process, one
-  1x1-mesh service, two concurrent tenant clients over a unix socket;
-  asserts results, per-tenant accounting, and a clean drain on
-  shutdown. This is the CI gate.
+* ``--smoke`` (also the ``smoke`` subcommand) — one service (on a
+  1x1 mesh, or ``--mesh RxC`` under ``torch.distributed.run``), two
+  concurrent tenant clients over a unix socket; asserts results,
+  per-tenant accounting, and a clean drain on shutdown. This is the CI
+  gate.
 
     PYTHONPATH=src python -m repro_torch.launch.fft_service --smoke
     PYTHONPATH=src python -m repro_torch.launch.fft_service --smoke --device cpu
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.fft_service --smoke --mesh 2x2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.fft_service serve \\
         --address /tmp/fft.sock --mesh 1x1 --device cuda \\
         --tenants alice:100:16:8:standard,batch:inf:64:16:batch
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.fft_service serve --address /tmp/fft.sock --mesh 2x2
     PYTHONPATH=src python -m repro_torch.launch.fft_service client \\
         --address /tmp/fft.sock --tenant alice --requests 8
 """
@@ -45,10 +53,30 @@ import threading
 import time
 
 
-def _mesh(spec: str, device: str):
+def _mesh(spec: str, device: str, cmd: str):
+    """The mesh ``RxC``; above one rank this process's rank of it under
+    ``torch.distributed.run`` (the process group made here)."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.launch.mesh import make_fft_mesh
     rows, cols = (int(t) for t in spec.split('x'))
+    ranks = rows * cols
+    if ranks > 1 and not dist.is_initialized():
+        if 'LOCAL_RANK' not in os.environ:
+            raise SystemExit(
+                f'--mesh {spec} runs {ranks} processes: python -m torch.distributed.run '
+                f'--standalone --nproc-per-node {ranks} -m repro_torch.launch.fft_service '
+                f'{cmd} --mesh {spec} ...')
+        if device == 'cuda':
+            torch.cuda.set_device(int(os.environ['LOCAL_RANK']))
+        dist.init_process_group('nccl' if device == 'cuda' else 'gloo')
     return make_fft_mesh(rows, cols, device=device)
+
+
+def _end_mesh() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _address(spec: str):
@@ -120,7 +148,7 @@ def _verify(x, y) -> float:
 
 def cmd_serve(args) -> None:
     from repro_torch.serve import FFTService
-    mesh = _mesh(args.mesh, args.device)
+    mesh = _mesh(args.mesh, args.device, 'serve')
     tenants = _tenant_specs(args.tenants)
     if args.tenant_file:
         tenants += _load_tenant_file(args.tenant_file)
@@ -133,6 +161,11 @@ def cmd_serve(args) -> None:
         heartbeat_timeout_s=args.heartbeat_timeout or None,
         schedule_table=args.schedules if args.schedules else 'auto',
     ).start(_address(args.address))
+    if not svc.is_leader:
+        # another rank of a mesh: start() served its blocks until position
+        # 0 closed
+        _end_mesh()
+        return
     # the SIGHUP handler goes in before the ready line: a caller that
     # signals on reading it must not meet SIGHUP's default, which ends
     # the process
@@ -168,6 +201,7 @@ def cmd_serve(args) -> None:
     finally:
         svc.close(drain=True)
         print('[fft_service] drained and closed', flush=True)
+        _end_mesh()
 
 
 def cmd_client(args) -> None:
@@ -197,7 +231,7 @@ def cmd_smoke(args) -> None:
     import numpy as np
     from repro_torch.serve import (FFTClient, FFTService, RetryAfter,
                              TenantConfig)
-    mesh = _mesh('1x1', args.device)
+    mesh = _mesh(args.mesh, args.device, 'smoke')
     path = os.path.join(tempfile.mkdtemp(prefix='fft_service_'),
                         'fft.sock')
     svc = FFTService(
@@ -206,6 +240,11 @@ def cmd_smoke(args) -> None:
                  TenantConfig('bob', max_inflight=8, slo='interactive')],
         allow_unknown_tenants=False,
     ).start(path)
+    if not svc.is_leader:
+        # another rank of a mesh: its blocks are served; position 0 checks
+        assert svc.engine.closed
+        _end_mesh()
+        return
 
     shapes = [(16, 16), (8, 8, 8)]
     errs, failures = [], []
@@ -259,9 +298,10 @@ def cmd_smoke(args) -> None:
     assert svc.engine.closed
     # the socket path is gone: nothing half-open survives the drain
     assert not os.path.exists(path)
-    print('[fft_service] smoke: 2 tenants x 6 mixed requests verified, '
-          'metrics consistent, clean drain')
+    print(f'[fft_service] smoke: 2 tenants x 6 mixed requests verified on mesh '
+          f'{args.mesh}, metrics consistent, clean drain')
     print('fft_service smoke OK')
+    _end_mesh()
 
 
 def main(argv=None) -> None:
@@ -303,7 +343,8 @@ def main(argv=None) -> None:
     c.add_argument('--slo', default='')
     c.set_defaults(fn=cmd_client)
 
-    k = sub.add_parser('smoke', help='single-process CI smoke')
+    k = sub.add_parser('smoke', help='CI smoke: one service, two tenants')
+    k.add_argument('--mesh', default='1x1')
     k.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
     k.set_defaults(fn=cmd_smoke)
 

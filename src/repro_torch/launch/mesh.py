@@ -11,7 +11,11 @@ a group of ranks for the swap collectives.
 * A larger mesh wraps a ``torch.distributed.device_mesh.DeviceMesh``
   over an initialised default process group, with one sub-group per
   axis and one per set of two or more axes (the flattened groups of
-  tuple axes, e.g. the rank-2 layout ``(('x', 'y'), None)``).
+  tuple axes, e.g. the rank-2 layout ``(('x', 'y'), None)``). Beside
+  those data groups (NCCL on cards, gloo on the CPU) it makes, on first
+  use, gloo side groups over the same ranks for small host messages
+  (:meth:`FFTMesh.side_group`: the serving engine's drainer passes, the
+  service's request blocks).
 * ``pods > 1`` adds a leading 'pod' axis, which only a plan's
   ``batch_spec='pod'`` uses: each pod holds a slice of the batch and
   runs its transforms over its own ('x', 'y') groups.
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -56,6 +60,7 @@ class FFTMesh:
         self.device = device
         self.device_mesh = device_mesh
         self._tuple_groups = {}
+        self._side_groups = {}
         if device_mesh is None:
             self._coord = (0,) * len(self.axis_names)
         else:
@@ -79,12 +84,56 @@ class FFTMesh:
     def coordinate(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self._coord))
 
-    def group_index(self, mesh_axis: MeshAxis) -> int:
-        """This rank's row-major index within the (tuple) axis group."""
+    @property
+    def position(self) -> int:
+        """This rank's row-major position on the mesh (0 on one rank):
+        position 0 leads the serving engine's drainer."""
+        pos = 0
+        for a, c in zip(self.axis_names, self._coord):
+            pos = pos * self.shape[a] + c
+        return pos
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The global ranks of the mesh positions, in row-major order."""
+        if self.device_mesh is None:
+            return (0,)
+        return tuple(int(r) for r in self._ranks.flatten())
+
+    def coordinate_of(self, position: Optional[int] = None) -> Dict[str, int]:
+        """The coordinate of a mesh position (default: this rank's)."""
+        if position is None:
+            return self.coordinate
+        coord = {}
+        for a in reversed(self.axis_names):
+            position, coord[a] = divmod(position, self.shape[a])
+        return {a: coord[a] for a in self.axis_names}
+
+    def group_index(self, mesh_axis: MeshAxis, position: Optional[int] = None) -> int:
+        """The row-major index within the (tuple) axis group of this rank,
+        or of the rank at mesh ``position``."""
+        coord = self.coordinate_of(position)
         idx = 0
         for a in axis_tuple(mesh_axis):
-            idx = idx * self.shape[a] + self.coordinate[a]
+            idx = idx * self.shape[a] + coord[a]
         return idx
+
+    def side_group(self, name: str = 'control'):
+        """A gloo process group over the mesh's ranks, for small host
+        messages beside the data groups: the serving engine's drainer
+        passes ('control'), the service's request and result blocks
+        ('scatter', 'gather'). Made once a name, on first use; making it
+        is a collective of the default group, so every rank asks for the
+        same names in the same order. Its timeout is the default group's.
+        A one-rank mesh has none."""
+        if self.device_mesh is None:
+            raise RuntimeError(f"{self} has no process group, so no side group: a mesh of "
+                               "more than one rank comes from make_fft_mesh under an "
+                               "initialised default process group")
+        pg = self._side_groups.get(name)
+        if pg is None:
+            pg = self._side_groups[name] = dist.new_group(list(self.ranks), backend='gloo')
+        return pg
 
     def group(self, mesh_axis: MeshAxis):
         """``(process_group, members)``: the group that swaps over
@@ -123,6 +172,19 @@ class FFTMesh:
             blk = x.shape[ax] // p
             x = x.narrow(ax, self.group_index(owner) * blk, blk)
         return x.contiguous()
+
+    def block_slices(self, shape, layout: Layout, position: int) -> Tuple[slice, ...]:
+        """The slices of a global array of ``shape`` that the rank at mesh
+        ``position`` holds under ``layout`` (host arrays: the service cuts
+        each rank's block with them and puts the blocks of a result
+        together)."""
+        out = []
+        for n, owner in zip(shape, layout):
+            p = static_group_size(owner, self.shape)
+            blk = n // p
+            start = self.group_index(owner, position) * blk if p > 1 else 0
+            out.append(slice(start, start + blk))
+        return tuple(out)
 
 
 def make_fft_mesh(rows: int = 1, cols: int = 1, *, pods: int = 1,

@@ -57,10 +57,45 @@ Differences from the reference, kept on purpose:
   own blocks (``FFT.in_layout``; an inverse takes the forward's output
   block), and the groups of all ranks must pair up in the same order.
   ``flush()`` and ``transform()`` do when every rank submits the same
-  stream; a drainer's timing would not, so there the engine refuses
-  one. A rank's block does not name its transform, so a shape is
+  stream. A rank's block does not name its transform, so a shape is
   served there once it is planned (the default shape, ``plan_for``,
-  ``register_op``).
+  ``register_op``) or named (``submit(shape=)``).
+
+**The drainer on a mesh.** Every rank builds the engine with the same
+arguments and submits the same stream in the same order, from one
+thread (a request's ``seq`` is then the same on every rank). Mesh
+position 0 leads: its drainer alone decides each pass from its own
+clock, queues, schedule table and fault plan, and broadcasts the pass on
+the mesh's gloo side group (:meth:`FFTMesh.side_group`): for each group
+in dispatch order its queue key, its requests' ``seq``, the coalesce
+width and overlap chunks, and the ``engine.dispatch`` fault drawn for
+it; whether the engine closed. A pass with no group, none in flight and
+no close is not sent, but the leader sends one at least every
+``KEEPALIVE_S`` seconds. A one-rank engine is a leader with no
+followers: it runs the same passes and sends nothing. The other ranks'
+drainers follow: each takes nothing by its own clock, waits until its
+queues hold the requests a pass names, and dispatches exactly those
+groups in that order. ``set_drainer``, the deadlines and ``close()`` act
+through the leader; a follower's ``close()`` waits for the leader's last
+pass, and ``flush()`` on a mesh asks the leader's drainer for a pass of
+everything queued. After every pass that ran a group or found one in
+flight the ranks all-gather its outcome over the side group, with the
+leader's choice, made once it dispatched, to force the in-flight
+results (when nothing more is ripe, so a stream's groups overlap across
+passes under load). A pass in which every rank raised the same carried
+fault before that group ran is retried as on one rank (the same entries
+re-queued, the same culprit charged, on every rank). Any other failure
+cannot be undone: under NCCL a rank that failed inside a collective
+leaves its peers' collective pending, so every rank fails every ticket
+it holds with the error and stops its drainer. A rank whose peer died
+inside a collective is released by the process group's timeout (NCCL's
+watchdog), never by the engine; that is the limit of this design. So
+is a rank that fails while forcing its results (a CUDA error), which
+stops alone, and a follower that never gets the requests a pass names
+(the ranks did not submit one stream): it raises after
+``_FOLLOW_TIMEOUT_S`` on its own, while its peers already wait in the
+pass's data collectives. In each case the peers wait out the process
+group's timeout.
 
     with FFTEngine(mesh=mesh, max_wait_ms=2.0) as eng:
         tickets = [eng.submit(x) for x in requests]   # mixed shapes/kinds
@@ -73,14 +108,18 @@ import threading
 import time
 import warnings
 import weakref
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.comm import cost as ccost
 from repro_torch.comm import overlap as ov
 from repro_torch.fft import api as fft_api
+from repro_torch.serve.faults import FaultInjected
 from repro_torch.serve.plan_cache import LRUPlanCache
 from repro_torch.weights import from_numpy
 
@@ -230,6 +269,16 @@ _UNSET = object()
 #: engine is reclaimed within a tick of becoming unreferenced.
 _DRAINER_IDLE_TICK = 0.5
 
+#: on a mesh the leader broadcasts a pass with nothing to do (a keep-alive)
+#: when it has sent none for this many seconds, far inside the side
+#: groups' timeout (the default group's), so its followers never wait it
+#: out; the service's side threads keep theirs alive as often
+KEEPALIVE_S = 60.0
+
+#: how long a follower waits for the requests a leader's pass names
+#: before its drainer gives up (the ranks did not submit one stream)
+_FOLLOW_TIMEOUT_S = 600.0
+
 
 def _drainer_main(engine_ref: 'weakref.ref') -> None:
     """Drainer thread body: dispatch passes while the engine is alive,
@@ -241,6 +290,7 @@ def _drainer_main(engine_ref: 'weakref.ref') -> None:
     observes a dead weakref and the thread exits."""
     pipe = None
     cond = None
+    follows = False
     while True:
         eng = engine_ref()
         if eng is None:
@@ -248,6 +298,8 @@ def _drainer_main(engine_ref: 'weakref.ref') -> None:
         if pipe is None:
             pipe = ov.StreamPipeline(eng.depth)
             cond = eng._cond
+            # a follower's pass blocks on the leader's broadcast: no idle wait
+            follows = eng._side is not None and not eng._leader
         try:
             with eng._on_device():
                 final = eng._drain_pass(pipe)
@@ -258,6 +310,8 @@ def _drainer_main(engine_ref: 'weakref.ref') -> None:
             del eng
         if final:
             return
+        if follows:
+            continue
         # idle wait WITHOUT a strong engine reference: re-check the
         # predicate under the lock (a submit's notify between the pass
         # and this wait must not be missed), then sleep at most a tick
@@ -267,7 +321,7 @@ def _drainer_main(engine_ref: 'weakref.ref') -> None:
                 if eng is None:
                     return
                 ripe, timeout = eng._ripe_locked(time.monotonic())
-                busy = bool(ripe) or len(pipe) or eng._closed
+                busy = bool(ripe) or len(pipe) or eng._closed or eng._flush_asked
                 del eng
                 if not busy:
                     cond.wait(_DRAINER_IDLE_TICK if timeout is None
@@ -304,7 +358,7 @@ class FFTEngine:
       max_wait_ms: background drainer deadline — a queued request is
         dispatched at most this many milliseconds after ``submit``,
         even when its kind's queue never fills a batch. Setting it
-        enables the drainer (one rank only).
+        enables the drainer (on a mesh, mesh position 0's decides).
       watermark: background drainer width trigger — a kind's queue is
         dispatched as soon as it holds this many requests (default:
         the kind's coalesce width). Setting it enables the drainer.
@@ -400,14 +454,19 @@ class FFTEngine:
                              "use make_fft_mesh")
         enable = (background if background is not None
                   else (max_wait_ms is not None or watermark is not None))
+        # the drainer on a mesh of several ranks: position 0 leads, the
+        # others follow its passes (the module docstring)
+        self._side = None
+        self._leader = True
         if enable and self.mesh.size > 1:
-            raise ValueError(
-                f"the background drainer cannot run on a mesh of {self.mesh.size} "
-                "ranks yet: every rank runs its own engine, and the drainer's "
-                "timing would pair different groups in the ranks' collectives. "
-                "Serve with flush() or transform(); ROADMAP queue 1 'the "
-                "multi-rank drainer' (rank 0 decides each pass and broadcasts it "
-                "on a CPU side group) brings it")
+            if getattr(self.mesh, 'device_mesh', None) is None:
+                raise ValueError(
+                    f"the drainer on a mesh of {self.mesh.size} ranks needs the mesh's "
+                    "process group for its side group: make_fft_mesh under an "
+                    "initialised default process group")
+            self._side = self.mesh.side_group('control')
+            self._leader = self.mesh.position == 0
+            self._lead_rank = self.mesh.ranks[0]
 
         # -- plan cache (LRU over the served plans) -----------------------
         self._plan_lock = threading.RLock()
@@ -433,6 +492,13 @@ class FFTEngine:
         self._dispatch_lock = threading.Lock()
         self._inflight: List[_Request] = []
         self._blamed = False            # culprit attribution, per pass
+        self._flush_asked = False       # a mesh leader's next pass takes everything
+        self._lead_groups: List[List[_Request]] = []
+        self._sent_at = time.monotonic()    # a mesh leader's last broadcast
+        #: crc32 over the (queue key, seqs) of every group a drainer pass
+        #: ran, in order: equal on every rank of a mesh when the ranks
+        #: paired their groups
+        self.dispatch_digest = 0
         self._drainer: Optional[threading.Thread] = None
         self._drainer_error: Optional[BaseException] = None
         if enable:
@@ -523,7 +589,9 @@ class FFTEngine:
                 if not real or len(shape) == 1:
                     kw.pop('padded_spectrum', None)
                 base = fft_api.plan(shape, self.mesh, real=real, donate=self.donate, **kw)
-        w, c = self._pick_schedule(base)
+        # a follower never reads its own table: it starts from the model's
+        # pick, and the leader's passes carry each group's (``_adopt``)
+        w, c = self._pick_schedule(base, table=self._leader)
         if c != base.overlap_chunks or self.donate != base.donate:
             base = base.with_options(overlap_chunks=c, donate=self.donate)
         return _PlanState(base, w, c)
@@ -535,19 +603,20 @@ class FFTEngine:
                     wire=None if p.wire_dtype == 'native' else p.wire_dtype,
                     kernel=None if p.resolved_kernel == 'reference' else p.resolved_kernel)
 
-    def _pick_schedule(self, p: fft_api.FFT, op: Optional[str] = None) -> Tuple[int, int]:
+    def _pick_schedule(self, p: fft_api.FFT, op: Optional[str] = None,
+                       table: bool = True) -> Tuple[int, int]:
         """(coalesce width, overlap chunks) for one plan: a persisted
         autotune measurement for this (mesh, shape, kind, strategy)
-        wins when it fits the engine's knobs; otherwise minimize the
-        cost model's steady-state us/request subject to the latency
-        budget (ties to the smaller batch). Operator plans carry their
-        registered ``op`` name into the table key, so a fused group's
-        measured schedule never answers for the bare plan's."""
+        wins when it fits the engine's knobs (and ``table``); otherwise
+        minimize the cost model's steady-state us/request subject to the
+        latency budget (ties to the smaller batch). Operator plans carry
+        their registered ``op`` name into the table key, so a fused
+        group's measured schedule never answers for the bare plan's."""
         pc = None
         row = (self._schedule_table.lookup(
                    dict(self.mesh.shape), p.shape, 'real' if p.real else 'complex',
                    p.comm, op=op, **self._table_tags(p))
-               if self._schedule_table is not None else None)
+               if table and self._schedule_table is not None else None)
         if row is not None:
             w, c = row['coalesce_width'], row['overlap_chunks']
             ok = (1 <= w <= self.max_coalesce and 1 <= c <= w and w % c == 0
@@ -624,7 +693,7 @@ class FFTEngine:
                 f"operator plan {name!r} takes {op_plan.n_spectra} "
                 f"runtime spectra; only fully-baked operator plans "
                 f"(n_spectra=0, spectra=[...]) are servable")
-        w, c = self._pick_schedule(op_plan, op=name)
+        w, c = self._pick_schedule(op_plan, op=name, table=self._leader)
         opts = {}
         if c != op_plan.overlap_chunks:
             opts['overlap_chunks'] = c
@@ -672,14 +741,19 @@ class FFTEngine:
             else:
                 key = (self._default_shape(shape), bool(real))
                 st = self._state(*key)
-            if chunks != st.plan.overlap_chunks:
-                st.plan = st.plan.with_options(overlap_chunks=chunks)
-                st.group_cache.clear()
-                if key is not None:
-                    # the dropped group shapes' bytes go with them
-                    self._states.set_nbytes(key, 0)
-            st.width = int(width)
-            st.chunks = int(chunks)
+            self._adopt(st, key, width, chunks)
+
+    def _adopt(self, st: _PlanState, key: Optional[tuple], width: int, chunks: int) -> None:
+        """Serve ``st`` with (width, chunks); ``key`` is its LRU key (None
+        for an operator plan). Caller holds the plan lock."""
+        if chunks != st.plan.overlap_chunks:
+            st.plan = st.plan.with_options(overlap_chunks=chunks)
+            st.group_cache.clear()
+            if key is not None:
+                # the dropped group shapes' bytes go with them
+                self._states.set_nbytes(key, 0)
+        st.width = int(width)
+        st.chunks = int(chunks)
 
     def serving_shapes(self) -> List[Tuple[Tuple[int, ...], bool]]:
         """(shape, real) keys currently cached, LRU first."""
@@ -747,24 +821,31 @@ class FFTEngine:
         return x, tuple(x.shape), x.dtype, False
 
     @staticmethod
-    def _core(st: _PlanState, real: bool, direction: str) -> Tuple[int, ...]:
+    def _core(st: _PlanState, real: bool, direction: str,
+              whole: bool = False) -> Tuple[int, ...]:
         """The operand shape a request of this kind passes: this rank's
-        block (the whole array on one rank) of the forward's input, the
-        forward's output (an inverse), or the operator's input."""
+        block (the whole array on one rank; with ``whole`` the global
+        array on any mesh) of the forward's input, the forward's output
+        (an inverse), or the operator's input."""
         p = st.plan
+        if whole:
+            return tuple(p.spectrum_shape if real and direction == 'inv' else p.shape)
         if direction == 'inv':
             return tuple(p.spectrum_local_shape() if real else p.local_shape(p.out_layout))
         return tuple(p.local_shape(p.in_layout))
 
-    def _resolve_request(self, x, direction: str, real: Optional[bool]):
+    def _resolve_request(self, x, direction: str, real: Optional[bool], shape=None):
         """Normalize one operand: returns (x, transform shape, real,
         dtype, planar, plan state). Kind inference: floating-dtype
         forwards go to the rfft plan, complex forwards to the complex
         plan; inverses resolve their operand shape against the engine's
         default shape and already-served plans (pass ``real=`` for new
-        shapes)."""
+        shapes). ``shape`` names the transform shape (planned if new);
+        an inverse naming it names ``real`` too."""
         if direction not in ('fwd', 'inv'):
             raise ValueError(f"direction must be 'fwd'|'inv', got {direction!r}")
+        if shape is not None and direction == 'inv' and real is None:
+            raise ValueError("an inverse submitted with shape= needs real=")
         x, op_shape, dtype, planar = self._split_operand(x)
         if planar:
             if real is None:
@@ -783,7 +864,9 @@ class FFTEngine:
                 f"request shape {op_shape} has rank {len(op_shape)}; the "
                 f"engine serves rank 1-3 transforms (submit single "
                 f"requests — the engine owns batching)")
-        if direction == 'inv' and real:
+        if shape is not None:
+            tshape = tuple(int(s) for s in shape)
+        elif direction == 'inv' and real:
             tshape = self._real_shape_from_spectrum(op_shape)
         else:
             tshape = self._transform_shape(op_shape, real, direction)
@@ -814,16 +897,17 @@ class FFTEngine:
             f"{self.mesh.size}-rank mesh; plan the shape first (FFTEngine(shape, mesh) "
             f"or plan_for(shape=...)) — the engine owns batching")
 
-    def _infer_inverse_kind(self, op_shape: tuple) -> bool:
+    def _infer_inverse_kind(self, op_shape: tuple, whole: bool = False) -> bool:
         """Side-effect free: inference must never build or LRU-touch a
         plan — a cache insert here could evict the very served plan the
-        scan below needs."""
-        one = self.mesh.size == 1
+        scan below needs. ``whole``: ``op_shape`` is the global operand's
+        (a mesh service's request), matched as on one rank."""
+        one = whole or self.mesh.size == 1
         if one and self.shape is not None and op_shape == tuple(self.shape):
             return False               # the default shape wins outright
         with self._plan_lock:
             kinds = {real for (_, real), st in self._states.items()
-                     if self._core(st, real, 'inv') == op_shape}
+                     if self._core(st, real, 'inv', whole) == op_shape}
         if (one and not kinds and self.shape is not None
                 and not self._plan_kwargs.get('padded_spectrum')
                 and op_shape == (tuple(self.shape[:-1]) + (self.shape[-1] // 2 + 1,))):
@@ -838,16 +922,18 @@ class FFTEngine:
             f"engine's complex shapes nor a served real plan's spectrum "
             f"unambiguously; pass real= explicitly")
 
-    def _real_shape_from_spectrum(self, op_shape: tuple) -> Tuple[int, ...]:
+    def _real_shape_from_spectrum(self, op_shape: tuple,
+                                  whole: bool = False) -> Tuple[int, ...]:
         """Transform shape of a real inverse from its spectrum operand:
         a served real plan whose spectrum matches wins (covers
-        ``padded_spectrum`` and a mesh's blocks); otherwise, on one rank,
-        the np.rfftn layout inverts as n = 2 * (ns - 1)."""
+        ``padded_spectrum`` and a mesh's blocks); otherwise, on one rank
+        or for a global spectrum (``whole``), the np.rfftn layout inverts
+        as n = 2 * (ns - 1)."""
         with self._plan_lock:
             for (shape, real), st in self._states.items():
-                if real and self._core(st, True, 'inv') == op_shape:
+                if real and self._core(st, True, 'inv', whole) == op_shape:
                     return shape
-        if self.mesh.size > 1:
+        if self.mesh.size > 1 and not whole:
             raise ValueError(
                 f"spectrum block {op_shape} is no served real plan's on this "
                 f"{self.mesh.size}-rank mesh; serve the forward first or "
@@ -901,11 +987,14 @@ class FFTEngine:
     def submit(self, x, *, direction: str = 'fwd',
                real: Optional[bool] = None,
                op: Optional[str] = None,
-               max_wait_ms: Optional[float] = _UNSET) -> FFTTicket:
+               max_wait_ms: Optional[float] = _UNSET,
+               shape=None) -> FFTTicket:
         """Queue one transform request (exactly its transform shape, or
         on a mesh this rank's block of it — the engine owns batching).
         ``real=None`` infers the plan kind as documented on
-        :meth:`_resolve_request`. ``op=`` routes the request through a
+        :meth:`_resolve_request`; ``shape=`` names the transform shape
+        (on a mesh, the global shape whose block ``x`` is; with an
+        inverse, pass ``real=`` too). ``op=`` routes the request through a
         registered operator plan (:meth:`register_op`). ``max_wait_ms``
         overrides the engine-wide drainer deadline for THIS request
         (None disables the deadline trigger for it; ignored on
@@ -921,7 +1010,8 @@ class FFTEngine:
             x, tshape, kind, dtype, planar, st = self._resolve_op_request(x, op)
             key = (tshape, kind, 'op', dtype, planar)
         else:
-            x, tshape, real, dtype, planar, st = self._resolve_request(x, direction, real)
+            x, tshape, real, dtype, planar, st = self._resolve_request(x, direction, real,
+                                                                       shape)
             key = (tshape, real, direction, dtype, planar)
         t = FFTTicket(self)
         with self._cond:
@@ -954,18 +1044,23 @@ class FFTEngine:
                          + plan.operand_nbytes(cplx, spectrum=True))
 
     def _run_group(self, plan: fft_api.FFT, direction: str, planar: bool,
-                   ops: Sequence, cache: dict, state_key: Optional[tuple] = None):
+                   ops: Sequence, cache: dict, state_key: Optional[tuple], fault):
         """Execute one coalesced group: stack the w requests along a new
         leading axis, run the batched plan call (the in-call overlap
         pipeline lives inside it), and hand back the per-request outputs
         as views of the batched one, a tuple (planar results as a
         (re..., im...) flat tuple). A group shape seen for the first
-        time grows the plan's cache entry by its operand bytes."""
-        if self.faults is not None:
+        time grows the plan's cache entry by its operand bytes.
+        ``fault`` is the ``engine.dispatch`` draw for this group (on a
+        mesh, the leader's)."""
+        if fault is not None:
             # injected dispatch failures ride the SAME path a real
             # failure would: the pipeline's on_error blames this group,
             # bystanders re-queue for free
-            self.faults.perhaps_raise('engine.dispatch')
+            action, note, delay_s = fault
+            if action == 'raise':
+                raise FaultInjected('engine.dispatch', note)
+            time.sleep(delay_s)
         w = len(ops)
         dtype = str((ops[0][0] if planar else ops[0]).dtype).replace('torch.', '')
         key = (direction, planar, w, dtype)
@@ -986,48 +1081,64 @@ class FFTEngine:
             return tuple(out[0].unbind(0)) + tuple(out[1].unbind(0))
         return tuple(out.unbind(0))
 
+    def _draw_dispatch_fault(self):
+        """The ``engine.dispatch`` site's draw for one group: None, or
+        ``(action, note, delay_s)`` of a fire that raises or sleeps (as
+        ``FaultPlan.perhaps_raise`` acts on it)."""
+        pt = self.faults.draw('engine.dispatch') if self.faults is not None else None
+        if pt is None or pt.action not in ('raise', 'delay', 'stall'):
+            return None
+        return pt.action, pt.note, pt.delay_s
+
+    def _kind_state(self, key: tuple) -> Tuple[_PlanState, Optional[tuple]]:
+        """The plan state serving a queue key, and its LRU key."""
+        tshape, real, direction, _, _ = key
+        if direction == 'op':
+            # the kind slot carries 'op:<name>'; op states are pinned
+            # outside the LRU, so no byte accounting (state_key=None)
+            return self._op_state(real[len('op:'):]), None
+        return self._state(tshape, real), (tshape, real)
+
     def _push_bucket(self, pipe: ov.StreamPipeline, key: tuple,
                      entries: List[_Request]) -> None:
         """Coalesce one kind's entries into width-sized groups and
         dispatch them into the stream pipeline."""
-        tshape, real, direction, _, planar = key
-        if direction == 'op':
-            # the kind slot carries 'op:<name>'; op states are pinned
-            # outside the LRU, so no byte accounting (state_key=None)
-            state = self._op_state(real[len('op:'):])
-            state_key = None
-        else:
-            state = self._state(tshape, real)
-            state_key = (tshape, real)
-        plan = state.plan
+        state, state_key = self._kind_state(key)
         w = state.width
         for i in range(0, len(entries), w):
-            group = entries[i:i + w]
-            ops = [e.x for e in group]
-            with self._stats_lock:
-                self.dispatched_groups += 1
-                self.width_hist[len(group)] = self.width_hist.get(len(group), 0) + 1
+            self._push_group(pipe, key, entries[i:i + w], state, state_key,
+                             self._draw_dispatch_fault())
 
-            def resolve(yb, group=group):
-                # runs when the group's result is FORCED, in stream
-                # order: a later group's failure leaves exactly the
-                # completed prefix resolved
-                gw = len(group)
-                for j, e in enumerate(group):
-                    e.ticket._resolve((yb[j], yb[gw + j]) if len(yb) == 2 * gw else yb[j])
+    def _push_group(self, pipe: ov.StreamPipeline, key: tuple, group: List[_Request],
+                    state: _PlanState, state_key: Optional[tuple], fault) -> None:
+        """Dispatch one coalesced group into the stream pipeline."""
+        _, _, direction, _, planar = key
+        plan = state.plan
+        ops = [e.x for e in group]
+        with self._stats_lock:
+            self.dispatched_groups += 1
+            self.width_hist[len(group)] = self.width_hist.get(len(group), 0) + 1
 
-            def blame(exc, group=group):
-                # the pipeline tears down EVERY in-flight group when one
-                # fails; only the culprit's requests burn a retry —
-                # innocent bystanders re-queue for free
-                self._blamed = True
-                for e in group:
-                    e.attempts += 1
+        def resolve(yb):
+            # runs when the group's result is FORCED, in stream
+            # order: a later group's failure leaves exactly the
+            # completed prefix resolved
+            gw = len(group)
+            for j, e in enumerate(group):
+                e.ticket._resolve((yb[j], yb[gw + j]) if len(yb) == 2 * gw else yb[j])
 
-            pipe.push(
-                lambda plan=plan, ops=ops: self._run_group(
-                    plan, direction, planar, ops, state.group_cache, state_key),
-                resolve, blame)
+        def blame(exc):
+            # the pipeline tears down EVERY in-flight group when one
+            # fails; only the culprit's requests burn a retry —
+            # innocent bystanders re-queue for free
+            self._blamed = tuple(e.seq for e in group)
+            for e in group:
+                e.attempts += 1
+
+        pipe.push(
+            lambda: self._run_group(plan, direction, planar, ops, state.group_cache,
+                                    state_key, fault),
+            resolve, blame)
 
     def _take_locked(self, keys=None) -> Dict[tuple, List[_Request]]:
         """Pop every queued entry (of ``keys``, or all); caller holds
@@ -1040,7 +1151,7 @@ class FFTEngine:
         return taken
 
     def _recover(self, entries: List[_Request], exc: BaseException, *,
-                 bounded: bool) -> None:
+                 bounded: bool, closed: Optional[bool] = None) -> None:
         """A dispatch pass failed: put every unresolved entry back on
         its queue so nothing is silently dropped. Only the CULPRIT
         group's entries had their ``attempts`` charged (the pipeline's
@@ -1048,10 +1159,12 @@ class FFTEngine:
         abort retry for free. With ``bounded`` (the drainer), entries
         that already exhausted ``retries`` — or arrive after close —
         fail their tickets with the error instead, so it surfaces on
-        ``result()``."""
+        ``result()``. ``closed`` overrides this engine's own flag (a
+        mesh pass carries the leader's)."""
         unresolved = [e for e in entries if not e.ticket._done and e.ticket._error is None]
         unresolved.sort(key=lambda e: e.seq)
         now = time.monotonic()
+        closed = self._closed if closed is None else closed
         with self._cond:
             if not self._blamed:
                 # no attribution (a failure outside any group's
@@ -1061,7 +1174,7 @@ class FFTEngine:
                     e.attempts += 1
             self._blamed = False
             for e in reversed(unresolved):
-                if bounded and (e.attempts > self.retries or self._closed):
+                if bounded and (e.attempts > self.retries or closed):
                     e.ticket._fail(exc)
                     continue
                 e.deadline = now        # ripe immediately: retry next pass
@@ -1073,7 +1186,12 @@ class FFTEngine:
         dispatch the groups double-buffered, resolve tickets. Returns
         the executed requests' results in submission order. On failure
         the unresolved requests are re-queued and the error propagates —
-        flushing again retries them."""
+        flushing again retries them. A background engine on a mesh asks
+        the leader's drainer for a pass of everything queued instead and
+        waits for the requests queued here (every rank flushes alike); a
+        request that failed raises its error."""
+        if self._side is not None:
+            return self._flush_through_drainer()
         with self._dispatch_lock, self._on_device():
             with self._cond:
                 buckets = self._take_locked()
@@ -1090,6 +1208,19 @@ class FFTEngine:
                 self._recover(entries, exc, bounded=False)
                 raise
         entries.sort(key=lambda e: e.seq)
+        return [e.ticket._value for e in entries]
+
+    def _flush_through_drainer(self) -> List:
+        with self._cond:
+            entries = sorted((e for q in self._queues.values() for e in q),
+                             key=lambda e: e.seq)
+            self._flush_asked = self._leader
+            self._cond.notify_all()
+        for e in entries:
+            e.ticket._event.wait()
+        for e in entries:
+            if e.ticket._error is not None:
+                raise e.ticket._error
         return [e.ticket._value for e in entries]
 
     def transform(self, xs: Sequence, *, direction: str = 'fwd',
@@ -1125,45 +1256,187 @@ class FFTEngine:
         return ripe, timeout
 
     def _drain_pass(self, pipe: ov.StreamPipeline) -> bool:
-        """ONE drainer dispatch pass: take whatever is ripe, dispatch
-        it, and force in-flight results when nothing else is ready.
-        Returns True when the engine is closed and fully drained.
-        Never blocks idle — the weakref loop in :func:`_drainer_main`
-        owns the waiting."""
-        if self.faults is not None:
-            # injected drainer stall: the serving loop goes dark for
-            # delay_s while queues grow
+        """ONE drainer pass: the leader (the only rank of a one-rank
+        engine) decides it, every rank dispatches its groups in order, the
+        ranks of a mesh agree on the outcome and on the leader's choice to
+        force the in-flight results, and they force them (the module
+        docstring). Returns the leader's final flag: True when the engine
+        is closed and fully drained. Never blocks idle — the weakref loop
+        in :func:`_drainer_main` owns the waiting (a follower blocks on
+        the leader's next pass instead)."""
+        if self._leader and self.faults is not None:
+            # injected drainer stall: the serving loop (of every rank, on
+            # a mesh) goes dark for delay_s while queues grow
             self.faults.perhaps_stall('engine.drainer')
-        with self._cond:
-            final = self._closed
         with self._dispatch_lock:
-            with self._cond:
-                if final:
-                    buckets = self._take_locked()
-                else:
-                    ripe, _ = self._ripe_locked(time.monotonic())
-                    buckets = self._take_locked(ripe)
-            self._inflight.extend(e for es in buckets.values() for e in es)
+            order = self._next_pass(len(pipe))
+            if order is None:
+                return False
+            if self._leader:
+                groups, self._lead_groups = self._lead_groups, []
+            else:
+                groups = self._follow_take(order['groups'])
+            failure = None
             try:
-                for key in sorted(buckets, key=lambda k: buckets[k][0].seq):
-                    self._push_bucket(pipe, key, buckets[key])
-                # force in-flight groups whenever nothing else is ripe
+                if 'error' in order:
+                    raise order['error']
+                for (key, _, w, c, fault), group in zip(order['groups'], groups):
+                    state, state_key = self._kind_state(key)
+                    if not self._leader:
+                        with self._plan_lock:
+                            self._adopt(state, state_key, w, c)
+                    self.dispatch_digest = zlib.crc32(
+                        repr((key, [e.seq for e in group])).encode(), self.dispatch_digest)
+                    self._push_group(pipe, key, group, state, state_key, fault)
+            except BaseException as exc:
+                failure = exc
+            drain = False
+            if self._leader:
+                # force the in-flight groups whenever nothing else is ripe
                 # — waiters must resolve without depending on future
-                # submissions; under sustained load the window stays
-                # full across passes instead
+                # submissions; under sustained load the window stays full
+                # across passes instead
                 with self._cond:
                     more, _ = self._ripe_locked(time.monotonic())
-                if final or not more:
-                    pipe.drain()
-            except BaseException as exc:
+                drain = order['final'] or order['flush'] or not more
+            mine = (None if failure is None else
+                    (self._blamed or None, isinstance(failure, FaultInjected),
+                     f"{type(failure).__name__}: {failure}"))
+            every = [(mine, drain)]
+            if self._side is not None and order['busy']:
+                every = [None] * self.mesh.size
+                dist.all_gather_object(every, (mine, drain), group=self._side)
+            drain = any(d for _, d in every)
+            every = [o for o, _ in every]
+            if all(o is None for o in every):
+                try:
+                    if drain:
+                        pipe.drain()
+                except BaseException as exc:
+                    if self._side is not None:
+                        # a rank that failed forcing its results (a CUDA
+                        # error) stops alone: its peers learn of it from
+                        # the process group's timeout
+                        raise
+                    failure = exc
+                else:
+                    self._inflight = [e for e in self._inflight if not e.ticket._done]
+                    return order['final']
+            if failure is not None and (self._side is None or (
+                    every.count(mine) == len(every) and mine[0] and mine[1])):
+                # one rank: any failure; a mesh: every rank raised the same
+                # carried fault before the same group ran, so nothing is
+                # half-done. Every tracked entry is now either resolved,
+                # re-queued or failed, and nothing stays in flight
                 pipe.abort()
-                # every tracked entry is now either resolved,
-                # re-queued, or failed — nothing stays in flight
-                self._recover(self._inflight, exc, bounded=True)
+                self._recover(self._inflight, failure, bounded=True, closed=order['final'])
                 self._inflight = []
+                return order['final']
+        raise RuntimeError(
+            "a drainer pass ended differently on the mesh's ranks and cannot be undone "
+            f"(outcome by rank: {every}); every ticket fails and the drainer stops") \
+            from failure
+
+    def _next_pass(self, inflight: int) -> Optional[dict]:
+        """The pass this rank dispatches: the leader's decision, which on
+        a mesh the leader broadcasts on the side group and a follower
+        receives. None when the leader's pass has nothing to do and a
+        keep-alive is not due: it sends nothing then."""
+        order, err = None, None
+        if self._leader:
+            try:
+                order = self._decide_pass(inflight)
+            except BaseException as exc:
+                # on one rank a pass that failed to form (a plan that would
+                # not build) fails as its dispatch would; on a mesh it stops
+                # every rank's drainer
+                order = {'groups': [], 'busy': False, 'final': self._closed, 'flush': False,
+                         'error': exc}
+                if self._side is not None:
+                    order, err = {'fatal': f"{type(exc).__name__}: {exc}"}, exc
+        if self._side is None:
+            return order
+        if self._leader:
+            now = time.monotonic()
+            if (err is None and not (order['busy'] or order['final'])
+                    and now - self._sent_at < KEEPALIVE_S):
+                return None
+            self._sent_at = now
+        box = [order]
+        dist.broadcast_object_list(box, src=self._lead_rank, group=self._side)
+        order = box[0]
+        if 'fatal' in order:
+            raise err if err is not None else RuntimeError(
+                f"the leading rank's drainer failed: {order['fatal']}")
+        return order
+
+    def _decide_pass(self, inflight: int) -> dict:
+        """The leader's pass: what is ripe by its clock (everything after
+        close or, on a mesh, a flush), cut into its coalesce widths, with
+        the dispatch fault drawn for each group; ``busy`` when it runs a
+        group or finds one in flight (the ranks then agree on its outcome
+        and force the in-flight results or not, as the leader decides
+        after dispatching). The entries taken wait in ``_lead_groups``,
+        already counted in flight."""
+        with self._cond:
+            final = self._closed
+            flush, self._flush_asked = self._flush_asked, False
+            if final or flush:
+                buckets = self._take_locked()
             else:
-                self._inflight = [e for e in self._inflight if not e.ticket._done]
-        return final
+                ripe, _ = self._ripe_locked(time.monotonic())
+                buckets = self._take_locked(ripe)
+            self._inflight.extend(e for es in buckets.values() for e in es)
+        groups, raised = [], False
+        for key in sorted(buckets, key=lambda k: buckets[k][0].seq):
+            state, _ = self._kind_state(key)
+            entries = buckets[key]
+            for i in range(0, len(entries), state.width):
+                group = entries[i:i + state.width]
+                # no draw after a group that raises: the pass stops there,
+                # and its later groups draw again when they are retried
+                fault = None if raised else self._draw_dispatch_fault()
+                raised = raised or (fault is not None and fault[0] == 'raise')
+                groups.append((key, [e.seq for e in group], state.width, state.chunks,
+                               fault))
+                self._lead_groups.append(group)
+        return {'groups': groups, 'busy': bool(groups or inflight), 'final': final,
+                'flush': flush}
+
+    def _follow_take(self, groups: Sequence) -> list:
+        """A follower's share of a pass: the entries of each group it
+        names, out of this rank's queues in its order, once this rank has
+        them all."""
+        deadline = time.monotonic() + _FOLLOW_TIMEOUT_S
+        with self._cond:
+            while True:
+                queued = {}
+                for key, *_ in groups:
+                    if key not in queued:
+                        queued[key] = {e.seq for e in self._queues.get(key, ())}
+                missing = [s for key, seqs, *_ in groups for s in seqs
+                           if s not in queued[key]]
+                if not missing:
+                    break
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise RuntimeError(
+                        f"the leader's pass names requests {missing[:8]} this rank never "
+                        f"got within {_FOLLOW_TIMEOUT_S:.0f}s: every rank must submit the "
+                        "same stream in the same order")
+                self._cond.wait(min(left, _DRAINER_IDLE_TICK))
+            out = []
+            for key, seqs, *_ in groups:
+                want = set(seqs)
+                q = self._queues.pop(key)
+                by_seq = {e.seq: e for e in q if e.seq in want}
+                rest = [e for e in q if e.seq not in want]
+                if rest:
+                    self._queues[key] = rest
+                group = [by_seq[s] for s in seqs]
+                self._inflight.extend(group)
+                out.append(group)
+            return out
 
     def _drainer_crashed(self, exc: BaseException) -> None:
         """The drainer must never die silently: record the error and
@@ -1198,6 +1471,10 @@ class FFTEngine:
         Returns the adopted (width, chunks)."""
         if not sample:
             raise ValueError("autotune needs at least one sample operand")
+        if self._side is not None:
+            raise ValueError(
+                "autotune times one rank's groups while a mesh's drainer serves; tune on "
+                "an engine without a drainer and persist the table the leader reads")
         if op is not None:
             _, tshape, _, dtype, planar, st = self._resolve_op_request(sample[0], op)
             real, direction = st.plan.real, 'op'
@@ -1228,7 +1505,8 @@ class FFTEngine:
             def run():
                 t0 = time.perf_counter()
                 ov.pipelined_stream(
-                    lambda g: self._run_group(p, direction, planar, g, cache),
+                    lambda g: self._run_group(p, direction, planar, g, cache, None,
+                                              self._draw_dispatch_fault()),
                     groups, depth=self.depth)
                 if cuda:
                     torch.cuda.synchronize(self.mesh.device)

@@ -14,11 +14,24 @@ served by a service of the other. Differences kept on purpose:
   host arrays (bit-identical, never recomputed);
 * schedule rows carry the mesh's device type (``'cuda'``/``'cpu'``) as
   their ``backend`` tag;
-* the service needs a background engine, and the port's engine runs its
-  drainer on one rank only: on a larger mesh building the service's
-  engine raises ``ValueError``;
 * :meth:`FFTService.close` shuts the listener down, which wakes the
-  accept thread at once (closing it alone leaves ``accept()`` blocked).
+  accept thread at once (closing it alone leaves ``accept()`` blocked);
+* on a mesh of more than one rank (one process a rank, e.g. under
+  ``torch.distributed.run``) every rank builds ``FFTService(mesh, ...)``
+  with the same arguments. Mesh position 0 serves: it alone holds the
+  sockets, admission, the fair scheduler, the adaptive policy, the dedup
+  window, brownout, metrics and hot reload, and its engine's drainer
+  leads every rank's (:mod:`repro_torch.serve.fft_engine`). It cuts each
+  admitted request (a global array) into the ranks' blocks by the plan's
+  layout, submits its own and sends the others theirs over a gloo side
+  group through host memory, in its submit order; each other rank's
+  :meth:`FFTService.start` submits what arrives, in that order, sends
+  back its block of every result, and returns once position 0 closed.
+  Position 0 puts the blocks together into the global array a one-rank
+  service answers with (a real plan's spectrum from the blocks each rank
+  trimmed), so a result frame carries the same bytes where the ranks'
+  arithmetic matches one rank's. Operator plans given as ``ops=`` are
+  registered on every rank.
 
 The engine already keeps a single warm pipeline saturated —
 but only for the process that owns it. Every additional client process
@@ -110,8 +123,10 @@ import torch
 
 from repro_torch.comm import cost as ccost
 from repro_torch.serve import protocol as proto
+import torch.distributed as dist
+
 from repro_torch.serve.faults import FaultInjected, kill_socket
-from repro_torch.serve.fft_engine import FFTEngine, ResultTimeout
+from repro_torch.serve.fft_engine import KEEPALIVE_S, FFTEngine, ResultTimeout
 from repro_torch.serve.policy import AdaptivePolicy
 
 Address = Union[str, Tuple[str, int]]
@@ -367,11 +382,390 @@ class _FairScheduler:
         return out
 
 
-def _host_array(v: torch.Tensor) -> np.ndarray:
+def _host_array(v) -> np.ndarray:
     """One result on the host, in memory of its own: the tensor (a view
     of its group's batched output, on the card or the CPU) is copied out,
-    so nothing kept from it holds the group's output alive."""
+    so nothing kept from it holds the group's output alive. A host array
+    (a mesh's result, put together on position 0) is already that."""
+    if isinstance(v, np.ndarray):
+        return v
     return v.detach().to('cpu', copy=True).numpy()
+
+
+# ---------------------------------------------------------------------------
+# The service on a mesh of several ranks
+# ---------------------------------------------------------------------------
+
+def _canonical(x):
+    """A request's host operand in the port's types, as
+    :func:`repro_torch.weights.from_numpy` makes them: complex64, float32,
+    or a planar pair of float32."""
+    if isinstance(x, (tuple, list)):
+        return tuple(np.asarray(a, dtype=np.float32) for a in x)
+    a = np.asarray(x)
+    return a.astype(np.complex64 if np.iscomplexobj(a) else np.float32, copy=False)
+
+
+def _form_slices(mesh, p, form: str, position: int, kept: Optional[int] = None):
+    """(global shape, slices) of the block the rank at mesh ``position``
+    holds of plan ``p``'s array in ``form``: 'in' (the planned array,
+    ``in_layout``), 'out' (the complex forward's output) or 'spectrum' (a
+    real plan's forward output: of an unpadded rank-2/3 spectrum a rank
+    keeps the bins of its padded block below n//2 + 1, ``kept`` of them)."""
+    if form == 'in':
+        return p.shape, mesh.block_slices(p.shape, p.in_layout, position)
+    shape = p.spectrum_shape
+    if form == 'out' or p.rank == 1 or p.padded_spectrum:
+        return shape, mesh.block_slices(shape, p.out_layout, position)
+    sl = list(mesh.block_slices(shape[:-1] + (p._real_pad,), p.out_layout, position))
+    if kept is None:
+        kept = p.spectrum_local_shape(position)[-1]
+    sl[-1] = slice(sl[-1].start, sl[-1].start + kept)
+    return shape, tuple(sl)
+
+
+def _assemble(mesh, p, form: str, parts) -> list:
+    """The global arrays of one result from every rank's leaves of it
+    (``parts[position]``), in ``form`` as :func:`_form_slices`."""
+    out = []
+    for j in range(len(parts[0])):
+        first = parts[0][j]
+        shape, _ = _form_slices(mesh, p, form, 0, first.shape[-1])
+        g = np.empty(shape, first.dtype)
+        for pos, leaves in enumerate(parts):
+            _, sl = _form_slices(mesh, p, form, pos, leaves[j].shape[-1])
+            g[sl] = leaves[j]
+        out.append(g)
+    return out
+
+
+def _send(group, dst: int, meta: tuple, leaves=()) -> None:
+    """One message on a side group: ``meta`` with each leaf's shape and
+    dtype, then each leaf's bytes as float32 (gloo takes no complex)."""
+    # a frame's arrays are read-only views of its buffer: torch takes a copy
+    leaves = [a if a.flags.c_contiguous and a.flags.writeable else a.copy() for a in leaves]
+    dist.send_object_list([(meta, [(a.shape, a.dtype.str) for a in leaves])], dst=dst,
+                          group=group)
+    for a in leaves:
+        dist.send(torch.from_numpy(a.reshape(-1).view(np.float32)), dst=dst, group=group)
+
+
+def _recv(group, src: int) -> Tuple[tuple, list, float]:
+    """One message of :func:`_send`: its meta, its leaves and the seconds
+    their bytes took to arrive (from the meta on)."""
+    box = [None]
+    dist.recv_object_list(box, src=src, group=group)
+    t0 = time.perf_counter()
+    meta, specs = box[0]
+    leaves = []
+    for shape, dtype in specs:
+        dt = np.dtype(dtype)
+        buf = torch.empty(math.prod(shape) * dt.itemsize // 4, dtype=torch.float32)
+        dist.recv(buf, src=src, group=group)
+        leaves.append(buf.numpy().view(dt).reshape(shape))
+    return meta, leaves, time.perf_counter() - t0
+
+
+class _MeshTicket:
+    """A request served on a mesh, as position 0's service holds it. It
+    settles once position 0's engine ticket settled and every other
+    rank's block of the result (or its failure) arrived; ``result()``
+    puts the global arrays together, once, on its first caller's thread
+    (the connection's writer)."""
+
+    def __init__(self, link: '_MeshLink', plan, form: str):
+        self._link = link
+        self._plan = plan
+        self._form = form
+        self._parts: Optional[list] = [None] * link.mesh.size
+        self._errors: List[tuple] = []
+        self._left = link.mesh.size
+        self.remote_left = link.mesh.size - 1       # the receiver thread's count
+        self._lock = threading.Lock()
+        self._event = threading.Event()
+        self._callbacks: list = []
+        self._value = None
+
+    @property
+    def done(self) -> bool:
+        return self._event.is_set() and not self._errors
+
+    @property
+    def failed(self) -> bool:
+        return self._event.is_set() and bool(self._errors)
+
+    def _arrive(self, position: int, part, error) -> None:
+        with self._lock:
+            self._parts[position] = part
+            if error is not None:
+                self._errors.append((position, error))
+            self._left -= 1
+            if self._left:
+                return
+            cbs, self._callbacks = self._callbacks, []
+        self._event.set()
+        for fn in cbs:
+            self._run(fn)
+
+    def _fail(self, error: BaseException) -> None:
+        """The link broke: settle now with ``error``, whatever is missing."""
+        with self._lock:
+            if self._event.is_set():
+                return
+            self._errors.append((0, error))
+            self._left = 0
+            cbs, self._callbacks = self._callbacks, []
+        self._event.set()
+        for fn in cbs:
+            self._run(fn)
+
+    def _run(self, fn) -> None:
+        # as FFTTicket's: an observer's failure must not kill the thread
+        # that settles every other request
+        try:
+            fn(self)
+        except Exception as exc:
+            import warnings
+            warnings.warn(f"mesh ticket done-callback failed: {exc!r}", RuntimeWarning,
+                          stacklevel=2)
+
+    def add_done_callback(self, fn) -> None:
+        with self._lock:
+            if not self._event.is_set():
+                self._callbacks.append(fn)
+                return
+        self._run(fn)
+
+    def result(self, timeout: Optional[float] = None):
+        if not self._event.wait(timeout):
+            raise ResultTimeout(f"request not served on the mesh within {timeout}s")
+        if self._errors:
+            pos, err = min(self._errors, key=lambda pe: pe[0])
+            if isinstance(err, BaseException):
+                raise err
+            raise RuntimeError(f"mesh position {pos}: {err}")
+        with self._lock:
+            if self._value is None:
+                t0 = time.perf_counter()
+                own = self._parts[0].result(timeout=0)
+                parts = [[_host_array(v) for v in (own if isinstance(own, tuple) else (own,))]]
+                parts += self._parts[1:]
+                self._parts = None
+                self._value = _assemble(self._link.mesh, self._plan, self._form, parts)
+                self._link.note('gather_s', time.perf_counter() - t0)
+            v = self._value
+        return tuple(v) if len(v) == 2 else v[0]
+
+
+class _MeshLink:
+    """The service's side of a mesh of several ranks: position 0 cuts,
+    submits and sends each request's blocks on the 'scatter' side group
+    (one sender thread, in submit order) and receives every result's
+    blocks on the 'gather' side group (one receiver thread, the other
+    ranks in turn: they settle their results in one order); every other
+    rank submits what it receives in that order and sends its blocks of
+    the results back. Each rank's engine thus sees one stream in one
+    order, and position 0's drainer pairs their groups."""
+
+    def __init__(self, engine: FFTEngine):
+        self.engine = engine
+        self.mesh = mesh = engine.mesh
+        self.leader = mesh.position == 0
+        self.scatter = mesh.side_group('scatter')
+        self.gather = mesh.side_group('gather')
+        self.lead_rank = mesh.ranks[0]
+        self.peers = mesh.ranks[1:]
+        self.stats = {'scatter_s': 0.0, 'gather_s': 0.0, 'requests': 0}
+        self._stats_lock = threading.Lock()
+        self._lock = threading.Lock()
+        self._out: 'queue.Queue' = queue.Queue()
+        self._results: 'queue.Queue' = queue.Queue()
+        self._pending: Dict[int, _MeshTicket] = {}
+        self._next_id = 0
+        self._error: Optional[BaseException] = None
+        self._threads: List[threading.Thread] = []
+        if self.leader:
+            for fn, name in ((self._send_loop, 'scatter'), (self._gather_loop, 'gather')):
+                th = threading.Thread(target=fn, name=f'FFTService-{name}', daemon=True)
+                th.start()
+                self._threads.append(th)
+
+    def note(self, key: str, seconds: float) -> None:
+        with self._stats_lock:
+            self.stats[key] += seconds
+
+    def info(self) -> dict:
+        with self._stats_lock:
+            n = max(self.stats['requests'], 1)
+            return {'ranks': self.mesh.size, 'requests': self.stats['requests'],
+                    'scatter_ms': round(self.stats['scatter_s'] / n * 1e3, 3),
+                    'gather_ms': round(self.stats['gather_s'] / n * 1e3, 3)}
+
+    # -- position 0 -----------------------------------------------------------
+
+    def _kind(self, x, direction: str, real, op):
+        """(engine.submit kwargs, plan, operand form, result form) of a
+        global request, resolved on the global shape as one rank's
+        engine resolves it."""
+        eng = self.engine
+        planar = isinstance(x, tuple)
+        shape = tuple((x[0] if planar else x).shape)
+        if op is not None:
+            return {'op': op}, eng.plan_for(op=op), 'in', 'in'
+        if direction == 'fwd':
+            real = (not planar and not np.iscomplexobj(x)) if real is None else bool(real)
+            p = eng.plan_for(real, shape=shape)
+            return ({'direction': 'fwd', 'real': real, 'shape': shape}, p, 'in',
+                    'spectrum' if real else 'out')
+        if direction != 'inv':
+            raise ValueError(f"direction must be 'fwd'|'inv', got {direction!r}")
+        if real is None:
+            real = eng._infer_inverse_kind(shape, whole=True)
+        tshape = eng._real_shape_from_spectrum(shape, whole=True) if real else shape
+        p = eng.plan_for(real, shape=tshape)
+        return ({'direction': 'inv', 'real': real, 'shape': tshape}, p,
+                'spectrum' if real else 'out', 'in')
+
+    def submit(self, x, *, direction: str, real, op, max_wait_ms) -> _MeshTicket:
+        """Cut one admitted request into the ranks' blocks, submit
+        position 0's and queue the others' for the sender, under one lock
+        so the ranks' submit orders agree."""
+        if self._error is not None:
+            raise RuntimeError("the service's link to the mesh's other ranks broke; "
+                               "it cannot serve") from self._error
+        t0 = time.perf_counter()
+        x = _canonical(x)
+        planar = isinstance(x, tuple)
+        leaves = x if planar else (x,)
+        kw, p, form_in, form_out = self._kind(x, direction, real, op)
+        blocks = []
+        for pos in range(self.mesh.size):
+            shape, sl = _form_slices(self.mesh, p, form_in, pos)
+            if tuple(leaves[0].shape) != tuple(shape):
+                raise ValueError(f"request shape {tuple(leaves[0].shape)} != the "
+                                 f"transform's operand shape {tuple(shape)}")
+            blocks.append([a[sl] for a in leaves])
+        mt = _MeshTicket(self, p, form_out)
+        with self._lock:
+            own = blocks[0]
+            ticket = self.engine.submit(tuple(own) if planar else own[0],
+                                        max_wait_ms=max_wait_ms, **kw)
+            rid = self._next_id
+            self._next_id += 1
+            self._pending[rid] = mt
+            self._out.put(('submit', rid, kw, blocks))
+        with self._stats_lock:
+            self.stats['requests'] += 1
+        self.note('scatter_s', time.perf_counter() - t0)
+        ticket.add_done_callback(lambda t: mt._arrive(0, t, t._error))
+        return mt
+
+    def _broken(self, exc: BaseException) -> None:
+        """A side thread failed (a peer died, a side group timed out):
+        refuse new requests and fail every request still waiting."""
+        self._error = exc
+        with self._lock:
+            pending, self._pending = list(self._pending.values()), {}
+        for mt in pending:
+            mt._fail(exc)
+
+    def _send_loop(self) -> None:
+        try:
+            self._sending()
+        except Exception as exc:
+            self._broken(exc)
+
+    def _sending(self) -> None:
+        while True:
+            try:
+                msg = self._out.get(timeout=KEEPALIVE_S)
+            except queue.Empty:
+                msg = ('ping',)
+            t0 = time.perf_counter()
+            for pos, dst in enumerate(self.peers, start=1):
+                if msg[0] == 'submit':
+                    _send(self.scatter, dst, msg[:3], msg[3][pos])
+                else:
+                    _send(self.scatter, dst, msg)
+            if msg[0] == 'submit':
+                self.note('scatter_s', time.perf_counter() - t0)
+            if msg[0] == 'stop':
+                return
+
+    def _gather_loop(self) -> None:
+        try:
+            self._gathering()
+        except Exception as exc:
+            self._broken(exc)
+
+    def _gathering(self) -> None:
+        live = list(enumerate(self.peers, start=1))
+        while live:
+            for pos, src in list(live):
+                meta, leaves, seconds = _recv(self.gather, src)
+                if meta[0] == 'stop':
+                    live.remove((pos, src))
+                elif meta[0] == 'result':
+                    _, rid, error = meta
+                    self.note('gather_s', seconds)
+                    with self._lock:
+                        mt = self._pending[rid]
+                        mt.remote_left -= 1
+                        if not mt.remote_left:
+                            del self._pending[rid]
+                    mt._arrive(pos, leaves, error)
+
+    def stop(self) -> None:
+        """Position 0: tell the other ranks to stop (after the drain)."""
+        self._out.put(('stop',))
+
+    def join(self) -> None:
+        for th in self._threads:
+            th.join()
+
+    # -- the other ranks ------------------------------------------------------
+
+    def follow(self, close_engine: bool) -> None:
+        """Submit every block position 0 sends, in its order, until it
+        says stop; then close the engine (when the service owns it) and
+        send the last results back."""
+        sender = threading.Thread(target=self._return_loop, name='FFTService-return',
+                                  daemon=True)
+        sender.start()
+        try:
+            while True:
+                meta, leaves, _ = _recv(self.scatter, self.lead_rank)
+                if meta[0] == 'stop':
+                    break
+                if meta[0] != 'submit':
+                    continue
+                _, rid, kw = meta
+                t = self.engine.submit(tuple(leaves) if len(leaves) == 2 else leaves[0], **kw)
+                t.add_done_callback(lambda t, rid=rid: self._results.put((rid, t)))
+            if close_engine:
+                self.engine.close()
+        finally:
+            self._results.put(None)
+            sender.join()
+
+    def _return_loop(self) -> None:
+        while True:
+            try:
+                item = self._results.get(timeout=KEEPALIVE_S)
+            except queue.Empty:
+                _send(self.gather, self.lead_rank, ('ping',))
+                continue
+            if item is None:
+                _send(self.gather, self.lead_rank, ('stop',))
+                return
+            rid, t = item
+            if t.done:
+                v = t.result(timeout=0)
+                _send(self.gather, self.lead_rank, ('result', rid, None),
+                      [_host_array(a) for a in (v if isinstance(v, tuple) else (v,))])
+            else:
+                _send(self.gather, self.lead_rank,
+                      ('result', rid, f"{type(t._error).__name__}: {t._error}"))
 
 
 class _Delivery:
@@ -689,6 +1083,11 @@ class _Conn:
 class FFTService:
     """The multi-tenant socket front-end over one :class:`FFTEngine`.
 
+    On a mesh of more than one rank every rank builds the service with
+    the same arguments; position 0's serves and the others' follow (the
+    module docstring): their :meth:`start` serves their blocks and
+    returns once position 0 closed.
+
     Args:
       mesh: device mesh for the engine the service builds (ignored
         when ``engine`` is given).
@@ -779,6 +1178,9 @@ class FFTService:
         # rfft -> op -> irfft as one dispatch
         for op_name, op_plan in (ops or {}).items():
             self.engine.register_op(op_name, op_plan)
+        # on a mesh of several ranks: the scatter/gather link (position 0
+        # starts its threads here; the others follow in start())
+        self._link = _MeshLink(self.engine) if self.engine.mesh.size > 1 else None
         self._faults = faults
         # admission/policy time reads pass through the fault plane's
         # clock (skew injection); latency measurement stays on the
@@ -860,10 +1262,20 @@ class FFTService:
 
     # -- lifecycle ----------------------------------------------------------
 
+    @property
+    def is_leader(self) -> bool:
+        """True where this service serves clients: one rank, or mesh
+        position 0."""
+        return self._link is None or self._link.leader
+
     def start(self, address: Optional[Address] = None) -> 'FFTService':
         """Bind, listen, and serve connections on a daemon accept
         thread. Returns self (so ``with FFTService(...).start() as s``
-        works)."""
+        works). On a mesh, every rank but position 0 serves its blocks
+        here instead, and returns (closed) once position 0 closed."""
+        if not self.is_leader:
+            self._follow()
+            return self
         if self._listener is not None:
             raise RuntimeError("the service is already serving")
         if self._closed:
@@ -929,7 +1341,12 @@ class FFTService:
         """Graceful shutdown: stop accepting, optionally wait for
         every admitted request to resolve, persist the adaptive
         policy's load-level rows, close the connections and (when the
-        service built it) the engine. Idempotent."""
+        service built it) the engine. Idempotent. On a mesh, position 0
+        then tells the other ranks to stop; on another rank this serves
+        its blocks until then (as :meth:`start`)."""
+        if not self.is_leader:
+            self._follow()
+            return
         already = self._closed
         self._closed = True
         self._hk_stop.set()
@@ -983,8 +1400,20 @@ class FFTService:
             self._accept_thread.join(timeout=5.0)
         if self._hk_thread is not None:
             self._hk_thread.join(timeout=2.0)
+        if self._link is not None and not already:
+            self._link.stop()
         if self._own_engine and not already:
             self.engine.close()
+        if self._link is not None and not already:
+            self._link.join()
+
+    def _follow(self) -> None:
+        """A rank other than position 0: serve its blocks until position
+        0 closes. Once."""
+        if self._closed:
+            return
+        self._closed = True
+        self._link.follow(close_engine=self._own_engine)
 
     def local_client(self, tenant: str = 'default',
                      token: Optional[str] = None) -> 'FFTClient':
@@ -1461,7 +1890,10 @@ class FFTService:
         scheduler slot (retired via :meth:`_pump_scheduler` when it
         resolves)."""
         try:
-            if p.op is not None:
+            if self._link is not None:
+                ticket = self._link.submit(p.x, direction=p.direction, real=p.real,
+                                           op=p.op, max_wait_ms=p.wait_ms)
+            elif p.op is not None:
                 ticket = self.engine.submit(p.x, op=p.op,
                                             max_wait_ms=p.wait_ms)
             else:
@@ -1600,6 +2032,9 @@ class FFTService:
             'tenants': tenants,
             'shapes': shapes,
         }
+        if self._link is not None:
+            # the scatter and gather times a request (position 0's host)
+            out['service']['mesh'] = self._link.info()
         return out
 
     @staticmethod

@@ -67,8 +67,9 @@ against the same block of the JAX package's ``jax.grad`` on one device
 strategy), as a relative L2 over all ranks (keys ``l2_*``).
 
 Suite ``serve`` (2 x 2): one ``repro_torch.serve.FFTEngine`` a rank,
-``flush()`` only (a multi-rank mesh refuses the drainer, checked too),
-serving ``SERVE_SHAPE`` from global numpy operands (``serve_operands``):
+``flush()`` only, then the same stream through a background engine
+(``max_wait_ms``: position 0's drainer leads, ``drainer_*``), serving
+``SERVE_SHAPE`` from global numpy operands (``serve_operands``):
 complex, real and planar forwards, the inverses of the complex results
 and ``register_op`` requests (a baked factor), each rank passing its
 blocks. Every result is held bitwise against the same rank's
@@ -76,8 +77,14 @@ per-request ``plan.forward``/``inverse``/``apply`` and, with ``--ref``,
 against the JAX package's engine (its fused-operator executor for the
 op requests) as a relative L2 over all ranks. With ``--serve-n N`` it
 serves 8 complex N^3 requests instead, made on each rank's device, and
-times the stream (``us_per_request``, the slowest rank's, median of 3)
-beside the same requests through ``plan.forward`` one at a time.
+times the stream through ``flush()`` (``us_per_request``, the slowest
+rank's, median of 3), through a background engine with no ``flush()``
+(``us_drainer_per_request``: ``max_wait_ms``, position 0's drainer
+leading) and through ``plan.forward`` one at a time; on the card it
+counts the kernel launches of both streams (``launches_ok``: a group
+launches what one call of the plan on a stacked group launches,
+its count is the last entry of ``resolved`` — all on the tensor-core
+body, nothing else).
 
 ``--ref`` names an ``.npz`` of global reference results by case name
 (``tests/_torch_jax_reference.py`` writes it); the worker itself never
@@ -546,12 +553,6 @@ def _serve_case(mesh, ref):
     from repro_torch.serve import FFTEngine
     ops = serve_operands()
     dev = mesh.device
-    try:
-        FFTEngine(SERVE_SHAPE, mesh, max_wait_ms=2.0)
-    except ValueError as e:
-        refused = 'multi-rank drainer' in str(e)
-    else:
-        refused = False
     eng = FFTEngine(SERVE_SHAPE, mesh, max_coalesce=4, schedule_table=None)
     pc, pr = eng.plan_for(False), eng.plan_for(True)
     op = eng.register_op('conv', op=fft.spectral_mul, real=True, spectra=(ops['k'],))
@@ -570,6 +571,20 @@ def _serve_case(mesh, ref):
     eng.flush()
     got = {k: [t.result() for t in ts] for k, ts in tickets.items()}
     got['inverse'] = eng.transform(got['complex'], direction='inv')
+    # the same stream through a background engine: no flush(), position
+    # 0's drainer decides every pass
+    drainer = FFTEngine(SERVE_SHAPE, mesh, max_coalesce=4, schedule_table=None,
+                        max_wait_ms=2.0)
+    drainer.register_op('conv', op=fft.spectral_mul, real=True, spectra=(ops['k'],))
+    dtickets = {k: [] for k in xs}
+    for j in range(max(len(v) for v in xs.values())):
+        for kind, v in xs.items():
+            if j < len(v):
+                dtickets[kind].append(drainer.submit(v[j], op='conv' if kind == 'op' else None))
+    dgot = {k: [t.result(timeout=120) for t in ts] for k, ts in dtickets.items()}
+    drainer.close()
+    digests = [None] * mesh.size
+    dist.all_gather_object(digests, drainer.dispatch_digest)
     one = {'complex': [pc.forward(x) for x in xs['complex']],
            'real': [pr.forward(x) for x in xs['real']],
            'planar': [pc.forward(x) for x in xs['planar']],
@@ -577,8 +592,11 @@ def _serve_case(mesh, ref):
            'inverse': [pc.inverse(y) for y in got['complex']]}
     flat = [(a, b) for k in one for y, z in zip(got[k], one[k])
             for a, b in (zip(y, z) if isinstance(y, tuple) else ((y, z),))]
+    dflat = [(a, b) for k in dgot for y, z in zip(dgot[k], one[k])
+             for a, b in (zip(y, z) if isinstance(y, tuple) else ((y, z),))]
     rec = {'bitwise': all(torch.equal(a, b) for a, b in flat),
-           'drainer_refused': refused, 'shape_ok': True,
+           'drainer_bitwise': all(torch.equal(a, b) for a, b in dflat),
+           'drainer_paired': len(set(digests)) == 1, 'shape_ok': True,
            'resolved': [list(eng.schedule(False)), list(eng.schedule(True)),
                         list(eng.schedule(op='conv')), eng.dispatch_stats()['groups']]}
     if ref is not None:
@@ -634,20 +652,55 @@ def _serve_bench(mesh, n):
             times.append((time.perf_counter() - t0) / len(xs) * 1e6)
         return statistics.median(times), out
 
-    def stream():
-        tickets = [eng.submit(x) for x in xs]
-        eng.flush()
-        return [t.result() for t in tickets]
-    stream()                                              # warm
+    def stream(engine, flush):
+        tickets = [engine.submit(x) for x in xs]
+        if flush:
+            engine.flush()
+        return [t.result(timeout=600) for t in tickets]
+
+    def launches(fn):
+        """(fft_matmul launches of fn, groups it dispatched, all of them on
+        the tensor-core body and no other kernel); off the card (0, groups,
+        True)."""
+        g0 = eng.dispatch_stats()['groups'] + drainer.dispatch_stats()['groups']
+        if not cuda:
+            fn()
+            return 0, eng.dispatch_stats()['groups'] + drainer.dispatch_stats()['groups'] - g0, True
+        from repro_torch import kernels
+        from repro_torch.kernels import fft_matmul
+        kernels.reset_launch_counts()
+        fn()
+        sync()
+        groups = eng.dispatch_stats()['groups'] + drainer.dispatch_stats()['groups'] - g0
+        counts = kernels.launch_counts()
+        return (counts['fft_matmul'], groups, fft_matmul.launches_mma == counts['fft_matmul']
+                and not any(v for k, v in counts.items() if k != 'fft_matmul'))
+    drainer = FFTEngine((n,) * 3, mesh, max_coalesce=4, schedule_table=None,
+                        max_wait_ms=2.0)
+    w = eng.schedule(False)[0]
+    per_group, _, ok = launches(lambda: p.forward(torch.stack(xs[:w])))   # one group's call
+    counted = [launches(lambda: stream(eng, True)),      # warm, counted
+               launches(lambda: stream(drainer, False))]
+    ok = ok and all(good and v == per_group * g for v, g, good in counted)
     g0 = eng.dispatch_stats()['groups']
-    us, ys = wall(stream)
+    us, ys = wall(lambda: stream(eng, True))
     groups = (eng.dispatch_stats()['groups'] - g0) // 3   # a stream
+    g0 = drainer.dispatch_stats()['groups']
+    drainer_us, dys = wall(lambda: stream(drainer, False))
+    drainer_groups = (drainer.dispatch_stats()['groups'] - g0) // 3
+    drainer.close()
     seq_us, _ = wall(lambda: [p.forward(x) for x in xs])
     bitwise = all(torch.equal(y, p.forward(x)) for x, y in zip(xs, ys))
-    return {'bitwise': bitwise, 'shape_ok': True, 'us_per_request': us,
+    dbitwise = all(torch.equal(y, p.forward(x)) for x, y in zip(xs, dys))
+    digests = [None] * mesh.size
+    dist.all_gather_object(digests, drainer.dispatch_digest)
+    return {'bitwise': bitwise, 'drainer_bitwise': dbitwise,
+            'drainer_paired': len(set(digests)) == 1, 'launches_ok': ok, 'shape_ok': True,
+            'us_per_request': us, 'us_drainer_per_request': drainer_us,
             'us_sequential_per_request': seq_us,
             'peak_gib': torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
-            'resolved': [list(eng.schedule(False)), p.comm, p.method, groups]}
+            'resolved': [list(eng.schedule(False)), p.comm, p.method, groups,
+                         list(drainer.schedule(False)), drainer_groups, per_group]}
 
 
 def _grad_gather(mesh):

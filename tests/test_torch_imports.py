@@ -115,3 +115,17 @@ def test_the_check_sees_the_sharded_server():
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_check_sees_mesh_serving():
+    """Serving on a mesh: the engine, the service and its launcher, the
+    example that serves a mesh, and the worker the four-card benchmark
+    runs."""
+    port = ROOT / 'src' / 'repro_torch'
+    rel = {str(p.relative_to(port)) for p in FILES if port in p.parents}
+    assert {'serve/fft_engine.py', 'serve/service.py', 'launch/fft_service.py',
+            'launch/mesh.py'} <= rel
+    for path in (ROOT / 'examples' / 'torch_serve_fft.py',
+                 ROOT / 'tests' / '_torch_serve_mesh_worker.py'):
+        bad = [m for m in _imported(path) if m.split('.')[0] in BANNED]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

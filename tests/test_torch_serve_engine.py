@@ -20,8 +20,10 @@ Behaviour: the reference's own engine cases (``tests/test_serve_fft.py``,
 messages, schedules and their table, tickets, the drainer's triggers,
 close, failure re-queue and retries (also by injected faults), the LRU
 plan cache — with the port's deliberate differences: no donation, and
-on a multi-rank mesh no drainer. The gloo 2 x 2 case is in
-``tests/test_torch_multirank.py`` (suite ``serve``).
+on a multi-rank mesh a drainer only where the mesh has its process group
+(position 0 leads the others' drainers). The gloo 2 x 2 case is below
+(``tests/_torch_multirank_worker.py``, suite ``serve``); the drainer's
+and the service's mesh cases are in ``tests/test_torch_serve_mesh.py``.
 """
 import gc
 import json
@@ -31,7 +33,6 @@ import subprocess
 import sys
 import threading
 import time
-import types
 import weakref
 
 import numpy as np
@@ -40,7 +41,7 @@ import torch
 
 import repro_torch.fft as fft
 from repro_torch.comm import cost as pcost
-from repro_torch.launch.mesh import make_fft_mesh
+from repro_torch.launch.mesh import FFTMesh, abstract_fft_mesh, make_fft_mesh
 from repro_torch.serve import FaultInjected, FaultPlan, FaultPoint, FFTEngine
 from repro_torch.weights import from_numpy
 
@@ -267,14 +268,16 @@ def test_engine_construction_validation(mesh, make, match):
                                   dict(background=True)],
                          ids=['max_wait_ms', 'watermark', 'background'])
 def test_drainer_refused_on_a_multirank_mesh(knob):
-    """Every rank of a mesh runs its own engine; a drainer's timing would
-    pair different groups across ranks, so the engine refuses one there
-    and names the roadmap item that brings it. (A real 2 x 2 mesh checks
-    the same in the gloo worker's ``serve`` suite.)"""
-    four = types.SimpleNamespace(size=4, device=torch.device('cpu'), shape={'x': 2, 'y': 2},
-                                 axis_names=('x', 'y'))
-    with pytest.raises(ValueError, match="multi-rank drainer"):
+    """On a mesh of several ranks position 0's drainer leads the others'
+    over the mesh's gloo side group (a real 2 x 2 mesh serves with it in
+    the gloo worker's ``serve`` suite). A mesh with no process group has
+    no side group, so a drainer there still raises; and a mesh that only
+    prices plans has no device to serve on."""
+    four = FFTMesh({'x': 2, 'y': 2}, torch.device('cpu'))
+    with pytest.raises(ValueError, match="needs the mesh's process group"):
         FFTEngine((8, 8), four, **knob)
+    with pytest.raises(ValueError, match="prices plans and cannot serve"):
+        FFTEngine((8, 8), abstract_fft_mesh(2, 2), **knob)
 
 
 def test_engine_from_existing_plan(mesh):
@@ -771,4 +774,8 @@ def test_gloo_2x2_flush_is_bitwise_per_request(gloo_serve):
 
 
 def test_gloo_2x2_refuses_the_drainer(gloo_serve):
-    assert gloo_serve['drainer_refused']
+    """The name predates the multi-rank drainer. On gloo 2 x 2 a background
+    engine (``max_wait_ms``, no ``flush()``) now serves the same stream,
+    every result bitwise equal to the same rank's per-request call, its
+    groups in one order on every rank."""
+    assert gloo_serve['drainer_bitwise'] and gloo_serve['drainer_paired']

@@ -17,7 +17,9 @@ served by the port's service, and the port's client by the reference's
 service, bit for bit what a reference client gets from it. Plus: a
 delivered keyed result keeps nothing of the engine's group output alive
 (the dedup window holds host arrays), a service on a mesh of more than
-one rank refuses to build its engine, and the launcher's ``--smoke``.
+one rank with no process group refuses to build its engine (with one it
+serves: ``tests/test_torch_serve_mesh.py``), and the launcher's
+``--smoke``.
 """
 import contextlib
 import gc
@@ -508,10 +510,12 @@ def test_ports_client_against_the_reference_service(jmesh, sock_path):
 # ---------------------------------------------------------------------------
 
 def test_service_on_a_larger_mesh_raises():
-    """The service needs a background engine, whose drainer runs on one
-    rank only: on 2 x 2 building the service's engine raises."""
+    """The service needs a background engine. On a mesh of several ranks
+    its drainer is led over the mesh's side group, so a 2 x 2 mesh with
+    no process group still raises; with one the service builds and
+    serves (``tests/test_torch_serve_mesh.py``, gloo 2 x 2)."""
     mesh4 = FFTMesh({'x': 2, 'y': 2}, torch.device('cpu'))
-    with pytest.raises(ValueError, match="background drainer cannot run on a mesh of 4"):
+    with pytest.raises(ValueError, match="needs the mesh's process group"):
         FFTService(mesh4, schedule_table=None)
     eng = FFTEngine(mesh=make_fft_mesh(1, 1, device='cpu'), schedule_table=None)
     with pytest.raises(ValueError, match="needs a background engine"):
