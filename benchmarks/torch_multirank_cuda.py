@@ -3,7 +3,8 @@
 Run from the root of a checkout, on a machine with four cards:
 
     python3 benchmarks/torch_multirank_cuda.py [--out build/multirank_cuda]
-        [--suite base|strategies|pod|op|serve|lm|train ...] [--lm-rows ARCH:DTYPE[:LAYERS] ...]
+        [--suite base|strategies|pod|op|unfused|serve|lm|train ...]
+        [--lm-rows ARCH:DTYPE[:LAYERS] ...]
 
 It builds the CUDA kernels once, runs ``tests/_torch_multirank_worker.py``
 with ``cuda`` (four NCCL ranks, one card each, so every pencil runs the
@@ -12,7 +13,9 @@ pencil, real, overlap and rank-1 cases), the ``strategies`` suite on
 2 x 2 and 1 x 4 (every plan on ppermute, hierarchical and the mesh's pod
 tree, held against all_to_all; the bare swaps), the ``pod`` suite on
 1 x 2 x 2 pods (``batch_spec='pod'``), the ``op`` suite (``plan_op``)
-on 2 x 2 and 1 x 4, and the ``serve`` suite on 2 x 2 and 1 x 4 at 512^3:
+on 2 x 2 and 1 x 4, the ``unfused`` suite (``fused=False`` rank-3 and
+rank-1 functions against their fused selves) on 2 x 2 and 1 x 4, and
+the ``serve`` suite on 2 x 2 and 1 x 4 at 512^3:
 one ``FFTEngine`` a rank, 8 complex requests through ``flush()`` and
 through a background engine with no ``flush()`` (position 0's drainer
 leading), every result bitwise equal to the rank's per-request
@@ -75,7 +78,8 @@ def main() -> None:
     ap.add_argument('--out', default=os.path.join(ROOT, 'build', 'multirank_cuda'),
                     help='directory of the per-run JSON records')
     ap.add_argument('--suite', nargs='+', default=None,
-                    choices=('base', 'strategies', 'pod', 'op', 'serve', 'lm', 'train'),
+                    choices=('base', 'strategies', 'pod', 'op', 'unfused', 'serve', 'lm',
+                             'train'),
                     help='run only these suites')
     ap.add_argument('--lm-rows', nargs='+', default=None,
                     help='the lm suite: only these rows (arch:dtype[:layers])')
@@ -92,8 +96,8 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     passed = total = 0
     runs = (('2x2', 'base', 1), ('2x2', 'strategies', 1), ('1x4', 'strategies', 1),
-            ('1x2', 'pod', 2), ('2x2', 'op', 1), ('1x4', 'op', 1), ('2x2', 'serve', 1),
-            ('1x4', 'serve', 1))
+            ('1x2', 'pod', 2), ('2x2', 'op', 1), ('1x4', 'op', 1), ('2x2', 'unfused', 1),
+            ('1x4', 'unfused', 1), ('2x2', 'serve', 1), ('1x4', 'serve', 1))
     for mesh, suite, pods in runs:
         if args.suite and suite not in args.suite:
             continue
@@ -284,6 +288,10 @@ def _checks(mesh: str, suite: str):
     if suite == 'op':
         for name, _, _ in worker.OP_CASES[mesh]:
             yield name, checks.check_op
+        return
+    if suite == 'unfused':
+        for name, _, kw in worker.UNFUSED_CASES[mesh]:
+            yield name, lambda r, k=kw: checks.check_unfused(r, k)
         return
     if suite == 'serve':
         yield f'serve_{SERVE_N}', check_serve

@@ -187,7 +187,33 @@ Phases, each printing one line and raising on any failure:
    byte for byte); and ``examples/torch_fftconv_lm.py`` as a subprocess
    (its loss falls by more than 0.3 nats). The FFT-conv LM's training
    steps count as the train path's launches in the ``kernels`` line;
-16. a ``kernels`` JSON line (``fft_matmul`` and ``fft_block`` also list
+16. the unfused supersteps and the rest of the FFT surface, after the
+   serial paths (each line with its seconds; ``[new_phases]`` their
+   sum): ``default_unfused`` (``pencil.make_fft(plan._pplan,
+   fused=False)`` of the default 512^3 plan: 3 ``fft_matmul`` a
+   direction on the tensor-core body, bitwise the fused functions'),
+   ``stockham_unfused`` (``method='stockham'``: 3 ``fft_pencil`` and no
+   ``fft_fused`` a direction on the radix-8 body, within 1e-6 of the
+   fused plan, and a facade plan built under ``REPRO_FUSE_SUPERSTEP=0``
+   bitwise the unfused function's), each against ``torch.fft.fftn`` and
+   the round trip with its fwd+inv time beside the fused one's;
+   ``large1d_stockham_unfused`` (the 8 signals of 2^24 planned under
+   ``REPRO_FUSE_SUPERSTEP=0``: 2 ``fft_pencil`` a direction, the twiddle
+   a product of its own, no ``fft_fused``); ``check=fft3d``
+   (``pencil.fft3d``/``ifft3d`` bitwise ``make_fft``'s functions);
+   ``check=apply_block`` (``methods.apply_block`` along axis 1 of a
+   stacked (2, 512, 512, 512): one ``fft_block`` launch on the
+   tensor-core body, bitwise ``methods.apply(method='block')``); then
+   ``[example]``: ``examples/torch_quickstart.py --n 512 --n1d 16777216``
+   and ``examples/torch_spectral_solver.py --n 512 --steps 50`` as
+   subprocesses (their errors, each loop's us a step, the OK lines);
+   and ``[paper]``: the headline lines of the analytic
+   ``benchmarks/torch_paper_*.py`` scripts (959 us, 18.9 and 32.7 TF/s,
+   18% over the DGX; each must print the reference's line verbatim) and
+   ``torch_paper_fig3.py --batch 32768``'s GFLOP/s of each pencil on the
+   card;
+17. a ``[total]`` line (the run's seconds), a ``kernels`` JSON line
+   (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
    registers and spills, and its times), the card line and, last, the
    result line.
@@ -210,6 +236,7 @@ import json
 import math
 import os
 import re
+import runpy
 import subprocess
 import sys
 import time
@@ -229,6 +256,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import _build, fft_block, fft_fused, fft_matmul, fft_pencil  # noqa: E402
 from repro_torch.comm import cost as costlib  # noqa: E402
 from repro_torch.core.twiddle import four_step_factors  # noqa: E402
+from repro_torch.fft import methods as fft_methods, pencil as fft_pencil_mod  # noqa: E402
 from repro_torch.launch.mesh import abstract_fft_mesh, make_fft_mesh, make_host_mesh  # noqa: E402
 from repro_torch.configs import get_config, make_batch  # noqa: E402
 from repro_torch.models import attention as lm_attn, layers as lm_layers  # noqa: E402
@@ -808,6 +836,232 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
         library_ms=f"{lib:.6g}", **extra)
     say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
     return total
+
+
+@contextlib.contextmanager
+def fuse_env(value: str):
+    """``$REPRO_FUSE_SUPERSTEP`` set to ``value`` while plans build."""
+    key, old = fft_pencil_mod.FUSE_ENV, os.environ.get(fft_pencil_mod.FUSE_ENV)
+    os.environ[key] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = old
+
+
+def _rel_l2(a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def phase_unfused(label: str, gen, expect: dict, vs_fused_rtol: float, **plan_kw) -> dict:
+    """``[path] label=*_unfused``: ``pencil.make_fft(plan._pplan,
+    fused=False)`` of the 512^3 plan, forward and inverse on a planar
+    batch of one: ``expect`` launches a direction (every four-step
+    launch on the tensor-core body, every Stockham one on the radix-8
+    body), against ``torch.fft.fftn`` and the round trip (PATH_RTOL),
+    and against the fused functions of the same plan (``fused=True``):
+    bitwise where ``vs_fused_rtol`` is 0, else within it of the largest
+    magnitude. A Stockham plan also builds one facade plan under
+    ``REPRO_FUSE_SUPERSTEP=0``, whose forward must be the unfused
+    function's bit for bit. Returns the unfused run's launch counts."""
+    t0 = time.perf_counter()
+    p = fft.plan((N, N, N), make_fft_mesh(1, 1), **plan_kw)
+    fns = {f: (fft_pencil_mod.make_fft(p._pplan, fused=f)[0],
+               fft_pencil_mod.make_fft(p._pplan, inverse=True, fused=f)[0])
+           for f in (True, False)}
+    xr, xi = planar((1, N, N, N), gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = fns[False][0](xr, xi)
+    fwd = kernels.launch_counts()
+    x2 = fns[False][1](*y)
+    torch.cuda.synchronize()
+    total = kernels.launch_counts()
+    on_mma = {'fft_block': fft_block.launches_mma, 'fft_matmul': fft_matmul.launches_mma}
+    on_radix8 = {'fft_fused': fft_fused.launches_radix8,
+                 'fft_pencil': fft_pencil.launches_radix8}
+    for k in total:
+        per_dir = expect.get(k, 0)
+        if fwd[k] != per_dir or total[k] != 2 * per_dir:
+            raise AssertionError(f"{label}: {k} launched {fwd[k]} forward / {total[k]} in "
+                                 f"all, expected {per_dir} per direction")
+    for k, body in list(on_mma.items()) + list(on_radix8.items()):
+        if body != total[k]:
+            raise AssertionError(f"{label}: {body} of {total[k]} {k} launches on the "
+                                 "hand-written body (tensor-core or radix-8)")
+    yf = fns[True][0](xr, xi)
+    x2f = fns[True][1](*yf)
+    bitwise = all(torch.equal(a, b) for a, b in zip(y + x2, yf + x2f))
+    gap = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(y + x2, yf + x2f))
+    del yf, x2f
+    if not (bitwise if vs_fused_rtol == 0.0 else gap <= vs_fused_rtol):
+        raise AssertionError(f"{label}: unfused differs from the fused plan by {gap:.3e} of "
+                             f"its largest magnitude, limit {vs_fused_rtol}")
+    x = torch.complex(xr[0], xi[0])
+    got = torch.complex(y[0][0], y[1][0])
+    fwd_err = _rel_l2(got, torch.fft.fftn(x))
+    rt_err = _rel_l2(torch.complex(x2[0][0], x2[1][0]), x)
+    if not (fwd_err <= PATH_RTOL and rt_err <= PATH_RTOL):
+        raise AssertionError(f"{label}: forward rel L2 {fwd_err:.3e}, round trip "
+                             f"{rt_err:.3e}, limit {PATH_RTOL}")
+    extra = {}
+    if plan_kw.get('method') == 'stockham':
+        with fuse_env('0'):
+            q = fft.plan((N, N, N), make_fft_mesh(1, 1), **plan_kw)
+            env_bitwise = torch.equal(q.forward(x), got)
+        if not env_bitwise:
+            raise AssertionError(f"{label}: the plan built under REPRO_FUSE_SUPERSTEP=0 is not "
+                                 "bitwise make_fft(fused=False)")
+        extra['env_plan_bitwise'] = env_bitwise
+    del y, x2, got, x
+    ms = time_ms(lambda: fns[False][1](*fns[False][0](xr, xi)), 5)
+    ms_fused = time_ms(lambda: fns[True][1](*fns[True][0](xr, xi)), 5)
+    say('path', label=label, shape=json.dumps([1, N, N, N]), method=p.method,
+        fused=False, launches=json.dumps(total), launches_mma=json.dumps(on_mma),
+        launches_radix8=json.dumps(on_radix8), vs_fused_bitwise=bitwise,
+        vs_fused_rel=f"{gap:.3e}", vs_fused_tol=vs_fused_rtol, fwd_rel_l2=f"{fwd_err:.3e}",
+        roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL, fwd_inv_ms=f"{ms:.6g}",
+        fused_fwd_inv_ms=f"{ms_fused:.6g}", **extra,
+        seconds=f"{time.perf_counter() - t0:.3g}")
+    return total
+
+
+def check_fft3d(gen) -> dict:
+    """``[path] check=fft3d``: ``pencil.fft3d``/``ifft3d`` of the default
+    512^3 plan, bitwise ``make_fft``'s forward and inverse; returns the
+    one-call forms' launch counts."""
+    t0 = time.perf_counter()
+    pp = fft.plan((N, N, N), make_fft_mesh(1, 1))._pplan
+    xr, xi = planar((1, N, N, N), gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = fft_pencil_mod.fft3d(xr, xi, pp)
+    x2 = fft_pencil_mod.ifft3d(*y, pp)
+    torch.cuda.synchronize()
+    total = kernels.launch_counts()
+    fwd = fft_pencil_mod.make_fft(pp)[0](xr, xi)
+    inv = fft_pencil_mod.make_fft(pp, inverse=True)[0](*y)
+    bitwise = all(torch.equal(a, b) for a, b in zip(y + x2, fwd + inv))
+    if not bitwise or total['fft_matmul'] != 6:
+        raise AssertionError(f"fft3d: bitwise {bitwise}, launches {total} (6 fft_matmul)")
+    say('path', check='fft3d', shape=json.dumps([1, N, N, N]), bitwise=bitwise,
+        launches=json.dumps(total), seconds=f"{time.perf_counter() - t0:.3g}")
+    return total
+
+
+def check_apply_block(gen) -> dict:
+    """``[path] check=apply_block``: ``methods.apply_block`` along axis 1
+    of a stacked (2, 512, 512, 512) block: one ``fft_block`` launch on the
+    tensor-core body, bitwise ``methods.apply(method='block')`` along the
+    same axis of the planes, within PATH_RTOL of ``torch.fft.fft``."""
+    t0 = time.perf_counter()
+    x = torch.randn((2, N, N, N), generator=gen, device='cuda')
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = fft_methods.apply_block(x, axis=1)
+    torch.cuda.synchronize()
+    total, mma = kernels.launch_counts(), fft_block.launches_mma
+    yr, yi = fft_methods.apply(x[0], x[1], axis=0, method='block')
+    bitwise = torch.equal(y[0], yr) and torch.equal(y[1], yi)
+    del yr, yi
+    err = _rel_l2(torch.complex(y[0], y[1]), torch.fft.fft(torch.complex(x[0], x[1]), dim=0))
+    want = {k: int(k == 'fft_block') for k in total}
+    if not (bitwise and err <= PATH_RTOL and total == want and mma == 1):
+        raise AssertionError(f"apply_block: bitwise {bitwise}, rel L2 {err:.3e}, launches "
+                             f"{total} ({mma} mma)")
+    say('path', check='apply_block', shape=json.dumps([2, N, N, N]), axis=1, bitwise=bitwise,
+        rel_l2=f"{err:.3e}", tol=PATH_RTOL, launches=json.dumps(total), launches_mma=mma,
+        seconds=f"{time.perf_counter() - t0:.3g}")
+    return total
+
+
+#: the solver's per-loop line: name, microseconds a step, relative error
+SOLVER_LINE = re.compile(r'\s+(operator plan|real \(rfft\) plan|complex plan)\s*:\s*'
+                         r'([\d.]+) us/step\s+rel err ([\d.e+-]+)')
+#: the example's limit on each loop's error against the closed form
+SOLVER_RTOL = 1e-3
+
+
+def phase_examples() -> None:
+    """``[example]``: the quickstart at 512^3 (and a rank-1 plan of 2^24)
+    and the spectral solver at 512^3, 50 steps, as subprocesses."""
+    t0 = time.perf_counter()
+    q = _run([sys.executable, os.path.join('examples', 'torch_quickstart.py'), '--n', str(N),
+              '--n1d', str(1 << 24)], 600)
+    errs = [ln.strip() for ln in q.stdout.splitlines() if 'err' in ln]
+    if 'quickstart OK' not in q.stdout or len(errs) != 3:
+        raise AssertionError(f"quickstart: {q.stdout[-2000:]}")
+    t1 = time.perf_counter()
+    say('example', name='quickstart', n=N, n1d=1 << 24, lines=json.dumps(errs),
+        seconds=f"{t1 - t0:.3g}")
+    sv = _run([sys.executable, os.path.join('examples', 'torch_spectral_solver.py'), '--n',
+               str(N), '--steps', '50'], 600)
+    loops = {m.group(1): (float(m.group(2)), float(m.group(3)))
+             for m in SOLVER_LINE.finditer(sv.stdout)}
+    if (len(loops) != 3 or any(e > SOLVER_RTOL for _, e in loops.values())
+            or '(baked x1)' not in sv.stdout or 'spectral_solver OK' not in sv.stdout):
+        raise AssertionError(f"spectral_solver: {sv.stdout[-2000:]}")
+    say('example', name='spectral_solver', n=N, steps=50,
+        us_per_step=json.dumps({k: v[0] for k, v in loops.items()}),
+        rel_err=json.dumps({k: v[1] for k, v in loops.items()}), tol=SOLVER_RTOL,
+        bake_count=1, seconds=f"{time.perf_counter() - t1:.3g}")
+
+
+#: lines each analytic paper script must print verbatim: the reference's
+#: values of the paper's headline claims (959 us, 18.9 and 32.7 TF/s, 18%
+#: over the DGX, the 1024^3 estimates, 0.8 PB/s, the communication share)
+PAPER_LINES = {
+    'table1': ('table1/512_fp32_us,959.260,paper=959us',
+               'table1/512_fp32_tflops,0.000,derived=18.89 paper=18.9',
+               'table1/512_fp16_tflops,0.000,derived=32.70 paper=32.7'),
+    'table2': ('# claim: wsFFT 512^3 fp32 18.9 TF/s vs DGX 16.0 TF/s -> 18% faster '
+               '(paper: 18%)',),
+    'fig4': ('# comm share at 512 fp32: 0.82 (paper: transposes dominate, up to 80%)',
+             '# fp32/fp16 comm ratio at 512: 1.78 (paper: 1.8x)'),
+    'fig567': ('1024^3,512x512,2,fp16,36.01,yes', '1024^3,512x512,2,fp32,20.74,yes',
+               '# 512 fp32: 0.76 PB/s (paper: 0.8)'),
+}
+#: ``torch_paper_fig3.py``'s batch here: 32,768 pencils fill the card
+FIG3_BATCH = 32768
+
+
+def _script_lines(name: str, argv=()) -> list:
+    """The lines ``benchmarks/<name>.py`` prints, run in this process."""
+    import io
+    path = os.path.join(ROOT, 'benchmarks', f'{name}.py')
+    old = sys.argv
+    sys.argv = [path, *argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name='__main__')
+    finally:
+        sys.argv = old
+    return buf.getvalue().splitlines()
+
+
+def phase_paper(card: str) -> None:
+    """``[paper]``: the analytic scripts' headline lines, then fig3's
+    part (b) on the card."""
+    t0 = time.perf_counter()
+    for name, want in PAPER_LINES.items():
+        lines = _script_lines(f'torch_paper_{name}')
+        missing = [w for w in want if w not in lines]
+        if missing:
+            raise AssertionError(f"torch_paper_{name}: missing {missing}")
+        say('paper', script=f'torch_paper_{name}', lines=len(lines),
+            headline=json.dumps(list(want)))
+    lines = _script_lines('torch_paper_fig3', ['--batch', str(FIG3_BATCH)])
+    rates = {m.group(1): float(m.group(2)) for m in
+             (re.fullmatch(r'fig3/(pencil_\w+_n\d+),[\d.]+,gflops=([\d.]+)', ln)
+              for ln in lines) if m}
+    if len(rates) != 6:
+        raise AssertionError(f"torch_paper_fig3: {lines[-8:]}")
+    say('paper', script='torch_paper_fig3', batch=FIG3_BATCH, gflops=json.dumps(rates),
+        card=json.dumps(card), seconds=f"{time.perf_counter() - t0:.3g}")
 
 
 def spectral_factor(kx, ky, kz, c, nu, dt):
@@ -2463,6 +2717,7 @@ def phase_cost() -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card, ptxas = phase_card()
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rec = phase_kernels(gen, ptxas)
@@ -2495,6 +2750,20 @@ def main() -> None:
         phase_path('rlarge1d', gen, 'four_step', {'fft_matmul': 2}, real=True,
                    shape=LARGE1D, batch=LARGE1D_BATCH),
     ]
+    t_new = time.perf_counter()
+    paths += [
+        phase_unfused('default_unfused', gen, {'fft_matmul': 3}, 0.0),
+        phase_unfused('stockham_unfused', gen, {'fft_pencil': 3}, STOCKHAM_OVERLAP_RTOL,
+                      method='stockham'),
+    ]
+    with fuse_env('0'):
+        # columns, then rows, each its own fft_pencil; the twiddle apart
+        paths.append(phase_path('large1d_stockham_unfused', gen, 'stockham', {'fft_pencil': 2},
+                                shape=LARGE1D, batch=LARGE1D_BATCH, method='stockham'))
+    paths += [check_fft3d(gen), check_apply_block(gen)]
+    phase_examples()
+    phase_paper(card)
+    say('new_phases', seconds=f"{time.perf_counter() - t_new:.3g}")
     paths += phase_op(gen)
     paths += phase_serve(gen)
     paths += phase_service(gen)
@@ -2516,6 +2785,7 @@ def main() -> None:
             out[-1]['rank1'] = [{k: r[k] for k in RANK1_KEYS} for r in rec[name]['rank1']]
         if 'train' in rec[name]:
             out[-1]['train'] = {k: rec[name]['train'][k] for k in TRAIN_KEYS}
+    say('total', seconds=f"{time.perf_counter() - t_start:.4g}")
     print(json.dumps({'kernels': out}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -16,21 +16,28 @@ the same functions.
   products, so no TF32 rounding enters. With ``compute_dtype`` (e.g.
   ``torch.bfloat16``) its matrices and operands are rounded to that
   type first, the accumulation and the twiddle staying fp32.
+* ``fft_four_step_axis`` — the four-step along ANY axis, the axis
+  split in place to (n1, n2) and contracted where it lies (no move of
+  the axis to the end): the ``four_step`` method's ``axis_fn``, a
+  callable of its own (``methods.apply`` moves a non-last axis last).
 * ``fft_four_step_block`` — the block-complex four-step: the complex
   axis carried as a leading size-2 axis, two real contractions per
   pencil against ``_block_consts_np``, full fp32 like the four-step.
 * ``rfft_pencil`` / ``irfft_pencil`` / ``rfft_via`` — the real-input
   pencils: a length-n/2 complex FFT inside a Hermitian pack/combine.
+* ``fft1d`` — the deprecated shim over ``repro_torch.fft.methods.apply``;
+  ``METHODS``, the registry's names and 'auto'.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core import twiddle as tw
-from repro_torch.core.twiddle import Planar
+from repro_torch.core.twiddle import Planar, full_fp32_matmul  # noqa: F401 (re-exported)
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,12 +64,6 @@ def four_step_tables(n1: int, n2: int, inverse: bool, device: torch.device):
     w = tuple(tw.table(a, device)
               for a in tw.four_step_twiddle_np(n1, n2, inverse=inverse))
     return f1, f2, w
-
-
-def full_fp32_matmul(device: torch.device) -> None:
-    """Keep float32 products at full precision on CUDA (no TF32)."""
-    if device.type == 'cuda':
-        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +135,41 @@ def fft_four_step(re: torch.Tensor, im: torch.Tensor, *,
     di = cr @ f2i + ci @ f2r
     yr = dr.transpose(-1, -2).reshape(batch + (n,))
     yi = di.transpose(-1, -2).reshape(batch + (n,))
+    if inverse:
+        yr, yi = yr / n, yi / n
+    return yr, yi
+
+
+def fft_four_step_axis(re: torch.Tensor, im: torch.Tensor, axis: int, *,
+                       inverse: bool = False, compute_dtype=None) -> Planar:
+    """Four-step FFT along ``axis`` with no move of the axis.
+
+    The axis is split in place to (n1, n2) (a view), the first factor's
+    DFT contracts it where it lies (one product a leading index over the
+    trailing axes), the twiddled product is laid out as the second
+    factor's product reads it, and the result is put in natural order
+    along ``axis``. ``compute_dtype`` as in :func:`fft_four_step`."""
+    axis = axis % re.ndim
+    n = re.shape[axis]
+    n1, n2 = tw.four_step_factors(n)
+    pre, post = tuple(re.shape[:axis]), tuple(re.shape[axis + 1:])
+    p, q = math.prod(pre), math.prod(post)
+    full_fp32_matmul(re.device)
+    (f1r, f1i), (f2r, f2i), (wr, wi) = four_step_tables(n1, n2, inverse, re.device)
+    f1r, f1i, f2r, f2i = (narrow(f, compute_dtype) for f in (f1r, f1i, f2r, f2i))
+    ar = narrow(re.reshape(p, n1, n2 * q), compute_dtype)
+    ai = narrow(im.reshape(p, n1, n2 * q), compute_dtype)
+    br = (f1r @ ar - f1i @ ai).view(p, n1, n2, q)
+    bi = (f1r @ ai + f1i @ ar).view(p, n1, n2, q)
+    # the twiddle, then laid out (p, j1, q, k2): the rows of the second
+    # product, which then folds into one product as the last-axis form's
+    cr, ci = tw.cmul(br, bi, wr.view(n1, n2, 1), wi.view(n1, n2, 1))
+    cr = narrow(cr.transpose(2, 3).reshape(p, n1 * q, n2), compute_dtype)
+    ci = narrow(ci.transpose(2, 3).reshape(p, n1 * q, n2), compute_dtype)
+    dr = (cr @ f2r - ci @ f2i).view(p, n1, q, n2)
+    di = (cr @ f2i + ci @ f2r).view(p, n1, q, n2)
+    yr = dr.permute(0, 3, 1, 2).reshape(pre + (n,) + post)
+    yi = di.permute(0, 3, 1, 2).reshape(pre + (n,) + post)
     if inverse:
         yr, yi = yr / n, yi / n
     return yr, yi
@@ -402,3 +438,27 @@ def dft_direct(re: torch.Tensor, im: torch.Tensor, *,
             pr, pi = pr / n, pi / n
         yr[b0:b0 + m], yi[b0:b0 + m] = pr, pi
     return yr.reshape(batch + (n,)), yi.reshape(batch + (n,))
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: the deprecated shim over the one registry
+# ---------------------------------------------------------------------------
+
+def fft1d(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
+          method: str = 'auto', compute_dtype=None) -> Planar:
+    """DEPRECATED: :func:`repro_torch.fft.methods.apply` along the last
+    axis, where the 'auto' rule and every tier live. Warns once."""
+    from repro_torch.core._deprecated import warn_once
+    warn_once('repro_torch.core.fft1d.fft1d', 'repro_torch.fft.methods.apply')
+    from repro_torch.fft import methods
+    return methods.apply(re, im, inverse=inverse, method=method,
+                         compute_dtype=compute_dtype)
+
+
+def __getattr__(name):
+    # METHODS comes from the registry, the one list of method names (read
+    # lazily: repro_torch.fft.methods imports this module)
+    if name == 'METHODS':
+        from repro_torch.fft import methods
+        return methods.names() + ('auto',)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -114,3 +114,38 @@ def table(arr: np.ndarray, device, dtype=torch.float32) -> torch.Tensor:
 def cmul(ar, ai, br, bi) -> Planar:
     """Planar complex multiply: 4 mul + 2 add."""
     return ar * br - ai * bi, ar * bi + ai * br
+
+
+def to_planar(x, *, device, dtype=torch.float32) -> Planar:
+    """A numpy (or torch) complex array as the planar pair (re, im) of
+    ``dtype`` on ``device``."""
+    if isinstance(x, torch.Tensor):
+        re, im = (x.real, x.imag) if x.is_complex() else (x, torch.zeros_like(x))
+        return re.to(device=device, dtype=dtype), im.to(device=device, dtype=dtype)
+    x = np.asarray(x)
+    return (torch.as_tensor(np.ascontiguousarray(x.real), dtype=dtype, device=device),
+            torch.as_tensor(np.ascontiguousarray(x.imag), dtype=dtype, device=device))
+
+
+def from_planar(p: Planar) -> np.ndarray:
+    """A planar pair as a numpy complex128 array on the host."""
+    re, im = (t.detach().to('cpu', torch.float64).numpy() for t in p)
+    return re + 1j * im
+
+
+def full_fp32_matmul(device: torch.device) -> None:
+    """Keep float32 products at full precision on CUDA (no TF32)."""
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def cmatmul(ar, ai, br, bi, *, preferred=torch.float32) -> Planar:
+    """Planar complex matmul as four real ``torch.matmul`` products, each
+    cast to ``preferred`` before the sums. On a CUDA tensor the products
+    run in full fp32 (TF32 off), as the reference's run at its
+    requested precision. Kept for parity with the reference; nothing in
+    the port calls it."""
+    full_fp32_matmul(ar.device)
+    rr = torch.matmul(ar, br).to(preferred) - torch.matmul(ai, bi).to(preferred)
+    ri = torch.matmul(ar, bi).to(preferred) + torch.matmul(ai, br).to(preferred)
+    return rr, ri

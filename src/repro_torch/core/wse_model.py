@@ -7,15 +7,22 @@ models of the CS-2 wafer (850 MHz PEs, 32-bit links) and of a matmul
 unit. They rank schedules exactly as the reference does; they predict
 no time on a GPU. A "runtime" here is WSE cycles at the CS-2 clock.
 
-The paper-figure helpers (``et_total_*``, ``router_*``,
-``bisection_bw_tbs``, ``table1_report``) wait for the benchmarks that use
-them (ROADMAP queue 1, 'Examples + benchmarks').
+The paper side is here too: the paper's published numbers (``PAPER_*``,
+``TABLE2``), its flop counts, the pencil throughput and its asymptotes,
+the reconstruction of the measured compute/communication split and the
+estimates built on it (Eqs. 8-12: ``et_total_*``), the network and
+bisection bandwidths (``router_*``, ``bisection_bw_tbs``,
+``comm_lower_bound_2d``) and the Table 1 report the paper scripts print
+(``benchmarks/torch_paper_*.py``). Every value is the reference's float
+arithmetic, so it is the reference's to the bit. They are cycles, times
+and rates of the CS-2 wafer at its clock: none of them is a time or a
+rate of this port on a GPU.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Literal
+from typing import Dict, Literal, Tuple
 
 Precision = Literal['fp16', 'fp32']
 
@@ -25,6 +32,7 @@ Precision = Literal['fp16', 'fp32']
 
 CLOCK_HZ = 850e6          # CS-2 clock
 ROUTER_RECONFIG = 30      # d: cycles to reprogram a router filter chain
+WORD_BYTES = 4            # one wavelet = 32 bits
 
 
 def r_factor(precision: Precision) -> int:
@@ -41,6 +49,52 @@ TABLE1_CYCLES: Dict[int, Dict[Precision, int]] = {
     256: {'fp16': 147_247, 'fp32': 236_329},
     512: {'fp16': 471_064, 'fp32': 815_371},
 }
+
+#: §5.2 headline: the 512^3 FP32 runtime, microseconds on the CS-2
+PAPER_512_FP32_US = 959.0
+#: §5.3 measured Tflop/s at n = 512 on the CS-2
+PAPER_512_TFLOPS = {'fp32': 18.9, 'fp16': 32.7}
+#: §5.4 / Table 2 estimates at n = 1024 (a 512 x 512 submesh)
+PAPER_1024_TFLOPS_EST = {'fp32': 22.5, 'fp16': 36.0}
+#: §5.1 pencil throughput at the largest measured size: (n, flops/cycle)
+PAPER_PENCIL_FLOPS_PER_CYCLE = {'fp16': (4096, 0.89), 'fp32': (2048, 0.57)}
+#: §5.1 asymptotes, flops/cycle
+PAPER_PENCIL_ASYMPTOTE = {'fp16': 5.0 / 3.0, 'fp32': 5.0 / 6.5}
+#: §6.2: bisection bandwidth of a 512 x 512 mesh, TB/s
+PAPER_BISECTION_TBS = 3.5
+#: §5.3: total router bandwidth at n = 512, PB/s
+PAPER_ROUTER_BW_PBS = 0.8
+
+#: the paper's Table 2: (size n, precision, system, Tflop/s) as it quotes them
+TABLE2 = [
+    (256, '64-bit', 'Takahashi Appro Xtreme-X3', 0.4),
+    (256, '64-bit', 'HeFFTe 32-node Summit', 0.5),
+    (256, '32-bit', 'wsFFT CS-2', 7.2),
+    (256, '16-bit', 'wsFFT CS-2', 11.6),
+    (512, '64-bit', 'HeFFTe 64-node Summit', 1.3),
+    (512, '32-bit', 'cuFFT DGXA100', 16.0),
+    (512, '32-bit', 'wsFFT CS-2', 18.9),
+    (512, '16-bit', 'wsFFT CS-2', 32.7),
+    (1024, '64-bit', 'HeFFTe 1024-node Summit', 9.0),
+    (1024, '32-bit', 'Google FFT TPUv3 pod', 10.9),
+    (1024, '32-bit', 'cuFFT DGXA100', 19.0),
+    (1024, '32-bit', 'wsFFT CS-2 (est.)', 22.5),
+    (1024, '16-bit', 'wsFFT CS-2 (est.)', 36.0),
+]
+
+
+# ---------------------------------------------------------------------------
+# Flop counts
+# ---------------------------------------------------------------------------
+
+def fft_flops_1d(n: int) -> float:
+    """Real-arithmetic flops of a complex-to-complex radix-2 FFT (§1)."""
+    return 5.0 * n * math.log2(n)
+
+
+def fft_flops_3d(n: int) -> float:
+    """3 supersteps x n^2 pencils (§5.3: 3 n^2 * 5 n log2 n)."""
+    return 3.0 * n * n * fft_flops_1d(n)
 
 
 # ---------------------------------------------------------------------------
@@ -261,3 +315,109 @@ def total_cycles_model(n: int, m: int, precision: Precision) -> float:
 def runtime_us(cycles: float) -> float:
     """WSE cycles as microseconds at the CS-2 clock (not a GPU time)."""
     return cycles / CLOCK_HZ * 1e6
+
+
+# ---------------------------------------------------------------------------
+# The paper side: pencil throughput, the measured split and Eqs. 8-12
+# ---------------------------------------------------------------------------
+
+def pencil_flops_per_cycle(n: int, precision: Precision) -> float:
+    return fft_flops_1d(n) / pencil_cycles(n, precision)
+
+
+def pencil_asymptote(precision: Precision) -> float:
+    """§5.1: the n log2 n terms alone give 5/3 = 1.66 (FP16) and 5/6.5 =
+    0.77 (FP32) flops a cycle, the flop count's leading coefficient (5)
+    over the cycle model's (3 or 6.5)."""
+    return 5.0 / (3.0 if precision == 'fp16' else 6.5)
+
+
+def measured_split(n: int, precision: Precision) -> Tuple[float, float]:
+    """(RT_cmpt, RT_comm) of the paper's measured run: compute from the
+    §5.1 pencil cycle model, communication the rest of Table 1's total.
+    Eqs. 8-12 build on these as the paper builds on its measured phases."""
+    total = TABLE1_CYCLES[n][precision]
+    cmpt = 3.0 * pencil_cycles(n, precision)
+    return cmpt, total - cmpt
+
+
+def et_total_strong(n: int, m: int, precision: Precision) -> float:
+    """Eq. 11: estimated cycles of n^3 on (n/m)^2 PEs from the measured
+    m = 1 phases, m * RT_comm + m^2 * RT_cmpt."""
+    cmpt, comm = measured_split(n, precision)
+    return m * comm + m * m * cmpt
+
+
+def et_total_1024(precision: Precision) -> float:
+    """Eq. 10: ET(1024^3 on 1024^2 PEs) = 4 RT_comm(512) + 3 RT_pencil(1024),
+    RT_comm(512) the measured communication of the 512 run (Eq. 2:
+    RT_comm(2n) <= 4 RT_comm(n))."""
+    _, comm512 = measured_split(512, precision)
+    return 4.0 * comm512 + 3.0 * pencil_cycles(1024, precision)
+
+
+def et_total_1024_strong(m: int, precision: Precision) -> float:
+    """1024^3 on a (1024/m)^2 submesh: Eq. 11 on the Eq. 10 phases (the
+    paper's 512 x 512 datapoint is m = 2)."""
+    _, comm512 = measured_split(512, precision)
+    comm1024 = 4.0 * comm512
+    cmpt1024 = 3.0 * pencil_cycles(1024, precision)
+    return m * comm1024 + m * m * cmpt1024
+
+
+def tflops(n: int, cycles: float) -> float:
+    """Tflop/s at the CS-2 clock of an n^3 transform taking ``cycles``."""
+    return fft_flops_3d(n) / (cycles / CLOCK_HZ) / 1e12
+
+
+# ---------------------------------------------------------------------------
+# §5.3 network bandwidth (Fig. 6) and §6 bisection analysis
+# ---------------------------------------------------------------------------
+
+def router_bytes_total(n: int, precision: Precision) -> float:
+    """Link-bytes of both transposes under broadcast-and-filter (§4.3: a
+    wavelet runs to the end of its row, not to its destination). East:
+    PE i sends n-1-i elements over n-1-i links each, sum_i (n-1-i)^2 =
+    n(n-1)(2n-1)/6 a direction a row; two directions, n rows, two
+    transposes."""
+    elem_bytes = 4 if precision == 'fp16' else 8   # complex element
+    per_row_hops = 2.0 * n * (n - 1) * (2 * n - 1) / 6.0
+    return 2.0 * n * per_row_hops * elem_bytes
+
+
+def router_bw_pbs(n: int, precision: Precision) -> float:
+    """Total router bandwidth of the measured n^3 run, PB/s on the CS-2."""
+    cycles = TABLE1_CYCLES[n][precision]
+    return router_bytes_total(n, precision) / (cycles / CLOCK_HZ) / 1e15
+
+
+def bisection_bw_tbs(p: int) -> float:
+    """§6.2: p words a clock each way across the midline of a p x p mesh."""
+    return 2.0 * p * WORD_BYTES * CLOCK_HZ / 1e12
+
+
+def comm_lower_bound_2d(n: int) -> float:
+    """§6.1: bisection-limited cycles to transpose an n^2 array on a
+    sqrt(n) x sqrt(n) mesh (FP16): n^2/4 elements each way over sqrt(n)
+    links."""
+    return (n * n / 4.0) / math.sqrt(n)
+
+
+# ---------------------------------------------------------------------------
+# Model against the paper (the paper scripts print it)
+# ---------------------------------------------------------------------------
+
+def table1_report() -> list:
+    """One row a Table 1 entry: measured and modelled cycles, the model's
+    relative error, and the measured run's microseconds and Tflop/s at
+    the CS-2 clock."""
+    rows = []
+    for n, meas in TABLE1_CYCLES.items():
+        for prec in ('fp16', 'fp32'):
+            model = total_cycles_model(n, 1, prec)
+            err = (model - meas[prec]) / meas[prec]
+            rows.append(dict(n=n, precision=prec, measured=meas[prec],
+                             model=round(model), rel_err=err,
+                             us_measured=runtime_us(meas[prec]),
+                             tflops_measured=tflops(n, meas[prec])))
+    return rows

@@ -11,10 +11,12 @@ four-step over chunks of the batch (:func:`repro_torch.comm.overlap.pipelined`).
 
 Each factory returns the per-rank function on this rank's block with
 ONE leading batch axis, as :func:`repro_torch.fft.pencil.make_fft` does.
-The column DFT, the twiddle and the orientation restore run as one
+With ``fused`` (the default, :func:`repro_torch.fft.pencil.default_fused`)
+the column DFT, the twiddle and the orientation restore run as one
 fused superstep (``methods.apply_fused`` with the twiddle planes: on the
 kernel tier with ``method='stockham'`` one ``fft_twiddle_transpose``
-launch), and the natural-order row DFT emits its own transpose.
+launch), and the natural-order row DFT emits its own transpose; without
+it each DFT, the twiddle and the transposes run as steps of their own.
 
 Users go through ``repro_torch.fft.plan((n,), mesh)``, which owns the
 (n,) <-> (n1, n2) views and the real spectrum's assembly, or
@@ -24,7 +26,7 @@ keeps the spectrum in the four-step's own form and never assembles it.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -33,7 +35,7 @@ from repro_torch.comm import strategies
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
 from repro_torch.fft import methods
-from repro_torch.fft.pencil import splice_op
+from repro_torch.fft.pencil import default_fused, splice_op
 
 
 def twiddle(n: int, rows: int, k2_first: int, m2: int, *, transposed: bool = False,
@@ -88,19 +90,27 @@ def _batched(fn: Callable, overlap_chunks: int) -> Callable:
 def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
                      inverse: bool = False, method: str = 'auto', kernel: str = 'auto',
                      comm: str = 'all_to_all', overlap_chunks: int = 1,
-                     wire_dtype: str = 'native', compute_dtype=None) -> Callable:
+                     wire_dtype: str = 'native', compute_dtype=None,
+                     fused: Optional[bool] = None) -> Callable:
     """1-D FFT of length n = n1*n2 as a distributed four-step, in natural
     order (the reference's ``natural_order=True``).
 
     ``fn(ar, ai)`` takes this rank's planar block (B, n1/p, n2) of the
     row-major view A[k1, k2] and returns its rows of the natural-order
-    (n2, n1) matrix, y[j1 + n1*j2] at [j2, j1]: (B, n2/p, n1)."""
+    (n2, n1) matrix, y[j1 + n1*j2] at [j2, j1]: (B, n2/p, n1). ``fused``
+    (default :func:`default_fused`, read here) runs the column DFT with
+    the twiddle and the row DFT with its transposed emit as fused
+    supersteps; without it: the column DFT, the twiddle product, the
+    swap, the row DFT, the swap and a local transpose."""
     methods.validate(method)
     methods.validate_kernel(kernel)
+    if fused is None:
+        fused = default_fused()
     mesh_axis, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
     n, m2 = n1 * n2, n2 // p
-    # (m2, n1): the orientation of the fused superstep's pre-transpose output
-    wr, wi = twiddle(n, n1, idx * m2, m2, transposed=True, conj=inverse,
+    # (m2, n1): the orientation of the fused superstep's pre-transpose
+    # output; (n1, m2) that of the column DFT's own output
+    wr, wi = twiddle(n, n1, idx * m2, m2, transposed=fused, conj=inverse,
                      device=mesh.device)
     kw = dict(inverse=inverse, method=method, kernel=kernel, compute_dtype=compute_dtype)
 
@@ -115,7 +125,16 @@ def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
         ar, ai = methods.apply_fused(ar, ai, **kw)
         return swap(ar, ai, shard_pos=2, mem_pos=1)                   # (B, n2/p, n1)
 
-    return _batched(body, overlap_chunks)
+    def body_unfused(ar, ai):
+        ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, m2)
+        ar, ai = methods.apply(ar, ai, axis=1, **kw)                  # column DFT
+        ar, ai = tw.cmul(ar, ai, wr, wi)
+        ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)                 # (B, n1/p, n2)
+        ar, ai = methods.apply(ar, ai, axis=2, **kw)                  # row DFT
+        ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, n2/p)
+        return ar.transpose(1, 2), ai.transpose(1, 2)                 # (B, n2/p, n1)
+
+    return _batched(body if fused else body_unfused, overlap_chunks)
 
 
 def _real_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: str,
@@ -265,14 +284,18 @@ def _complex_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel:
 
 def fourstep_bodies(n1: int, n2: int, mesh, mesh_axes, *, real: bool, method: str = 'auto',
                     kernel: str = 'auto', comm: str = 'all_to_all',
-                    wire_dtype: str = 'native', compute_dtype=None, fused: bool = True):
+                    wire_dtype: str = 'native', compute_dtype=None,
+                    fused: Optional[bool] = None):
     """``(fwd, inv)`` of a rank-1 operator on this rank's block with one
     leading batch axis, the spectrum in its native form: for a real plan
     the rows (B, nh1p/p, n2) of the half plane D[j1 <= n1//2, j2], rows
     0 and n1/2 canonicalized (:func:`_canon`), pad rows past n1//2
     dropped by ``inv``; for a complex plan the D-form
     (:func:`_complex_fourstep`). ``fwd`` is also what bakes an
-    operator's spectra given in operand space."""
+    operator's spectra given in operand space. ``fused`` (complex plans)
+    as in :func:`_complex_fourstep`, default :func:`default_fused`."""
+    if fused is None:
+        fused = default_fused()
     kw = dict(method=method, kernel=kernel, comm=comm, wire_dtype=wire_dtype,
               compute_dtype=compute_dtype)
     if not real:
@@ -292,7 +315,7 @@ def make_fourstep_op(n1: int, n2: int, mesh, mesh_axes, pointwise: Callable, *,
                      real: bool = True, batch_ndims=(0,), baked_batch_ndims=(),
                      method: str = 'auto', kernel: str = 'auto', compute_dtype=None,
                      comm: str = 'all_to_all', wire_dtype: str = 'native',
-                     fused: bool = True) -> Callable:
+                     fused: Optional[bool] = None) -> Callable:
     """The rank-1 fused spectral operator: the four-step forward,
     ``pointwise`` on this rank's rows of the spectrum in its native form
     (:func:`fourstep_bodies`), then the mirrored inverse. The
@@ -302,7 +325,8 @@ def make_fourstep_op(n1: int, n2: int, mesh, mesh_axes, pointwise: Callable, *,
     is). Operands are this rank's rows of the (n1, n2) row-major view,
     (..., n1/p, n2); a real plan takes ``fn(x, *extras, *baked) -> y``,
     a complex one planar pairs. ``batch_ndims`` / ``baked_batch_ndims``
-    as in :func:`repro_torch.fft.pencil.make_fused_op`."""
+    as in :func:`repro_torch.fft.pencil.make_fused_op`; ``fused`` as in
+    :func:`fourstep_bodies` (default :func:`default_fused`, read here)."""
     fwd, inv = fourstep_bodies(n1, n2, mesh, mesh_axes, real=real, method=method,
                                kernel=kernel, comm=comm, wire_dtype=wire_dtype,
                                compute_dtype=compute_dtype, fused=fused)

@@ -2,10 +2,13 @@
 
 Port of ``repro.fft.methods``. Every local pencil transform of the port
 dispatches through here. A method owns a plain PyTorch ``pencil_fn``
-(the 'reference' tier, along the LAST axis), where one exists a
-``kernel_fn`` (the wrapper of its hand-written CUDA kernel), and a
-``real_fn``: the real-input transform, the pencil inside the Hermitian
-pack/combine of :func:`repro_torch.core.fft1d.rfft_via`.
+(the 'reference' tier, along the LAST axis), where one exists an
+``axis_fn`` (the plain transform along ANY axis: ``four_step`` and
+``block``, the reference's registry entries; :func:`apply` does not
+take them and moves a non-last axis last on every tier), where one
+exists a ``kernel_fn`` (the wrapper of its hand-written CUDA kernel),
+and a ``real_fn``: the real-input transform, the pencil inside the
+Hermitian pack/combine of :func:`repro_torch.core.fft1d.rfft_via`.
 
 The ``kernel=`` values keep the reference's names so that options
 round-trip: ``'pallas'`` names the hand-written CUDA tier here.
@@ -48,6 +51,7 @@ class Method:
     """One registered local pencil algorithm."""
     name: str
     pencil_fn: Callable
+    axis_fn: Optional[Callable] = None
     kernel_fn: Optional[Callable] = None
     real_fn: Optional[Callable] = None
     pow2_only: bool = True
@@ -175,7 +179,8 @@ def apply(re: torch.Tensor, im: torch.Tensor, *, axis: int = -1,
     The kernel tier needs the pencil axis last and contiguous: a
     non-last axis is moved to the end with a ``.contiguous()`` copy (one
     extra pass over device memory) and the result is returned as a view
-    in the caller's axis order."""
+    in the caller's axis order. The plain tier moves it the same way (a
+    view; no ``axis_fn``), so both tiers run one pencil form."""
     axis = axis % re.ndim
     m = _checked(method, re.shape[axis])
     last = axis == re.ndim - 1
@@ -190,6 +195,28 @@ def apply(re: torch.Tensor, im: torch.Tensor, *, axis: int = -1,
     if not last:
         yr, yi = yr.movedim(-1, axis), yi.movedim(-1, axis)
     return yr, yi
+
+
+def apply_block(x: torch.Tensor, *, axis: int, inverse: bool = False,
+                kernel: str = 'auto', compute_dtype=None) -> torch.Tensor:
+    """The 'block' method on the stacked form: ``x`` carries a leading
+    size-2 complex axis (x[0] = re, x[1] = im) and is transformed along
+    ``axis``, counted over x's own dims. The kernel tier runs
+    ``fft_block`` with the axis moved last and contiguous; the plain
+    tier is :func:`repro_torch.core.fft1d.fft_four_step_block`."""
+    axis = axis % x.ndim
+    if x.ndim < 2 or x.shape[0] != 2 or axis == 0:
+        raise ValueError(f"apply_block takes (2, ..., n) and a data axis, got "
+                         f"{tuple(x.shape)} and axis {axis}")
+    m = _checked('block', x.shape[axis])
+    tier = resolve_kernel(kernel, m, x.device)
+    check_compute_dtype(m, tier, compute_dtype)
+    if tier == 'reference':
+        return f1.fft_four_step_block(x, axis, inverse=inverse, compute_dtype=compute_dtype)
+    last = axis == x.ndim - 1
+    y = fft_block.fft_block((x if last else x.movedim(axis, -1)).contiguous(),
+                            inverse=inverse)
+    return y if last else y.movedim(-1, axis)
 
 
 def apply_fused(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
@@ -273,6 +300,14 @@ def _block_pencil(re, im, *, inverse=False, compute_dtype=None) -> Planar:
     return y[0], y[1]
 
 
+def _block_axis(re, im, axis, *, inverse=False, compute_dtype=None) -> Planar:
+    """The 'block' method along ``axis`` of a planar pair, through the
+    stacked form (:func:`apply_block`), as the reference's."""
+    y = apply_block(torch.stack([re, im]), axis=axis % re.ndim + 1, inverse=inverse,
+                    compute_dtype=compute_dtype)
+    return y[0], y[1]
+
+
 register(Method(
     name='stockham',
     pencil_fn=f1.fft_stockham,
@@ -283,6 +318,7 @@ register(Method(
 register(Method(
     name='four_step',
     pencil_fn=f1.fft_four_step,
+    axis_fn=f1.fft_four_step_axis,
     kernel_fn=fft_matmul.fft_matmul,
     real_fn=f1.rfft_via(f1.fft_four_step),
     casts_operands=True,
@@ -291,6 +327,7 @@ register(Method(
 register(Method(
     name='block',
     pencil_fn=_block_pencil,
+    axis_fn=_block_axis,
     kernel_fn=fft_block.fft_block_planar,
     real_fn=f1.rfft_via(_block_pencil),
     casts_operands=True,

@@ -8,9 +8,10 @@ semantic (x, y, z) axis order never changes; only ownership rotates:
 ('x', 'y', None) -> ('y', None, 'x') after a forward 3-D FFT.
 
 Where the reference wraps its local function in ``shard_map``, the
-port runs it on each rank's local block. Each serial (fft, swap) pair
-runs as one fused superstep (:func:`_fused_pair`); the last fft runs
-through :func:`repro_torch.fft.methods.apply`. With ``overlap_chunks > 1``
+port runs it on each rank's local block. With ``fused`` (the default,
+:func:`default_fused`) each serial (fft, swap) pair runs as one fused
+superstep (:func:`_fused_pair`), else as its fft and then its swap; the
+last fft runs through :func:`repro_torch.fft.methods.apply`. With ``overlap_chunks > 1``
 each (fft, swap) pair is pipelined over chunks of a free local axis
 (:mod:`repro_torch.comm.overlap`), its fft unfused, as in the reference.
 ``method='block'`` plans run this same planar executor; the block
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -32,6 +34,25 @@ from repro_torch.core import plan as planlib
 from repro_torch.core.plan import Layout, PencilPlan
 from repro_torch.core.twiddle import Planar
 from repro_torch.fft import methods
+
+
+#: the environment's switch for the fused superstep ('1'/'0'), read when
+#: a plan's functions are built. The fused and unfused supersteps run the
+#: same pencil method on the same pencils, so on the kernel tier with a
+#: four-step method (one kernel either way) and on the plain tier they
+#: give the same bits; on the kernel tier Stockham's fused superstep runs
+#: ``fft_twiddle_transpose`` where the unfused one runs ``fft_pencil``.
+#: The switch is for A/B timing and bisection.
+FUSE_ENV = 'REPRO_FUSE_SUPERSTEP'
+
+
+def default_fused() -> bool:
+    """True unless ``$REPRO_FUSE_SUPERSTEP`` is set to '0', 'false' or
+    'no' (any case); unset or empty means fused."""
+    env = os.environ.get(FUSE_ENV)
+    if env not in (None, ''):
+        return env.lower() not in ('0', 'false', 'no')
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -177,14 +198,15 @@ def _fused_pair(re, im, *, a: int, s: int, mesh_axis, inverse: bool,
 
 
 def _execute(re, im, layout: Layout, steps, *, inverse: bool,
-             plan: PencilPlan, batch_ndim: int, overlap_chunks: int = 1) -> Planar:
+             plan: PencilPlan, batch_ndim: int, overlap_chunks: int = 1,
+             fused: bool = True) -> Planar:
     """Run fft/swap steps, threading the layout. With ``overlap_chunks >
     1`` each (fft, swap) pair is pipelined over chunks of a local axis
     that is neither its fft axis nor its swap's axes (leading batch axes
     included), its fft unfused; a pair with no such axis runs serially.
-    A serial (fft, swap) pair whose swap splits the just-transformed
-    axis (the schedule invariant in both directions) runs as one fused
-    superstep."""
+    With ``fused`` a serial (fft, swap) pair whose swap splits the
+    just-transformed axis (the schedule invariant in both directions)
+    runs as one fused superstep."""
     off = batch_ndim
     lay = layout
     i = 0
@@ -209,7 +231,7 @@ def _execute(re, im, layout: Layout, steps, *, inverse: bool,
                 lay = planlib.swap(lay, mesh_axis, mem_pos)
                 i += 2
                 continue
-        if pair and nxt[2] == step[1] and re.ndim >= 2:
+        if fused and pair and nxt[2] == step[1] and re.ndim >= 2:
             _, mesh_axis, _ = nxt
             re, im = _fused_pair(
                 re, im, a=off + step[1],
@@ -235,8 +257,8 @@ def _execute(re, im, layout: Layout, steps, *, inverse: bool,
 # ---------------------------------------------------------------------------
 
 def make_fft(plan: PencilPlan, *, inverse: bool = False,
-             restore_layout: bool = False,
-             overlap_chunks: int = 1) -> Tuple[Callable, Layout, Layout]:
+             restore_layout: bool = False, overlap_chunks: int = 1,
+             fused: Optional[bool] = None) -> Tuple[Callable, Layout, Layout]:
     """Build the per-rank FFT of a plan.
 
     Returns (fn, in_layout, out_layout). For a complex plan ``fn(re, im)``
@@ -247,7 +269,10 @@ def make_fft(plan: PencilPlan, *, inverse: bool = False,
     the inverse takes that and returns the real block. The inverse
     consumes the forward's output layout and returns the plan's layout;
     with ``restore_layout`` both directions consume and produce the
-    plan's layout (extra swaps)."""
+    plan's layout (extra swaps). ``fused`` runs each serial (fft, swap)
+    pair as one superstep (default :func:`default_fused`, read here)."""
+    if fused is None:
+        fused = default_fused()
     plan.validate()
     methods.validate(plan.method)
     strategies.validate(plan.comm)
@@ -269,16 +294,17 @@ def make_fft(plan: PencilPlan, *, inverse: bool = False,
 
     if plan.real:
         fn = _real_local(plan, steps, in_layout, inverse=inverse,
-                         restore_layout=restore_layout, overlap_chunks=overlap_chunks)
+                         restore_layout=restore_layout, overlap_chunks=overlap_chunks,
+                         fused=fused)
     else:
         def fn(re: torch.Tensor, im: torch.Tensor) -> Planar:
             return _execute(re, im, in_layout, steps, inverse=inverse, plan=plan,
-                            batch_ndim=1, overlap_chunks=overlap_chunks)
+                            batch_ndim=1, overlap_chunks=overlap_chunks, fused=fused)
     return fn, in_layout, out_layout
 
 
 def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
-                restore_layout: bool, overlap_chunks: int) -> Callable:
+                restore_layout: bool, overlap_chunks: int, fused: bool) -> Callable:
     """The per-rank function of a real plan. The r2c superstep is first
     (forward) or last (inverse) by the ``first_mem`` rule; the steps in
     between run as a complex plan on the padded half spectrum.
@@ -333,10 +359,10 @@ def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
                                            swap_start=start, arrays=(x,))
                 lay = planlib.swap(in_layout, rest[0][1], rest[0][2])
                 return _execute(re, im, lay, rest[1:], inverse=False, plan=packed,
-                                batch_ndim=off, overlap_chunks=overlap_chunks)
+                                batch_ndim=off, overlap_chunks=overlap_chunks, fused=fused)
         re, im = r2c(x)
         return _execute(re, im, in_layout, rest, inverse=False, plan=packed,
-                        batch_ndim=off, overlap_chunks=overlap_chunks)
+                        batch_ndim=off, overlap_chunks=overlap_chunks, fused=fused)
 
     def inverse_(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         if steps[-1] != ('fft', ra):
@@ -353,12 +379,12 @@ def _real_local(plan: PencilPlan, steps, in_layout: Layout, *, inverse: bool,
             if ck is not None:
                 re, im = _execute(re, im, in_layout, head[:-1], inverse=True,
                                   plan=packed, batch_ndim=off,
-                                  overlap_chunks=overlap_chunks)
+                                  overlap_chunks=overlap_chunks, fused=fused)
                 return ov.pipelined_pair(overlap_chunks, ck, compute=c2r,
                                          swap_start=start, swap_first=True,
                                          arrays=(re, im))
         re, im = _execute(re, im, in_layout, head, inverse=True, plan=packed,
-                          batch_ndim=off, overlap_chunks=overlap_chunks)
+                          batch_ndim=off, overlap_chunks=overlap_chunks, fused=fused)
         return c2r(re, im)
 
     return inverse_ if inverse else forward
@@ -421,7 +447,8 @@ def splice_op(fwd: Callable, inv: Callable, pointwise: Callable, *, per_operand:
 def make_fused_op(plan: PencilPlan, pointwise: Callable, *,
                   batch_ndims: Tuple[int, ...] = (0,),
                   baked_batch_ndims: Tuple[int, ...] = (),
-                  overlap_chunks: int = 1) -> Tuple[Callable, Layout, Layout]:
+                  overlap_chunks: int = 1,
+                  fused: Optional[bool] = None) -> Tuple[Callable, Layout, Layout]:
     """The per-rank fused spectral operator of a rank-2/3 plan: the
     forward schedule spliced to the reversed inverse schedule at the
     spectrum, ``pointwise`` applied to this rank's block of it in
@@ -438,12 +465,37 @@ def make_fused_op(plan: PencilPlan, pointwise: Callable, *,
     :func:`splice_op`). The r2c/c2r ends run on the packed (padded) plan
     and ``overlap_chunks`` pipelines every (fft, swap) pair, as in the
     plan's own forward and inverse, so the operator gives the bits of
-    forward -> pointwise -> inverse run one by one.
+    forward -> pointwise -> inverse run one by one. ``fused`` as in
+    :func:`make_fft` (default :func:`default_fused`).
 
     Returns ``(fn, in_layout, spec_layout)``."""
-    fwd, in_layout, spec_layout = make_fft(plan, overlap_chunks=overlap_chunks)
-    inv, _, _ = make_fft(plan, inverse=True, overlap_chunks=overlap_chunks)
+    if fused is None:
+        fused = default_fused()
+    fwd, in_layout, spec_layout = make_fft(plan, overlap_chunks=overlap_chunks, fused=fused)
+    inv, _, _ = make_fft(plan, inverse=True, overlap_chunks=overlap_chunks, fused=fused)
     fn = splice_op(fwd, inv, pointwise, per_operand=1 if plan.real else 2,
                    core_rank=len(plan.shape), batch_ndims=tuple(batch_ndims),
                    baked_batch_ndims=tuple(baked_batch_ndims))
     return fn, in_layout, spec_layout
+
+
+# ---------------------------------------------------------------------------
+# One-call forms
+# ---------------------------------------------------------------------------
+
+def fft3d(re: torch.Tensor, im: torch.Tensor, plan: PencilPlan, **kw) -> Planar:
+    """The forward of ``plan`` on this rank's planar block (one leading
+    batch axis): :func:`make_fft`'s function, built for this call with
+    ``kw`` (``restore_layout``, ``overlap_chunks``, ``fused``)."""
+    fn, _, _ = make_fft(plan, inverse=False, **kw)
+    return fn(re, im)
+
+
+def ifft3d(re: torch.Tensor, im: torch.Tensor, plan: PencilPlan, **kw) -> Planar:
+    """The inverse of ``plan``, as :func:`fft3d`."""
+    fn, _, _ = make_fft(plan, inverse=True, **kw)
+    return fn(re, im)
+
+
+fft2d = fft3d          # the same machinery; the plan carries the rank
+ifft2d = ifft3d

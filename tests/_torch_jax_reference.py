@@ -12,7 +12,12 @@ each case of ``OP_CASES`` the reference's executors under ``jax.jit``
 1 x 4; the reference's ``plan_op(...).apply`` does not run on the
 installed jax), on the worker's global operands, with Auto axes
 (``jax.sharding.Mesh``). It writes each case's global result under the
-case's name.
+case's name. For each case of ``UNFUSED_CASES`` it runs the
+reference's function with ``fused=False`` (``pencil.make_fft``,
+``large1d.make_fft1d_large(natural_order=True)``,
+``large1d.make_fourstep_op``) on 2 x 2 or 1 x 4 and writes the global
+forward under ``<name>__fwd`` and, where there is one, the inverse of
+that forward under ``<name>__inv``.
 """
 import os
 import sys
@@ -31,7 +36,9 @@ sys.path.insert(0, HERE)
 import repro.fft as fft  # noqa: E402
 from repro.core.plan import PencilPlan  # noqa: E402
 from repro.fft import large1d, pencil  # noqa: E402
-from _torch_multirank_worker import BATCH, OP_CASES, POD_BATCH, POD_CASES, operands  # noqa: E402
+from _torch_multirank_worker import (  # noqa: E402
+    BATCH, OP_CASES, POD_BATCH, POD_CASES, UNFUSED_CASES, UNFUSED_R1, operands,
+    unfused_operands)
 
 
 def _mesh(shape, names):
@@ -76,5 +83,50 @@ def op_results():
     return out
 
 
+def _joined(y):
+    """A result (an array or a planar pair) as one numpy array."""
+    if isinstance(y, (tuple, list)):
+        return np.asarray(y[0]) + 1j * np.asarray(y[1])
+    return np.asarray(y)
+
+
+def _planar(a):
+    return (a.real, a.imag) if np.iscomplexobj(a) else (a,)
+
+
+def unfused_results():
+    out = {}
+    for mesh_name, cases in UNFUSED_CASES.items():
+        rows, cols = (int(v) for v in mesh_name.split('x'))
+        mesh = _mesh((rows, cols), ('x', 'y'))
+        for name, shape, kw in cases:
+            real, op = kw.get('real', False), kw.get('op', False)
+            common = dict(method=kw['method'], kernel='reference', comm='all_to_all')
+            x, k = unfused_operands(shape, real)
+            inv = None
+            if len(shape) == 3:
+                plan = PencilPlan(shape=shape, mesh=mesh, layout=('x', 'y', None), real=real,
+                                  **common)
+                fwd, _, _ = pencil.make_fft(plan, batch=True, fused=False)
+                inv, _, _ = pencil.make_fft(plan, inverse=True, batch=True, fused=False)
+            elif op:
+                n1, n2, axes = UNFUSED_R1
+                fn = large1d.make_fourstep_op(n1, n2, mesh, axes, fft.spectral_mul, real=real,
+                                              batch_ndims=(1, 0), fused=False, **common)
+                fwd = (lambda f, kk: (lambda *a: f(*a, *kk)))(fn, _planar(k))
+            else:
+                n1, n2, axes = UNFUSED_R1
+                fwd, inv = (large1d.make_fft1d_large(n1, n2, mesh, axes, inverse=i,
+                                                     natural_order=True, batch=True,
+                                                     fused=False, **common)
+                            for i in (False, True))
+            y = jax.jit(fwd)(*(jnp.asarray(a) for a in _planar(x)))
+            out[f'{name}__fwd'] = _joined(y)
+            if inv is not None:
+                y = y if isinstance(y, (tuple, list)) else (y,)
+                out[f'{name}__inv'] = _joined(jax.jit(inv)(*y))
+    return out
+
+
 if __name__ == '__main__':
-    np.savez(sys.argv[1], **pod_results(), **op_results())
+    np.savez(sys.argv[1], **pod_results(), **op_results(), **unfused_results())

@@ -33,6 +33,19 @@ Suite ``base`` (2 x 2):
 * the rank-1 cases (``RANK1_CASES``, n = 4096 = 64 x 64), planned
   without ``comm``: the default plan resolves to ``hierarchical``.
 
+Suite ``unfused`` (``UNFUSED_CASES``, 2 x 2 and 1 x 4; ``--ref`` adds
+the reference keys): the unfused supersteps on ``comm='all_to_all'``.
+A rank-2/3 case runs ``pencil.make_fft(plan, fused=False)`` of a
+('x', 'y', None) plan, complex or real; a rank-1 case (n = 64 x 64)
+``large1d.make_fft1d_large(fused=False)`` or, with ``op``,
+``large1d.make_fourstep_op(fused=False)`` with ``spectral_mul`` and one
+runtime factor, the rows of the (n1, n2) view over the flattened mesh.
+Each is held against the same function built with ``fused=True``
+(``*_vs_fused``), against numpy (``fwd_vs_numpy``; a real rank-3
+spectrum only through the round trip), for its round trip and, with
+``--ref``, against the JAX package's function with ``fused=False`` on
+the same global operand (``*_vs_reference``).
+
 Suite ``strategies`` (``STRATEGY_PLANS`` under each of ``ppermute``,
 ``hierarchical`` and the mesh's pod tree, ``POD_TREES``): every plan is
 also run with ``comm='all_to_all'`` and held against it, forward and
@@ -110,6 +123,7 @@ import torch.multiprocessing as mp
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', 'src'))
 
 import repro_torch.fft as fft  # noqa: E402
+from repro_torch.fft import large1d, pencil  # noqa: E402
 from repro_torch.launch.mesh import make_fft_mesh  # noqa: E402
 
 BATCH = 2
@@ -156,6 +170,25 @@ RANK1_CASES = [
     ('r1_real_default', (4096,), dict(real=True)),
     ('r1_real_stockham', (4096,), dict(real=True, method='stockham')),
 ]
+
+#: suite 'unfused': (name, shape, options) by mesh; rank 1 is 64 x 64,
+#: ``op`` the operator executor
+UNFUSED_CASES = {
+    '2x2': [('unfused_four_step', (16, 16, 16), dict(method='four_step')),
+            ('unfused_stockham', (16, 16, 16), dict(method='stockham')),
+            ('unfused_real_stockham', (16, 16, 16), dict(method='stockham', real=True)),
+            ('unfused_r1_stockham', (4096,), dict(method='stockham')),
+            ('unfused_r1_four_step', (4096,), dict(method='four_step')),
+            ('unfused_r1_op', (4096,), dict(method='stockham', op=True)),
+            ('unfused_r1_op_real', (4096,), dict(method='four_step', op=True, real=True))],
+    '1x4': [('unfused_four_step_1x4', (16, 16, 16), dict(method='four_step')),
+            ('unfused_real_four_step_1x4', (16, 16, 16), dict(method='four_step', real=True)),
+            ('unfused_r1_stockham_1x4', (4096,), dict(method='stockham')),
+            ('unfused_r1_op_1x4', (4096,), dict(method='four_step', op=True)),
+            ('unfused_r1_op_real_1x4', (4096,), dict(method='stockham', op=True, real=True))],
+}
+#: rank-1 unfused cases: the factors of n and the flattened mesh axes
+UNFUSED_R1 = (64, 64, ('x', 'y'))
 
 #: (name, shape, plan options) run under every strategy of ``strategies_for``
 STRATEGY_PLANS = [
@@ -343,6 +376,96 @@ def _real1d_case(mesh, single, shape, kw, batch=BATCH, comm='all_to_all'):
     if p.overlap_chunks > 1:
         rec.update(_vs_unchunked(p, x_in, y, x2))
     rec.update(_vs_all_to_all(p, x_in, y, x2))
+    return rec
+
+
+def unfused_operands(shape, real: bool):
+    """The global operand (BATCH, *shape) of an unfused case and, for a
+    rank-1 operator, its factor (shape), each viewed as (n1, n2) at rank 1."""
+    x, k = operands(shape, real, BATCH, 7), operands(shape, real, 0, 8)
+    if len(shape) == 1:
+        n1, n2, _ = UNFUSED_R1
+        x, k = x.reshape(BATCH, n1, n2), k.reshape(n1, n2)
+    return x, k
+
+
+def _planar(t):
+    """A tensor as the operands a function takes: a complex one as its
+    planar pair, a real one alone; a function's result as a tuple."""
+    if isinstance(t, tuple):
+        return t
+    return (t.real.contiguous(), t.imag.contiguous()) if t.is_complex() else (t,)
+
+
+def _joined(t):
+    """A function's result (a tensor or a planar pair) as one tensor."""
+    t = _planar(t)
+    return t[0] if len(t) == 1 else torch.complex(*t)
+
+
+def _unfused_case(mesh, shape, kw, ref=None):
+    """One unfused case against the same function built fused, numpy
+    and, with ``ref`` (the global forward and inverse of the JAX
+    package's ``fused=False`` function), the reference."""
+    method, real, op = kw['method'], kw.get('real', False), kw.get('op', False)
+    x, k = unfused_operands(shape, real)
+    dev = mesh.device
+    xt = torch.as_tensor(x, device=dev)
+    if len(shape) == 3:
+        p = fft.plan(shape, mesh, comm='all_to_all', method=method, real=real)
+        assert p._pplan.layout == ('x', 'y', None), p._pplan.layout
+        lay_in, lay_out = p.in_layout, p.out_layout
+        x_in = mesh.shard(xt, lay_in, batch_ndim=1)
+
+        def build(fused):
+            fwd, _, _ = pencil.make_fft(p._pplan, fused=fused)
+            inv, _, _ = pencil.make_fft(p._pplan, inverse=True, fused=fused)
+            return (lambda a: fwd(*_planar(a))), (lambda y: inv(*_planar(y)))
+        want = None if real else np.fft.fftn(x, axes=(1, 2, 3))
+    else:
+        n1, n2, axes = UNFUSED_R1
+        lay_in = lay_out = (axes, None)
+        x_in = mesh.shard(xt, lay_in, batch_ndim=1)
+        k_in = mesh.shard(torch.as_tensor(k, device=dev), lay_in)
+        opts = dict(method=method, comm='all_to_all')
+        if op:
+            def build(fused):
+                fn = large1d.make_fourstep_op(n1, n2, mesh, axes, fft.spectral_mul, real=real,
+                                              batch_ndims=(1, 0), fused=fused, **opts)
+                return (lambda a: fn(*_planar(a), *_planar(k_in))), None
+            xf = x.reshape(BATCH, -1)
+            kf = np.fft.fft(k.reshape(-1))
+            want = np.fft.ifft(np.fft.fft(xf, axis=-1) * kf, axis=-1).reshape(x.shape)
+            if real:
+                want = want.real
+        else:
+            def build(fused):
+                fwd, inv = (large1d.make_fft1d_large(n1, n2, mesh, axes, inverse=i,
+                                                     fused=fused, **opts) for i in (False, True))
+                return (lambda a: fwd(*_planar(a))), (lambda y: inv(*_planar(y)))
+            # natural order: y[j1 + n1 j2] at [j2, j1], the flat signal again
+            want = np.fft.fft(x.reshape(BATCH, -1), axis=-1).reshape(BATCH, n2, n1)
+    out = {}
+    for fused in (True, False):
+        fwd, inv = build(fused)
+        y = fwd(x_in)
+        out[fused] = (y, inv(y) if inv is not None else None)
+    (yf, xf2), (yu, xu) = ((_joined(a), None if b is None else _joined(b))
+                           for a, b in (out[True], out[False]))
+    rec = {'fwd_vs_fused': _gap(yu, yf), 'shape_ok': yu.shape == yf.shape,
+           'resolved': [method, bool(real), bool(op)]}
+    if xu is not None:
+        rec['inv_vs_fused'] = _gap(xu, xf2)
+        rec['roundtrip'] = _gap(xu, x_in)
+    if want is not None:
+        w = torch.as_tensor(want.astype(x.dtype), device=dev)
+        rec['fwd_vs_numpy'] = _gap(yu, mesh.shard(w, lay_out, batch_ndim=1))
+    if ref is not None:
+        g = torch.as_tensor(ref['fwd'], device=dev).to(yu.dtype)
+        rec['fwd_vs_reference'] = _gap(yu, mesh.shard(g, lay_out, batch_ndim=1))
+        if xu is not None:
+            g = torch.as_tensor(ref['inv'], device=dev).to(xu.dtype)
+            rec['inv_vs_reference'] = _gap(xu, mesh.shard(g, lay_in, batch_ndim=1))
     return rec
 
 
@@ -723,6 +846,13 @@ def _grad_gather(mesh):
             'resolved': [p.comm]}
 
 
+def _unfused_ref(refs, name):
+    """A case's reference results (``<name>__fwd``, ``<name>__inv``), or None."""
+    if f'{name}__fwd' not in refs:
+        return None
+    return {k: refs[f'{name}__{k}'] for k in ('fwd', 'inv') if f'{name}__{k}' in refs}
+
+
 def _suite(mesh, single, mesh_name: str, suite: str, refs=None, serve_n=0) -> dict:
     refs = {} if refs is None else refs
     if suite == 'serve':
@@ -750,6 +880,9 @@ def _suite(mesh, single, mesh_name: str, suite: str, refs=None, serve_n=0) -> di
         mine.update({name: _any_case(mesh, single, shape, kw)
                      for name, shape, kw in RANK1_CASES})
         return mine
+    if suite == 'unfused':
+        return {name: _unfused_case(mesh, shape, kw, _unfused_ref(refs, name))
+                for name, shape, kw in UNFUSED_CASES[mesh_name]}
     mine = {}
     for comm in strategies_for(mesh_name):
         for name, shape, kw in STRATEGY_PLANS:
@@ -812,7 +945,7 @@ if __name__ == '__main__':
     ap.add_argument('--mesh', default='2x2', choices=sorted(POD_TREES) + ['1x2'])
     ap.add_argument('--pods', type=int, default=1)
     ap.add_argument('--suite', default='base',
-                    choices=('base', 'strategies', 'pod', 'op', 'grad', 'serve'))
+                    choices=('base', 'strategies', 'pod', 'op', 'grad', 'serve', 'unfused'))
     ap.add_argument('--serve-n', type=int, default=0,
                     help='suite serve: time 8 complex N^3 requests instead')
     ap.add_argument('--ref', default=None, help='.npz of global reference results by case')

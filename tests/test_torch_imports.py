@@ -1,6 +1,6 @@
-"""Static check: the port, its chip script and its scripts under
-``benchmarks/`` (``torch_*.py``) import neither jax nor the JAX package
-``repro`` (not even its numpy-only modules)."""
+"""Static check: the port, its chip script, its scripts under
+``benchmarks/`` and its examples (``torch_*.py`` each) import neither jax
+nor the JAX package ``repro`` (not even its numpy-only modules)."""
 import ast
 import pathlib
 
@@ -8,7 +8,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = (sorted((ROOT / 'src' / 'repro_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
-         + sorted((ROOT / 'benchmarks').glob('torch_*.py')))
+         + sorted((ROOT / 'benchmarks').glob('torch_*.py'))
+         + sorted((ROOT / 'examples').glob('torch_*.py')))
 BANNED = ('jax', 'jaxlib', 'repro')
 
 
@@ -129,3 +130,14 @@ def test_the_check_sees_mesh_serving():
                  ROOT / 'tests' / '_torch_serve_mesh_worker.py'):
         bad = [m for m in _imported(path) if m.split('.')[0] in BANNED]
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_check_sees_the_examples_and_paper_scripts():
+    """Every ``examples/torch_*.py`` (the quickstart and the spectral
+    solver among them) and the paper scripts are under the check."""
+    names = {p.name for p in FILES}
+    examples = {p.name for p in (ROOT / 'examples').glob('torch_*.py')}
+    assert examples <= names
+    assert {'torch_quickstart.py', 'torch_spectral_solver.py', 'torch_fft_service.py'} <= examples
+    assert {f'torch_paper_{s}.py' for s in ('table1', 'table2', 'fig3', 'fig4',
+                                            'fig567')} <= names

@@ -25,6 +25,13 @@ magnitude of its reference:
   regroups pencils whose arithmetic is independent of one another;
 * a plan on another strategy against the same plan on all_to_all: 0
   (bitwise), the swaps being pure data movement;
+* the unfused supersteps (``make_fft``, ``make_fft1d_large`` and
+  ``make_fourstep_op`` with ``fused=False``) against the same functions
+  built fused: 0 (bitwise) for the four-step, one kernel (or one plain
+  pencil) on the same pencils either way; <= 1e-6 for Stockham, whose
+  fused superstep runs another CUDA kernel on the card (bitwise on these
+  gloo ranks, the plain tier); against the JAX package's ``fused=False``
+  functions: <= 1e-6;
 * a pod plan's or an operator's blocks against the JAX package's: <=
   1e-6 (XLA contracts products into FMAs); an operator against its
   unfused composition on the mesh, and a baked factor against the
@@ -42,7 +49,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from _torch_multirank_worker import (  # noqa: E402
-    CASES, OP_CASES, OVERLAP_CASES, POD_CASES, RANK1_CASES, REAL_CASES, REAL_OVERLAP_CASES)
+    CASES, OP_CASES, OVERLAP_CASES, POD_CASES, RANK1_CASES, REAL_CASES, REAL_OVERLAP_CASES,
+    UNFUSED_CASES)
 
 WIRE_BOUNDS = {'fp16': 1.5e-3, 'bf16': 1.2e-2}
 
@@ -265,3 +273,54 @@ def test_op_case(mesh_suites, name, shape, kw):
     """``plan_op`` on 2 x 2 (rank 3) and 1 x 4 (rank 1), real and complex."""
     assert 'vs_reference' in mesh_suites[name]
     check_op(mesh_suites[name])
+
+
+@pytest.fixture(scope='module')
+def unfused_suites(tmp_path_factory, reference):
+    """Suite 'unfused' on 2 x 2 and 1 x 4, held against the reference's
+    ``fused=False`` functions."""
+    tmp = tmp_path_factory.mktemp('unfused_suites')
+    merged = {}
+    for mesh in UNFUSED_CASES:
+        merged.update(run_worker(tmp / f'unfused_{mesh}.json', '--mesh', mesh, '--suite',
+                                 'unfused', '--ref', str(reference)))
+    return merged
+
+
+UNFUSED_CASE_LIST = [c for cases in UNFUSED_CASES.values() for c in cases]
+
+
+@pytest.mark.parametrize("name, shape, kw", UNFUSED_CASE_LIST,
+                         ids=[c[0] for c in UNFUSED_CASE_LIST])
+def test_multirank_unfused_case(unfused_suites, name, shape, kw):
+    """``make_fft(fused=False)`` (rank 3, complex and real),
+    ``make_fft1d_large(fused=False)`` and ``make_fourstep_op(fused=False)``
+    (rank 1) on 2 x 2 and 1 x 4, against the JAX package's ``fused=False``
+    functions on the same global operand."""
+    assert 'fwd_vs_reference' in unfused_suites[name]
+    check_unfused(unfused_suites[name], kw)
+
+
+def check_unfused(r, kw):
+    """An unfused function on the mesh: bitwise its fused self for the
+    four-step (one kernel, or one plain pencil, on the same pencils) and
+    for a real rank-1 operator (whose bodies have no fused form); within
+    1e-6 for the others (the fused Stockham superstep runs another CUDA
+    kernel on the card; bitwise on gloo ranks, the plain tier). Against
+    numpy and for the round trip <= 1e-5; against the JAX package's
+    ``fused=False`` functions, where they ran, <= 1e-6."""
+    real, op = kw.get('real', False), kw.get('op', False)
+    assert r['shape_ok']
+    assert r['resolved'] == [kw['method'], real, op]
+    fused_keys = [k for k in ('fwd_vs_fused', 'inv_vs_fused') if k in r]
+    if kw['method'] == 'four_step' or (op and real):
+        assert all(r[k] == 0.0 for k in fused_keys), fused_keys
+    else:
+        assert all(r[k] <= 1e-6 for k in fused_keys), fused_keys
+    for key in ('fwd_vs_numpy', 'roundtrip'):
+        if key in r:
+            assert r[key] <= 1e-5, key
+    assert ('roundtrip' in r) != op and ('fwd_vs_numpy' in r or real)
+    for key in ('fwd_vs_reference', 'inv_vs_reference'):
+        if key in r:
+            assert r[key] <= 1e-6, key
