@@ -211,7 +211,22 @@ Phases, each printing one line and raising on any failure:
    ``benchmarks/torch_paper_*.py`` scripts (959 us, 18.9 and 32.7 TF/s,
    18% over the DGX; each must print the reference's line verbatim) and
    ``torch_paper_fig3.py --batch 32768``'s GFLOP/s of each pencil on the
-   card;
+   card; then ``[path] label=large1d_factor_order``:
+   ``make_fft1d_large``'s default, the factor-transposed D-form of the 8
+   signals of 2^24 as (8, 4096, 4096), four_step (2 ``fft_matmul`` a
+   direction on the tensor-core body) and stockham (1 ``fft_fused`` with
+   twiddle planes and 1 ``fft_pencil``; unfused 2 ``fft_pencil``), both
+   ``fused`` values, each against the natural-order result transposed
+   (within 1e-6, bitwise where printed) and ``torch.fft.fft``;
+   ``[kernel] check=fft_matmul_factors`` (the body's own split runs, a
+   foreign one raises ``ValueError`` naming it and launches nothing);
+   ``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on
+   internlm2-1.8b decode_32k at full width on the 16 x 16 mesh in a
+   subprocess (``fake`` process group, ``meta`` tensors, no card): status
+   ok and the hand count of its collectives; and in ``[lm]``,
+   ``check=step_stats``: one real decode step of internlm2-1.8b counted
+   by ``launch.hlostats``, its product flops exactly the dense products'
+   and attention's over the cache, within 1.25 of 2 N B;
 17. a ``[total]`` line (the run's seconds), a ``kernels`` JSON line
    (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
@@ -256,7 +271,9 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import _build, fft_block, fft_fused, fft_matmul, fft_pencil  # noqa: E402
 from repro_torch.comm import cost as costlib  # noqa: E402
 from repro_torch.core.twiddle import four_step_factors  # noqa: E402
+from repro_torch.fft import large1d as fft_large1d  # noqa: E402
 from repro_torch.fft import methods as fft_methods, pencil as fft_pencil_mod  # noqa: E402
+from repro_torch.launch import hlostats  # noqa: E402
 from repro_torch.launch.mesh import abstract_fft_mesh, make_fft_mesh, make_host_mesh  # noqa: E402
 from repro_torch.configs import get_config, make_batch  # noqa: E402
 from repro_torch.models import attention as lm_attn, layers as lm_layers  # noqa: E402
@@ -2166,6 +2183,8 @@ def lm_serve(arch: str) -> list:
     peak = torch.cuda.max_memory_allocated()
     last = toks[:, -1:]
     prof = profile(lambda: eng.decode(caches, last, S + LM_GEN - 1))
+    if arch == STATS_ARCH:
+        lm_decode_stats(cfg, params, eng, caches, last, S + LM_GEN - 1, B)
     kept = runs[-1][4]
     del runs, caches
     say('lm', arch=arch, layers=depth, dtype=str(dtype).replace('torch.', ''), params=n,
@@ -2682,6 +2701,172 @@ def phase_train(gen) -> tuple:
     return conv['launches'], rec
 
 
+#: ``[path] label=large1d_factor_order``: each (method, fused) with its
+#: launches a direction of ``make_fft1d_large``'s default, the
+#: factor-transposed D-form (the natural order's last swap and transpose
+#: skipped): the mma body's two four-steps; the Stockham column superstep
+#: fused with its twiddle planes (``fft_fused``) and the row DFT on
+#: ``fft_pencil``; unfused, two ``fft_pencil`` and the twiddle a product
+FACTOR_ORDER_CASES = (('four_step', True, {'fft_matmul': 2}),
+                      ('four_step', False, {'fft_matmul': 2}),
+                      ('stockham', True, {'fft_fused': 1, 'fft_pencil': 1}),
+                      ('stockham', False, {'fft_pencil': 2}))
+#: D against the natural-order result transposed, max |a - b| / max |b|:
+#: the same kernels on the same pencils (bitwise), except that the
+#: natural-order Stockham row DFT runs ``radix8_fused_kernel`` where the
+#: D-form runs ``radix8_pencil_kernel``, as ``stockham_overlap``
+FACTOR_ORDER_RTOL = 1e-6
+
+
+def phase_factor_order(gen) -> dict:
+    """``make_fft1d_large(natural_order=False)`` (the reference's default)
+    on the 8 signals of 2^24 as (8, 4096, 4096) rows of A[k1, k2], for
+    both ``fused`` values on the mma and radix-8 bodies: exact launches a
+    direction (every one on the hand-written body), D against the
+    natural-order result transposed (``FACTOR_ORDER_RTOL``) and against
+    ``torch.fft.fft`` of each signal (``PATH_RTOL``). Returns the
+    D-form runs' launch counts."""
+    t0 = time.perf_counter()
+    n1 = n2 = math.isqrt(LARGE1D[0])
+    mesh = make_fft_mesh(1, 1)
+    xr, xi = planar(LARGE1D_BATCH + (n1, n2), gen)
+    ref = torch.fft.fft(torch.complex(xr, xi).reshape(LARGE1D_BATCH + LARGE1D))
+    want = ref.reshape(LARGE1D_BATCH + (n2, n1)).transpose(1, 2)
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    gaps, rows = {}, []
+    for method, fused, expect in FACTOR_ORDER_CASES:
+        tag = f"{method}_{'fused' if fused else 'unfused'}"
+        kw = dict(method=method, fused=fused)
+        fn = fft_large1d.make_fft1d_large(n1, n2, mesh, ('x', 'y'), **kw)
+        natural = fft_large1d.make_fft1d_large(n1, n2, mesh, ('x', 'y'), natural_order=True,
+                                               **kw)
+        kernels.reset_launch_counts()
+        dr, di = fn(xr, xi)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        on_body = {'fft_matmul': fft_matmul.launches_mma, 'fft_pencil': fft_pencil.launches_radix8,
+                   'fft_fused': fft_fused.launches_radix8}
+        twiddled = fft_fused.launches_twiddle
+        if {k: v for k, v in got.items() if v} != expect:
+            raise AssertionError(f"large1d_factor_order {tag}: launches {got}, expected {expect}")
+        if any(on_body[k] != v for k, v in expect.items()) or twiddled != expect.get('fft_fused', 0):
+            raise AssertionError(f"large1d_factor_order {tag}: {on_body} on the hand-written "
+                                 f"bodies, {twiddled} with twiddle planes, of {expect}")
+        for k, v in got.items():
+            total[k] += v
+        nr, ni = natural(xr, xi)
+        err, rel = max_err((dr, di), (nr.transpose(1, 2), ni.transpose(1, 2)))
+        bitwise = torch.equal(dr, nr.transpose(1, 2)) and torch.equal(di, ni.transpose(1, 2))
+        del nr, ni
+        fwd = float((torch.linalg.vector_norm((torch.complex(dr, di) - want).flatten(1), dim=1)
+                     / torch.linalg.vector_norm(want.flatten(1), dim=1)).max())
+        if tuple(dr.shape) != LARGE1D_BATCH + (n1, n2) or rel > FACTOR_ORDER_RTOL:
+            raise AssertionError(f"large1d_factor_order {tag}: D {tuple(dr.shape)} is "
+                                 f"{rel:.3e} from the natural order transposed")
+        if fwd > PATH_RTOL:
+            raise AssertionError(f"large1d_factor_order {tag}: rel L2 {fwd:.3e} vs torch.fft.fft")
+        gaps[tag] = rel
+        rows.append(f"{tag}:{json.dumps(expect)}:bitwise={bitwise}:fwd_rel_l2={fwd:.3e}")
+        del dr, di
+    say('path', label='large1d_factor_order', shape=json.dumps(list(LARGE1D_BATCH + (n1, n2))),
+        cases=' '.join(rows), vs_natural_transposed=json.dumps(
+            {k: f"{v:.3e}" for k, v in gaps.items()}), tol=FACTOR_ORDER_RTOL,
+        launches=json.dumps(total), seconds=f"{time.perf_counter() - t0:.3g}")
+    return total
+
+
+def check_matmul_factors(gen) -> None:
+    """``fft_matmul(factors=)`` on the card: the split each body runs
+    (``mma_factors(n)``: (32, 16) at 512, (16, 16, 16) at 4096) runs
+    and equals the default call bitwise; any other split raises
+    ``ValueError`` naming the body's and launches nothing."""
+    x = planar((4096, 512), gen)
+    before = fft_matmul.launches
+    same = fft_matmul.fft_matmul(*x, factors=fft_block.mma_factors(512))
+    if not all(torch.equal(a, b) for a, b in zip(same, fft_matmul.fft_matmul(*x))):
+        raise AssertionError('fft_matmul(factors=(32, 16)) differs from the default call')
+    refused = []
+    for n, foreign in ((512, (16, 32)), (4096, (64, 64))):
+        y = planar((64, n), gen)
+        launched = fft_matmul.launches
+        try:
+            fft_matmul.fft_matmul(*y, factors=foreign)
+        except ValueError as e:
+            if str(fft_block.mma_factors(n)) not in str(e):
+                raise AssertionError(f"fft_matmul refused {foreign} without naming "
+                                     f"{fft_block.mma_factors(n)}: {e}")
+            refused.append(f"{n}:{'x'.join(map(str, foreign))}")
+        else:
+            raise AssertionError(f"fft_matmul ran the foreign split {foreign} at n = {n}")
+        if fft_matmul.launches != launched:
+            raise AssertionError('fft_matmul launched on a refused split')
+    say('kernel', check='fft_matmul_factors', body_split_bitwise=True,
+        refused=','.join(refused), launches=fft_matmul.launches - before)
+
+
+#: ``[dryrun]``: the cell the phase runs, and its collectives by the
+#: port's serve rules on 16 x 16: two row-parallel sums a layer and the
+#: embedding's; ``wk``, ``wv`` gathered at use a layer (8 kv heads, 16
+#: ranks) and the logits gathered over 'model' and 'data'
+DRYRUN_CELL = ('internlm2-1.8b', 'decode_32k')
+DRYRUN_COUNTS = {'all-reduce': 2 * 24 + 1, 'all-gather': 2 * 24 + 2}
+
+
+def phase_dryrun() -> None:
+    """``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on one
+    production cell at full width on the 16 x 16 mesh, in a subprocess
+    (its ``fake`` process group of 256 ranks cannot share this process):
+    status ok, the hand count of collectives, the record's bytes and
+    roofline (datasheet constants, not a measurement)."""
+    t0 = time.perf_counter()
+    arch, shape = DRYRUN_CELL
+    out = os.path.join(ROOT, 'chiprun_out', 'dryrun')
+    _run([sys.executable, '-m', 'repro_torch.launch.dryrun', '--arch', arch, '--shape', shape,
+          '--mesh', 'single', '--out', out], 300)
+    with open(os.path.join(out, f'pod_16x16__{arch}__{shape}.json')) as fh:
+        rec = json.load(fh)
+    if rec['status'] != 'ok' or rec['hlo']['collective_counts'] != DRYRUN_COUNTS:
+        raise AssertionError(f"dryrun {arch} {shape}: {rec['status']} "
+                             f"{rec.get('error') or rec['hlo']['collective_counts']}")
+    mem, roof = rec['memory'], rec['roofline']
+    say('dryrun', arch=arch, shape=shape, mesh=rec['mesh'], status=rec['status'],
+        rank_gib=f"{(mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']) / 2**30:.4g}",
+        fits_80gib=mem['fits_80gib'], collectives=json.dumps(rec['hlo']['collective_counts']),
+        dot_flops=f"{rec['hlo']['dot_flops']:.6g}", dominant=roof['dominant'],
+        bound_ms=f"{roof['bound_s'] * 1e3:.6g}", constants='datasheet',
+        step_s=rec['step_s'], seconds=f"{time.perf_counter() - t0:.3g}")
+
+
+#: ``[lm] check=step_stats``: a real decode step's products counted by
+#: ``launch.hlostats`` against the dense products' 2 N B (N the linear
+#: weights and the tied head); attention over the 2112-slot cache adds
+#: 4 B cap H hd a layer, about 12% for internlm2-1.8b at 8 x 2048
+STATS_ARCH, STATS_FACTOR = 'internlm2-1.8b', 1.25
+
+
+def lm_decode_stats(cfg, params, eng, caches, last, pos: int, B: int) -> None:
+    """One decode step of ``eng`` on the card under ``hlostats.count``:
+    its products must be the dense products' plus attention's over the
+    cache, exactly, and within ``STATS_FACTOR`` of 2 N B."""
+    with hlostats.count() as st:
+        eng.decode(caches, last, pos)
+        torch.cuda.synchronize()
+    s = st.analyze()
+    n = _linear_weights({k: v for k, v in params.items() if k != 'embed'})
+    dense = 2.0 * (n + (cfg.vocab_size * cfg.d_model if cfg.tie_embeddings else 0)) * B
+    cap = caches['blocks']['0_attn']['k'].shape[2]
+    attn = 4.0 * B * cap * cfg.num_heads * cfg.head_dim * cfg.num_layers
+    ratio = s['dot_flops'] / dense
+    if s['dot_flops'] != dense + attn or not 1.0 <= ratio <= STATS_FACTOR:
+        raise AssertionError(f"lm step stats: {s['dot_flops']:.6g} product flops, dense "
+                             f"{dense:.6g} + attention {attn:.6g}")
+    say('lm', arch=cfg.name, check='step_stats', dot_flops=f"{s['dot_flops']:.6g}",
+        dense_2NB=f"{dense:.6g}", ratio=f"{ratio:.4g}", factor=STATS_FACTOR,
+        by_dtype=json.dumps(s['dot_flops_by_dtype']), ops=s['ops'],
+        hbm_bytes_proxy=f"{s['hbm_bytes_proxy']:.6g}", copies=json.dumps(s['copies']),
+        collectives=json.dumps(s['collective_counts']))
+
+
 def phase_cost() -> None:
     """The cost model on the host: reports and the selector's picks,
     each of which must plan."""
@@ -2760,7 +2945,9 @@ def main() -> None:
         # columns, then rows, each its own fft_pencil; the twiddle apart
         paths.append(phase_path('large1d_stockham_unfused', gen, 'stockham', {'fft_pencil': 2},
                                 shape=LARGE1D, batch=LARGE1D_BATCH, method='stockham'))
-    paths += [check_fft3d(gen), check_apply_block(gen)]
+    paths += [check_fft3d(gen), check_apply_block(gen), phase_factor_order(gen)]
+    check_matmul_factors(gen)
+    phase_dryrun()
     phase_examples()
     phase_paper(card)
     say('new_phases', seconds=f"{time.perf_counter() - t_new:.3g}")

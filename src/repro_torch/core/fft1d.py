@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,8 +105,8 @@ def fft_stockham(re: torch.Tensor, im: torch.Tensor, *,
 # Bailey four-step (matmul form)
 # ---------------------------------------------------------------------------
 
-def fft_four_step(re: torch.Tensor, im: torch.Tensor, *,
-                  inverse: bool = False, compute_dtype=None) -> Planar:
+def fft_four_step(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
+                  factors: Optional[Tuple[int, int]] = None, compute_dtype=None) -> Planar:
     """Batched four-step FFT along the last axis.
 
     x[k], k = n2*k1 + k2  ->  y[j], j = j1 + n1*j2:
@@ -115,12 +116,16 @@ def fft_four_step(re: torch.Tensor, im: torch.Tensor, *,
       4. D = C @ F_{n2}
       5. y = D.T.reshape(n)
 
-    With ``compute_dtype`` the DFT matrices, A and C are rounded to it
-    before their products (:func:`narrow`); B, the twiddle and D stay
-    fp32, as in the reference.
+    ``factors``: the (n1, n2) split, default ``four_step_factors(n)``;
+    ``ValueError`` unless n1 * n2 == n. With ``compute_dtype`` the DFT
+    matrices, A and C are rounded to it before their products
+    (:func:`narrow`); B, the twiddle and D stay fp32, as in the
+    reference.
     """
     n = re.shape[-1]
-    n1, n2 = tw.four_step_factors(n)
+    n1, n2 = factors if factors is not None else tw.four_step_factors(n)
+    if n1 * n2 != n:
+        raise ValueError(f"factors {n1}*{n2} != {n}")
     batch = tuple(re.shape[:-1])
     full_fp32_matmul(re.device)
     (f1r, f1i), (f2r, f2i), (wr, wi) = four_step_tables(n1, n2, inverse, re.device)
@@ -345,20 +350,24 @@ def _split_table(n: int, device: torch.device) -> Planar:
     return tuple(tw.table(a, device) for a in tw.rfft_split_twiddle_np(n))
 
 
-def rfft_pencil(x: torch.Tensor, *, cfft) -> Planar:
+def rfft_pencil(x: torch.Tensor, *, cfft, dtype=None) -> Planar:
     """Half-spectrum rfft of a real tensor along its last axis (n ->
     n//2 + 1 bins, ``np.fft.rfft``'s layout). ``cfft(re, im)`` is any
-    length-n/2 forward complex FFT. The imaginary parts of bins 0 and
-    n/2 are exactly zero."""
+    length-n/2 forward complex FFT; ``dtype`` casts ``x`` before the
+    pack, and the split twiddle takes the transform's dtype, as the
+    reference's. The imaginary parts of bins 0 and n/2 are exactly
+    zero."""
     n = x.shape[-1]
     if n % 2:
         raise ValueError(f"rfft pencil needs an even length, got {n}")
+    if dtype is not None:
+        x = x.to(dtype)
     cr, ci = cfft(x[..., 0::2], x[..., 1::2])
     cmr = torch.roll(torch.flip(cr, (-1,)), 1, -1)
     cmi = torch.roll(torch.flip(ci, (-1,)), 1, -1)
     er, ei = (cr + cmr) * 0.5, (ci - cmi) * 0.5
     our, oui = (ci + cmi) * 0.5, (cmr - cr) * 0.5
-    wr, wi = _split_table(n, x.device)
+    wr, wi = (t.to(cr.dtype) for t in _split_table(n, x.device))
     ar = er + (our * wr - oui * wi)
     ai = ei + (our * wi + oui * wr)
     edge_r = er[..., :1] - our[..., :1]

@@ -587,7 +587,8 @@ class FFT:
                     # the inverse reads the forward's natural-order output
                     # as the (n2, n1) view: the factors swap
                     f1, f2 = (n2, n1) if inverse else (n1, n2)
-                    fn = large1d.make_fft1d_large(f1, f2, self.mesh, self._axes1d, **kw)
+                    fn = large1d.make_fft1d_large(f1, f2, self.mesh, self._axes1d,
+                                                  natural_order=True, **kw)
             else:
                 fn, _, _ = pencil.make_fft(self._pplan, inverse=inverse,
                                            restore_layout=self.restore_layout,

@@ -87,54 +87,72 @@ def _batched(fn: Callable, overlap_chunks: int) -> Callable:
     return run
 
 
-def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
-                     inverse: bool = False, method: str = 'auto', kernel: str = 'auto',
-                     comm: str = 'all_to_all', overlap_chunks: int = 1,
-                     wire_dtype: str = 'native', compute_dtype=None,
-                     fused: Optional[bool] = None) -> Callable:
-    """1-D FFT of length n = n1*n2 as a distributed four-step, in natural
-    order (the reference's ``natural_order=True``).
-
-    ``fn(ar, ai)`` takes this rank's planar block (B, n1/p, n2) of the
-    row-major view A[k1, k2] and returns its rows of the natural-order
-    (n2, n1) matrix, y[j1 + n1*j2] at [j2, j1]: (B, n2/p, n1). ``fused``
-    (default :func:`default_fused`, read here) runs the column DFT with
-    the twiddle and the row DFT with its transposed emit as fused
-    supersteps; without it: the column DFT, the twiddle product, the
-    swap, the row DFT, the swap and a local transpose."""
-    methods.validate(method)
-    methods.validate_kernel(kernel)
-    if fused is None:
-        fused = default_fused()
-    mesh_axis, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
+def _fourstep_body(n1: int, n2: int, mesh, idx: int, p: int, swap, kw, *, inverse: bool,
+                   fused: bool, natural_order: bool) -> Callable:
+    """The complex four-step on this rank's block (B, n1/p, n2) of the
+    row-major view A[k1, k2]: column DFT, twiddle, row DFT, a swap on
+    each side. Without ``natural_order`` it returns this rank's rows of
+    the factor-transposed D[j1, j2] = y[j1 + n1*j2], (B, n1/p, n2); with
+    it one more swap and a local transpose give its rows of the
+    natural-order (n2, n1) matrix, (B, n2/p, n1). With ``fused`` the
+    column DFT, the twiddle and the orientation restore run as one fused
+    superstep, and the natural-order row DFT emits its own transpose."""
     n, m2 = n1 * n2, n2 // p
     # (m2, n1): the orientation of the fused superstep's pre-transpose
     # output; (n1, m2) that of the column DFT's own output
-    wr, wi = twiddle(n, n1, idx * m2, m2, transposed=fused, conj=inverse,
-                     device=mesh.device)
-    kw = dict(inverse=inverse, method=method, kernel=kernel, compute_dtype=compute_dtype)
+    wr, wi = twiddle(n, n1, idx * m2, m2, transposed=fused, conj=inverse, device=mesh.device)
+    kw = dict(kw, inverse=inverse)
 
     def body(ar, ai):
         ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, m2)
-        # column DFT over k1, twiddle and orientation restore in one pass
-        ar, ai = methods.apply_fused(ar.transpose(1, 2), ai.transpose(1, 2),
-                                     wr=wr, wi=wi, **kw)
+        if fused:
+            ar, ai = methods.apply_fused(ar.transpose(1, 2), ai.transpose(1, 2),
+                                         wr=wr, wi=wi, **kw)
+        else:
+            ar, ai = methods.apply(ar, ai, axis=1, **kw)              # column DFT
+            ar, ai = tw.cmul(ar, ai, wr, wi)
         ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)                 # (B, n1/p, n2)
-        # row DFT over k2 with transposed emit: (B, n2, n1/p) is the
-        # natural order's local transpose, so only the exchange remains
-        ar, ai = methods.apply_fused(ar, ai, **kw)
-        return swap(ar, ai, shard_pos=2, mem_pos=1)                   # (B, n2/p, n1)
-
-    def body_unfused(ar, ai):
-        ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, m2)
-        ar, ai = methods.apply(ar, ai, axis=1, **kw)                  # column DFT
-        ar, ai = tw.cmul(ar, ai, wr, wi)
-        ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)                 # (B, n1/p, n2)
+        if not natural_order:
+            return methods.apply(ar, ai, axis=2, **kw)                # D[j1, j2]
+        if fused:
+            # row DFT with transposed emit: (B, n2, n1/p) is the natural
+            # order's local transpose, so only the exchange remains
+            ar, ai = methods.apply_fused(ar, ai, **kw)
+            return swap(ar, ai, shard_pos=2, mem_pos=1)               # (B, n2/p, n1)
         ar, ai = methods.apply(ar, ai, axis=2, **kw)                  # row DFT
         ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, n2/p)
         return ar.transpose(1, 2), ai.transpose(1, 2)                 # (B, n2/p, n1)
 
-    return _batched(body if fused else body_unfused, overlap_chunks)
+    return body
+
+
+def make_fft1d_large(n1: int, n2: int, mesh, mesh_axes=('x', 'y'), *,
+                     inverse: bool = False, natural_order: bool = False,
+                     method: str = 'auto', kernel: str = 'auto',
+                     comm: str = 'all_to_all', overlap_chunks: int = 1,
+                     wire_dtype: str = 'native', compute_dtype=None,
+                     fused: Optional[bool] = None) -> Callable:
+    """1-D FFT of length n = n1*n2 as a distributed four-step.
+
+    ``fn(ar, ai)`` takes this rank's planar block (B, n1/p, n2) of the
+    row-major view A[k1, k2] (k = k1*n2 + k2) and returns, as the
+    reference's default, its rows of the factor-transposed D[j1, j2] =
+    y[j1 + n1*j2]: (B, n1/p, n2); with ``natural_order`` its rows of the
+    natural-order (n2, n1) matrix, y[j1 + n1*j2] at [j2, j1]: (B, n2/p,
+    n1), one swap and a local transpose later. ``fused`` (default
+    :func:`default_fused`, read here) runs the column DFT with the
+    twiddle, and the natural-order row DFT with its transposed emit, as
+    fused supersteps; without it each DFT, the twiddle and the
+    transposes run as steps of their own."""
+    methods.validate(method)
+    methods.validate_kernel(kernel)
+    if fused is None:
+        fused = default_fused()
+    _, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
+    kw = dict(method=method, kernel=kernel, compute_dtype=compute_dtype)
+    body = _fourstep_body(n1, n2, mesh, idx, p, swap, kw, inverse=inverse, fused=fused,
+                          natural_order=natural_order)
+    return _batched(body, overlap_chunks)
 
 
 def _real_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel: str,
@@ -234,8 +252,8 @@ def _complex_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel:
     this rank's block with one leading batch axis: ``(body_fwd,
     body_inv)``.
 
-    ``body_fwd(ar, ai)`` is :func:`make_fft1d_large`'s body without the
-    natural-order epilogue: it maps the rows (B, n1/p, n2) of A[k1, k2]
+    ``body_fwd(ar, ai)`` is :func:`make_fft1d_large`'s body in its
+    default, factor-transposed order: it maps the rows (B, n1/p, n2) of A[k1, k2]
     to the rows (B, n1/p, n2) of D[j1, j2] = y[j1 + n1*j2], every bin
     once. ``body_inv`` maps them back: row IDFT over j2, the conjugate
     twiddle, column IDFT over j1. D's rows are what the natural-order
@@ -247,25 +265,15 @@ def _complex_fourstep(n1: int, n2: int, mesh, mesh_axes, *, method: str, kernel:
     direction runs its DFTs and twiddle as separate steps."""
     methods.validate(method)
     methods.validate_kernel(kernel)
-    mesh_axis, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
+    _, p, idx, swap = _group(n1, n2, mesh, mesh_axes, comm, wire_dtype)
     n, m2, m1 = n1 * n2, n2 // p, n1 // p
     kw = dict(method=method, kernel=kernel, compute_dtype=compute_dtype)
-    wr, wi = twiddle(n, n1, idx * m2, m2, device=mesh.device)              # (n1, m2)
-    wtr, wti = twiddle(n, n1, idx * m2, m2, transposed=True, device=mesh.device)
-    wci = -wi
+    body_fwd = _fourstep_body(n1, n2, mesh, idx, p, swap, kw, inverse=False, fused=fused,
+                              natural_order=False)
+    # (n1, m2), conjugate: the unfused inverse's rotation
+    wr, wci = twiddle(n, n1, idx * m2, m2, conj=True, device=mesh.device)
     # (m1, n2): the natural-order inverse's planes (its factors swapped)
     wir, wii = twiddle(n, n2, idx * m1, m1, transposed=True, conj=True, device=mesh.device)
-
-    def body_fwd(ar, ai):
-        ar, ai = swap(ar, ai, shard_pos=1, mem_pos=2)                 # (B, n1, m2)
-        if fused:
-            ar, ai = methods.apply_fused(ar.transpose(1, 2), ai.transpose(1, 2),
-                                         wr=wtr, wi=wti, **kw)
-        else:
-            ar, ai = methods.apply(ar, ai, axis=1, **kw)
-            ar, ai = tw.cmul(ar, ai, wr, wi)
-        ar, ai = swap(ar, ai, shard_pos=2, mem_pos=1)                 # (B, n1/p, n2)
-        return methods.apply(ar, ai, axis=2, **kw)
 
     def body_inv(ar, ai):
         if fused:

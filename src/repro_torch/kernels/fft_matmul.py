@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -48,11 +49,12 @@ def variant(n: int) -> str:
     return 'mma' if MMA_LENGTHS[0] <= n <= MMA_LENGTHS[1] else 'fma'
 
 
-def fft_matmul_plain(re: torch.Tensor, im: torch.Tensor, *,
-                     inverse: bool = False) -> Planar:
+def fft_matmul_plain(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
+                     factors=None) -> Planar:
     """Plain PyTorch version of :func:`fft_matmul`: the reference-tier
-    four-step, the same steps as full-fp32 matmuls."""
-    return f1.fft_four_step(re, im, inverse=inverse)
+    four-step over ``factors`` (default ``four_step_factors(n)``), the
+    same steps as full-fp32 matmuls."""
+    return f1.fft_four_step(re, im, inverse=inverse, factors=factors)
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,15 +136,24 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     launches_mma += body == 'mma'
 
 
-def fft_matmul(re: torch.Tensor, im: torch.Tensor, *,
-               inverse: bool = False) -> Planar:
+def fft_matmul(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
+               factors=None) -> Planar:
     """Batched four-step FFT along the last axis of planar fp32 (..., n).
 
-    A CPU tensor runs :func:`fft_matmul_plain`; a CUDA tensor launches
-    the kernel (or raises)."""
+    A CPU tensor runs :func:`fft_matmul_plain` over ``factors`` (n1, n2)
+    (``ValueError`` unless n1 * n2 == n); a CUDA tensor launches the
+    kernel (or raises). Each CUDA body runs one split of n,
+    ``mma_factors(n)`` (the four-step's (n1, n2), or 16 x 16 x n/256 at
+    n = 2048 and 4096): ``factors`` other than that split raise
+    ``ValueError`` naming it."""
     n = check_planar('fft_matmul', re, im)
+    if factors is not None and math.prod(factors) != n:
+        raise ValueError(f"fft_matmul: factors {'*'.join(map(str, factors))} != {n}")
     if re.device.type == 'cpu':
-        return fft_matmul_plain(re, im, inverse=inverse)
+        return fft_matmul_plain(re, im, inverse=inverse, factors=factors)
+    if factors is not None and tuple(factors) != mma_factors(n):
+        raise ValueError(f"fft_matmul: the CUDA body of n = {n} runs the split "
+                         f"{mma_factors(n)}, not {tuple(factors)}")
     refuse_grad('fft_matmul', re, im)
     yr, yi = torch.empty_like(re), torch.empty_like(im)
     _launch(re, im, yr, yi, n, inverse)

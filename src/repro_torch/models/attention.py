@@ -375,14 +375,16 @@ def gqa_decode_ring(p: Dict, cfg, x, cache: Dict, cache_len: int, *, window: int
     return _out(p, o, par), cache
 
 
-def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int, *, par=None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int, *, window: int = 0,
+               par=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B, 1, D); caches (B, S_max, KH, hd).
 
     Writes the new k/v at ``cache_len`` into the caches IN PLACE (the
     reference's engine donates its caches to the jitted step) and
-    returns (out, cache_k, cache_v). An M-RoPE config continues in text:
-    all three position streams are ``cache_len``."""
+    returns (out, cache_k, cache_v). ``window`` > 0 attends to the last
+    ``window`` positions of the dense cache only (the ring cache is
+    :func:`gqa_decode_ring`'s). An M-RoPE config continues in text: all
+    three position streams are ``cache_len``."""
     B = x.shape[0]
     shape = (3, B, 1) if cfg.pos_kind == 'mrope' else (B, 1)
     q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x,
@@ -390,7 +392,7 @@ def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int, *, par=None
     cache_k[:, cache_len] = k[:, 0]
     cache_v[:, cache_len] = v[:, 0]
     # single pass (chunk = the whole cache), as the reference
-    o = flash_attention(q, *_attend_kv(cache_k, cache_v, cfg, par), causal=True,
+    o = flash_attention(q, *_attend_kv(cache_k, cache_v, cfg, par), causal=True, window=window,
                         q_offset=cache_len, kv_len=cache_len + 1, chunk=cache_k.shape[1])
     return _out(p, o, par), cache_k, cache_v
 

@@ -14,10 +14,12 @@ installed jax), on the worker's global operands, with Auto axes
 (``jax.sharding.Mesh``). It writes each case's global result under the
 case's name. For each case of ``UNFUSED_CASES`` it runs the
 reference's function with ``fused=False`` (``pencil.make_fft``,
-``large1d.make_fft1d_large(natural_order=True)``,
+``large1d.make_fft1d_large`` in the case's order, natural by default,
 ``large1d.make_fourstep_op``) on 2 x 2 or 1 x 4 and writes the global
 forward under ``<name>__fwd`` and, where there is one, the inverse of
-that forward under ``<name>__inv``.
+that forward under ``<name>__inv``; a D-form case
+(``natural_order=False``) also the ``fused=True`` function's, under
+``<name>__fwd_fused`` and ``<name>__inv_fused``.
 """
 import os
 import sys
@@ -116,10 +118,19 @@ def unfused_results():
                 fwd = (lambda f, kk: (lambda *a: f(*a, *kk)))(fn, _planar(k))
             else:
                 n1, n2, axes = UNFUSED_R1
+                natural = kw.get('natural_order', True)
                 fwd, inv = (large1d.make_fft1d_large(n1, n2, mesh, axes, inverse=i,
-                                                     natural_order=True, batch=True,
+                                                     natural_order=natural, batch=True,
                                                      fused=False, **common)
                             for i in (False, True))
+                if not natural:      # the D-form: the fused functions too
+                    ffwd, finv = (large1d.make_fft1d_large(n1, n2, mesh, axes, inverse=i,
+                                                           natural_order=False, batch=True,
+                                                           fused=True, **common)
+                                  for i in (False, True))
+                    y = jax.jit(ffwd)(*(jnp.asarray(a) for a in _planar(x)))
+                    out[f'{name}__fwd_fused'] = _joined(y)
+                    out[f'{name}__inv_fused'] = _joined(jax.jit(finv)(*y))
             y = jax.jit(fwd)(*(jnp.asarray(a) for a in _planar(x)))
             out[f'{name}__fwd'] = _joined(y)
             if inv is not None:

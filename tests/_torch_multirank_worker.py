@@ -44,7 +44,17 @@ Each is held against the same function built with ``fused=True``
 (``*_vs_fused``), against numpy (``fwd_vs_numpy``; a real rank-3
 spectrum only through the round trip), for its round trip and, with
 ``--ref``, against the JAX package's function with ``fused=False`` on
-the same global operand (``*_vs_reference``).
+the same global operand (``*_vs_reference``). A rank-1 case with
+``natural_order=False`` (the reference's default) returns the
+factor-transposed D-form, rows of D[j1, j2] = y[j1 + n1*j2]: its
+inverse reads D as A, so it has no round trip and is held against
+numpy's inverse of D (``inv_vs_numpy``), and its fused function is also
+held against the reference's ``fused=True`` one (``*_fused_vs_reference``).
+On 2 x 2 the suite also counts one step with ``launch.hlostats`` on
+gloo (``hlostats_gloo``): ten products each followed by an all-gather
+over 'y' (2 ranks), and a backward through ``comm.enter`` (one
+all-reduce of the cotangent over 'y'); ``n_*`` keys hold every rank's
+count.
 
 Suite ``strategies`` (``STRATEGY_PLANS`` under each of ``ppermute``,
 ``hierarchical`` and the mesh's pod tree, ``POD_TREES``): every plan is
@@ -180,12 +190,17 @@ UNFUSED_CASES = {
             ('unfused_r1_stockham', (4096,), dict(method='stockham')),
             ('unfused_r1_four_step', (4096,), dict(method='four_step')),
             ('unfused_r1_op', (4096,), dict(method='stockham', op=True)),
-            ('unfused_r1_op_real', (4096,), dict(method='four_step', op=True, real=True))],
+            ('unfused_r1_op_real', (4096,), dict(method='four_step', op=True, real=True)),
+            ('unfused_r1_dform_stockham', (4096,), dict(method='stockham', natural_order=False)),
+            ('unfused_r1_dform_four_step', (4096,),
+             dict(method='four_step', natural_order=False))],
     '1x4': [('unfused_four_step_1x4', (16, 16, 16), dict(method='four_step')),
             ('unfused_real_four_step_1x4', (16, 16, 16), dict(method='four_step', real=True)),
             ('unfused_r1_stockham_1x4', (4096,), dict(method='stockham')),
             ('unfused_r1_op_1x4', (4096,), dict(method='four_step', op=True)),
-            ('unfused_r1_op_real_1x4', (4096,), dict(method='stockham', op=True, real=True))],
+            ('unfused_r1_op_real_1x4', (4096,), dict(method='stockham', op=True, real=True)),
+            ('unfused_r1_dform_four_step_1x4', (4096,),
+             dict(method='four_step', natural_order=False))],
 }
 #: rank-1 unfused cases: the factors of n and the flattened mesh axes
 UNFUSED_R1 = (64, 64, ('x', 'y'))
@@ -408,6 +423,8 @@ def _unfused_case(mesh, shape, kw, ref=None):
     and, with ``ref`` (the global forward and inverse of the JAX
     package's ``fused=False`` function), the reference."""
     method, real, op = kw['method'], kw.get('real', False), kw.get('op', False)
+    natural = kw.get('natural_order', True)
+    want_inv = None
     x, k = unfused_operands(shape, real)
     dev = mesh.device
     xt = torch.as_tensor(x, device=dev)
@@ -441,10 +458,17 @@ def _unfused_case(mesh, shape, kw, ref=None):
         else:
             def build(fused):
                 fwd, inv = (large1d.make_fft1d_large(n1, n2, mesh, axes, inverse=i,
-                                                     fused=fused, **opts) for i in (False, True))
+                                                     natural_order=natural, fused=fused,
+                                                     **opts)
+                            for i in (False, True))
                 return (lambda a: fwd(*_planar(a))), (lambda y: inv(*_planar(y)))
             # natural order: y[j1 + n1 j2] at [j2, j1], the flat signal again
             want = np.fft.fft(x.reshape(BATCH, -1), axis=-1).reshape(BATCH, n2, n1)
+            if not natural:        # the D-form: y[j1 + n1 j2] at [j1, j2]
+                want = want.transpose(0, 2, 1)
+                # the inverse reads D as A and returns its inverse in D-form
+                want_inv = np.fft.ifft(want.reshape(BATCH, -1), axis=-1).reshape(
+                    BATCH, n2, n1).transpose(0, 2, 1)
     out = {}
     for fused in (True, False):
         fwd, inv = build(fused)
@@ -456,16 +480,23 @@ def _unfused_case(mesh, shape, kw, ref=None):
            'resolved': [method, bool(real), bool(op)]}
     if xu is not None:
         rec['inv_vs_fused'] = _gap(xu, xf2)
-        rec['roundtrip'] = _gap(xu, x_in)
+        if want_inv is None:
+            rec['roundtrip'] = _gap(xu, x_in)
+        else:
+            w = torch.as_tensor(want_inv.astype(x.dtype), device=dev)
+            rec['inv_vs_numpy'] = _gap(xu, mesh.shard(w, lay_in, batch_ndim=1))
     if want is not None:
         w = torch.as_tensor(want.astype(x.dtype), device=dev)
         rec['fwd_vs_numpy'] = _gap(yu, mesh.shard(w, lay_out, batch_ndim=1))
     if ref is not None:
-        g = torch.as_tensor(ref['fwd'], device=dev).to(yu.dtype)
-        rec['fwd_vs_reference'] = _gap(yu, mesh.shard(g, lay_out, batch_ndim=1))
-        if xu is not None:
-            g = torch.as_tensor(ref['inv'], device=dev).to(xu.dtype)
-            rec['inv_vs_reference'] = _gap(xu, mesh.shard(g, lay_in, batch_ndim=1))
+        for tag, (y, x2) in (('', (yu, xu)), ('_fused', (yf, xf2))):
+            if f'fwd{tag}' not in ref:
+                continue
+            g = torch.as_tensor(ref[f'fwd{tag}'], device=dev).to(y.dtype)
+            rec[f'fwd{tag}_vs_reference'] = _gap(y, mesh.shard(g, lay_out, batch_ndim=1))
+            if x2 is not None:
+                g = torch.as_tensor(ref[f'inv{tag}'], device=dev).to(x2.dtype)
+                rec[f'inv{tag}_vs_reference'] = _gap(x2, mesh.shard(g, lay_in, batch_ndim=1))
     return rec
 
 
@@ -846,11 +877,39 @@ def _grad_gather(mesh):
             'resolved': [p.comm]}
 
 
+def _hlostats_case(mesh):
+    """One step counted by ``launch.hlostats`` on this rank: ten
+    ``tanh(c @ w)`` of a (64, 256) ``c`` and this rank's (256, 256/g)
+    block of ``w``, each result gathered over 'y' (g ranks) back to
+    (64, 256); then a backward through ``comm.enter`` over 'y' and one
+    product, whose cotangent is summed by one all-reduce."""
+    from repro_torch import comm
+    from repro_torch.launch import hlostats
+    g = mesh.shape['y']
+    c = torch.ones(64, 256)
+    w = torch.full((256, 256 // g), 1e-3)
+    with hlostats.count() as fwd:
+        for _ in range(10):
+            c = comm.all_gather(torch.tanh(c @ w), mesh, 'y', 1)
+    x = torch.ones(64, 256, requires_grad=True)
+    with hlostats.count() as bwd:
+        (comm.enter(x, mesh, 'y') @ w).sum().backward()
+    f, b = fwd.analyze(), bwd.analyze()
+    return {'resolved': ['hlostats'], 'n_group': g, 'n_partitions': f['num_partitions'],
+            'n_dot_flops': f['dot_flops'], 'n_ag_bytes': f['collective_bytes']['all-gather'],
+            'n_ag_count': f['collective_counts']['all-gather'],
+            'n_bwd_ar_count': b['collective_counts'].get('all-reduce', 0),
+            'n_bwd_ar_bytes': b['collective_bytes'].get('all-reduce', 0),
+            'n_bwd_dot_flops': b['dot_flops'],
+            'n_bwd_kinds': sorted(b['collective_counts'])}
+
+
 def _unfused_ref(refs, name):
     """A case's reference results (``<name>__fwd``, ``<name>__inv``), or None."""
     if f'{name}__fwd' not in refs:
         return None
-    return {k: refs[f'{name}__{k}'] for k in ('fwd', 'inv') if f'{name}__{k}' in refs}
+    return {k: refs[f'{name}__{k}'] for k in ('fwd', 'inv', 'fwd_fused', 'inv_fused')
+            if f'{name}__{k}' in refs}
 
 
 def _suite(mesh, single, mesh_name: str, suite: str, refs=None, serve_n=0) -> dict:
@@ -881,8 +940,11 @@ def _suite(mesh, single, mesh_name: str, suite: str, refs=None, serve_n=0) -> di
                      for name, shape, kw in RANK1_CASES})
         return mine
     if suite == 'unfused':
-        return {name: _unfused_case(mesh, shape, kw, _unfused_ref(refs, name))
+        mine = {name: _unfused_case(mesh, shape, kw, _unfused_ref(refs, name))
                 for name, shape, kw in UNFUSED_CASES[mesh_name]}
+        if mesh_name == '2x2':
+            mine['hlostats_gloo'] = _hlostats_case(mesh)
+        return mine
     mine = {}
     for comm in strategies_for(mesh_name):
         for name, shape, kw in STRATEGY_PLANS:
@@ -919,6 +981,8 @@ def run(rank: int, port: int, out: str, device: str, mesh_name: str, suite: str,
                 for key in recs[0]:
                     if isinstance(recs[0][key], bool):
                         m[key] = all(r[key] for r in recs)
+                    elif key.startswith('n_'):
+                        m[key] = [r[key] for r in recs]           # every rank's count
                     elif key.startswith('us_') or key == 'peak_gib':
                         m[key] = max(r[key] for r in recs)      # the slowest rank
                     elif key.startswith('l2_'):

@@ -183,7 +183,8 @@ def test_make_fft1d_large_unfused(meshes, method):
     kw = dict(method=method, kernel='reference')
     for inverse in (False, True):
         fns = [tlarge1d.make_fft1d_large(n1, n2, tmesh, ('x', 'y'), inverse=inverse,
-                                         fused=f, **kw) for f in (True, False)]
+                                         natural_order=True, fused=f, **kw)
+               for f in (True, False)]
         yf, yu = (f(*xt) for f in fns)
         assert _same(yf, yu)
         jfn = jlarge1d.make_fft1d_large(n1, n2, jmesh, ('x', 'y'), inverse=inverse,

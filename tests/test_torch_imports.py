@@ -49,6 +49,12 @@ def test_the_check_sees_the_service_launcher():
     assert {'fft_service.py', 'mesh.py', 'serve.py'} <= launch
 
 
+def test_the_check_sees_the_dry_run():
+    launch = {p.name for p in FILES if p.parent.name == 'launch'
+              and p.parent.parent.name == 'repro_torch'}
+    assert {'dryrun.py', 'hlostats.py'} <= launch
+
+
 def test_the_check_sees_the_language_models():
     """The LM server's modules: configs, models, the engine, the
     launcher and the parameter converter."""

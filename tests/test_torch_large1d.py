@@ -127,7 +127,8 @@ def test_make_fft1d_large_matches_reference(meshes, method):
     jf = rlarge1d.make_fft1d_large(n1, n2, jmesh, ('x', 'y'), method=method,
                                    natural_order=True)
     jr, ji = jf(jnp.asarray(x.real), jnp.asarray(x.imag))
-    tf = tlarge1d.make_fft1d_large(n1, n2, tmesh, ('x', 'y'), method=method)
+    tf = tlarge1d.make_fft1d_large(n1, n2, tmesh, ('x', 'y'), method=method,
+                                   natural_order=True)
     tr, ti = tf(*from_numpy((x.real[None], x.imag[None]), 'cpu'))
     got = tr[0].numpy() + 1j * ti[0].numpy()
     assert _rel(got, np.asarray(jr) + 1j * np.asarray(ji)) <= RTOL

@@ -301,6 +301,23 @@ def test_multirank_unfused_case(unfused_suites, name, shape, kw):
     check_unfused(unfused_suites[name], kw)
 
 
+def test_multirank_hlostats_gloo(unfused_suites):
+    """``launch.hlostats`` on gloo 2 x 2, every rank: ten products of a
+    (64, 256) ``c`` with a (256, 128) block, each gathered over 'y' (2
+    ranks) to (64, 256); a backward through ``comm.enter`` over 'y' and
+    one product: the forward's and the cotangent's products, and one
+    all-reduce of the (64, 256) fp32 cotangent."""
+    r = unfused_suites['hlostats_gloo']
+    assert r['n_group'] == [2] * 4 and r['n_partitions'] == [4] * 4
+    assert r['n_dot_flops'] == [10 * 2 * 64 * 256 * 128] * 4
+    assert r['n_ag_bytes'] == [10 * 64 * 128 * 4] * 4
+    assert r['n_ag_count'] == [10] * 4
+    assert r['n_bwd_kinds'] == [['all-reduce']] * 4
+    assert r['n_bwd_ar_count'] == [1] * 4
+    assert r['n_bwd_ar_bytes'] == [64 * 256 * 4] * 4
+    assert r['n_bwd_dot_flops'] == [2 * 2 * 64 * 256 * 128] * 4
+
+
 def check_unfused(r, kw):
     """An unfused function on the mesh: bitwise its fused self for the
     four-step (one kernel, or one plain pencil, on the same pencils) and
@@ -317,10 +334,15 @@ def check_unfused(r, kw):
         assert all(r[k] == 0.0 for k in fused_keys), fused_keys
     else:
         assert all(r[k] <= 1e-6 for k in fused_keys), fused_keys
-    for key in ('fwd_vs_numpy', 'roundtrip'):
+    for key in ('fwd_vs_numpy', 'roundtrip', 'inv_vs_numpy'):
         if key in r:
             assert r[key] <= 1e-5, key
-    assert ('roundtrip' in r) != op and ('fwd_vs_numpy' in r or real)
-    for key in ('fwd_vs_reference', 'inv_vs_reference'):
+    # a D-form case has no round trip: its inverse is held against numpy's
+    assert ('roundtrip' in r) != (op or 'inv_vs_numpy' in r) and ('fwd_vs_numpy' in r or real)
+    assert ('inv_vs_numpy' in r) == (kw.get('natural_order', True) is False)
+    for key in ('fwd_vs_reference', 'inv_vs_reference', 'fwd_fused_vs_reference',
+                'inv_fused_vs_reference'):
         if key in r:
             assert r[key] <= 1e-6, key
+    if kw.get('natural_order', True) is False:
+        assert 'fwd_fused_vs_reference' in r and 'inv_fused_vs_reference' in r
