@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with four cards:
 
     python3 benchmarks/torch_multirank_cuda.py [--out build/multirank_cuda]
         [--suite base|strategies|pod|op|unfused|serve|lm|train ...]
-        [--lm-rows ARCH:DTYPE[:LAYERS] ...]
+        [--lm-rows ARCH:DTYPE[:LAYERS] ...] [--lm-meshes 1x4 2x2 1x3]
 
 It builds the CUDA kernels once, runs ``tests/_torch_multirank_worker.py``
 with ``cuda`` (four NCCL ranks, one card each, so every pencil runs the
@@ -33,8 +33,11 @@ and to a one-card service's frame). The ``lm`` suite runs ``tests/_torch_lm_mult
 64 new tokens after 8 prompts of 2048): qwen1.5-32b whole in fp32 and
 dbrx-132b's 40 layers in bf16 on 1 x 4, dbrx-132b's first 16 layers in
 fp32 on 2 prompts (its routing checked free), internlm2-1.8b in fp32 on
-2 x 2 held against one card (``--lm-rows`` picks rows by name, as
-``dbrx-132b:float32:16``); each row (``[lm4]``) is the slowest
+2 x 2 held against one card, and on 1 x 3 (three of the cards, which
+divide no head count: each rank its head range) internlm2-1.8b in fp32
+held against one card and qwen1.5-32b whole in bf16 on 2 prompts
+(``--lm-rows`` picks rows by name, as ``dbrx-132b:float32:16``;
+``--lm-meshes 1x3`` the meshes); each row (``[lm4]``) is the slowest
 rank's times and the largest peak, the bounds of ``chip_smoke.py``'s
 ``_lm_bounds`` over four cards, and its self-check against its own
 sharded full forward at ``chip_smoke.py``'s limits. ``--suite`` runs
@@ -83,6 +86,9 @@ def main() -> None:
                     help='run only these suites')
     ap.add_argument('--lm-rows', nargs='+', default=None,
                     help='the lm suite: only these rows (arch:dtype[:layers])')
+    ap.add_argument('--lm-meshes', nargs='+', default=None,
+                    choices=tuple(lm_worker.BENCH_ROWS),
+                    help='the lm suite: only the rows of these meshes')
     args = ap.parse_args()
     if not torch.cuda.is_available() or torch.cuda.device_count() < WORLD:
         sys.exit(f"torch_multirank_cuda: needs {WORLD} CUDA devices")
@@ -128,6 +134,8 @@ def main() -> None:
         for mesh, rows in lm_worker.BENCH_ROWS.items():
             if args.lm_rows and not {lm_worker.row_name(a, d, n) for a, d, _, n in rows} \
                     & set(args.lm_rows):
+                continue
+            if args.lm_meshes and mesh not in args.lm_meshes:
                 continue
             total += 1
             passed += _lm_rows(args.out, mesh, args.lm_rows)

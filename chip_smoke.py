@@ -220,13 +220,19 @@ Phases, each printing one line and raising on any failure:
    (within 1e-6, bitwise where printed) and ``torch.fft.fft``;
    ``[kernel] check=fft_matmul_factors`` (the body's own split runs, a
    foreign one raises ``ValueError`` naming it and launches nothing);
-   ``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on
+   ``[dryrun]``: ``launch.dryrun.run_cell`` on
    internlm2-1.8b decode_32k at full width on the 16 x 16 mesh in a
    subprocess (``fake`` process group, ``meta`` tensors, no card): status
    ok and the hand count of its collectives; and in ``[lm]``,
    ``check=step_stats``: one real decode step of internlm2-1.8b counted
    by ``launch.hlostats``, its product flops exactly the dense products'
-   and attention's over the cache, within 1.25 of 2 N B;
+   and attention's over the cache, within 1.25 of 2 N B; ``[path]
+   check=kernel_stats``: one fwd+inv of the default 512^3 plan under
+   ``hlostats.count()``, its counted ``fft_matmul`` launches (6, on the
+   tensor-core body, 16 bytes an element each) equal to the module's
+   counter; and ``[dryrun] fft``: ``benchmarks/torch_roofline_fft.py``'s
+   512^3 on 16 x 16, in ``[dryrun]``'s subprocess, the record's three
+   terms and the dominant one;
 17. a ``[total]`` line (the run's seconds), a ``kernels`` JSON line
    (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
@@ -2809,20 +2815,33 @@ def check_matmul_factors(gen) -> None:
 #: embedding's; ``wk``, ``wv`` gathered at use a layer (8 kv heads, 16
 #: ranks) and the logits gathered over 'model' and 'data'
 DRYRUN_CELL = ('internlm2-1.8b', 'decode_32k')
+#: ``[dryrun]``'s subprocess: the LM cell through ``dryrun.run_cell`` and
+#: the FFT's n^3 through ``benchmarks/torch_roofline_fft.py``'s ``run``,
+#: on one fake group of 256 ranks
+DRYRUN_SCRIPT = """
+import os, sys
+sys.path.insert(0, os.path.join(os.getcwd(), 'benchmarks'))
+import torch_roofline_fft as R
+from repro_torch.launch import dryrun
+arch, shape, n, out = sys.argv[1:]
+dryrun.init_fake_world(256)
+dryrun.run_cell(arch, shape, False, out_dir=out)
+R.run(int(n), out_dir=out)
+"""
 DRYRUN_COUNTS = {'all-reduce': 2 * 24 + 1, 'all-gather': 2 * 24 + 2}
 
 
-def phase_dryrun() -> None:
-    """``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on one
-    production cell at full width on the 16 x 16 mesh, in a subprocess
-    (its ``fake`` process group of 256 ranks cannot share this process):
-    status ok, the hand count of collectives, the record's bytes and
-    roofline (datasheet constants, not a measurement)."""
+def phase_dryrun() -> str:
+    """``[dryrun]``: ``launch.dryrun.run_cell`` on one production cell at
+    full width on the 16 x 16 mesh, in a subprocess (its ``fake`` process
+    group of 256 ranks cannot share this process): status ok, the hand
+    count of collectives, the record's bytes and roofline (datasheet
+    constants, not a measurement). Returns the records' directory."""
     t0 = time.perf_counter()
     arch, shape = DRYRUN_CELL
     out = os.path.join(ROOT, 'chiprun_out', 'dryrun')
-    _run([sys.executable, '-m', 'repro_torch.launch.dryrun', '--arch', arch, '--shape', shape,
-          '--mesh', 'single', '--out', out], 300)
+    # the FFT's cell (phase_dryrun_fft reads it) in the same process: one start
+    _run([sys.executable, '-c', DRYRUN_SCRIPT, arch, shape, str(N), out], 300)
     with open(os.path.join(out, f'pod_16x16__{arch}__{shape}.json')) as fh:
         rec = json.load(fh)
     if rec['status'] != 'ok' or rec['hlo']['collective_counts'] != DRYRUN_COUNTS:
@@ -2835,6 +2854,60 @@ def phase_dryrun() -> None:
         dot_flops=f"{rec['hlo']['dot_flops']:.6g}", dominant=roof['dominant'],
         bound_ms=f"{roof['bound_s'] * 1e3:.6g}", constants='datasheet',
         step_s=rec['step_s'], seconds=f"{time.perf_counter() - t0:.3g}")
+    return out
+
+
+def check_kernel_stats(gen) -> dict:
+    """``[path] check=kernel_stats``: ``hlostats.count()`` around one
+    fwd+inv of the default 512^3 plan on the card. The counter's
+    ``fft_matmul`` launches (reported by each launch, which no dispatch
+    mode sees) must equal the module's counter, 6, all on the
+    tensor-core body, each reading and writing 8 bytes an element (16 a
+    launch) with 5 n log2 n flops a pencil. Returns the launch counts."""
+    t0 = time.perf_counter()
+    p = fft.plan((N, N, N), make_fft_mesh(1, 1))
+    xr, xi = planar((N, N, N), gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with hlostats.count() as st:
+        p.inverse(p.forward((xr, xi)))
+        torch.cuda.synchronize()
+    total, mma = kernels.launch_counts(), fft_matmul.launches_mma
+    k = st.analyze()['kernels']
+    elems = N ** 3
+    want = {'fft_matmul': {'launches': 6, 'launches_by_body': {'mma': 6},
+                           'bytes_read': 6 * 8 * elems, 'bytes_written': 6 * 8 * elems,
+                           'flops': 6 * 5.0 * elems * math.log2(N)}}
+    if k != want or total['fft_matmul'] != 6 or mma != 6:
+        raise AssertionError(f"kernel_stats: counted {k}, launched {total} ({mma} mma)")
+    say('path', check='kernel_stats', counted=k['fft_matmul']['launches'],
+        launched=total['fft_matmul'], launches_mma=mma,
+        bytes_per_elem_launch=(k['fft_matmul']['bytes_read'] + k['fft_matmul']['bytes_written'])
+        / (6 * elems), flops=f"{k['fft_matmul']['flops']:.6g}",
+        seconds=f"{time.perf_counter() - t0:.3g}")
+    return total
+
+
+def phase_dryrun_fft(out: str) -> None:
+    """``[dryrun] fft``: the record of ``benchmarks/torch_roofline_fft.py``'s
+    512^3 on the 16 x 16 mesh that ``phase_dryrun``'s subprocess wrote
+    (``fake`` group, ``meta``, no card): rank 0's fwd+inv of the paper's
+    cell counted with the card's kernels (6 ``fft_matmul`` on the
+    tensor-core body); its three roofline terms (datasheet constants,
+    not a measurement) and the dominant one. ``out``: that subprocess's
+    record directory."""
+    with open(os.path.join(out, f'pod_16x16__wsfft__{N}__auto.json')) as fh:
+        rec = json.load(fh)
+    k = rec['kernels']
+    if rec['status'] != 'ok' or k.get('fft_matmul', {}).get('launches_by_body') != {'mma': 6}:
+        raise AssertionError(f"dryrun fft: {rec['status']} {k}")
+    roof = rec['roofline']
+    say('dryrun', cell='fft', n=N, mesh=rec['mesh'], comm=rec['comm'],
+        compute_us=f"{roof['compute_s'] * 1e6:.6g}", memory_us=f"{roof['memory_s'] * 1e6:.6g}",
+        collective_us=f"{roof['collective_s'] * 1e6:.6g}", dominant=roof['dominant'],
+        launches=json.dumps({n: v['launches'] for n, v in k.items()}),
+        transpose_bytes_min=f"{rec['transpose_bytes_min']:.6g}", constants='datasheet',
+        step_s=rec['step_s'])
 
 
 #: ``[lm] check=step_stats``: a real decode step's products counted by
@@ -2945,9 +3018,10 @@ def main() -> None:
         # columns, then rows, each its own fft_pencil; the twiddle apart
         paths.append(phase_path('large1d_stockham_unfused', gen, 'stockham', {'fft_pencil': 2},
                                 shape=LARGE1D, batch=LARGE1D_BATCH, method='stockham'))
-    paths += [check_fft3d(gen), check_apply_block(gen), phase_factor_order(gen)]
+    paths += [check_fft3d(gen), check_apply_block(gen), phase_factor_order(gen),
+              check_kernel_stats(gen)]
     check_matmul_factors(gen)
-    phase_dryrun()
+    phase_dryrun_fft(phase_dryrun())
     phase_examples()
     phase_paper(card)
     say('new_phases', seconds=f"{time.perf_counter() - t_new:.3g}")

@@ -111,13 +111,15 @@ def validate_kernel(kernel: str) -> str:
 def resolve_kernel(kernel: str, method: Optional[Method] = None,
                    device=None) -> str:
     """The tier that runs for a tensor on ``device``: 'pallas' (the CUDA
-    kernel) or 'reference' (the plain version)."""
+    kernel) or 'reference' (the plain version). A ``meta`` tensor takes
+    the card's tier: its kernels return their shapes and are counted
+    (the dry run)."""
     validate_kernel(kernel)
     if kernel == 'reference':
         return 'reference'
     if method is not None and method.kernel_fn is None:
         return 'reference'
-    on_cuda = device is not None and torch.device(device).type == 'cuda'
+    on_cuda = device is not None and torch.device(device).type in ('cuda', 'meta')
     if kernel == 'pallas' and not on_cuda:
         raise ValueError(
             f"kernel='pallas' runs the CUDA kernels and a tensor on {device} "

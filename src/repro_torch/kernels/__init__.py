@@ -15,16 +15,42 @@ count those of their tensor-core body, the four-step of
 ``fft_pencil`` and ``fft_fused`` those of their radix-8 Stockham body
 in ``launches_radix8``; ``fft_fused`` those that applied twiddle planes
 in ``launches_twiddle``).
+
+On a ``meta`` tensor a wrapper runs the card's checks and returns
+``empty`` planes of the card's shapes, launching nothing (the dry run
+counts the card's path with no card). Every launch, on the card and on
+``meta``, is told to the hooks in :data:`HOOKS` (``launch.hlostats``
+holds one while it counts; with none the report is one list check).
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Callable, Dict, List
 
 import torch
 
 from repro_torch.core import twiddle as tw
 
 KERNEL_MODULES = ('fft_pencil', 'fft_fused', 'fft_matmul', 'fft_block')
+
+#: callables told of every kernel launch, each with a dict: ``name``
+#: (the kernel module), ``body``, ``n``, ``pencils``, ``bytes_read``,
+#: ``bytes_written`` (each plane read and written once) and ``flops``
+#: (5 n log2 n a pencil, fp32)
+HOOKS: List[Callable[[dict], None]] = []
+
+
+def report(name: str, body: str, n: int, pencils: int, extra_read: int = 0) -> None:
+    """Tell :data:`HOOKS` of one launch of ``name``'s ``body`` on
+    ``pencils`` planar fp32 pencils of n; ``extra_read``: the bytes of
+    other operands it reads (twiddle planes)."""
+    if not HOOKS:
+        return
+    elems = n * pencils
+    rec = dict(name=name, body=body, n=n, pencils=pencils, bytes_read=8 * elems + extra_read,
+               bytes_written=8 * elems, flops=5.0 * elems * math.log2(n))
+    for hook in HOOKS:
+        hook(rec)
 
 
 def _modules():
@@ -52,7 +78,7 @@ def check_planar(name: str, re: torch.Tensor, im: torch.Tensor,
     """Validate a planar operand for a kernel wrapper; returns n, the
     length of the last axis. Raises on anything the kernel does not
     take: mismatched or non-fp32 planes, a non-contiguous plane, a
-    non-pow2 length, or a device that is neither CPU nor CUDA."""
+    non-pow2 length, or a device other than CPU, CUDA and ``meta``."""
     if re.shape != im.shape or re.device != im.device:
         raise ValueError(f"{name}: re {tuple(re.shape)} on {re.device} and "
                          f"im {tuple(im.shape)} on {im.device} differ")
@@ -62,7 +88,7 @@ def check_planar(name: str, re: torch.Tensor, im: torch.Tensor,
         raise ValueError(f"{name}: planes must be contiguous")
     if re.ndim < min_ndim:
         raise ValueError(f"{name}: needs at least {min_ndim} dims, got {tuple(re.shape)}")
-    if re.device.type not in ('cpu', 'cuda'):
+    if re.device.type not in ('cpu', 'cuda', 'meta'):
         raise ValueError(f"{name}: unsupported device {re.device}")
     n = re.shape[-1]
     if not tw.is_pow2(n):

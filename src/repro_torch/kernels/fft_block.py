@@ -33,7 +33,7 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
 from repro_torch.kernels.fft_pencil import tile_pencils
 
 #: launches of either CUDA body (plain-version calls do not count)
@@ -196,6 +196,9 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     if batch == 0:
         return
     body = _body or variant(n)
+    if re.device.type == 'meta':
+        report('fft_block', body, n, batch)
+        return
     n1, n2, P, jc, smem = _shape(n, batch, body)
     scale = (1.0 / n) if inverse else 1.0
     ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
@@ -214,6 +217,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
             f"per tile, {smem} bytes of shared memory)")
     launches += 1
     launches_mma += body == 'mma'
+    report('fft_block', body, n, batch)
 
 
 def fft_block(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
@@ -221,7 +225,7 @@ def fft_block(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     (2, ..., n) whose leading axis holds (re, im); natural order.
 
     A CPU tensor runs :func:`fft_block_plain`; a CUDA tensor launches
-    the kernel (or raises)."""
+    the kernel (or raises); a ``meta`` tensor returns the card's shape."""
     if x.ndim < 2 or x.shape[0] != 2:
         raise ValueError(f"fft_block: needs a leading complex axis of 2, got {tuple(x.shape)}")
     n = check_planar('fft_block', x[0], x[1])

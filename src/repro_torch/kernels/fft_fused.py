@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import fft1d as f1
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
 from repro_torch.kernels.fft_pencil import (MAX_THREADS, _pow2_at_least, master_table,
                                             radix8_smem_bytes, radix8_tables, radix8_threads,
                                             tile_pencils, variant)
@@ -120,6 +120,10 @@ def _launch(re: torch.Tensor, im: torch.Tensor, wr, wi, yr: torch.Tensor,
     twr, twi, wstride = _twiddle_planes(re, wr, wi)
     nl = re.numel() // (b * n)
     body = _body or variant(n)
+    tbytes = 0 if twr is None else 4 * (twr.numel() + twi.numel())
+    if re.device.type == 'meta':
+        report('fft_fused', body, n, nl * b, tbytes)
+        return
     scale = (1.0 / n) if inverse else 1.0
     ptrs = (re.data_ptr(), im.data_ptr(),
             None if twr is None else twr.data_ptr(),
@@ -146,6 +150,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, wr, wi, yr: torch.Tensor,
     launches += 1
     launches_radix8 += body == 'radix8'
     launches_twiddle += twr is not None
+    report('fft_fused', body, n, nl * b, tbytes)
 
 
 def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
@@ -156,7 +161,7 @@ def fft_twiddle_transpose(re: torch.Tensor, im: torch.Tensor,
     ``wr``/``wi`` is an optional planar twiddle broadcastable to the
     pre-transpose output (..., b, n). A CPU tensor runs
     :func:`fft_twiddle_transpose_plain`; a CUDA tensor launches the
-    kernel (or raises)."""
+    kernel (or raises); a ``meta`` tensor returns the card's shapes."""
     n = check_planar('fft_twiddle_transpose', re, im, min_ndim=2)
     if (wr is None) != (wi is None):
         raise ValueError("fft_twiddle_transpose: give both twiddle planes or neither")

@@ -33,7 +33,7 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
 from repro_torch.kernels.fft_block import MMA_LENGTHS, mma_factors, mma_tables_for
 from repro_torch.kernels.fft_pencil import tile_pencils
 
@@ -114,6 +114,9 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     if batch == 0:
         return
     body = _body or variant(n)
+    if re.device.type == 'meta':
+        report('fft_matmul', body, n, batch)
+        return
     n1, n2, P, smem = _shape(n, batch, body)
     scale = (1.0 / n) if inverse else 1.0
     ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
@@ -134,6 +137,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
             f"per tile, {smem} bytes of shared memory)")
     launches += 1
     launches_mma += body == 'mma'
+    report('fft_matmul', body, n, batch)
 
 
 def fft_matmul(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
@@ -142,7 +146,8 @@ def fft_matmul(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
 
     A CPU tensor runs :func:`fft_matmul_plain` over ``factors`` (n1, n2)
     (``ValueError`` unless n1 * n2 == n); a CUDA tensor launches the
-    kernel (or raises). Each CUDA body runs one split of n,
+    kernel (or raises); a ``meta`` tensor runs the card's checks and
+    returns its shapes, launching nothing. Each CUDA body runs one split of n,
     ``mma_factors(n)`` (the four-step's (n1, n2), or 16 x 16 x n/256 at
     n = 2048 and 4096): ``factors`` other than that split raise
     ``ValueError`` naming it."""

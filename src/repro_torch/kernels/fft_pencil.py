@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, stream_of
+from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
 
 #: pencils per block are chosen so a tile holds about this many elements
 TILE_ELEMS = 2048
@@ -166,6 +166,9 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     if batch == 0:
         return
     body = _body or variant(n)
+    if re.device.type == 'meta':
+        report('fft_pencil', body, n, batch)
+        return
     scale = (1.0 / n) if inverse else 1.0
     ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
     lib = _lib()
@@ -187,6 +190,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
                            f"(n={n}, {P} pencils per block, {smem} bytes of shared memory)")
     launches += 1
     launches_radix8 += body == 'radix8'
+    report('fft_pencil', body, n, batch)
 
 
 def fft_pencil(re: torch.Tensor, im: torch.Tensor, *,
@@ -194,7 +198,8 @@ def fft_pencil(re: torch.Tensor, im: torch.Tensor, *,
     """Batched Stockham FFT along the last axis of planar fp32 (..., n).
 
     A CPU tensor runs :func:`fft_pencil_plain`; a CUDA tensor launches
-    the kernel (or raises). Outputs are new contiguous tensors."""
+    the kernel (or raises); a ``meta`` tensor returns the card's shapes.
+    Outputs are new contiguous tensors."""
     n = check_planar('fft_pencil', re, im)
     if re.device.type == 'cpu':
         return fft_pencil_plain(re, im, inverse=inverse)

@@ -27,7 +27,11 @@ Each record has the reference's file name and fields: ``status``
 with ``error``), ``memory`` (a rank's bytes: its arguments, its outputs,
 the peak of the step's live intermediates as ``temp_size_in_bytes``, and
 ``fits_80gib``; the serving steps take the whole batch on every rank,
-so its bytes stand beside the block's), ``hlo`` (the step statistics),
+so its bytes stand beside the block's), ``heads`` (the query and kv
+heads of rank 0 and of the 'model' rank with the most: where the group
+does not divide the heads, that rank's step is counted too, its memory
+and roofline under ``heads.most``, and ``fits_80gib`` holds for both),
+``hlo`` (the step statistics),
 ``model_flops`` (6ND / 2ND / 2NB with the active parameters), ``params``,
 ``active_params`` and ``roofline`` with NVIDIA H100 constants.
 
@@ -86,7 +90,9 @@ def init_fake_world(world_size: int) -> None:
                                f'group of {dist.get_world_size()}')
         return
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group('fake', store=FakeStore(), rank=0, world_size=world_size)
+    # 'meta' too: a point-to-point batch asks its group for the tensors' device's backend
+    dist.init_process_group('cpu:fake,cuda:fake,meta:fake', store=FakeStore(), rank=0,
+                            world_size=world_size)
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,7 +149,9 @@ def build_cell(cfg, shape, mesh, *, sp: bool = False, microbatches: int = 1):
     B = shape.global_batch
     step, aux = make_decode_step(cfg, mesh, batch=B, cache_cap=shape.seq_len)
     params = rank_blocks(cfg, mesh, 'serve')[0]
-    caches = _blocks(aux['caches'], aux['c_sh'], mesh)
+    caches = tree_map(lambda t, ax: torch.empty(M.cache_block_shape(cfg, t.shape, ax, aux['rules']),
+                                                dtype=t.dtype, device='meta'),
+                      aux['caches'], M.cache_axes(cfg, B, shape.seq_len))
     tokens = batch_sds['tokens']
     t_sh = {'tokens': named_sharding(aux['rules'], tokens.shape, batch_axes['tokens'])}
     block = _nbytes(_blocks({'tokens': tokens}, t_sh, mesh))
@@ -179,10 +187,13 @@ def wire_by_link(st: hlostats.StepStats) -> Dict[str, Dict[str, float]]:
 
 def roofline_terms(stats: Dict) -> Dict:
     """Three per-step time lower bounds of one rank (seconds), with the
-    datasheet constants above: the products at the peak of their dtype,
-    ``hbm_bytes_proxy`` over HBM, and each collective's wire bytes over
-    its link (``stats['collective_wire_by_link']``)."""
+    datasheet constants above: the products at the peak of their dtype
+    and the hand-written kernels' flops (``kernel_flops``) at fp32's,
+    ``hbm_bytes_proxy`` (the kernels' bytes in it) over HBM, and each
+    collective's wire bytes over its link
+    (``stats['collective_wire_by_link']``)."""
     compute_s = sum(f / PEAK_FLOPS[dt] for dt, f in stats['dot_flops_by_dtype'].items())
+    compute_s += stats.get('kernel_flops', 0.0) / PEAK_FLOPS['float32']
     mem_bytes = stats['hbm_bytes_proxy']
     bw = {'nvlink': NVLINK_BW, 'infiniband': IB_BW}
     by_kind = {k: sum(b / bw[link] for link, b in links.items())
@@ -216,6 +227,42 @@ def _memory(args: Dict, out, st: hlostats.StepStats, batch: Tuple[int, int]) -> 
     return mem
 
 
+def rank_heads(cfg, mesh) -> Dict:
+    """The query and kv heads the rank of ``mesh`` (a mesh as a rank sees
+    it) attends with, and its index on 'model'."""
+    from repro_torch.models.attention import head_range, kv_head_range
+    tp, r = mesh.shape['model'], mesh.coordinate['model']
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    lo, hi = head_range(H, tp, r)
+    if H % tp == 0 and KH % tp:            # every kv head, attending with its own
+        klo, khi = 0, KH
+    else:
+        klo, khi = kv_head_range(H, KH, tp, r)
+    return {'model_index': r, 'q_heads': hi - lo, 'kv_heads': khi - klo}
+
+
+def most_heads_index(cfg, tp: int) -> int:
+    """The first 'model' index whose head range is the largest."""
+    from repro_torch.models.attention import head_range
+    counts = [hi - lo for lo, hi in (head_range(cfg.num_heads, tp, r) for r in range(tp))]
+    return counts.index(max(counts))
+
+
+def _count(cfg, shape, mesh, sp: bool, microbatches: int):
+    """Build one rank's step on ``mesh`` and count one run: (build s, step
+    s, its memory record, the statistics, the counter)."""
+    t0 = time.time()
+    call, args, batch = build_cell(cfg, shape, mesh, sp=sp, microbatches=microbatches)
+    t1 = time.time()
+    with hlostats.count() as st:
+        out = call()
+    t2 = time.time()
+    stats = st.analyze()
+    stats['num_partitions'] = mesh.size
+    stats['collective_wire_by_link'] = wire_by_link(st)
+    return t1 - t0, t2 - t1, _memory(args, out, st, batch), stats
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *, sp: bool = False,
              microbatches: int = 0, out_dir: str = 'results/dryrun_torch') -> dict:
     cfg = get_config(arch)
@@ -232,18 +279,25 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, sp: bool = False,
         return _emit(rec, out_dir)
     try:
         mesh = production_mesh(multi_pod)
-        t0 = time.time()
-        call, args, batch = build_cell(cfg, shape, mesh, sp=sp, microbatches=microbatches)
-        t1 = time.time()
-        with hlostats.count() as st:
-            out = call()
-        t2 = time.time()
-        stats = st.analyze()
-        n_chips = stats['num_partitions'] = mesh.size     # the fake group may hold more
-        stats['collective_wire_by_link'] = wire_by_link(st)
+        build_s, step_s, memory, stats = _count(cfg, shape, mesh, sp, microbatches)
+        n_chips = mesh.size                       # the fake group may hold more
+        if set(cfg.block_pattern) & {'attn', 'local_attn', 'mla'}:
+            rec['heads'] = {'rank0': rank_heads(cfg, mesh)}
+            most = most_heads_index(cfg, mesh.shape['model'])
+            if most != rec['heads']['rank0']['model_index']:
+                # the rank with the most heads holds the most cache and
+                # attention: count its step too, and judge the fit on both
+                other = mesh.seen_from(most)      # 'model' is the last axis
+                *_, mem2, stats2 = _count(cfg, shape, other, sp, microbatches)
+                rec['heads']['most'] = {**rank_heads(cfg, other), 'memory': mem2,
+                                        'roofline': roofline_terms(stats2)}
+                memory['fits_80gib_rank0'] = memory['fits_80gib']
+                memory['fits_80gib'] = memory['fits_80gib'] and mem2['fits_80gib']
+            else:
+                rec['heads']['most'] = rec['heads']['rank0']
         rec.update(
-            status='ok', n_chips=n_chips, build_s=round(t1 - t0, 2), step_s=round(t2 - t1, 2),
-            memory=_memory(args, out, st, batch), hlo=stats,
+            status='ok', n_chips=n_chips, build_s=round(build_s, 2), step_s=round(step_s, 2),
+            memory=memory, hlo=stats,
             model_flops=model_flops(cfg, shape), params=M.param_count(cfg),
             active_params=M.active_param_count(cfg),
             compute_dtype=str(PARAM_DTYPE).replace('torch.', ''),

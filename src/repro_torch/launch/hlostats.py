@@ -14,7 +14,7 @@ dry run), on gloo ranks and on the card.
 
     with hlostats.count() as st:
         step(params, batch)
-    st.analyze()      # the reference's keys, plus 'copies' and 'ops'
+    st.analyze()      # the reference's keys, plus 'copies', 'ops' and 'kernels'
 
 It reports, as the reference's ``analyze``:
 
@@ -39,6 +39,14 @@ and beside them ``copies`` (bytes written by ``copy_``, ``clone``, which
 the peak of live intermediate bytes: every storage an operation creates
 is counted from its creation until it is freed.
 
+The hand-written kernels launch through raw pointers, which no dispatch
+mode sees: each launch (on the card, or a ``meta`` tensor's, which
+launches nothing) reports to :data:`repro_torch.kernels.HOOKS`, where
+:func:`count` holds a hook. ``kernels`` counts them by kernel module:
+launches (also by body), bytes read and written (each plane once) and
+flops (5 n log2 n a pencil, fp32); their bytes are in
+``hbm_bytes_proxy`` and their flops in ``kernel_flops``.
+
 Not ported: ``shape_bytes``, ``parse_computations``,
 ``wire_ratio_from_spmd`` and ``compile_with_spmd_dump``, which read XLA
 text; the port's collectives run in their own dtype, so no wire
@@ -54,6 +62,8 @@ from typing import Dict, Iterator, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch import kernels as K
 
 COLLECTIVES = ('all-gather', 'all-reduce', 'reduce-scatter', 'all-to-all',
                'collective-permute')
@@ -178,6 +188,22 @@ class StepStats(TorchDispatchMode):
         self.peak_live_bytes = 0
         self._live: set = set()
         self._meta_results: Dict = {}
+        #: the hand-written kernels' launches by kernel module
+        self.kernels: Dict[str, Dict] = {}
+        self.kernel_flops = 0.0
+
+    def _kernel(self, rec: dict) -> None:
+        """A kernel launch's report (``repro_torch.kernels.report``)."""
+        k = self.kernels.setdefault(rec['name'], {'launches': 0, 'launches_by_body': {},
+                                                  'bytes_read': 0, 'bytes_written': 0,
+                                                  'flops': 0.0})
+        k['launches'] += 1
+        k['launches_by_body'][rec['body']] = k['launches_by_body'].get(rec['body'], 0) + 1
+        k['bytes_read'] += rec['bytes_read']
+        k['bytes_written'] += rec['bytes_written']
+        k['flops'] += rec['flops']
+        self.hbm_bytes += rec['bytes_read'] + rec['bytes_written']
+        self.kernel_flops += rec['flops']
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -289,13 +315,21 @@ class StepStats(TorchDispatchMode):
             'hbm_bytes_proxy': float(self.hbm_bytes),
             'copies': dict(self.copies),
             'ops': self.ops,
+            'kernels': {k: {**v, 'launches_by_body': dict(v['launches_by_body'])}
+                        for k, v in self.kernels.items()},
+            'kernel_flops': float(self.kernel_flops),
         }
 
 
 @contextlib.contextmanager
 def count() -> Iterator[StepStats]:
-    """Count what the block dispatches on this thread (see the module's
-    docstring); ``analyze()`` the result after the block."""
+    """Count what the block dispatches on this thread and the kernels it
+    launches (see the module's docstring); ``analyze()`` the result after
+    the block."""
     st = StepStats()
-    with st:
-        yield st
+    K.HOOKS.append(st._kernel)
+    try:
+        with st:
+            yield st
+    finally:
+        K.HOOKS.remove(st._kernel)

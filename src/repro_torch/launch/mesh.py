@@ -26,6 +26,7 @@ a group of ranks for the swap collectives.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import math
 from typing import Dict, Optional, Tuple
@@ -99,6 +100,17 @@ class FFTMesh:
         if self.device_mesh is None:
             return (0,)
         return tuple(int(r) for r in self._ranks.flatten())
+
+    def seen_from(self, position: int) -> 'FFTMesh':
+        """This mesh as the rank at ``position`` sees it: its coordinate,
+        and so its group indices and blocks, with this process's groups
+        and their members (``group``). The dry run counts another rank's
+        step with it on a ``fake`` group, whose collectives move
+        nothing; on a real group its results would be this rank's."""
+        other = copy.copy(self)
+        other._coord = tuple(self.coordinate_of(position).values())
+        other.group = self.group
+        return other
 
     def coordinate_of(self, position: Optional[int] = None) -> Dict[str, int]:
         """The coordinate of a mesh position (default: this rank's)."""
@@ -196,7 +208,10 @@ def make_fft_mesh(rows: int = 1, cols: int = 1, *, pods: int = 1,
     'cuda', and it raises when CUDA is absent rather than running on the
     CPU. A mesh of more than one rank needs an initialised default
     process group of at least that many ranks (NCCL for 'cuda', gloo
-    for 'cpu'); each rank uses ``cuda:<local index>``."""
+    for 'cpu'); each rank uses ``cuda:<local index>``. 'meta' places
+    the mesh on ``meta`` over a ``fake`` group (the dry run,
+    ``launch.dryrun.init_fake_world``): plans run the card's path on
+    shapes alone."""
     return _make_mesh(_axes_of(rows, cols, pods), device, 'make_fft_mesh')
 
 
@@ -223,6 +238,15 @@ def _make_mesh(shape: Dict[str, int], device: Optional[str], who: str) -> FFTMes
         raise RuntimeError(
             f"{who}: no CUDA device; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
+    # 'meta' (the dry run's): shapes only, over a fake group's cpu mesh
+    dm = _device_mesh(shape, 'cpu' if dev_type == 'meta' else dev_type, who)
+    dev = (torch.device('cuda', torch.cuda.current_device()) if dev_type == 'cuda'
+           else torch.device(dev_type))
+    return FFTMesh(shape, dev, device_mesh=dm)
+
+
+def _device_mesh(shape: Dict[str, int], dev_type: str, who: str):
+    """The ``DeviceMesh`` of a mesh of more than one rank (None for one)."""
     dm = None
     if math.prod(shape.values()) > 1:
         if not dist.is_initialized():
@@ -235,9 +259,7 @@ def _make_mesh(shape: Dict[str, int], device: Optional[str], who: str) -> FFTMes
         from torch.distributed.device_mesh import init_device_mesh
         dm = init_device_mesh(dev_type, tuple(shape.values()),
                               mesh_dim_names=tuple(shape))
-    dev = (torch.device('cuda', torch.cuda.current_device()) if dev_type == 'cuda'
-           else torch.device('cpu'))
-    return FFTMesh(shape, dev, device_mesh=dm)
+    return dm
 
 
 class AbstractFFTMesh:

@@ -41,6 +41,18 @@ MLA's normalized low-rank query, latent and roped key), and MQA's
 gathered ``wk``/``wv`` are reduce-scattered in the backward
 (``parallel.sharding``'s rule).
 
+Where the group does not divide the query heads (qwen1.5-32b's 40 and
+qwen2-vl-2b's 12 over 16 ranks) rank r of 'model' owns the contiguous
+query heads :func:`head_range`, ``[rH/p, (r+1)H/p)`` in floors, and the
+kv heads they pair with (:func:`kv_head_range`). Its weights stay the
+reference's even blocks at rest: at use ``wq`` (and its bias), ``wk``,
+``wv`` and ``wo`` are gathered a layer at a time (each rank uses them
+apart: the backward is a reduce-scatter) and narrowed to the rank's
+head columns of ``wq``/``wk``/``wv`` and rows of ``wo``. The output
+stays row-parallel; a rank that owns no head (12 heads over 16) adds
+zeros to the sum. Its cache keeps its own kv heads. MLA's ``wq_b``,
+``wkv_b`` and ``wo`` follow the same rule.
+
 Sequence parallelism (``sp=True``): :func:`ulysses_attention`, the
 reference's, on this rank's sequence block, through ``comm.swap_axes``.
 """
@@ -93,7 +105,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             for i in range(0, Sq, q_chunk)], dim=1)
     full_fp32_matmul(q.device)
     Skv, KH = k.shape[1], k.shape[2]
-    G = H // KH
+    G = H // KH if KH else 1          # a rank that owns no head: empty, still in the graph
     out_dtype = q.dtype          # NOT v.dtype: v may be a quantized cache
     q = (q.float() * D ** -0.5).reshape(B, Sq, KH, G, D)
     qpos = q_offset + torch.arange(Sq, device=q.device)
@@ -193,16 +205,47 @@ def ulysses_attention(q, k, v, mesh, *, seq_axis: str = 'model', causal: bool = 
     return swap_out(o)
 
 
+def head_range(H: int, p: int, index: int) -> Tuple[int, int]:
+    """The query heads ``[lo, hi)`` that rank ``index`` of a group of
+    ``p`` owns: ``[index H/p, (index+1) H/p)`` in floors. Where ``p``
+    does not divide ``H`` the counts differ by one, and some are 0 where
+    ``p > H``."""
+    return index * H // p, (index + 1) * H // p
+
+
+def kv_head_range(H: int, KH: int, p: int, index: int) -> Tuple[int, int]:
+    """The kv heads ``[lo, hi)`` that :func:`head_range`'s query heads
+    pair with (query head h with kv head h // (H / KH)); empty where the
+    rank owns no query head."""
+    lo, hi = head_range(H, p, index)
+    G = H // KH
+    return (lo // G, lo // G) if hi == lo else (lo // G, (hi - 1) // G + 1)
+
+
+def _pair(k, v, H: int, KH: int, index: int, p: int):
+    """``k``, ``v`` holding the kv heads :func:`kv_head_range` (axis -2),
+    in the order ``flash_attention`` pairs them with the query heads
+    :func:`head_range` (local query head j with local kv head
+    j // (Hl / KHl)): as they are where that is each query head's kv
+    head, else one kv head a query head (``index_select``; a range that
+    starts or ends inside a GQA group)."""
+    lo, hi = head_range(H, p, index)
+    klo, khi = kv_head_range(H, KH, p, index)
+    Hl, KHl, G = hi - lo, khi - klo, H // KH
+    want = [(lo + j) // G - klo for j in range(Hl)]
+    if Hl == 0 or (Hl % KHl == 0 and want == [j // (Hl // KHl) for j in range(Hl)]):
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(-2, idx), v.index_select(-2, idx)
+
+
 def _kv_block(k, v, H: int, index: int, p: int):
-    """The kv heads (axis -2 of every kv head) that query heads
-    ``[index H/p, (index+1) H/p)`` pair with."""
+    """Of ``k``, ``v`` holding every kv head (axis -2), those that query
+    heads :func:`head_range` pair with, in ``flash_attention``'s order
+    (:func:`_pair`)."""
     KH = k.shape[-2]
-    Hl, group = H // p, H // KH                 # local q heads; q heads a kv head
-    if Hl % group and group % Hl:
-        raise ValueError(f'q-head shard {Hl} incompatible with GQA group {group}')
-    count = max(1, Hl // group)
-    start = (index * Hl) // group
-    return k.narrow(-2, start, count), v.narrow(-2, start, count)
+    klo, khi = kv_head_range(H, KH, p, index)
+    return _pair(k.narrow(-2, klo, khi - klo), v.narrow(-2, klo, khi - klo), H, KH, index, p)
 
 
 # ---------------------------------------------------------------------------
@@ -219,38 +262,75 @@ def gqa_plan(cfg) -> Dict:
     }
 
 
+def uneven_heads(cfg, par) -> bool:
+    """Whether the 'model' group of ``par`` does not divide the query
+    heads: each rank then owns :func:`head_range`."""
+    return par is not None and cfg.num_heads % par.tp != 0
+
+
 def _kv_whole(par, cfg) -> bool:
-    """Whether this rank computes every kv head: the 'model' group does
-    not divide them (the reference's ``spec_for`` may still cut ``wk``'s
-    flattened column inside a head, so it is gathered at use)."""
-    return par is not None and cfg.num_kv_heads % par.tp != 0
+    """Whether this rank computes every kv head: the 'model' group
+    divides the query heads but not the kv heads (the reference's
+    ``spec_for`` may still cut ``wk``'s flattened column inside a head,
+    so it is gathered at use)."""
+    return par is not None and cfg.num_kv_heads % par.tp != 0 and not uneven_heads(cfg, par)
+
+
+def _apart(par, t, shape, axes):
+    """A leaf whole at use, which each rank uses apart (its heads): its
+    blocks gathered (backward: a reduce-scatter), or where the rules do
+    not cut it, the leaf entering the split (backward: the group's sum)."""
+    if any(par.spec(shape, axes)):
+        return par.whole(t, shape, axes, alike=False)
+    return par.enter(t)
+
+
+def _head_weights(p: Dict, par, cuts) -> Dict:
+    """``p`` with each leaf named in ``cuts`` (name -> (the whole
+    weight's shape, its logical axes, its head axis, the rank's heads
+    (lo, hi), the width of a head)) gathered whole at use
+    (:func:`_apart`) and narrowed to the rank's heads (all of them: kept
+    whole); a bias along the head axis too."""
+    out = dict(p)
+    for name, (shape, axes, dim, (lo, hi), hw) in cuts.items():
+        leaf = dict(p[name])
+        for key, t in p[name].items():
+            sh, ax = (shape, axes) if key == 'w' else ((shape[dim],), (axes[dim],))
+            d = dim if key == 'w' else 0
+            w = _apart(par, t, sh, ax)
+            leaf[key] = w if (hi - lo) * hw == w.shape[d] else w.narrow(d, lo * hw, (hi - lo) * hw)
+        out[name] = leaf
+    return out
 
 
 def _gqa_weights(p: Dict, cfg, par) -> Dict:
     """The block's weights as this rank computes with them: its blocks,
     with ``wk``/``wv`` gathered where it computes every kv head (and
-    attends with its own: the gathers' backward is a reduce-scatter)."""
-    if par is not None and cfg.num_heads % par.tp:
-        raise ValueError(f'{cfg.num_heads} heads not divisible by the model axis {par.tp}')
-    if not _kv_whole(par, cfg):
+    attends with its own: the gathers' backward is a reduce-scatter),
+    and ``wq``, ``wk``, ``wv`` gathered and narrowed to its heads where
+    the group does not divide the query heads (``wo``: :func:`_out`)."""
+    uneven = uneven_heads(cfg, par)
+    if not (uneven or _kv_whole(par, cfg)):
         return p
-    d, n = cfg.d_model, cfg.num_kv_heads * cfg.head_dim
-    out = dict(p)
-    for name in ('wk', 'wv'):
-        out[name] = {'w': par.whole(p[name]['w'], (d, n), ('embed', 'kv_heads'), alike=False)}
-        if 'b' in p[name]:
-            out[name]['b'] = par.whole(p[name]['b'], (n,), ('kv_heads',), alike=False)
-    return out
+    d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kr = kv_head_range(H, KH, par.tp, par.tp_index) if uneven else (0, KH)
+    cuts = {name: ((d, KH * hd), ('embed', 'kv_heads'), 1, kr, hd) for name in ('wk', 'wv')}
+    if uneven:
+        cuts['wq'] = ((d, H * hd), ('embed', 'heads'), 1, head_range(H, par.tp, par.tp_index), hd)
+    return _head_weights(p, par, cuts)
+
+
+def _heads(t, width: int):
+    """(B, S, heads * width) -> (B, S, heads, width); no ``-1``, which a
+    rank that owns no head (0 elements) cannot reshape."""
+    return t.reshape(*t.shape[:-1], t.shape[-1] // width, width)
 
 
 def gqa_qkv(p: Dict, cfg, x, positions):
     """Project + rope. x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KH,hd): the
     heads of the weights given (a rank's blocks on a mesh)."""
-    B, S, _ = x.shape
     hd = cfg.head_dim
-    q = L.apply_linear(p['wq'], x).reshape(B, S, -1, hd)
-    k = L.apply_linear(p['wk'], x).reshape(B, S, -1, hd)
-    v = L.apply_linear(p['wv'], x).reshape(B, S, -1, hd)
+    q, k, v = (_heads(L.apply_linear(p[n], x), hd) for n in ('wq', 'wk', 'wv'))
     if cfg.pos_kind == 'mrope':
         q = L.apply_mrope(q, positions, theta=cfg.rope_theta, sections=cfg.mrope_sections)
         k = L.apply_mrope(k, positions, theta=cfg.rope_theta, sections=cfg.mrope_sections)
@@ -261,17 +341,26 @@ def gqa_qkv(p: Dict, cfg, x, positions):
 
 
 def _attend_kv(k, v, cfg, par):
-    """The kv heads this rank attends with: all it holds, or where it
-    holds every kv head on a mesh, those its query heads pair with."""
+    """The kv heads this rank attends with: all it holds; where it holds
+    every kv head on a mesh, those its query heads pair with; where it
+    owns an uneven head range, its own paired with its query heads."""
+    if uneven_heads(cfg, par):
+        return _pair(k, v, cfg.num_heads, cfg.num_kv_heads, par.tp_index, par.tp)
     if not _kv_whole(par, cfg):
         return k, v
     return _kv_block(k, v, cfg.num_heads, par.tp_index, par.tp)
 
 
-def _out(p: Dict, o, par):
-    """The output projection of (B, S, heads, D): row-parallel on a mesh."""
-    B, S = o.shape[:2]
-    return L.row_parallel(o.reshape(B, S, -1), p['wo']['w'], par)
+def _out(p: Dict, o, cfg, par):
+    """The output projection of (B, S, heads, D): row-parallel on a mesh;
+    where the group does not divide the heads, ``wo`` gathered at use and
+    narrowed to the rows of this rank's :func:`head_range`."""
+    B, S, Hl, D = o.shape
+    if uneven_heads(cfg, par):
+        H = cfg.num_heads
+        p = _head_weights(p, par, {'wo': ((H * D, cfg.d_model), ('heads', 'embed'), 0,
+                                          head_range(H, par.tp, par.tp_index), D)})
+    return L.row_parallel(o.reshape(B, S, Hl * D), p['wo']['w'], par)
 
 
 def _gqa_sp(p: Dict, cfg, x, positions, *, window: int, par):
@@ -312,7 +401,7 @@ def gqa_apply(p: Dict, cfg, x, positions, *, window: int = 0, sp: bool = False, 
     q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x, positions)
     k, v = _attend_kv(k, v, cfg, par)
     o = flash_attention(q, k, v, causal=cfg.causal, window=window, chunk=cfg.attn_chunk)
-    return _out(p, o, par)
+    return _out(p, o, cfg, par)
 
 
 def gqa_prefill(p: Dict, cfg, x, positions, *, window: int = 0,
@@ -333,7 +422,7 @@ def gqa_prefill(p: Dict, cfg, x, positions, *, window: int = 0,
         q, k, v = gqa_qkv(_gqa_weights(p, cfg, par), cfg, x, positions)
         o = flash_attention(q, *_attend_kv(k, v, cfg, par), causal=cfg.causal, window=window,
                             chunk=cfg.attn_chunk)
-        out = _out(p, o, par)
+        out = _out(p, o, cfg, par)
     if not window:
         pad = _cache_pad(cache_cap, S)
         return out, {'k': F.pad(k, (0, 0, 0, 0, 0, pad)), 'v': F.pad(v, (0, 0, 0, 0, 0, pad))}
@@ -372,7 +461,7 @@ def gqa_decode_ring(p: Dict, cfg, x, cache: Dict, cache_len: int, *, window: int
     cache['kpos'][slot] = cache_len
     o = flash_attention(q, *_attend_kv(cache['k'], cache['v'], cfg, par), causal=True,
                         window=window, q_offset=cache_len, kv_positions=cache['kpos'], chunk=W)
-    return _out(p, o, par), cache
+    return _out(p, o, cfg, par), cache
 
 
 def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int, *, window: int = 0,
@@ -394,7 +483,7 @@ def gqa_decode(p: Dict, cfg, x, cache_k, cache_v, cache_len: int, *, window: int
     # single pass (chunk = the whole cache), as the reference
     o = flash_attention(q, *_attend_kv(cache_k, cache_v, cfg, par), causal=True, window=window,
                         q_offset=cache_len, kv_len=cache_len + 1, chunk=cache_k.shape[1])
-    return _out(p, o, par), cache_k, cache_v
+    return _out(p, o, cfg, par), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -425,11 +514,10 @@ def _mla_q(p: Dict, cfg, x, positions, par=None):
     ``q_norm`` (eps 1e-6, not ``cfg.norm_eps``, as the reference), RoPE
     on the last ``rh`` of each head. On a mesh the normalized low-rank
     query, computed alike on every rank, enters the heads split."""
-    B, S, _ = x.shape
     nh, rh = cfg.qk_nope_dim, cfg.rope_head_dim
     qa = L.apply_norm(p['q_norm'], L.apply_linear(p['wq_a'], x))
     q = L.apply_linear(p['wq_b'], _enter(qa, par))
-    q = q.reshape(B, S, -1, nh + rh)            # a rank's heads on a mesh
+    q = _heads(q, nh + rh)                       # a rank's heads on a mesh
     return torch.cat([q[..., :nh], L.apply_rope(q[..., nh:], positions, theta=cfg.rope_theta)],
                      dim=-1)
 
@@ -453,7 +541,7 @@ def _mla_qkv_from_latent(p: Dict, cfg, latent, k_rope, par=None):
     B, T = latent.shape[:2]
     nh, rh, vh = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
     latent, k_rope = _enter(latent, par), _enter(k_rope, par)
-    kv = L.apply_linear(p['wkv_b'], latent).reshape(B, T, -1, nh + vh)
+    kv = _heads(L.apply_linear(p['wkv_b'], latent), nh + vh)
     H = kv.shape[2]
     k = torch.cat([kv[..., :nh], k_rope[:, :, None].to(kv.dtype).expand(B, T, H, rh)], dim=-1)
     return k, kv[..., nh:]
@@ -469,17 +557,27 @@ def _mla_attend(p: Dict, cfg, q, latent, k_rope, par=None, **flash_kw):
     if vh < D:
         v = F.pad(v, (0, D - vh))
     o = flash_attention(q, k, v, causal=True, **flash_kw)[..., :vh]
-    return _out(p, o, par)
+    return _out(p, o, cfg, par)
 
 
-def _mla_check(cfg, par) -> None:
-    if par is not None and cfg.num_heads % par.tp:
-        raise ValueError(f'{cfg.num_heads} heads not divisible by the model axis {par.tp}')
+def _mla_weights(p: Dict, cfg, par) -> Dict:
+    """MLA's weights as this rank computes with them: its blocks, or
+    where the group does not divide the heads, ``wq_b`` and ``wkv_b``
+    gathered at use and narrowed to :func:`head_range` (``wo``:
+    :func:`_out`)."""
+    if not uneven_heads(cfg, par):
+        return p
+    H, qr, kvr = cfg.num_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+    nh, rh, vh = cfg.qk_nope_dim, cfg.rope_head_dim, cfg.v_head_dim
+    heads = head_range(H, par.tp, par.tp_index)
+    return _head_weights(p, par, {
+        'wq_b': ((qr, H * (nh + rh)), (None, 'heads'), 1, heads, nh + rh),
+        'wkv_b': ((kvr, H * (nh + vh)), ('kv_lora', 'heads'), 1, heads, nh + vh)})
 
 
 def mla_apply(p: Dict, cfg, x, positions, *, par=None):
     """Full-sequence (train/prefill) MLA."""
-    _mla_check(cfg, par)
+    p = _mla_weights(p, cfg, par)
     q = _mla_q(p, cfg, x, positions, par)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
     return _mla_attend(p, cfg, q, latent, k_rope, par, chunk=cfg.attn_chunk)
@@ -491,7 +589,7 @@ def mla_prefill(p: Dict, cfg, x, positions, *, cache_cap: Optional[int] = None, 
     ``cache_cap`` positions (a cap under the prompt raises). The
     reference recomputes the latent for the cache; here one computation
     serves both."""
-    _mla_check(cfg, par)
+    p = _mla_weights(p, cfg, par)
     S = x.shape[1]
     pad = _cache_pad(cache_cap, S)
     q = _mla_q(p, cfg, x, positions, par)
@@ -507,6 +605,7 @@ def mla_decode(p: Dict, cfg, x, cache_latent, cache_krope, cache_len: int, *, pa
     whole cache through ``wkv_b`` each step, as the reference does.
     Returns (out, cache_latent, cache_krope)."""
     B = x.shape[0]
+    p = _mla_weights(p, cfg, par)
     positions = torch.full((B, 1), cache_len, device=x.device)
     q = _mla_q(p, cfg, x, positions, par)
     latent, k_rope = _mla_latent(p, cfg, x, positions)

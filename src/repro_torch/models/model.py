@@ -33,7 +33,10 @@ embedding and the head vocab-parallel (the logits gathered whole), the
 MoE feed-forward expert-parallel (``moe.moe_ep_explicit``), the SSD's,
 RG-LRU's and FFT-conv mixer's sharded leaves gathered at use
 (``GATHERED_KINDS``). The caches are laid out as :func:`cache_axes`
-says. On a 1 x 1 mesh every step is the one-rank step.
+says. Attention whose heads the 'model' group does not divide runs each
+rank's contiguous head range (``attention.head_range``); an MLP whose
+hidden width it does not divide is whole on every rank and computed
+alike. On a 1 x 1 mesh every step is the one-rank step.
 
 With the train rules (the sharded trainer, ``repro_torch.train``)
 every leaf is also cut over 'data' on its 'embed' dimension (FSDP):
@@ -287,9 +290,17 @@ def _ffn(p: Dict, cfg, x, par=None, dp=None, fsdp_axes=None):
         return x, None
     h = L.apply_norm(p['norm2'], x, cfg.norm_eps)
     if fk == 'mlp':
-        return x + L.apply_mlp(p['mlp'], h, act=cfg.act, par=par), None
+        return x + L.apply_mlp(p['mlp'], h, act=cfg.act, par=_mlp_par(cfg, par)), None
     y, aux = _moe_ffn(p['moe'], cfg, h, par, dp, fsdp_axes)
     return x + y, aux
+
+
+def _mlp_par(cfg, par):
+    """``par`` where the 'model' group cuts the MLP's hidden width, else
+    None: ``spec_for`` leaves an MLP whose ``d_ff`` the group does not
+    divide whole on every rank (internlm2-1.8b's 8192 over 3), and every
+    rank computes it alike, with no sum."""
+    return par if par is not None and cfg.d_ff % par.tp == 0 else None
 
 
 def _moe_ffn(p: Dict, cfg, h, par=None, dp=None, fsdp_axes=None):
@@ -513,17 +524,35 @@ def cache_plan(cfg, B: int, cap: int) -> Dict:
     return plan
 
 
+def cache_block_shape(cfg, shape, axes, rules, index: Optional[int] = None) -> Tuple[int, ...]:
+    """A rank's block of a cache leaf of whole ``shape`` and logical
+    ``axes`` (:func:`cache_axes`'s) under ``rules``: ``local_shape`` of
+    its spec, and where the 'model' group does not divide the query
+    heads, the kv heads of the rank's head range on the 'kv_heads' axis
+    (``attention.kv_head_range``). ``index``: the rank's index on
+    'model' (default this rank's)."""
+    out = list(local_shape(shape, spec_for(rules, shape, axes), rules.mesh))
+    tp = rules.mesh.shape.get('model', 1)
+    if 'kv_heads' in axes and cfg.num_heads % tp:
+        if index is None:
+            index = comm.group_index(rules.mesh, 'model')
+        lo, hi = attn.kv_head_range(cfg.num_heads, cfg.num_kv_heads, tp, index)
+        out[tuple(axes).index('kv_heads')] = hi - lo
+    return tuple(out)
+
+
 def init_cache(cfg, B: int, cap: int, *, rules=None, device='cpu'):
     """Empty caches (zeros; the ring's positions -1) in ``cfg.cache_dtype``:
     whole on ``device``, or with ``rules`` this rank's blocks of
-    :func:`cache_axes`'s layout on ``rules.mesh``'s device."""
+    :func:`cache_axes`'s layout (:func:`cache_block_shape`) on
+    ``rules.mesh``'s device."""
     if rules is not None:
         device = rules.mesh.device
 
     def fill(p: PSpec, axes):
         shape = p.shape
         if rules is not None:
-            shape = local_shape(shape, spec_for(rules, shape, axes), rules.mesh)
+            shape = cache_block_shape(cfg, shape, axes, rules)
         return torch.full(shape, -1 if p.init == 'neg1' else 0,
                           dtype=p.dtype or cfg.cache_dtype, device=device)
     return L.tree_map(fill, cache_plan(cfg, B, cap), cache_axes(cfg, B, cap))
@@ -543,8 +572,10 @@ _CACHE_UNSHARDED = ('kv_seq', 'heads')
 def cache_axes(cfg, B: int, cap: int):
     """The logical axes of the port's caches, the layout it keeps them in
     on a mesh: the reference's (``cache_plan``) with 'kv_seq' and 'heads'
-    unsharded. A rank's attention cache holds its kv heads (all of them
-    where the 'model' group does not divide them), MLA's the whole latent,
+    unsharded. A rank's attention cache holds its kv heads: all of them
+    where the 'model' group divides the query heads but not the kv heads,
+    those of its head range where it does not divide the query heads
+    (:func:`cache_block_shape`). MLA's holds the whole latent,
     the SSD's and RG-LRU's the whole state: batch over 'data' only."""
     return L.tree_map(lambda p: tuple(None if a in _CACHE_UNSHARDED else a for a in p.axes),
                       cache_plan(cfg, B, cap))

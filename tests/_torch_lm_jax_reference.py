@@ -11,7 +11,8 @@ Run in a subprocess, so the test process keeps one device:
   the worker's cases, and ``group_index`` / ``group_size`` of each axis,
   on ('x', 'y') meshes of 2 x 2 and 1 x 4.
 * ``lm``: ``repro.serve.ServeEngine`` on ('data', 'model') meshes of 2 x 2
-  and 1 x 4 for each of the worker's configs (the port's parameters,
+  and 1 x 4 for each of the worker's configs (``UNEVEN``'s on their own
+  mesh only; the port's parameters,
   carried across by ``repro_torch.weights``): the greedy tokens and the
   logits of prefill and each decode step.
 * ``ops``: ``ulysses_attention`` and ``moe_ep_explicit`` on the same
@@ -52,6 +53,13 @@ import _torch_lm_multirank_worker as W  # noqa: E402
 
 MESHES = {'2x2': (2, 2), '1x4': (1, 4)}
 TRAIN_MESHES = {'2x2': (2, 2), '1x4': (1, 4), '4x1': (4, 1)}
+
+
+def ref_lm_config(arch):
+    """The reference's smoke config of a worker case (``W.base_arch``)."""
+    import dataclasses
+    base, over = W.base_arch(arch)
+    return dataclasses.replace(ref_smoke(ref_config(base)), **over)
 
 
 def _mesh(shape, names):
@@ -101,12 +109,14 @@ def comm_results():
 
 def lm_results():
     out = {}
-    for arch in W.LM_ARCHS:
-        cfg, rcfg = W.lm_config(arch), ref_smoke(ref_config(arch))
+    for arch in W.LM_ARCHS + tuple(W.UNEVEN):
+        cfg, rcfg = W.lm_config(arch), ref_lm_config(arch)
         rparams = tree_map(jnp.asarray, params_to_reference(W.lm_params(cfg)))
         prompts = {k: jnp.asarray(v) for k, v in W.lm_prompts(cfg).items()}
-        S = W.PROMPTS.get(arch, W.PROMPT)
+        S = W.PROMPTS.get(cfg.name, W.PROMPT)
         for name, shape in MESHES.items():
+            if arch not in W.lm_archs(name):
+                continue
             mesh = _mesh(shape, ('data', 'model'))
             with mesh:
                 eng = ServeEngine(rcfg, mesh, rparams, batch=W.LM_BATCH, prompt_len=S,
@@ -158,7 +168,7 @@ def train_results(group: str):
         if arch == 'fftconv':
             continue
         cfg = W.train_config(arch)
-        rcfg = dataclasses.replace(ref_smoke(ref_config(arch)), remat=True)
+        rcfg = dataclasses.replace(ref_lm_config(arch), remat=True)
         mesh = _mesh(TRAIN_MESHES[mesh_name], ('data', 'model'))
         sds, axes = ref_input_specs(rcfg, RefShapeSpec('train', 'train', S, B), jnp.float32)
         with mesh:

@@ -5,7 +5,7 @@ Run in a subprocess so the test process never initialises a process
 group:
 
     python tests/_torch_lm_multirank_worker.py OUT PORT [cpu|cuda]
-        [--mesh 2x2|1x4] [--suite comm|lm|ops|bench|train|trainbench]
+        [--mesh 2x2|1x4|1x3] [--suite comm|lm|ops|bench|train|trainbench]
         [--ref REF.npz] [--rows ARCH:DTYPE[:LAYERS] ...] [--group a|b]
 
 Every rank makes the same global operands and parameters from seeds and
@@ -30,7 +30,7 @@ takes its blocks of them. Rank 0 writes OUT: a JSON of records
 * ``ops``: ``ulysses_attention`` (``ULYSSES_CASES``) and
   ``moe_ep_explicit`` (``MOE_CASES``) on this rank's blocks, with
   ``overlap_chunks`` 1 and 2, gathered whole.
-* ``bench`` (``cuda``, 1 x 4 or 2 x 2): the four-card rows of
+* ``bench`` (``cuda``, 1 x 4, 2 x 2 or 1 x 3): the multi-card rows of
   ``benchmarks/torch_multirank_cuda.py --suite lm`` (``BENCH_ROWS``).
 * ``train`` (``--group``, the cases of one test file, ``TRAIN_CASES``):
   the sharded trainer (``jit_train_step``) on meshes of 2 x 2, 1 x 4 and
@@ -132,9 +132,35 @@ NO_DROP_CF = 8.0
 SP_ARCHS = ('internlm2-1.8b', 'recurrentgemma-9b')
 
 
+#: configs whose query heads the 'model' group does not divide (each rank
+#: its ``attention.head_range``): case -> (arch, heads, kv heads, mesh),
+#: the arch's smoke config with these head counts, served (``lm``) and
+#: trained (``TRAIN_CASES['b']``) on that mesh only: MHA with qkv bias
+#: and GQA with groups of 3, 6 heads over 4; MQA with embeds and M-RoPE,
+#: 5 heads over 2
+UNEVEN = {'mha6': ('qwen1.5-32b', 6, 6, '1x4'), 'gqa6': ('internlm2-1.8b', 6, 2, '1x4'),
+          'odd5': ('qwen2-vl-2b', 5, 1, '2x2')}
+
+
+def base_arch(arch: str):
+    """(the published arch, the smoke config's overrides) of a case name:
+    an arch, or a key of ``UNEVEN``."""
+    if arch in UNEVEN:
+        base, H, KH, _ = UNEVEN[arch]
+        return base, dict(num_heads=H, num_kv_heads=KH)
+    return arch, {}
+
+
 def lm_config(arch, cf=None):
-    cfg = smoke_config(get_config(arch))
+    base, over = base_arch(arch)
+    cfg = dataclasses.replace(smoke_config(get_config(base)), **over)
     return cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
+
+
+def lm_archs(mesh_name: str) -> tuple:
+    """The ``lm`` suite's cases on a mesh: every arch of ``LM_ARCHS``,
+    then the ``UNEVEN`` cases of that mesh."""
+    return LM_ARCHS + tuple(a for a, c in UNEVEN.items() if c[3] == mesh_name)
 
 
 def mrope_positions(B: int, S: int, grid: int) -> np.ndarray:
@@ -204,7 +230,8 @@ TRAIN_CASES = {
           ('1x4/dbrx-132b', 'dbrx-132b', '1x4', False),
           ('4x1/internlm2-1.8b', 'internlm2-1.8b', '4x1', False),
           ('4x1/dbrx-132b', 'dbrx-132b', '4x1', False),
-          ('2x2/fftconv', 'fftconv', '2x2', False)],
+          ('2x2/fftconv', 'fftconv', '2x2', False)]
+    + [(f'{c[3]}/{name}', name, c[3], False) for name, c in UNEVEN.items()],
 }
 #: a train case's global batch (rows, positions), microbatches, steps,
 #: batch seed (step k draws seed + k) and schedule
@@ -348,7 +375,7 @@ def _lm_suite(mesh, mesh_name, ref) -> dict:
     back = gather_tree(shard_tree(whole, axes, rules, mesh), whole, axes, rules, mesh)
     out['gather_tree_roundtrip'] = torch.tensor(all(
         torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(whole))))
-    for arch in LM_ARCHS:
+    for arch in lm_archs(mesh_name):
         cfg = lm_config(arch)
         prompts = {k: torch.as_tensor(v) for k, v in lm_prompts(cfg).items()}
         ref_tokens = torch.as_tensor(ref[f'{arch}/tokens'])
@@ -640,7 +667,15 @@ def _draws(meshes) -> dict:
 BENCH_ROWS = {'1x4': [('qwen1.5-32b', torch.float32, (8, 2048), None),
                       ('dbrx-132b', torch.bfloat16, (8, 2048), None),
                       ('dbrx-132b', torch.float32, (2, 2048), 16)],
-              '2x2': [('internlm2-1.8b', torch.float32, (8, 2048), None)]}
+              '2x2': [('internlm2-1.8b', torch.float32, (8, 2048), None)],
+              # three cards divide no head count: each rank its head range
+              # (16 over 3: 5, 5, 6; 40: 13, 13, 14). 3 divides neither
+              # d_model nor d_ff of either, so their projections and MLPs
+              # stay whole on every card: qwen1.5-32b holds about 64 GiB of
+              # bf16 weights a card, and its dry-run count on a fake 1 x 3
+              # put 8 prompts at 89 GiB a card, 2 at 70
+              '1x3': [('internlm2-1.8b', torch.float32, (8, 2048), None),
+                      ('qwen1.5-32b', torch.bfloat16, (2, 2048), None)]}
 #: the config drawn whole on every rank and also served by rank 0 alone
 #: on its card, the one-card run its sharded logits are held against
 ONE_CARD_ARCH, ONE_CARD_REL, ONE_CARD_MARGIN = 'internlm2-1.8b', 1e-5, 1e-3
@@ -1156,7 +1191,7 @@ if __name__ == '__main__':
     ap.add_argument('out')
     ap.add_argument('port', type=int)
     ap.add_argument('device', nargs='?', default='cpu', choices=('cpu', 'cuda'))
-    ap.add_argument('--mesh', default='2x2', choices=('2x2', '1x4'))
+    ap.add_argument('--mesh', default='2x2', choices=('2x2', '1x4', '1x3'))
     ap.add_argument('--suite', default='lm',
                     choices=('comm', 'lm', 'ops', 'bench', 'train', 'trainbench'))
     ap.add_argument('--group', default='a', choices=tuple(TRAIN_CASES),

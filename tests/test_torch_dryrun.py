@@ -18,8 +18,9 @@ production cell at full width and depth on ``meta`` tensors under a
   deepseek-v2-236b decode_32k, hubert-xlarge train_4k) and on one cell
   on 2 x 16 x 16: each is ``ok`` with its record's bytes as above and
   internlm2-1.8b decode_32k's collectives are the hand count from the
-  port's sharding rules; the command line writes the reference's
-  ``skipped`` records.
+  port's sharding rules; qwen1.5-32b decode_32k (40 heads over 16) fits
+  on its rank with the most heads, whose cache holds 3/40 of the whole;
+  the command line writes the reference's ``skipped`` records.
 """
 import json
 import math
@@ -29,6 +30,7 @@ import sys
 
 import jax
 import pytest
+import torch
 
 from repro.configs import ARCHS as REF_ARCHS, SHAPES as REF_SHAPES
 from repro.configs import skip_reason as ref_skip_reason
@@ -47,7 +49,7 @@ MESHES = {False: {'data': 16, 'model': 16}, True: {'pod': 2, 'data': 16, 'model'
 CELLS = [('internlm2-1.8b', 'decode_32k', False), ('mamba2-1.3b', 'long_500k', False),
          ('recurrentgemma-9b', 'prefill_32k', False), ('dbrx-132b', 'train_4k', False),
          ('deepseek-v2-236b', 'decode_32k', False), ('hubert-xlarge', 'train_4k', False),
-         ('internlm2-1.8b', 'decode_32k', True)]
+         ('internlm2-1.8b', 'decode_32k', True), ('qwen1.5-32b', 'decode_32k', False)]
 
 
 class _MeshShape:
@@ -198,6 +200,29 @@ def test_internlm2_decode_collectives_are_the_hand_count(records):
     for multi in (False, True):
         counts = records['internlm2-1.8b', 'decode_32k', multi]['hlo']['collective_counts']
         assert counts == {'all-reduce': 2 * L + 1, 'all-gather': 2 * L + 2}, multi
+
+
+def test_uneven_heads_cell_holds_its_own_kv_heads(records):
+    """qwen1.5-32b decode_32k on 16 x 16: 40 heads over 16 'model' ranks,
+    2 or 3 a rank (``attention.head_range``). The cell is ``ok`` and fits
+    80 GiB on rank 0 and on the rank with the most heads, whose step is
+    counted too, and each rank's cache is its heads' share of the whole:
+    3/40 on the largest, 2/40 on rank 0."""
+    rec = records['qwen1.5-32b', 'decode_32k', False]
+    assert rec['status'] == 'ok', rec.get('error')
+    cfg, shape = get_config('qwen1.5-32b'), SHAPES['decode_32k']
+    heads = rec['heads']
+    assert heads['rank0'] == {'model_index': 0, 'q_heads': 2, 'kv_heads': 2}
+    most = heads['most']
+    assert (most['model_index'], most['q_heads'], most['kv_heads']) == (1, 3, 3)
+    itemsize = torch.empty((), dtype=cfg.cache_dtype).element_size()
+    whole = (cfg.num_layers * 2 * (shape.global_batch // 16) * shape.seq_len * cfg.num_kv_heads
+             * cfg.head_dim * itemsize)              # a data row's cache, every head
+    assert most['memory']['by_role']['caches'] * cfg.num_heads == whole * 3
+    assert rec['memory']['by_role']['caches'] * cfg.num_heads == whole * 2
+    assert most['memory']['fits_80gib'] and rec['memory']['fits_80gib_rank0']
+    assert rec['memory']['fits_80gib']
+    assert most['memory']['by_role']['params'] == rec['memory']['by_role']['params']
 
 
 def test_command_line_writes_skipped_records(tmp_path):

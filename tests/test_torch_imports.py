@@ -147,3 +147,11 @@ def test_the_check_sees_the_examples_and_paper_scripts():
     assert {'torch_quickstart.py', 'torch_spectral_solver.py', 'torch_fft_service.py'} <= examples
     assert {f'torch_paper_{s}.py' for s in ('table1', 'table2', 'fig3', 'fig4',
                                             'fig567')} <= names
+
+
+def test_the_check_sees_the_roofline_and_bench_scripts():
+    """The FFT dry run, the summary, the two counting benchmarks, their
+    helper and the runner are under the check."""
+    names = {p.name for p in FILES}
+    assert {'torch_roofline_fft.py', 'torch_roofline.py', 'torch_bench_rfft.py',
+            'torch_bench_fftconv.py', 'torch_bench_util.py', 'torch_run.py'} <= names

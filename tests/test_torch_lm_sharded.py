@@ -27,7 +27,9 @@ reference is ``repro.serve.ServeEngine`` on the same meshes
   ``moe_ep_explicit`` against the reference's, ``overlap_chunks`` 1 and
   2, max gap over the largest magnitude <= 1e-5;
 * ``gather_tree`` of ``shard_tree`` gives the whole tree back; each
-  rank's caches have the shapes of its ``init_cache`` blocks.
+  rank's caches have the shapes of its ``init_cache`` blocks;
+* three smoke configs whose query heads the 'model' group does not
+  divide (``W.UNEVEN``, each on its own mesh), held as above.
 """
 import os
 import socket
@@ -102,12 +104,14 @@ def one_rank(results):
     ref, _ = results
     out = {}
     mesh = make_host_mesh(1, 1, device='cpu')
-    for arch in W.LM_ARCHS:
+    for arch in W.LM_ARCHS + tuple(W.UNEVEN):
         cfg = W.lm_config(arch, W.NO_DROP_CF if W.lm_config(arch).moe else None)
         params = W.lm_params(cfg)
         prompts = {k: torch.as_tensor(v) for k, v in W.lm_prompts(cfg).items()}
-        S = W.PROMPTS.get(arch, W.PROMPT)
+        S = W.PROMPTS.get(cfg.name, W.PROMPT)
         for m in MESHES:
+            if arch not in W.lm_archs(m):
+                continue
             with ServeEngine(cfg, mesh, params, batch=W.LM_BATCH, prompt_len=S,
                              max_len=S + W.LM_STEPS) as eng:
                 out[m, arch] = W._teacher_forced(eng, prompts,
@@ -170,6 +174,28 @@ def test_prefill_caches_are_laid_out_as_cache_axes(results, mesh, arch):
     """Each rank's caches from prefill have the shapes of its blocks of
     ``init_cache`` under ``cache_axes`` (the heads layout)."""
     _, got = results
+    assert bool(got[mesh][f'{arch}/cache_layout'])
+
+
+@pytest.mark.parametrize('arch', list(W.UNEVEN))
+def test_uneven_heads_serve_as_the_reference_engine(results, one_rank, arch):
+    """A config whose query heads the 'model' group does not divide
+    (``W.UNEVEN``: 6 MHA heads with qkv bias and 6 GQA heads over 2 kv
+    heads on 1 x 4; 5 MQA heads with embeds and M-RoPE on 2 x 2), each
+    rank its ``head_range``: the logits within ``REL`` of the reference's
+    engine and of the one-rank port, the tokens as
+    ``test_generated_tokens_match_the_reference_engine`` holds them, and
+    each rank's caches its ``init_cache`` blocks (its own kv heads)."""
+    ref, got = results
+    mesh = W.UNEVEN[arch][3]
+    logits, want = got[mesh][f'{arch}/logits'], ref[f'{mesh}/{arch}/logits']
+    assert _rel(logits, want) <= REL
+    assert _rel(logits, one_rank[mesh, arch].numpy()) <= REL
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    wide = np.cumprod(top2[..., 1] - top2[..., 0] > MARGIN, axis=1).astype(bool)
+    assert wide.any()
+    np.testing.assert_array_equal(got[mesh][f'{arch}/tokens'][wide],
+                                  ref[f'{mesh}/{arch}/tokens'][wide])
     assert bool(got[mesh][f'{arch}/cache_layout'])
 
 

@@ -9,8 +9,12 @@ SSD's leaves gathered at use) and qwen2-vl-2b (embeds, M-RoPE positions
 over a 4 x 4 patch grid, cut on their second axis) on 2 x 2, and
 internlm2-1.8b and dbrx-132b on 1 x 4 (tensor and expert parallel alone;
 internlm2's two kv heads gathered at use) and on 4 x 1 (FSDP alone, the
-MoE on its scatter path), as ``test_torch_train_sharded.py`` trains its
-cases and with its limits and reasons (measured at most: metrics
+MoE on its scatter path), and the smoke configs whose query heads the
+'model' group does not divide (``W.UNEVEN``: 6 MHA heads with qkv bias
+and 6 GQA heads over 2 kv heads on 1 x 4, 5 MQA heads with embeds and
+M-RoPE on 2 x 2, each rank its ``head_range``), as
+``test_torch_train_sharded.py`` trains its cases and with its limits and
+reasons (measured at most: metrics
 2.8e-7, trees 2.3e-6, m and v leaves 3.5e-6; qwen2-vl-2b's key bias,
 not held leaf by leaf, 3.4e-3): the reference is
 ``_torch_lm_jax_reference.py train b``. The FFT-conv LM's mesh path in
