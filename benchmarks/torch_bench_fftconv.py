@@ -125,8 +125,7 @@ def main(argv=None) -> None:
         with open(args.count, 'w') as fh:
             json.dump(count_rows(n, batch, strategies), fh)
         return
-    if args.device == 'cuda' and not torch.cuda.is_available():
-        raise SystemExit('--device cuda: no CUDA device; pass --device cpu')
+    U.need_device(args.device)
     mesh = U.timing_mesh(args.mesh, args.device)
     lead = mesh.position == 0
     counts = U.counted(os.path.abspath(__file__),

@@ -1,15 +1,21 @@
 """The port's benchmark runner: one section a paper table or figure, the
-rfft and FFT-conv benchmarks, and the roofline summary of the dry-run
+wsFFT rows, the card benchmarks, and the roofline summary of the dry-run
 records where there are any.
 
-Port of ``benchmarks/run.py`` for the scripts that exist: the five
+Port of ``benchmarks/run.py``, section for section: the five
 ``torch_paper_*.py`` (the paper's model; fig3's part (b) times the
-port's pencils on ``--device``), ``torch_bench_rfft.py``,
-``torch_bench_fftconv.py`` and ``torch_roofline.py``. Each runs in a
+port's pencils on ``--device``); the wsFFT rows
+(``torch_wsfft_worker.py`` on 1 x 1: n = 256 and 512 on the card, the
+reference's 32 and 64 on the CPU, ``auto`` and at the larger n also
+``stockham``); ``torch_bench_rfft.py``, ``torch_bench_fftconv.py``,
+``torch_bench_serve_fft.py``, ``torch_bench_serve_service.py``,
+``torch_bench_kernels.py``; and ``torch_roofline.py``. Each runs in a
 subprocess; a script that fails prints ``<name>,nan,FAILED`` and the
 end of its errors, and the runner exits non-zero. ``--smoke`` skips the
-paper sections and runs the two benchmarks at their CI sizes. Records
-go under the checkout's ``results/``.
+paper sections and the wsFFT rows and runs the benchmarks at their CI
+sizes. Records go under the checkout's ``results/``. As ``run.py`` does
+not, it does not run the swap benchmark, which needs four ranks
+(``torch_bench_redistribute.py``, README).
 
     python3 benchmarks/torch_run.py [--smoke] [--device cuda|cpu]
 
@@ -61,14 +67,28 @@ def main(argv=None) -> None:
         for title, name in PAPER:
             _section(title)
             ok &= _script(name, *(dev if name == 'torch_paper_fig3.py' else ()))
+        _section('Distributed wsFFT on 1x1 (wall clock on the device)')
+        sizes = (256, 512) if args.device == 'cuda' else (32, 64)
+        for n, method in ((sizes[0], 'auto'), (sizes[1], 'auto'), (sizes[1], 'stockham')):
+            ok &= _script('torch_wsfft_worker.py', '1', '1', str(n), method, *dev)
     size = ['--smoke'] if args.smoke else ['--n', '32']
+    smoke = ['--smoke'] if args.smoke else []
     results = os.path.join(ROOT, 'results')
     _section('rfft vs complex plans (counted on the fake 4x4, timed on the device)')
     ok &= _script('torch_bench_rfft.py', *size, *dev,
                   '--out', os.path.join(results, 'bench_torch_rfft.json'))
     _section('FFT-conv operator plans: fused vs unfused (counted on the fake 4x4)')
-    ok &= _script('torch_bench_fftconv.py', *(['--smoke'] if args.smoke else []), *dev,
+    ok &= _script('torch_bench_fftconv.py', *smoke, *dev,
                   '--out', os.path.join(results, 'bench_torch_fftconv.json'))
+    _section('FFT serving: sequential loop vs batched engine (1x1)')
+    ok &= _script('torch_bench_serve_fft.py', *smoke, *dev,
+                  '--out', os.path.join(results, 'bench_torch_serve_fft.json'))
+    _section('FFT service: socket overhead + adaptive drainer policy')
+    ok &= _script('torch_bench_serve_service.py', *smoke, *dev,
+                  '--out', os.path.join(results, 'bench_torch_serve_service.json'))
+    _section('Kernel tier: local methods + fused superstep A/B')
+    ok &= _script('torch_bench_kernels.py', *smoke, *dev,
+                  '--out', os.path.join(results, 'bench_torch_kernels.json'))
     records = os.path.join(results, 'dryrun_torch')
     if glob.glob(os.path.join(records, '*.json')):
         _section('Roofline summary (from the dry-run records)')

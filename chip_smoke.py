@@ -211,7 +211,11 @@ Phases, each printing one line and raising on any failure:
    ``benchmarks/torch_paper_*.py`` scripts (959 us, 18.9 and 32.7 TF/s,
    18% over the DGX; each must print the reference's line verbatim) and
    ``torch_paper_fig3.py --batch 32768``'s GFLOP/s of each pencil on the
-   card; then ``[path] label=large1d_factor_order``:
+   card; ``[bench]``: ``benchmarks/torch_bench_kernels.py``,
+   ``torch_bench_serve_fft.py`` and ``torch_bench_serve_service.py``
+   with ``--smoke --device cuda``, the three subprocesses at once (each
+   one's rows written, every served result bitwise, its seconds); then
+   ``[path] label=large1d_factor_order``:
    ``make_fft1d_large``'s default, the factor-transposed D-form of the 8
    signals of 2^24 as (8, 4096, 4096), four_step (2 ``fft_matmul`` a
    direction on the tensor-core body) and stockham (1 ``fft_fused`` with
@@ -1051,10 +1055,14 @@ PAPER_LINES = {
 FIG3_BATCH = 32768
 
 
-def _script_lines(name: str, argv=()) -> list:
-    """The lines ``benchmarks/<name>.py`` prints, run in this process."""
+def _script_lines(name: str, argv=(), own_process: bool = False) -> list:
+    """The lines ``benchmarks/<name>.py`` prints, run in this process or,
+    with ``own_process``, in a process of its own (``_run``: a non-zero
+    exit raises)."""
     import io
     path = os.path.join(ROOT, 'benchmarks', f'{name}.py')
+    if own_process:
+        return _run([sys.executable, path, *argv], timeout=300).stdout.splitlines()
     old = sys.argv
     sys.argv = [path, *argv]
     buf = io.StringIO()
@@ -1085,6 +1093,42 @@ def phase_paper(card: str) -> None:
         raise AssertionError(f"torch_paper_fig3: {lines[-8:]}")
     say('paper', script='torch_paper_fig3', batch=FIG3_BATCH, gflops=json.dumps(rates),
         card=json.dumps(card), seconds=f"{time.perf_counter() - t0:.3g}")
+
+
+#: the card benchmarks ``[bench]`` runs at their CI size
+BENCH_SCRIPTS = ('torch_bench_kernels', 'torch_bench_serve_fft', 'torch_bench_serve_service')
+
+
+def phase_bench() -> None:
+    """``[bench]``: each card benchmark's ``--smoke --device cuda`` in a
+    process of its own, the three at once (their smoke runs assert no
+    time), their records in a temporary directory: its rows written,
+    every served result bitwise its per-request call, and the line of
+    its seconds."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+
+    def run(name: str, tmp: str) -> tuple:
+        t = time.perf_counter()
+        out = os.path.join(tmp, f'{name}.json')
+        argv = ['--smoke', '--device', 'cuda', '--out', out]
+        if name != 'torch_bench_kernels':
+            argv += ['--schedule-out', os.path.join(tmp, f'{name}_schedule.json')]
+        return out, _script_lines(name, argv, own_process=True), time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(BENCH_SCRIPTS)) as ex:
+        runs = [ex.submit(run, name, tmp) for name in BENCH_SCRIPTS]
+        for name, fut in zip(BENCH_SCRIPTS, runs):
+            out, lines, seconds = fut.result()
+            with open(out) as fh:
+                rows = json.load(fh)['results']
+            if not rows or not all(r.get('bit_identical', True) for r in rows):
+                raise AssertionError(f"{name}: {lines[-6:]}")
+            csv = [ln for ln in lines if re.fullmatch(r'[\w/.*:-]+,(nan|[\d.]+),.*', ln)]
+            say('bench', script=name, rows=len(rows), csv_lines=len(csv),
+                first=json.dumps(csv[0] if csv else None), seconds=f"{seconds:.3g}")
+    say('bench', seconds=f"{time.perf_counter() - t0:.3g}")
 
 
 def spectral_factor(kx, ky, kz, c, nu, dt):
@@ -3024,6 +3068,7 @@ def main() -> None:
     phase_dryrun_fft(phase_dryrun())
     phase_examples()
     phase_paper(card)
+    phase_bench()
     say('new_phases', seconds=f"{time.perf_counter() - t_new:.3g}")
     paths += phase_op(gen)
     paths += phase_serve(gen)

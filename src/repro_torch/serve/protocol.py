@@ -31,7 +31,8 @@ a frame is a truncation error.
 
 Decoded arrays are zero-copy views into the received payload and
 therefore read-only; callers that need to mutate copy explicitly (the
-engine's :func:`repro_torch.weights.from_numpy` copies anyway).
+engine's :func:`repro_torch.weights.from_numpy` reads them once, into
+the device's tensor or, on the CPU, a tensor of its own).
 """
 from __future__ import annotations
 

@@ -128,6 +128,7 @@ import torch.distributed as dist
 from repro_torch.serve.faults import FaultInjected, kill_socket
 from repro_torch.serve.fft_engine import KEEPALIVE_S, FFTEngine, ResultTimeout
 from repro_torch.serve.policy import AdaptivePolicy
+from repro_torch.weights import host_operand
 
 Address = Union[str, Tuple[str, int]]
 
@@ -396,16 +397,6 @@ def _host_array(v) -> np.ndarray:
 # The service on a mesh of several ranks
 # ---------------------------------------------------------------------------
 
-def _canonical(x):
-    """A request's host operand in the port's types, as
-    :func:`repro_torch.weights.from_numpy` makes them: complex64, float32,
-    or a planar pair of float32."""
-    if isinstance(x, (tuple, list)):
-        return tuple(np.asarray(a, dtype=np.float32) for a in x)
-    a = np.asarray(x)
-    return a.astype(np.complex64 if np.iscomplexobj(a) else np.float32, copy=False)
-
-
 def _form_slices(mesh, p, form: str, position: int, kept: Optional[int] = None):
     """(global shape, slices) of the block the rank at mesh ``position``
     holds of plan ``p``'s array in ``form``: 'in' (the planned array,
@@ -634,7 +625,7 @@ class _MeshLink:
             raise RuntimeError("the service's link to the mesh's other ranks broke; "
                                "it cannot serve") from self._error
         t0 = time.perf_counter()
-        x = _canonical(x)
+        x = host_operand(x)
         planar = isinstance(x, tuple)
         leaves = x if planar else (x,)
         kw, p, form_in, form_out = self._kind(x, direction, real, op)
@@ -1038,6 +1029,17 @@ class BrownoutBreaker:
                 f"transitions={self.transitions})")
 
 
+def _wake_accept(listener) -> None:
+    """Connect once to ``listener`` and hang up, so that a thread blocked
+    in its ``accept()`` returns. Never raises."""
+    try:
+        with socket.socket(listener.family, socket.SOCK_STREAM) as s:
+            s.settimeout(1.0)
+            s.connect(listener.getsockname())
+    except OSError:
+        pass
+
+
 class _Conn:
     """One client connection: its socket, tenant, outbound queue (one
     writer thread serializes the socket), an inflight counter for
@@ -1351,8 +1353,11 @@ class FFTService:
         self._closed = True
         self._hk_stop.set()
         if self._listener is not None:
-            # shutdown wakes the accept thread's blocked accept(); a
-            # close alone leaves it blocked until its join times out
+            # a connection of our own wakes the accept thread's blocked
+            # accept(), which then sees the service closed; shutdown
+            # alone does not wake it on every kernel, and a close alone
+            # leaves it blocked until its join times out
+            _wake_accept(self._listener)
             kill_socket(self._listener)
             if isinstance(self.address, str):
                 try:

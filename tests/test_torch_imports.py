@@ -155,3 +155,12 @@ def test_the_check_sees_the_roofline_and_bench_scripts():
     names = {p.name for p in FILES}
     assert {'torch_roofline_fft.py', 'torch_roofline.py', 'torch_bench_rfft.py',
             'torch_bench_fftconv.py', 'torch_bench_util.py', 'torch_run.py'} <= names
+
+
+def test_the_check_sees_the_card_benchmarks():
+    """The swap, serving, service and kernel-tier benchmarks and the
+    wsFFT worker are under the check."""
+    names = {p.name for p in FILES}
+    assert {'torch_bench_redistribute.py', 'torch_bench_serve_fft.py',
+            'torch_bench_serve_service.py', 'torch_bench_kernels.py',
+            'torch_wsfft_worker.py'} <= names

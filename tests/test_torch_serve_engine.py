@@ -446,6 +446,35 @@ def test_donate_is_accepted_and_consumes_nothing(mesh):
         assert torch.equal(y1, y2)
 
 
+@pytest.mark.parametrize('planar', (False, True))
+def test_a_request_in_the_ports_type_is_not_copied_on_the_host(planar):
+    """A complex64 request (float32 planes) reaches the device through
+    its transfer alone: no host copy of its bytes (numpy's allocations
+    traced; ``meta`` stands for the card). Another dtype is converted
+    once; on the CPU the tensor is a copy of its own."""
+    import tracemalloc
+    from repro_torch.weights import host_operand
+    x = _creq(np.random.default_rng(3), (64, 64, 64))        # 2 MiB complex64
+    req = (np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag)) if planar else x
+    leaves = req if planar else (req,)
+    got = host_operand(req)
+    assert all(g is a for g, a in zip(got if planar else (got,), leaves))
+    tracemalloc.start()
+    try:
+        t = from_numpy(req, device='meta')
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak < x.nbytes // 16
+    assert [tuple(a.shape) for a in (t if planar else (t,))] == [(64,) * 3] * len(leaves)
+    wide = tuple(a.astype(np.float64) for a in req) if planar else x.astype(np.complex128)
+    assert all(a.dtype in (np.float32, np.complex64) and a.flags.c_contiguous
+               for a in (host_operand(wide) if planar else (host_operand(wide),)))
+    own = from_numpy(req, device='cpu')
+    for a, b in zip(own if planar else (own,), leaves):
+        assert np.array_equal(a.numpy(), b) and not np.shares_memory(a.numpy(), b)
+
+
 # ---------------------------------------------------------------------------
 # The reference's drainer cases (tests/test_serve_drainer.py)
 # ---------------------------------------------------------------------------

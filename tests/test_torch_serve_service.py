@@ -307,6 +307,27 @@ def test_service_graceful_drain_on_close(mesh, jmesh, sock_path):
     svc.close()                              # idempotent
 
 
+def test_close_ends_the_accept_thread_without_a_shutdown(mesh, sock_path, monkeypatch):
+    """``close()`` ends the accept thread at once where ``shutdown()``
+    does not wake a blocked ``accept()`` (as on some kernels): here the
+    listener is only closed, which on Linux leaves ``accept()`` blocked,
+    and the service's own connection must wake it."""
+    from repro_torch.serve import service as svc_mod
+
+    def close_only(sock):
+        with contextlib.suppress(OSError):
+            sock.close()
+
+    monkeypatch.setattr(svc_mod, 'kill_socket', close_only)
+    svc = FFTService(mesh, tenants=[TenantConfig('w0')], persist_policy=False).start(sock_path)
+    with svc.local_client('w0') as c:
+        assert c.transform([_creq((8, 8))])[0].shape == (8, 8)
+    t0 = time.monotonic()
+    svc.close(drain=True)
+    assert time.monotonic() - t0 < 2.0
+    assert not svc._accept_thread.is_alive()
+
+
 def test_service_adaptive_policy_retargets_engine(mesh, sock_path):
     svc = FFTService(mesh, schedule_table=None).start(sock_path)
     with serving(svc), svc.local_client('load') as c:
