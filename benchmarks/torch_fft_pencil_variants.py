@@ -5,7 +5,8 @@ Run from the root of a checkout, on the machine with the card:
     python3 benchmarks/torch_fft_pencil_variants.py
 
 Each source variant is ``src/repro_torch/csrc/fft_pencil.cu`` with exact
-text edits (an edit that no longer matches fails the run), written to
+text edits (an edit that no longer matches fails the run), written with
+the header it includes (``csrc/radix8.cuh``, the radix-8 passes) to
 ``build/variants/pencil_<variant>/`` and built there with the port's own
 ``nvcc`` flags:
 
@@ -80,6 +81,8 @@ def build(name: str, edits) -> tuple:
     out = OUT / f'pencil_{name}'
     out.mkdir(parents=True, exist_ok=True)
     (out / 'fft_pencil.cu').write_text(text)
+    # the radix-8 passes it includes, found beside it as in csrc
+    (out / 'radix8.cuh').write_text((_build.CSRC / 'radix8.cuh').read_text())
     lib = out / f'lib{name}.so'
     return subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, '-o', str(lib),
                              str(out / 'fft_pencil.cu')],

@@ -76,7 +76,30 @@ Phases, each printing one line and raising on any failure:
    ``fft_matmul`` a direction, the r2c columns at 2048 and the rows at
    4096, both on the three-factor body), each held against
    ``torch.fft.fft`` / ``rfft`` of each signal (the largest relative L2
-   of the 8);
+   of the 8); then ``[long]``, the long body that all four kernels run
+   for 4096 < n <= 65536 (``csrc/fft_long.cu``, built with the others):
+   every C sizing function (shared bytes, threads, scratch) equal to
+   its Python mirror (``kernels/smem.py``, ``kernels/_long.py``) for
+   every power of two n from 2 to 65536, each body's block within the
+   opt-in limit; each kernel at n = 8192, 16384, 32768 and 65536 on
+   2^24 / n pencils against its plain version, forward and inverse
+   (relative L2 and the largest gap within ``KERNEL_RTOL``), on 3
+   pencils too, ``fft_twiddle_transpose`` also with (b, n) twiddle
+   planes, one plane a slice and one for all slices, each with its
+   time, the plain version's, the library's (``torch.fft.fft``, plus
+   the transposing copy for the fused kernel), its bound and
+   ``launch_info`` (split, columns a tile, threads, shared bytes,
+   blocks an SM, registers, scratch bytes); then six paths at full
+   size, every launch on the long body: ``fft2d_long``
+   (``plan((8192, 32768))``, 'auto': 2 ``fft_matmul`` a direction),
+   ``fft2d_long_stockham`` (1 ``fft_fused`` and 1 ``fft_pencil``),
+   ``fft2d_long_block`` (2 ``fft_block``), ``large1d_long``
+   (``plan((1 << 28,))``, 16384 x 16384, 'auto', which the selector
+   resolves to stockham as the reference's does: 2 ``fft_fused``, the
+   column superstep's with twiddle planes), ``large1d_long_stockham``
+   (the same, ``method='stockham'``) and ``large1d_long_four_step`` (2
+   ``fft_matmul``), each against ``torch.fft.fftn`` / ``fft`` and the
+   round trip within ``PATH_RTOL``; and its seconds;
 10. the operator plans through ``fft.plan_op`` (``[op]`` and
    ``[profile]`` lines): ``op_solver``, the spectral solver's step at
    512^3 (``real=True``, the integrating factor of
@@ -240,8 +263,9 @@ Phases, each printing one line and raising on any failure:
 17. a ``[total]`` line (the run's seconds), a ``kernels`` JSON line
    (``fft_matmul`` and ``fft_block`` also list
    their rank-1 shapes under ``rank1``: the instance each ran, its
-   registers and spills, and its times), the card line and, last, the
-   result line.
+   registers and spills, and its times; every kernel lists its
+   ``[long]`` records under ``long`` and the launches of the long paths
+   in ``launches_long``), the card line and, last, the result line.
 
 The five serial paths resolve through the cost-model selector, as a
 user's default plan does, to one overlap chunk. Each path prints its
@@ -278,7 +302,8 @@ sys.path.insert(0, os.path.join(ROOT, 'src'))
 
 import repro_torch.fft as fft  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels import _build, fft_block, fft_fused, fft_matmul, fft_pencil  # noqa: E402
+from repro_torch.kernels import _build, _long, fft_block, fft_fused, fft_matmul, fft_pencil  # noqa: E402
+from repro_torch.kernels import smem as smem_mirror  # noqa: E402
 from repro_torch.comm import cost as costlib  # noqa: E402
 from repro_torch.core.twiddle import four_step_factors  # noqa: E402
 from repro_torch.fft import large1d as fft_large1d  # noqa: E402
@@ -764,16 +789,18 @@ def profile(fn, sums: dict = None) -> dict:
 
 def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = False,
                chunks: int = 1, unchunked_rtol: float = 0.0, shape=(N, N, N),
-               batch: tuple = (), twiddled: int = 0,
-               **plan_kw) -> dict:
+               batch: tuple = (), twiddled: int = 0, long: bool = False,
+               by_n: dict = None, **plan_kw) -> dict:
     """One main path: plan, forward, inverse; returns the launch counts.
     A real path (``rplan``) takes a real operand and is held against
     ``torch.fft.rfftn``; a complex one against ``torch.fft.fftn``, over
     the planned axes of each of the ``batch`` signals (relative L2, the
     largest). Every ``fft_matmul``/``fft_block`` launch must be on the
     tensor-core body; every ``fft_pencil``/``fft_fused`` launch on the
-    radix-8 body; ``twiddled`` ``fft_fused`` launches a direction must
-    apply twiddle planes. A pipelined path (``chunks`` > 1) is also held
+    radix-8 body; on a ``long`` path (pencils above 4096) every launch
+    on the long body instead; ``twiddled`` ``fft_fused`` launches a
+    direction must apply twiddle planes; ``by_n``, where given, gains
+    the forward's and inverse's launches by (kernel module, n). A pipelined path (``chunks`` > 1) is also held
     against its unchunked plan's forward: bitwise, or within
     ``unchunked_rtol`` of its largest magnitude."""
     p = (fft.rplan if real else fft.plan)(shape, make_fft_mesh(1, 1), **plan_kw)
@@ -792,15 +819,25 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    y = p.forward(x)
-    fwd = kernels.launch_counts()
-    fwd_twiddle = fft_fused.launches_twiddle
-    x2 = p.inverse(y)
+
+    def count_n(r):
+        by_n[r['name'], r['n']] = by_n.get((r['name'], r['n']), 0) + 1
+    if by_n is not None:
+        kernels.HOOKS.append(count_n)
+    try:
+        y = p.forward(x)
+        fwd = kernels.launch_counts()
+        fwd_twiddle = fft_fused.launches_twiddle
+        x2 = p.inverse(y)
+    finally:
+        if by_n is not None:
+            kernels.HOOKS.remove(count_n)
     torch.cuda.synchronize()
     total = kernels.launch_counts()
     on_mma = {'fft_block': fft_block.launches_mma, 'fft_matmul': fft_matmul.launches_mma}
     on_radix8 = {'fft_fused': fft_fused.launches_radix8,
                  'fft_pencil': fft_pencil.launches_radix8}
+    on_long = {name: mod.launches_long for name, mod in kernels._modules().items()}
     twiddle = {'fwd': fwd_twiddle, 'total': fft_fused.launches_twiddle}
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     ref = torch.fft.rfftn(x, dim=dims) if real else torch.fft.fftn(x, dim=dims)
@@ -821,12 +858,15 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
     for k in total:
         if k not in expect and total[k]:
             raise AssertionError(f"{label}: unexpected {k} launches {total[k]}")
+    for k, lg in on_long.items():
+        if lg != (total[k] if long else 0):
+            raise AssertionError(f"{label}: {lg} of {total[k]} {k} launches on the long body")
     for k, mma in on_mma.items():
-        if mma != total[k]:
+        if mma != (0 if long else total[k]):
             raise AssertionError(f"{label}: {mma} of {total[k]} {k} launches on the "
                                  "tensor-core body")
     for k, r8 in on_radix8.items():
-        if r8 != total[k]:
+        if r8 != (0 if long else total[k]):
             raise AssertionError(f"{label}: {r8} of {total[k]} {k} launches on the "
                                  "radix-8 body")
     if twiddle != {'fwd': twiddled, 'total': 2 * twiddled}:
@@ -859,10 +899,216 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
         fwd_rel_l2=f"{fwd_err:.3e}", roundtrip_rel_l2=f"{rt_err:.3e}", tol=PATH_RTOL,
         launches=json.dumps(total), peak_gib_over_operand=f"{peak_gib:.4g}",
         launches_mma=json.dumps(on_mma), launches_radix8=json.dumps(on_radix8),
+        **({'launches_long': json.dumps(on_long)} if long else {}),
         launches_twiddle=json.dumps(twiddle), fwd_inv_ms=f"{ms:.6g}",
         library_ms=f"{lib:.6g}", **extra)
     say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
     return total
+
+
+#: ``[long]``: the long body's lengths, each on LONG_ELEMS / n pencils
+LONG_NS = (8192, 16384, 32768, 65536)
+LONG_ELEMS = 1 << 24
+#: the keys of each record under a kernel's ``long`` in the ``kernels`` line
+LONG_KEYS = ('n', 'pencils', 'variant', 'launches', 'rel_l2') + JSON_KEYS + (
+    'factors', 'columns_per_tile', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+    'scratch_bytes')
+#: ``[long]``'s paths: label, shape, plan keywords, launches a direction,
+#: fused launches with twiddle planes a direction
+LONG_PATHS = (
+    # 'auto' stays the plan's method; each pencil resolves to four_step
+    ('fft2d_long', (8192, 32768), {}, 'auto', {'fft_matmul': 2}, 0),
+    ('fft2d_long_stockham', (8192, 32768), dict(method='stockham'), 'stockham',
+     {'fft_fused': 1, 'fft_pencil': 1}, 0),
+    ('fft2d_long_block', (8192, 32768), dict(method='block'), 'block', {'fft_block': 2}, 0),
+    # 16384 x 16384; the selector picks stockham for both factors, as the
+    # reference's does, so 'auto' is the stockham plan
+    ('large1d_long', (1 << 28,), {}, 'stockham', {'fft_fused': 2}, 1),
+    ('large1d_long_stockham', (1 << 28,), dict(method='stockham'), 'stockham',
+     {'fft_fused': 2}, 1),
+    ('large1d_long_four_step', (1 << 28,), dict(method='four_step'), 'four_step',
+     {'fft_matmul': 2}, 0),
+)
+
+
+def _rel_l2_planar(got, want) -> float:
+    num = sum(float(torch.linalg.vector_norm(g - w)) ** 2 for g, w in zip(got, want))
+    den = sum(float(torch.linalg.vector_norm(w)) ** 2 for w in want)
+    return math.sqrt(num / den)
+
+
+def kernels_long(gen, ptxas: dict) -> dict:
+    """Each kernel on the long body at every length of :data:`LONG_NS`, on
+    LONG_ELEMS / n pencils: forward and inverse against its plain version
+    (relative L2 and the largest gap, both within KERNEL_RTOL), and on 3
+    pencils; ``fft_twiddle_transpose`` also with (b, n) twiddle planes, a
+    plane a leading slice and one plane for all; with its time, the plain
+    version's, the library's and the bound, and ``launch_info``, whose
+    shared, thread and scratch counts must equal the C side's. Returns
+    name -> its records."""
+    out = {name: [] for name in KERNELS}
+    for kern in sorted(k for k in ptxas if k.startswith('long_')):
+        e = ptxas[kern]
+        say('long', build=kern, registers=e['registers'],
+            spill_bytes=(e['spill_stores'] or 0) + (e['spill_loads'] or 0))
+    for n in LONG_NS:
+        pencils = LONG_ELEMS // n
+        mirror = dict(smem_bytes=[_long.smem_bytes(n, 1), _long.smem_bytes(n, 2)],
+                      threads=[_long.threads(n, 1), _long.threads(n, 2)],
+                      scratch_bytes=[_long.scratch_bytes(n, pencils, False),
+                                     _long.scratch_bytes(n, pencils, True)])
+        x = planar((pencils, n), gen)
+        xc = torch.complex(*x)
+        small = planar((3, n), gen)
+        z = planar((3, 5, n), gen)
+        wz, wf = planar((5, n), gen), planar((3, 5, n), gen)
+        w = planar((pencils, n), gen)
+        lib = time_ms(lambda: torch.fft.fft(xc, dim=-1), 10)
+        lib_t = time_ms(lambda: torch.fft.fft(xc, dim=-1).transpose(-1, -2).contiguous(), 10)
+        bnd, by = bound(pencils * n, fft_flops(n, pencils))
+        # name, module, the operand of planes v, the kernel and its plain
+        # version on an operand (a planar pair out), the library's time
+        runs = (
+            ('fft_pencil', fft_pencil, tuple,
+             lambda a, inv: fft_pencil.fft_pencil(*a, inverse=inv),
+             lambda a, inv: fft_pencil.fft_pencil_plain(*a, inverse=inv), lib),
+            ('fft_matmul', fft_matmul, tuple,
+             lambda a, inv: fft_matmul.fft_matmul(*a, inverse=inv),
+             lambda a, inv: fft_matmul.fft_matmul_plain(*a, inverse=inv), lib),
+            ('fft_block', fft_block, torch.stack,
+             lambda a, inv: tuple(fft_block.fft_block(a, inverse=inv)),
+             lambda a, inv: tuple(fft_block.fft_block_plain(a, inverse=inv)), lib),
+            ('fft_twiddle_transpose', fft_fused, tuple,
+             lambda a, inv: fft_fused.fft_twiddle_transpose(*a, inverse=inv),
+             lambda a, inv: fft_fused.fft_twiddle_transpose_plain(*a, inverse=inv), lib_t),
+        )
+        for name, module, operand, run, plain, lib_ms in runs:
+            kernels.reset_launch_counts()
+            err, rel = 0.0, 0.0
+            a = operand(x)
+            for inv in (False, True):
+                for v in (a, operand(small)):
+                    got, want = run(v, inv), plain(v, inv)
+                    err = max(err, check(name, got, want, f"({len(v[0])}, {n}) inverse={inv}"))
+                    rel = max(rel, _rel_l2_planar(got, want))
+                    del got, want
+            if name == 'fft_twiddle_transpose':
+                for v, tw_, where in ((x, w, f"({pencils}, {n}) with ({pencils}, {n}) planes"),
+                                      (z, wz, f"(3, 5, {n}) with one (5, {n}) plane"),
+                                      (z, wf, f"(3, 5, {n}) with a plane a slice")):
+                    for inv in (False, True):
+                        got = fft_fused.fft_twiddle_transpose(*v, *tw_, inverse=inv)
+                        want = fft_fused.fft_twiddle_transpose_plain(*v, *tw_, inverse=inv)
+                        err = max(err, check(name, got, want, f"{where}, inverse={inv}"))
+                        rel = max(rel, _rel_l2_planar(got, want))
+                        del got, want
+            if not rel <= KERNEL_RTOL:
+                raise AssertionError(f"{name} n={n}: relative L2 {rel:.3e} against the plain "
+                                     f"version > {KERNEL_RTOL}")
+            if module.launches_long != module.launches or module.launches_long == 0:
+                raise AssertionError(f"{name} n={n}: {module.launches_long} of "
+                                     f"{module.launches} launches on the long body")
+            yc = torch.fft.fft(xc, dim=-1)
+            if name == 'fft_twiddle_transpose':
+                yc = yc.transpose(-1, -2)
+            vs_lib = _rel_l2_planar(run(a, False), (yc.real, yc.imag))
+            del yc
+            r = dict(n=n, pencils=pencils, variant=module.variant(n), rel_l2=rel,
+                     max_abs_err=err, ms=time_ms(lambda: run(a, False), 10),
+                     plain_ms=time_ms(lambda: plain(a, False), 3), library_ms=lib_ms,
+                     bound_ms=bnd, bound_by=by, vs_library_rel_l2=vs_lib)
+            info = module.launch_info(n, pencils)
+            if info['smem_bytes'] != mirror['smem_bytes'] or (
+                    info['scratch_bytes'] != mirror['scratch_bytes'][name == 'fft_twiddle_transpose']):
+                raise AssertionError(f"{name} n={n}: launch_info {info} against {mirror}")
+            r.update({k: v for k, v in info.items() if k != 'variant'})
+            if r['variant'] != 'long':
+                raise AssertionError(f"{name} n={n}: runs the {r['variant']} body")
+            say('long', name=name, tol=KERNEL_RTOL,
+                **{k: (f"{v:.6g}" if isinstance(v, float) else
+                       json.dumps(v) if isinstance(v, list) else v) for k, v in r.items()})
+            out[name].append(r)
+            del a
+        del x, xc, w
+    return out
+
+
+def check_smem_mirror() -> int:
+    """Every shared-memory and scratch function of the C side against its
+    Python mirror (``kernels/smem.py``, ``kernels/_long.py``), for every
+    power of two n from 2 to 65536, and the bytes of the launch each
+    module's ``variant(n)`` picks within the opt-in limit; the count of
+    values compared."""
+    pen, mat, blk, lng = fft_pencil._lib(), fft_matmul._lib(), fft_block._lib(), _long.lib()
+    pairs = []
+    for k in range(1, 17):
+        n = 1 << k
+        n1, n2 = four_step_factors(n)
+        for P in (1, 2, 8):
+            for ld in (n, n + 1):
+                pairs.append((f"stockham_smem_bytes({n}, {P}, {ld})",
+                              pen.stockham_smem_bytes(n, P, ld),
+                              smem_mirror.stockham_smem_bytes(n, P, ld)))
+            pairs.append((f"four_step_smem_bytes({n1}, {n2}, {P})",
+                          mat.four_step_smem_bytes(n1, n2, P),
+                          smem_mirror.four_step_smem_bytes(n1, n2, P)))
+            pairs.append((f"fft_block_slices({n1}, {n2}, {P})", blk.fft_block_slices(n1, n2, P),
+                          smem_mirror.fft_block_slices(n1, n2, P)))
+            for jc in (1, n1):
+                pairs.append((f"fft_block_smem_bytes({n1}, {n2}, {P}, {jc})",
+                              blk.fft_block_smem_bytes(n1, n2, P, jc),
+                              smem_mirror.fft_block_smem_bytes(n1, n2, P, jc)))
+            if n <= 4096 and P * max(n // 8, 1) <= 1024:
+                for fused in (0, 1):
+                    pairs.append((f"radix8_smem_bytes({n}, {P}, {fused})",
+                                  pen.radix8_smem_bytes(n, P, fused),
+                                  fft_pencil.radix8_smem_bytes(n, P, bool(fused))))
+        for lib_, fn in ((mat, 'fft_matmul_mma_smem_bytes'), (blk, 'fft_block_mma_smem_bytes')):
+            pairs.append((f"{fn}({n})", getattr(lib_, fn)(n), smem_mirror.mma_smem_bytes(n)))
+        if _long.takes(n):
+            for pass_ in (1, 2):
+                pairs.append((f"long_smem_bytes({n}, {pass_})", lng.long_smem_bytes(n, pass_),
+                              _long.smem_bytes(n, pass_)))
+                pairs.append((f"long_threads({n}, {pass_})", lng.long_threads(n, pass_),
+                              _long.threads(n, pass_)))
+            for pencils in (1, 3, LONG_ELEMS // n, (1 << 28) // n):
+                for fused in (0, 1):
+                    pairs.append((f"long_scratch_bytes({n}, {pencils}, {fused})",
+                                  lng.long_scratch_bytes(n, pencils, fused),
+                                  _long.scratch_bytes(n, pencils, bool(fused))))
+        for name in smem_mirror.MODULES:
+            for batch in (1, 37, 512):
+                body, b = smem_mirror.launch_smem_bytes(name, n, batch)
+                if not 0 <= b <= smem_mirror.SMEM_LIMIT:
+                    raise AssertionError(f"{name} n={n} batch={batch}: the {body} body takes "
+                                         f"{b} shared bytes, over {smem_mirror.SMEM_LIMIT}")
+    bad = [(what, c, py) for what, c, py in pairs if c != py]
+    if bad:
+        raise AssertionError(f"shared-byte mirrors differ from the C side: {bad[:8]}")
+    return len(pairs)
+
+
+def phase_long(gen, ptxas: dict) -> tuple:
+    """``[long]``: :func:`kernels_long`, then the paths of
+    :data:`LONG_PATHS` at full size through :func:`phase_path`, every
+    launch on the long body. Returns (kernel records, the paths' launch
+    counts, the long launches of each kernel module over the paths)."""
+    t0 = time.perf_counter()
+    say('long', check='shared-byte mirrors equal the C side', compared=check_smem_mirror())
+    rec = kernels_long(gen, ptxas)
+    paths, by_n = [], {}
+    for label, shape, kw, method, expect, twiddled in LONG_PATHS:
+        paths.append(phase_path(label, gen, method, expect, shape=shape, twiddled=twiddled,
+                                long=True, by_n=by_n, **kw))
+        torch.cuda.empty_cache()
+    on_long = {k: sum(t[k] for t in paths) for k in paths[0]}
+    for name, rs in rec.items():
+        for r in rs:
+            r['launches'] = by_n.get((COUNTER[name], r['n']), 0)
+    say('long', paths=len(paths), launches=json.dumps(on_long),
+        launches_by_n=json.dumps({f"{k}@{n}": v for (k, n), v in sorted(by_n.items())}),
+        seconds=f"{time.perf_counter() - t0:.4g}")
+    return rec, paths, on_long
 
 
 @contextlib.contextmanager
@@ -3052,6 +3298,8 @@ def main() -> None:
         phase_path('rlarge1d', gen, 'four_step', {'fft_matmul': 2}, real=True,
                    shape=LARGE1D, batch=LARGE1D_BATCH),
     ]
+    rec_long, long_paths, on_long = phase_long(gen, ptxas)
+    paths += long_paths
     t_new = time.perf_counter()
     paths += [
         phase_unfused('default_unfused', gen, {'fft_matmul': 3}, 0.0),
@@ -3091,6 +3339,8 @@ def main() -> None:
             out[-1]['rank1'] = [{k: r[k] for k in RANK1_KEYS} for r in rec[name]['rank1']]
         if 'train' in rec[name]:
             out[-1]['train'] = {k: rec[name]['train'][k] for k in TRAIN_KEYS}
+        out[-1]['long'] = [{k: r[k] for k in LONG_KEYS} for r in rec_long[name]]
+        out[-1]['launches_long'] = on_long[COUNTER[name]]
     say('total', seconds=f"{time.perf_counter() - t_start:.4g}")
     print(json.dumps({'kernels': out}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,5 @@
 // Block-complex four-step pencil FFT for Hopper (sm_90a): two bodies, chosen
-// by the pencil length alone.
+// by the pencil length alone (and the long body of fft_long.cu above 4096).
 //
 // Replaces the TPU kernel fft_block (src/repro/kernels/fft_block.py:49). The
 // complex axis is a leading axis of size 2 on the TPU; here the two planes
@@ -20,8 +20,8 @@
 // block_mma3_kernel, for n = 2048 and 4096, its three-factor form
 // 16 * 16 * (n / 256) (four_step_mma3, as matmul_mma3_kernel).
 //
-// block_kernel, for every other n (2..32, and the lengths above 4096 that
-// fit a block), and timed beside the tensor-core body at 2048 and 4096
+// block_kernel, for n = 2..32 (lengths above 4096 run fft_long.cu's
+// two-pass body), and timed beside the tensor-core body at 2048 and 4096
 // (_launch(..., _body='fma')): fp32 FMA on the CUDA cores against the TPU
 // kernel's two constants F1b and G (core/fft1d.py:_block_consts_np), of
 // whose c = 1 rows, which repeat the c = 0 rows, it reads the c = 0 half.

@@ -1,5 +1,5 @@
 // Bailey four-step pencil FFT for Hopper (sm_90a): two bodies, chosen by the
-// pencil length alone.
+// pencil length alone (and the long body of fft_long.cu above 4096).
 //
 // Replaces the TPU kernel fft_matmul (src/repro/kernels/fft_matmul.py:71).
 // Each length-n pencil (n = n1 * n2, n1 >= n2, powers of two) is viewed as
@@ -27,8 +27,9 @@
 // matmul_mma3_kernel, for n = 2048 and 4096: the same products over three
 // factors 16 * 16 * (n / 256) (four_step_mma3, as block_mma3_kernel).
 //
-// four_step_kernel, for every other n (2..32; above 4096 it needs more
-// shared memory than a block has): fp32 FMA on the CUDA cores, and the
+// four_step_kernel, for n = 2..32 (above 4096 it needs more shared memory
+// than a block has; those lengths run fft_long.cu's two-pass body): fp32
+// FMA on the CUDA cores, and the
 // body _launch(..., _body='fma') times beside the tensor-core one at 2048
 // and 4096. A block keeps everything it needs in shared memory: the three
 // tables, a tile of P pencils and the twiddled intermediate C. Device memory

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
-SOURCES = ('fft_pencil', 'fft_matmul', 'fft_block')
+SOURCES = ('fft_pencil', 'fft_matmul', 'fft_block', 'fft_long')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

@@ -1,27 +1,34 @@
 """Block-complex four-step pencil FFT: the CUDA kernel and its plain version.
 
 Replaces ``repro.kernels.fft_block.fft_block``
-(src/repro/kernels/fft_block.py:49). ``csrc/fft_block.cu`` holds two
-bodies, chosen by the pencil length alone (:func:`variant`):
+(src/repro/kernels/fft_block.py:49). Three bodies, chosen by the pencil
+length alone (:func:`variant`):
 
-* ``'mma'`` (64 <= n <= 4096): the dense products on the tensor cores,
-  ``mma.sync`` m16n8k8 in 3xTF32, with the twiddles applied between them
-  in registers; the split tables go to the card in the mma fragment
-  order (:func:`frag_a`, :func:`frag_b`). For 64 <= n <= 1024
-  ``block_mma_kernel`` runs the two-factor four-step n = n1 * n2 against
-  F1b and the block F2 (``core/fft1d.py:block_mma_tables``); for
-  n = 2048 and 4096 ``block_mma3_kernel`` runs three products against
-  the 16-point F1b (twice) and the block F of n3 = n / 256 points
+* ``'mma'`` (``csrc/fft_block.cu``, 64 <= n <= 4096): the dense
+  products on the tensor cores, ``mma.sync`` m16n8k8 in 3xTF32, with the
+  twiddles applied between them in registers; the split tables go to the
+  card in the mma fragment order (:func:`frag_a`, :func:`frag_b`). For
+  64 <= n <= 1024 ``block_mma_kernel`` runs the two-factor four-step
+  n = n1 * n2 against F1b and the block F2
+  (``core/fft1d.py:block_mma_tables``); for n = 2048 and 4096
+  ``block_mma3_kernel`` runs three products against the 16-point F1b
+  (twice) and the block F of n3 = n / 256 points
   (``core/fft1d.py:block_mma3_tables``). :func:`mma_factors` names the
   split;
-* ``'fma'`` (``block_kernel``, every other n): fp32 FMA on the CUDA
-  cores against the TPU kernel's F1b and G (the twiddle folded into F2).
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
+  body of :mod:`._long` that all four kernels share, the four-step over
+  ``four_step_factors(n)``, on the two planes of the stacked
+  (2, ..., n) form, fp32 on the CUDA cores;
+* ``'fma'`` (``block_kernel``, n <= 32, and timed beside the
+  tensor-core body through ``_launch(..., _body='fma')``): fp32 FMA on
+  the CUDA cores against the TPU kernel's F1b and G (the twiddle folded
+  into F2).
 
-The C entries take separate re/im planes, so the stacked form
+A CUDA or ``meta`` operand of n > 65536 raises ``ValueError``. The C
+entries take separate re/im planes, so the stacked form
 :func:`fft_block` passes ``x[0]``/``x[1]`` and the planar form
-:func:`fft_block_planar` its pair, neither with a stack copy. Blocks are
-persistent and keep the tables and a tile of pencils in shared memory;
-the function's bound is the FFT's 16 bytes per element.
+:func:`fft_block_planar` its pair, neither with a stack copy. The
+function's bound is the FFT's 16 bytes per element.
 """
 from __future__ import annotations
 
@@ -33,13 +40,15 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
+from repro_torch.kernels import _build, _long, check_planar, refuse_grad, report, stream_of
 from repro_torch.kernels.fft_pencil import tile_pencils
 
-#: launches of either CUDA body (plain-version calls do not count)
+#: launches of any CUDA body (plain-version calls do not count)
 launches = 0
 #: of those, launches of the tensor-core body
 launches_mma = 0
+#: of those, launches of the long body
+launches_long = 0
 
 #: the pencil lengths the tensor-core body takes, inclusive: the two-factor
 #: split (n2 >= 8) up to 1024, the three-factor one above
@@ -50,8 +59,12 @@ MMA3_LENGTHS = (2048, 4096)
 
 def variant(n: int) -> str:
     """The body a CUDA launch of length-n pencils runs: ``'mma'`` for
-    64 <= n <= 4096, else ``'fma'``."""
-    return 'mma' if MMA_LENGTHS[0] <= n <= MMA_LENGTHS[1] else 'fma'
+    64 <= n <= 4096, ``'long'`` for 4096 < n <= 65536, ``'fma'`` for
+    n <= 32; ``ValueError`` above 65536."""
+    _long.check_length('fft_block', n)
+    if MMA_LENGTHS[0] <= n <= MMA_LENGTHS[1]:
+        return 'mma'
+    return 'long' if _long.takes(n) else 'fma'
 
 
 def mma_factors(n: int) -> tuple:
@@ -174,8 +187,11 @@ def _shape(n: int, batch: int, body: str):
 def launch_info(n: int, batch: int) -> dict:
     """What a launch on ``batch`` pencils of n runs on the current card:
     its body, the factors of n it runs, pencils a tile, shared bytes a
-    block and blocks an SM."""
+    block and blocks an SM; for the long body
+    :func:`repro_torch.kernels._long.launch_info`'s fields."""
     body = variant(n)
+    if body == 'long':
+        return _long.launch_info(n, batch)
     n1, n2, P, _, smem = _shape(n, batch, body)
     per_sm = ctypes.c_int(0)
     err = _lib().fft_block_blocks_per_sm(int(body == 'mma'), n, smem, ctypes.byref(per_sm))
@@ -191,19 +207,24 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     """Run the kernel on contiguous fp32 planes (..., n) into (yr, yi).
     The body is :func:`variant` of n; ``_body`` overrides it only to time
     the CUDA-core body beside the tensor-core one."""
-    global launches, launches_mma
+    global launches, launches_mma, launches_long
+    body = _body or variant(n)
     batch = re.numel() // n
     if batch == 0:
         return
-    body = _body or variant(n)
     if re.device.type == 'meta':
         report('fft_block', body, n, batch)
         return
-    n1, n2, P, jc, smem = _shape(n, batch, body)
+    if body == 'long':
+        P, smem = _long.COLS, _long.block_smem_bytes(n)
+    else:
+        n1, n2, P, jc, smem = _shape(n, batch, body)
     scale = (1.0 / n) if inverse else 1.0
     ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
     with torch.cuda.device(re.device):
-        if body == 'mma':
+        if body == 'long':
+            err = _long.launch(re, im, yr, yi, n, inverse)
+        elif body == 'mma':
             fa, fb, w = mma_tables_for(n, inverse, re.device)
             err = _lib().fft_block_mma_launch(*ptrs, fa.data_ptr(), fb.data_ptr(),
                                               w.data_ptr(), batch, n, scale, stream_of(re))
@@ -217,6 +238,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
             f"per tile, {smem} bytes of shared memory)")
     launches += 1
     launches_mma += body == 'mma'
+    launches_long += body == 'long'
     report('fft_block', body, n, batch)
 
 

@@ -1,17 +1,25 @@
 """Fused superstep: Stockham FFT + optional twiddle + transposed emit.
 
 Replaces ``repro.kernels.fft_fused.fft_twiddle_transpose``
-(src/repro/kernels/fft_fused.py:58). ``csrc/fft_pencil.cu`` holds two
-bodies, chosen as :mod:`.fft_pencil`'s are (:func:`variant`):
+(src/repro/kernels/fft_fused.py:58). Three bodies, chosen as
+:mod:`.fft_pencil`'s are (:func:`variant`):
 
-* ``'radix8'`` (``radix8_fused_kernel``, 2 <= n <= 4096): the radix-8
-  passes of ``fft_pencil``'s body on P pencils of one leading slice, the
-  scale and the twiddle applied in registers in the pre-transpose layout
-  (coalesced along the pencil), then the tile staged in shared memory
-  and stored transposed, ``out[..., k, j] = (W * FFT(x))[..., j, k]``,
-  in runs of P pencils (:func:`tile_layout`);
-* ``'radix2'`` (``fused_kernel``, every other n): the radix-2 body.
+* ``'radix8'`` (``radix8_fused_kernel`` in ``csrc/fft_pencil.cu``,
+  2 <= n <= 4096): the radix-8 passes of ``fft_pencil``'s body on P
+  pencils of one leading slice, the scale and the twiddle applied in
+  registers in the pre-transpose layout (coalesced along the pencil),
+  then the tile staged in shared memory and stored transposed,
+  ``out[..., k, j] = (W * FFT(x))[..., j, k]``, in runs of P pencils
+  (:func:`tile_layout`);
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
+  body of :mod:`._long`; pass 1 writes a scratch of at most
+  ``_long.SCRATCH_ELEMS`` elements a plane, which this wrapper
+  allocates, and pass 2 scales, applies the twiddle and stores the
+  transpose;
+* ``'radix2'`` (``fused_kernel``, n = 1 only, and timed beside the
+  radix-8 body): the radix-2 body.
 
+A CUDA or ``meta`` operand of n > 65536 raises ``ValueError``.
 Memory-bound: one read and one write of every element, 16 bytes an
 element, plus one read of the twiddle when there is one: a (b, n) plane
 broadcast over the leading axes is read in place, 8 bytes a twiddle
@@ -27,19 +35,22 @@ import torch
 
 from repro_torch.core import fft1d as f1
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
+from repro_torch.kernels import _build, _long, check_planar, refuse_grad, report, stream_of
+from repro_torch.kernels import fft_pencil
 from repro_torch.kernels.fft_pencil import (MAX_THREADS, _pow2_at_least, master_table,
                                             radix8_smem_bytes, radix8_tables, radix8_threads,
-                                            tile_pencils, variant)
+                                            tile_pencils)
 
 #: pencils a block of the radix-8 body aims for: the length of each run
 #: of the transposed store (8 floats fill one 32-byte sector)
 RUN = 8
 
-#: launches of either CUDA body (plain-version calls do not count)
+#: launches of any CUDA body (plain-version calls do not count)
 launches = 0
 #: of those, launches of the radix-8 body
 launches_radix8 = 0
+#: of those, launches of the long body
+launches_long = 0
 #: of those, launches that applied twiddle planes
 launches_twiddle = 0
 
@@ -52,6 +63,25 @@ def tile_layout(n: int, b: int):
     T = radix8_threads(n)
     P = min(RUN, MAX_THREADS // T, _pow2_at_least(b))
     return P, P * T, radix8_smem_bytes(n, P, fused=True)
+
+
+def variant(n: int) -> str:
+    """The body a CUDA launch of length-n pencils runs, as
+    :func:`fft_pencil.variant`: ``'radix8'``, ``'long'`` or ``'radix2'``;
+    ``ValueError`` above 65536."""
+    _long.check_length('fft_twiddle_transpose', n)
+    return fft_pencil.variant(n)
+
+
+def launch_info(n: int, batch: int) -> dict:
+    """What a long launch on ``batch`` pencils of n (all leading slices)
+    runs on the current card, the scratch this wrapper allocates with it
+    (:func:`repro_torch.kernels._long.launch_info`); ``ValueError`` at a
+    length the long body does not take."""
+    if variant(n) != 'long':
+        raise ValueError(f"fft_twiddle_transpose: launch_info reports the long body; "
+                         f"n = {n} runs {variant(n)!r}")
+    return _long.launch_info(n, batch, fused=True)
 
 
 def _radix2_layout(n: int, b: int):
@@ -113,13 +143,13 @@ def _launch(re: torch.Tensor, im: torch.Tensor, wr, wi, yr: torch.Tensor,
     planes ``wr``/``wi`` broadcastable to them or None, into (yr, yi) of
     (..., n, b). The body is :func:`variant` of n; ``_body`` overrides it
     only to time the radix-2 body beside the radix-8 one."""
-    global launches, launches_radix8, launches_twiddle
+    global launches, launches_radix8, launches_long, launches_twiddle
     b, n = re.shape[-2:]
+    body = _body or variant(n)
     if re.numel() == 0:
         return
     twr, twi, wstride = _twiddle_planes(re, wr, wi)
     nl = re.numel() // (b * n)
-    body = _body or variant(n)
     tbytes = 0 if twr is None else 4 * (twr.numel() + twi.numel())
     if re.device.type == 'meta':
         report('fft_fused', body, n, nl * b, tbytes)
@@ -131,7 +161,10 @@ def _launch(re: torch.Tensor, im: torch.Tensor, wr, wi, yr: torch.Tensor,
             yr.data_ptr(), yi.data_ptr())
     lib = _lib()
     with torch.cuda.device(re.device):
-        if body == 'radix8':
+        if body == 'long':
+            P, smem = _long.COLS, _long.block_smem_bytes(n)
+            err = _long.launch_fused(re, im, twr, twi, wstride, yr, yi, n, inverse)
+        elif body == 'radix8':
             P, _, smem = tile_layout(n, b)
             mr, mi = radix8_tables(n, inverse, re.device)
             err = lib.fft_fused_radix8_launch(*ptrs, mr.data_ptr(), mi.data_ptr(), nl, b,
@@ -149,6 +182,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, wr, wi, yr: torch.Tensor,
                            "memory)")
     launches += 1
     launches_radix8 += body == 'radix8'
+    launches_long += body == 'long'
     launches_twiddle += twr is not None
     report('fft_fused', body, n, nl * b, tbytes)
 

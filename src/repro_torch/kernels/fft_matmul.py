@@ -4,11 +4,11 @@ Replaces ``repro.kernels.fft_matmul.fft_matmul``
 (src/repro/kernels/fft_matmul.py:71). Each pencil n = n1 * n2 (n1 >= n2)
 is viewed as A (n1, n2); B = F1 A, C = B * W, D = C F2 and the output is
 D read column-major, the DFT products computed in the kernel body.
-``csrc/fft_matmul.cu`` holds two bodies, chosen by the pencil length
-alone (:func:`variant`, the same lengths as ``fft_block``'s):
+Three bodies, chosen by the pencil length alone (:func:`variant`, the
+same lengths as ``fft_block``'s):
 
-* ``'mma'`` (64 <= n <= 4096): the tensor-core body of
-  ``csrc/four_step_mma.cuh`` that ``fft_block`` runs too (3xTF32
+* ``'mma'`` (``csrc/fft_matmul.cu``, 64 <= n <= 4096): the tensor-core
+  body of ``csrc/four_step_mma.cuh`` that ``fft_block`` runs too (3xTF32
   ``mma.sync``, persistent blocks): ``matmul_mma_kernel``, the two-factor
   four-step, for 64 <= n <= 1024, and ``matmul_mma3_kernel``, the same
   steps over three factors 16 * 16 * (n / 256), for n = 2048 and 4096.
@@ -16,11 +16,17 @@ alone (:func:`variant`, the same lengths as ``fft_block``'s):
   real block matrices, ``fft_block``'s tables, so this module passes
   those (:func:`repro_torch.kernels.fft_block.mma_tables_for`, one cache
   for both);
-* ``'fma'`` (``four_step_kernel``, every other n): fp32 FMA on the CUDA
-  cores, a block holding the planar F1, F2, W and P = max(1, 2048 / n)
-  pencils in shared memory.
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
+  body of :mod:`._long` that all four kernels share, the same four-step
+  over ``four_step_factors(n)`` with each factor's DFT on the radix-8
+  register passes, fp32 on the CUDA cores;
+* ``'fma'`` (``four_step_kernel``, n <= 32, and timed beside the
+  tensor-core body through ``_launch(..., _body='fma')``): fp32 FMA on
+  the CUDA cores, a block holding the planar F1, F2, W and P = max(1,
+  2048 / n) pencils in shared memory.
 
-The function's bound is the FFT's 16 bytes per element.
+A CUDA or ``meta`` operand of n > 65536 raises ``ValueError``. The
+function's bound is the FFT's 16 bytes per element.
 """
 from __future__ import annotations
 
@@ -33,20 +39,27 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
+from repro_torch.kernels import _build, _long, check_planar, refuse_grad, report, stream_of
 from repro_torch.kernels.fft_block import MMA_LENGTHS, mma_factors, mma_tables_for
 from repro_torch.kernels.fft_pencil import tile_pencils
 
-#: launches of either CUDA body (plain-version calls do not count)
+#: launches of any CUDA body (plain-version calls do not count)
 launches = 0
 #: of those, launches of the tensor-core body
 launches_mma = 0
+#: of those, launches of the long body
+launches_long = 0
+
 
 def variant(n: int) -> str:
     """The body a CUDA launch of length-n pencils runs: ``'mma'`` for
-    64 <= n <= 4096 (:data:`MMA_LENGTHS`, ``fft_block``'s), else
-    ``'fma'``."""
-    return 'mma' if MMA_LENGTHS[0] <= n <= MMA_LENGTHS[1] else 'fma'
+    64 <= n <= 4096 (:data:`MMA_LENGTHS`, ``fft_block``'s), ``'long'``
+    for 4096 < n <= 65536, ``'fma'`` for n <= 32; ``ValueError`` above
+    65536."""
+    _long.check_length('fft_matmul', n)
+    if MMA_LENGTHS[0] <= n <= MMA_LENGTHS[1]:
+        return 'mma'
+    return 'long' if _long.takes(n) else 'fma'
 
 
 def fft_matmul_plain(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
@@ -91,8 +104,11 @@ def _shape(n: int, batch: int, body: str):
 def launch_info(n: int, batch: int) -> dict:
     """What a launch on ``batch`` pencils of n runs on the current card:
     its body, the factors of n it runs, pencils a tile, registers a
-    thread, shared bytes a block and blocks an SM."""
+    thread, shared bytes a block and blocks an SM; for the long body
+    :func:`repro_torch.kernels._long.launch_info`'s fields."""
     body = variant(n)
+    if body == 'long':
+        return _long.launch_info(n, batch)
     n1, n2, P, smem = _shape(n, batch, body)
     per_sm, regs = ctypes.c_int(0), ctypes.c_int(0)
     err = _lib().fft_matmul_blocks_per_sm(int(body == 'mma'), n, smem,
@@ -109,19 +125,24 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     """Run the kernel on contiguous fp32 planes (..., n) into (yr, yi).
     The body is :func:`variant` of n; ``_body`` overrides it only to time
     the CUDA-core body beside the tensor-core one."""
-    global launches, launches_mma
+    global launches, launches_mma, launches_long
+    body = _body or variant(n)
     batch = re.numel() // n
     if batch == 0:
         return
-    body = _body or variant(n)
     if re.device.type == 'meta':
         report('fft_matmul', body, n, batch)
         return
-    n1, n2, P, smem = _shape(n, batch, body)
+    if body == 'long':
+        P, smem = _long.COLS, _long.block_smem_bytes(n)
+    else:
+        n1, n2, P, smem = _shape(n, batch, body)
     scale = (1.0 / n) if inverse else 1.0
     ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
     with torch.cuda.device(re.device):
-        if body == 'mma':
+        if body == 'long':
+            err = _long.launch(re, im, yr, yi, n, inverse)
+        elif body == 'mma':
             fa, fb, w = mma_tables_for(n, inverse, re.device)
             err = _lib().fft_matmul_mma_launch(*ptrs, fa.data_ptr(), fb.data_ptr(),
                                                w.data_ptr(), batch, n, scale, stream_of(re))
@@ -137,6 +158,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
             f"per tile, {smem} bytes of shared memory)")
     launches += 1
     launches_mma += body == 'mma'
+    launches_long += body == 'long'
     report('fft_matmul', body, n, batch)
 
 
@@ -150,12 +172,13 @@ def fft_matmul(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
     returns its shapes, launching nothing. Each CUDA body runs one split of n,
     ``mma_factors(n)`` (the four-step's (n1, n2), or 16 x 16 x n/256 at
     n = 2048 and 4096): ``factors`` other than that split raise
-    ``ValueError`` naming it."""
+    ``ValueError`` naming it, as pencils longer than 65536 do."""
     n = check_planar('fft_matmul', re, im)
     if factors is not None and math.prod(factors) != n:
         raise ValueError(f"fft_matmul: factors {'*'.join(map(str, factors))} != {n}")
     if re.device.type == 'cpu':
         return fft_matmul_plain(re, im, inverse=inverse, factors=factors)
+    variant(n)
     if factors is not None and tuple(factors) != mma_factors(n):
         raise ValueError(f"fft_matmul: the CUDA body of n = {n} runs the split "
                          f"{mma_factors(n)}, not {tuple(factors)}")

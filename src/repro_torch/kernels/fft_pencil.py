@@ -1,20 +1,27 @@
 """Stockham pencil FFT: the CUDA kernel and its plain version.
 
 Replaces ``repro.kernels.fft_pencil.fft_pencil``
-(src/repro/kernels/fft_pencil.py:76). ``csrc/fft_pencil.cu`` holds two
-bodies, chosen by the pencil length alone (:func:`variant`):
+(src/repro/kernels/fft_pencil.py:76). Three bodies, chosen by the pencil
+length alone (:func:`variant`):
 
-* ``'radix8'`` (``radix8_pencil_kernel``, 2 <= n <= 4096): the data stay
-  in registers through radix-8 passes (the first pass radix 2 or 4 when
-  log2 n is not a multiple of 3, :func:`radix8_passes`), one trip
-  through shared memory between passes, twiddles from the per-pass table
-  :func:`radix8_tables`; a block holds :func:`radix8_layout` pencils;
-* ``'radix2'`` (``stockham_kernel``, every other n): P = max(1, 2048 / n)
-  pencils a block in shared memory through log2 n radix-2 stages, which
-  read the master table w_n^k, k < n/2, at stride n / 2^(s+1).
+* ``'radix8'`` (``radix8_pencil_kernel`` in ``csrc/fft_pencil.cu``,
+  2 <= n <= 4096): the data stay in registers through radix-8 passes
+  (the first pass radix 2 or 4 when log2 n is not a multiple of 3,
+  :func:`radix8_passes`), one trip through shared memory between passes,
+  twiddles from the per-pass table :func:`radix8_tables`; a block holds
+  :func:`radix8_layout` pencils;
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
+  four-step of :mod:`._long`, whose sub-FFTs run the same radix-8
+  passes; all four kernels share it;
+* ``'radix2'`` (``stockham_kernel``, n = 1 only, and timed beside the
+  radix-8 body through ``_launch(..., _body='radix2')``): P = max(1,
+  2048 / n) pencils a block in shared memory through log2 n radix-2
+  stages, which read the master table w_n^k, k < n/2, at stride
+  n / 2^(s+1).
 
-Both are memory-bound: 16 bytes per element per call. The inverse
-scales by 1/n at the store.
+A CUDA or ``meta`` operand of n > 65536 raises ``ValueError``. All are
+memory-bound: 16 bytes per element per call. The inverse scales by 1/n
+at the store.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch
 from repro_torch.core import fft1d as f1
 from repro_torch.core import twiddle as tw
 from repro_torch.core.twiddle import Planar
-from repro_torch.kernels import _build, check_planar, refuse_grad, report, stream_of
+from repro_torch.kernels import _build, _long, check_planar, refuse_grad, report, stream_of
 
 #: pencils per block are chosen so a tile holds about this many elements
 TILE_ELEMS = 2048
@@ -37,10 +44,12 @@ RADIX8_LENGTHS = (2, 4096)
 RADIX8_THREADS = 256
 MAX_THREADS = 1024
 
-#: launches of either CUDA body (plain-version calls do not count)
+#: launches of any CUDA body (plain-version calls do not count)
 launches = 0
 #: of those, launches of the radix-8 body
 launches_radix8 = 0
+#: of those, launches of the long body
+launches_long = 0
 
 
 def tile_pencils(n: int, batch: int) -> int:
@@ -53,8 +62,22 @@ def tile_pencils(n: int, batch: int) -> int:
 
 def variant(n: int) -> str:
     """The body a CUDA launch of length-n pencils runs: ``'radix8'`` for
-    2 <= n <= 4096, else ``'radix2'``."""
-    return 'radix8' if RADIX8_LENGTHS[0] <= n <= RADIX8_LENGTHS[1] else 'radix2'
+    2 <= n <= 4096, ``'long'`` for 4096 < n <= 65536, ``'radix2'`` for
+    n = 1; ``ValueError`` above 65536."""
+    _long.check_length('fft_pencil', n)
+    if RADIX8_LENGTHS[0] <= n <= RADIX8_LENGTHS[1]:
+        return 'radix8'
+    return 'long' if _long.takes(n) else 'radix2'
+
+
+def launch_info(n: int, batch: int) -> dict:
+    """What a long launch on ``batch`` pencils of n runs on the current
+    card (:func:`repro_torch.kernels._long.launch_info`); ``ValueError``
+    at a length the long body does not take."""
+    if variant(n) != 'long':
+        raise ValueError(f"fft_pencil: launch_info reports the long body; n = {n} runs "
+                         f"{variant(n)!r}")
+    return _long.launch_info(n, batch)
 
 
 def radix8_passes(n: int) -> tuple:
@@ -161,11 +184,11 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     """Run the kernel on contiguous fp32 planes (..., n) into (yr, yi).
     The body is :func:`variant` of n; ``_body`` overrides it only to time
     the radix-2 body beside the radix-8 one."""
-    global launches, launches_radix8
+    global launches, launches_radix8, launches_long
+    body = _body or variant(n)
     batch = re.numel() // n
     if batch == 0:
         return
-    body = _body or variant(n)
     if re.device.type == 'meta':
         report('fft_pencil', body, n, batch)
         return
@@ -173,7 +196,10 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     ptrs = (re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr())
     lib = _lib()
     with torch.cuda.device(re.device):
-        if body == 'radix8':
+        if body == 'long':
+            P, smem = _long.COLS, _long.block_smem_bytes(n)
+            err = _long.launch(re, im, yr, yi, n, inverse)
+        elif body == 'radix8':
             P, _, smem = radix8_layout(n, batch)
             wr, wi = radix8_tables(n, inverse, re.device)
             err = lib.fft_pencil_radix8_launch(*ptrs, wr.data_ptr(), wi.data_ptr(), batch,
@@ -190,6 +216,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
                            f"(n={n}, {P} pencils per block, {smem} bytes of shared memory)")
     launches += 1
     launches_radix8 += body == 'radix8'
+    launches_long += body == 'long'
     report('fft_pencil', body, n, batch)
 
 

@@ -248,8 +248,10 @@ def test_one_pass_is_not_enough_on_three_factors(n):
 # ---------------------------------------------------------------------------
 
 def test_variant_is_chosen_by_length_alone():
+    """n = 2..32 on the CUDA-core body, 64..4096 on the tensor cores,
+    8192 on the long body (``tests/test_torch_long_pencils.py``)."""
     assert [tkb.variant(1 << k) for k in range(1, 14)] == (
-        ['fma'] * 5 + ['mma'] * 7 + ['fma'])
+        ['fma'] * 5 + ['mma'] * 7 + ['long'])
     for n in range(6, 11):
         assert ttw.four_step_factors(1 << n)[1] >= 8    # the two-factor split's n2 >= 8
         assert tkb.mma_factors(1 << n) == ttw.four_step_factors(1 << n)

@@ -93,6 +93,29 @@ def test_radix2_body_matches_plain_version(gen, n):
     assert (fft_fused.launches, fft_fused.launches_radix8) == (2, 0)
 
 
+@pytest.mark.parametrize("n", [8192, 65536])
+def test_long_body_matches_plain_versions(gen, n):
+    """The long body that all four kernels run for 4096 < n <= 65536, on
+    3 pencils and on (3, 5, n) rows with one twiddle plane for all slices
+    and one a slice; every launch on it."""
+    x, z = _planar((3, n), gen), _planar((3, 5, n), gen)
+    planes = (_planar((5, n), gen), _planar((3, 5, n), gen))
+    kernels.reset_launch_counts()
+    for inverse in (False, True):
+        assert _rel(fft_pencil.fft_pencil(*x, inverse=inverse),
+                    fft_pencil.fft_pencil_plain(*x, inverse=inverse)) <= 1e-5
+        assert _rel(fft_matmul.fft_matmul(*x, inverse=inverse),
+                    fft_matmul.fft_matmul_plain(*x, inverse=inverse)) <= 1e-5
+        xs = torch.stack(x)
+        assert _rel(fft_block.fft_block(xs, inverse=inverse),
+                    fft_block.fft_block_plain(xs, inverse=inverse)) <= 1e-5
+        for w in planes:
+            assert _rel(fft_fused.fft_twiddle_transpose(*z, *w, inverse=inverse),
+                        fft_fused.fft_twiddle_transpose_plain(*z, *w, inverse=inverse)) <= 1e-5
+    for mod in (fft_pencil, fft_matmul, fft_block, fft_fused):
+        assert mod.launches == mod.launches_long > 0
+
+
 @pytest.mark.parametrize("n", [2, 16, 32, 64, 256, 512, 1024, 2048, 4096])
 def test_fft_block_matches_plain_version(gen, n):
     """A ragged batch of 37 in both forms: stacked (2, 37, n) and the

@@ -57,7 +57,9 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("n", [1] + LENGTHS + [8192])
 def test_variant_is_radix8_from_2_to_4096(n):
-    want = 'radix8' if 2 <= n <= 4096 else 'radix2'
+    """Above 4096 the long body runs (``tests/test_torch_long_pencils.py``);
+    the radix-2 body only n = 1."""
+    want = 'radix8' if 2 <= n <= 4096 else 'long' if n > 4096 else 'radix2'
     assert tkp.variant(n) == tkf.variant(n) == want
 
 
