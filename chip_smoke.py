@@ -88,8 +88,10 @@ Phases, each printing one line and raising on any failure:
    planes, one plane a slice and one for all slices, each with its
    time, the plain version's, the library's (``torch.fft.fft``, plus
    the transposing copy for the fused kernel), its bound and
-   ``launch_info`` (split, columns a tile, threads, shared bytes,
-   blocks an SM, registers, scratch bytes); then six paths at full
+   ``launch_info`` (split, blocks a pencil, threads, shared bytes,
+   blocks an SM, clusters the card holds, registers, scratch bytes,
+   device bytes an element; the fused kernel's with twiddle planes
+   beside its time with them); then six paths at full
    size, every launch on the long body: ``fft2d_long``
    (``plan((8192, 32768))``, 'auto': 2 ``fft_matmul`` a direction),
    ``fft2d_long_stockham`` (1 ``fft_fused`` and 1 ``fft_pencil``),
@@ -902,7 +904,8 @@ def phase_path(label: str, gen, expect_method: str, expect: dict, real: bool = F
         **({'launches_long': json.dumps(on_long)} if long else {}),
         launches_twiddle=json.dumps(twiddle), fwd_inv_ms=f"{ms:.6g}",
         library_ms=f"{lib:.6g}", **extra)
-    say('profile', label=label, **profile(lambda: p.inverse(p.forward(x))))
+    say('profile', label=label, **profile(lambda: p.inverse(p.forward(x)),
+                                          LONG_SUMS if long else None))
     return total
 
 
@@ -911,8 +914,11 @@ LONG_NS = (8192, 16384, 32768, 65536)
 LONG_ELEMS = 1 << 24
 #: the keys of each record under a kernel's ``long`` in the ``kernels`` line
 LONG_KEYS = ('n', 'pencils', 'variant', 'launches', 'rel_l2') + JSON_KEYS + (
-    'factors', 'columns_per_tile', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
-    'scratch_bytes')
+    'twiddle_ms', 'twiddle_hbm_bytes_per_elem', 'factors', 'cluster', 'threads',
+    'smem_bytes', 'blocks_per_sm', 'clusters_per_device', 'registers', 'scratch_bytes',
+    'hbm_bytes_per_elem')
+#: the long body's kernels, a regex each, whose device time the profiles add up
+LONG_SUMS = {'long_kernel_ms': r'long_kernel', 'long_transpose_ms': r'long_transpose_kernel'}
 #: ``[long]``'s paths: label, shape, plan keywords, launches a direction,
 #: fused launches with twiddle planes a direction
 LONG_PATHS = (
@@ -943,9 +949,11 @@ def kernels_long(gen, ptxas: dict) -> dict:
     (relative L2 and the largest gap, both within KERNEL_RTOL), and on 3
     pencils; ``fft_twiddle_transpose`` also with (b, n) twiddle planes, a
     plane a leading slice and one plane for all; with its time, the plain
-    version's, the library's and the bound, and ``launch_info``, whose
-    shared, thread and scratch counts must equal the C side's. Returns
-    name -> its records."""
+    version's, the library's and the bound (the fused route's also with
+    (pencils, n) twiddle planes, and one call's device time split between
+    its kernel and its transpose), and ``launch_info``, whose shared,
+    thread, cluster, scratch and device-byte counts must equal the C
+    side's mirrors. Returns name -> its records."""
     out = {name: [] for name in KERNELS}
     for kern in sorted(k for k in ptxas if k.startswith('long_')):
         e = ptxas[kern]
@@ -953,10 +961,12 @@ def kernels_long(gen, ptxas: dict) -> dict:
             spill_bytes=(e['spill_stores'] or 0) + (e['spill_loads'] or 0))
     for n in LONG_NS:
         pencils = LONG_ELEMS // n
-        mirror = dict(smem_bytes=[_long.smem_bytes(n, 1), _long.smem_bytes(n, 2)],
-                      threads=[_long.threads(n, 1), _long.threads(n, 2)],
+        mirror = dict(smem_bytes=_long.smem_bytes(n), threads=_long.threads(n),
+                      cluster=_long.cluster(n),
                       scratch_bytes=[_long.scratch_bytes(n, pencils, False),
-                                     _long.scratch_bytes(n, pencils, True)])
+                                     _long.scratch_bytes(n, pencils, True)],
+                      hbm_bytes_per_elem=[_long.hbm_bytes_per_elem(False),
+                                          _long.hbm_bytes_per_elem(True)])
         x = planar((pencils, n), gen)
         xc = torch.complex(*x)
         small = planar((3, n), gen)
@@ -1013,13 +1023,24 @@ def kernels_long(gen, ptxas: dict) -> dict:
                 yc = yc.transpose(-1, -2)
             vs_lib = _rel_l2_planar(run(a, False), (yc.real, yc.imag))
             del yc
+            fused = name == 'fft_twiddle_transpose'
             r = dict(n=n, pencils=pencils, variant=module.variant(n), rel_l2=rel,
                      max_abs_err=err, ms=time_ms(lambda: run(a, False), 10),
                      plain_ms=time_ms(lambda: plain(a, False), 3), library_ms=lib_ms,
-                     bound_ms=bnd, bound_by=by, vs_library_rel_l2=vs_lib)
+                     bound_ms=bnd, bound_by=by, vs_library_rel_l2=vs_lib, twiddle_ms=None,
+                     twiddle_hbm_bytes_per_elem=None)
+            if fused:
+                # the route with (pencils, n) twiddle planes and the bytes it moves an
+                # element, and one call's device time split between its two kernels
+                r['twiddle_ms'] = time_ms(lambda: fft_fused.fft_twiddle_transpose(*x, *w), 10)
+                r['twiddle_hbm_bytes_per_elem'] = _long.hbm_bytes_per_elem(True, twiddle=True)
+                prof = profile(lambda: run(a, False), LONG_SUMS)
+                r.update({k: prof[k] for k in LONG_SUMS})
             info = module.launch_info(n, pencils)
-            if info['smem_bytes'] != mirror['smem_bytes'] or (
-                    info['scratch_bytes'] != mirror['scratch_bytes'][name == 'fft_twiddle_transpose']):
+            if (info['smem_bytes'], info['threads'], info['cluster'], info['scratch_bytes'],
+                    info['hbm_bytes_per_elem']) != (
+                    mirror['smem_bytes'], mirror['threads'], mirror['cluster'],
+                    mirror['scratch_bytes'][fused], mirror['hbm_bytes_per_elem'][fused]):
                 raise AssertionError(f"{name} n={n}: launch_info {info} against {mirror}")
             r.update({k: v for k, v in info.items() if k != 'variant'})
             if r['variant'] != 'long':
@@ -1066,22 +1087,27 @@ def check_smem_mirror() -> int:
         for lib_, fn in ((mat, 'fft_matmul_mma_smem_bytes'), (blk, 'fft_block_mma_smem_bytes')):
             pairs.append((f"{fn}({n})", getattr(lib_, fn)(n), smem_mirror.mma_smem_bytes(n)))
         if _long.takes(n):
-            for pass_ in (1, 2):
-                pairs.append((f"long_smem_bytes({n}, {pass_})", lng.long_smem_bytes(n, pass_),
-                              _long.smem_bytes(n, pass_)))
-                pairs.append((f"long_threads({n}, {pass_})", lng.long_threads(n, pass_),
-                              _long.threads(n, pass_)))
+            for fn, py in (('long_smem_bytes', _long.smem_bytes), ('long_threads', _long.threads),
+                           ('long_cluster', _long.cluster)):
+                pairs.append((f"{fn}({n})", getattr(lng, fn)(n), py(n)))
             for pencils in (1, 3, LONG_ELEMS // n, (1 << 28) // n):
                 for fused in (0, 1):
                     pairs.append((f"long_scratch_bytes({n}, {pencils}, {fused})",
                                   lng.long_scratch_bytes(n, pencils, fused),
                                   _long.scratch_bytes(n, pencils, bool(fused))))
+        else:
+            pairs.append((f"long_smem_bytes({n})", lng.long_smem_bytes(n), -1))
         for name in smem_mirror.MODULES:
             for batch in (1, 37, 512):
                 body, b = smem_mirror.launch_smem_bytes(name, n, batch)
                 if not 0 <= b <= smem_mirror.SMEM_LIMIT:
                     raise AssertionError(f"{name} n={n} batch={batch}: the {body} body takes "
                                          f"{b} shared bytes, over {smem_mirror.SMEM_LIMIT}")
+    pairs.append(("long_transpose_smem_bytes()", lng.long_transpose_smem_bytes(),
+                  _long.TRANSPOSE_SMEM_BYTES))
+    for fused, twiddle in ((0, 0), (1, 0), (1, 1)):
+        pairs.append((f"long_hbm_bytes({fused}, {twiddle})", lng.long_hbm_bytes(fused, twiddle),
+                      _long.hbm_bytes_per_elem(bool(fused), bool(twiddle))))
     bad = [(what, c, py) for what, c, py in pairs if c != py]
     if bad:
         raise AssertionError(f"shared-byte mirrors differ from the C side: {bad[:8]}")

@@ -13,7 +13,7 @@ module's ``launches`` integer (``fft_matmul`` and ``fft_block`` also
 count those of their tensor-core body, the four-step of
 ``csrc/four_step_mma.cuh`` that both run, in ``launches_mma``;
 ``fft_pencil`` and ``fft_fused`` those of their radix-8 Stockham body
-in ``launches_radix8``; all four those of the two-pass body for
+in ``launches_radix8``; all four those of the single-pass body for
 4096 < n <= 65536 that they share, :mod:`._long`, in ``launches_long``;
 ``fft_fused`` those that applied twiddle planes in ``launches_twiddle``).
 

@@ -15,8 +15,8 @@ length alone (:func:`variant`):
   (twice) and the block F of n3 = n / 256 points
   (``core/fft1d.py:block_mma3_tables``). :func:`mma_factors` names the
   split;
-* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
-  body of :mod:`._long` that all four kernels share, the four-step over
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the
+  single-pass body of :mod:`._long` that all four kernels share, the four-step over
   ``four_step_factors(n)``, on the two planes of the stacked
   (2, ..., n) form, fp32 on the CUDA cores;
 * ``'fma'`` (``block_kernel``, n <= 32, and timed beside the
@@ -216,7 +216,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
         report('fft_block', body, n, batch)
         return
     if body == 'long':
-        P, smem = _long.COLS, _long.block_smem_bytes(n)
+        P, smem = f"1/{_long.cluster(n)}", _long.smem_bytes(n)
     else:
         n1, n2, P, jc, smem = _shape(n, batch, body)
     scale = (1.0 / n) if inverse else 1.0

@@ -11,11 +11,12 @@ Replaces ``repro.kernels.fft_fused.fft_twiddle_transpose``
   then the tile staged in shared memory and stored transposed,
   ``out[..., k, j] = (W * FFT(x))[..., j, k]``, in runs of P pencils
   (:func:`tile_layout`);
-* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
-  body of :mod:`._long`; pass 1 writes a scratch of at most
-  ``_long.SCRATCH_ELEMS`` elements a plane, which this wrapper
-  allocates, and pass 2 scales, applies the twiddle and stores the
-  transpose;
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the
+  single-pass body of :mod:`._long`, which scales, applies the twiddle
+  and writes a scratch of at most ``_long.SCRATCH_ELEMS`` elements a
+  plane (this wrapper allocates it) in natural order, then a tiled
+  transpose stores out[..., k, j] in runs of 32 consecutive j: 32 bytes
+  an element (40 with twiddle planes) against the radix-8 body's 16;
 * ``'radix2'`` (``fused_kernel``, n = 1 only, and timed beside the
   radix-8 body): the radix-2 body.
 
@@ -162,7 +163,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, wr, wi, yr: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(re.device):
         if body == 'long':
-            P, smem = _long.COLS, _long.block_smem_bytes(n)
+            P, smem = f"1/{_long.cluster(n)}", _long.smem_bytes(n)
             err = _long.launch_fused(re, im, twr, twi, wstride, yr, yi, n, inverse)
         elif body == 'radix8':
             P, _, smem = tile_layout(n, b)

@@ -16,8 +16,8 @@ same lengths as ``fft_block``'s):
   real block matrices, ``fft_block``'s tables, so this module passes
   those (:func:`repro_torch.kernels.fft_block.mma_tables_for`, one cache
   for both);
-* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
-  body of :mod:`._long` that all four kernels share, the same four-step
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the
+  single-pass body of :mod:`._long` that all four kernels share, the same four-step
   over ``four_step_factors(n)`` with each factor's DFT on the radix-8
   register passes, fp32 on the CUDA cores;
 * ``'fma'`` (``four_step_kernel``, n <= 32, and timed beside the
@@ -134,7 +134,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
         report('fft_matmul', body, n, batch)
         return
     if body == 'long':
-        P, smem = _long.COLS, _long.block_smem_bytes(n)
+        P, smem = f"1/{_long.cluster(n)}", _long.smem_bytes(n)
     else:
         n1, n2, P, smem = _shape(n, batch, body)
     scale = (1.0 / n) if inverse else 1.0

@@ -10,8 +10,8 @@ length alone (:func:`variant`):
   :func:`radix8_passes`), one trip through shared memory between passes,
   twiddles from the per-pass table :func:`radix8_tables`; a block holds
   :func:`radix8_layout` pencils;
-* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the two-pass
-  four-step of :mod:`._long`, whose sub-FFTs run the same radix-8
+* ``'long'`` (``csrc/fft_long.cu``, 4096 < n <= 65536): the
+  single-pass four-step of :mod:`._long`, whose sub-FFTs run the same radix-8
   passes; all four kernels share it;
 * ``'radix2'`` (``stockham_kernel``, n = 1 only, and timed beside the
   radix-8 body through ``_launch(..., _body='radix2')``): P = max(1,
@@ -197,7 +197,7 @@ def _launch(re: torch.Tensor, im: torch.Tensor, yr: torch.Tensor, yi: torch.Tens
     lib = _lib()
     with torch.cuda.device(re.device):
         if body == 'long':
-            P, smem = _long.COLS, _long.block_smem_bytes(n)
+            P, smem = f"1/{_long.cluster(n)}", _long.smem_bytes(n)
             err = _long.launch(re, im, yr, yi, n, inverse)
         elif body == 'radix8':
             P, _, smem = radix8_layout(n, batch)

@@ -73,12 +73,13 @@ def mma_smem_bytes(n: int) -> int:
 def launch_smem_bytes(name: str, n: int, batch: int) -> tuple:
     """(body, shared bytes a block) of the launch module ``name``'s
     ``variant(n)`` picks for ``batch`` pencils of n (rows of ``batch``
-    for ``fft_fused``); the long body's larger pass."""
+    for ``fft_fused``); the long body's single-pass kernel (its
+    transpose takes ``_long.TRANSPOSE_SMEM_BYTES``)."""
     import importlib
     mod = importlib.import_module(f'repro_torch.kernels.{name}')
     body = mod.variant(n)
     if body == 'long':
-        return body, _long.block_smem_bytes(n)
+        return body, _long.smem_bytes(n)
     if body == 'mma':
         return body, mma_smem_bytes(n)
     if body == 'radix8':

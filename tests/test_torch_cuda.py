@@ -93,10 +93,11 @@ def test_radix2_body_matches_plain_version(gen, n):
     assert (fft_fused.launches, fft_fused.launches_radix8) == (2, 0)
 
 
-@pytest.mark.parametrize("n", [8192, 65536])
+@pytest.mark.parametrize("n", [8192, 16384, 32768, 65536])
 def test_long_body_matches_plain_versions(gen, n):
-    """The long body that all four kernels run for 4096 < n <= 65536, on
-    3 pencils and on (3, 5, n) rows with one twiddle plane for all slices
+    """The long body that all four kernels run for 4096 < n <= 65536 (one
+    block a pencil, then clusters of 2 and 4), on 3 pencils and on
+    (3, 5, n) rows with one twiddle plane for all slices
     and one a slice; every launch on it."""
     x, z = _planar((3, n), gen), _planar((3, 5, n), gen)
     planes = (_planar((5, n), gen), _planar((3, 5, n), gen))

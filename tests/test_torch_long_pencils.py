@@ -2,10 +2,11 @@
 4096 < n <= 65536 (``src/repro_torch/csrc/fft_long.cu``,
 ``kernels/_long.py``), on the CPU.
 
-* (a) the torch emulation of its two passes
-  (``tests/_torch_long_emulation.py``), and of the fused kernel's store
-  with its twiddle planes, against ``np.fft`` in float64 and against the
-  JAX package's kernels run as its own tests run them (interpret mode):
+* (a) the torch emulation of its single pass (``tests/_torch_long_emulation.py``:
+  a cluster's blocks and their slabs, the column and row phases through
+  NaN-filled models of each block's shared memory, the fused route's
+  scratch and tiled transpose), against ``np.fft`` in float64 and against
+  the JAX package's kernels run as its own tests run them (interpret mode):
   ``fft_matmul``, ``fft_pencil``, ``fft_twiddle_transpose`` and
   ``fft_block`` at n = 8192 (forward and inverse) and 65536 (forward:
   the interpret mode compiles each call for about a second, and the
@@ -13,7 +14,8 @@
   256) constant there, ten seconds a call; the inverse at 65536 is held
   against numpy and the plain versions) on 3 pencils; and against the
   port's plain versions at every long n. Limit: relative L2 <= ``RTOL``
-  = 2e-6, fp32 on both sides summed in other orders;
+  = 2e-6, fp32 on both sides summed in other orders; every shared access
+  of both kernels, each warp's 32 lanes on 32 distinct banks;
 * (b) the shared bytes: ``kernels/smem.py`` and ``kernels/_long.py``
   mirror every C sizing function (``chip_smoke.py``'s ``[long]`` phase
   holds them equal to the C side on the card); for every power of two
@@ -82,7 +84,8 @@ def _np_fft(x, inverse):
 
 @pytest.mark.parametrize("n", [8192, 65536])
 def test_column_pass_is_the_four_steps_first_half(n):
-    """Pass 1 leaves y[j NA + k1] = w_n^(j k1) sum_i x[i NB + j] w_NA^(i k1)."""
+    """The column phase leaves in the tiles, read back as y[j NA + k1],
+    w_n^(j k1) sum_i x[i NB + j] w_NA^(i k1)."""
     x = _planar((2, n))
     na, nb = ttw.four_step_factors(n)
     yr, yi = column_pass(*(torch.from_numpy(a) for a in x))
@@ -179,25 +182,80 @@ def test_every_length_fits_a_block(n):
             assert got == body and 0 <= b <= smem.SMEM_LIMIT, (name, n, batch, body, b)
 
 
+#: (NA, NB, blocks a pencil, threads a block, shared bytes a block), by hand:
+#: the tile's two planes of NA x NB / C floats, and in a cluster the rows'
+#: staging, two planes of 32 rows of NB a group (two groups at 32768, one
+#: at 65536)
+LONG_SIZES = {8192: (128, 64, 1, 512, 2 * 128 * 64 * 4),
+              16384: (128, 128, 1, 512, 2 * 128 * 128 * 4),
+              32768: (256, 128, 2, 1024, 2 * 256 * 64 * 4 + 2 * 2 * 32 * 128 * 4),
+              65536: (256, 256, 4, 1024, 2 * 256 * 64 * 4 + 2 * 1 * 32 * 256 * 4)}
+
+
 @pytest.mark.parametrize("n", LONG)
 def test_long_mirror(n):
-    """The long body's split, threads, shared and scratch bytes as the C
-    side computes them (``long_smem_bytes``, ``long_threads``,
-    ``long_scratch_bytes``), worked by hand."""
-    na, nb = ttw.four_step_factors(n)
-    assert _long.factors(n) == (na, nb) and na >= nb and na * nb == n and nb >= 64
-    assert _long.threads(n, 1) == 2 * na and _long.threads(n, 2) == 2 * nb
-
-    def exchange(m):        # a buffer an exchange, at most two; re and im of COLS rows
-        t, passes = m // 8, -(-int(math.log2(m)) // 3)
-        return min(2, passes - 1) * 2 * 16 * (m + (t if t < 32 else 0)) * 4
-    assert _long.smem_bytes(n, 1) == max(exchange(na), 2 * 16 * (na + 2) * 4)
-    assert _long.smem_bytes(n, 2) == exchange(nb)
+    """The long body's split, cluster, threads, shared, scratch and
+    device-memory bytes as the C side computes them (``long_smem_bytes``,
+    ``long_threads``, ``long_cluster``, ``long_scratch_bytes``,
+    ``long_hbm_bytes``), worked by hand; within the opt-in limit."""
+    na, nb, c, threads, smem_b = LONG_SIZES[n]
+    assert ttw.four_step_factors(n) == (na, nb) == _long.factors(n)
+    assert (_long.cluster(n), _long.threads(n), _long.smem_bytes(n)) == (c, threads, smem_b)
+    assert smem_b <= smem.SMEM_LIMIT == 232448 and c in (1, 2, 4)
+    p = _long.plan(n)
+    # every group takes whole rounds of 32 columns and of 32 rows
+    assert (p['J'] // 32) % p['GA'] == 0 and (p['KA'] // 32) % p['GB'] == 0
+    assert p['GA'] * p['TA'] * 32 <= threads and p['GB'] * p['TB'] * 32 <= threads
+    assert _long.TRANSPOSE_SMEM_BYTES == 2 * 32 * 33 * 4
     assert _long.scratch_bytes(n, 3, False) == 0
     assert _long.scratch_bytes(n, 3, True) == 2 * 4 * 3 * n
     pencils = (1 << 28) // n
     assert _long.scratch_bytes(n, pencils, True) == 2 * 4 * (1 << 24) == 2 * 4 * min(
         pencils * n, _long.SCRATCH_ELEMS)
+    assert [_long.hbm_bytes_per_elem(False), _long.hbm_bytes_per_elem(True),
+            _long.hbm_bytes_per_elem(True, twiddle=True)] == [16, 32, 40]
+    # the tile is row-major, its loads by cp.async, where one block of two an SM
+    # holds the pencil (8192); every column round is whole
+    assert _long.row_major(n) == _long.async_loads(n) == (n == 8192)
+    assert p['ROUNDS'] * p['GA'] * 32 == p['J']
+
+
+BANK_CASES = [(n, fused) for n in LONG for fused in (False, True)]
+
+
+@pytest.mark.parametrize("n, fused", BANK_CASES,
+                         ids=[f"{n}-{'fused' if f else 'plain'}" for n, f in BANK_CASES])
+def test_shared_accesses_touch_32_banks(n, fused):
+    """Every shared access of both kernels, as the emulation makes it: the
+    32 lanes of each warp touch 32 distinct banks (offset mod 32). The
+    column phase's lanes are 32 columns (at 8192 also its ``cp.async``
+    copies into the tile and their reads), the row phase's 32 rows, and
+    the tile XORs the five low bits of one index into the other; the
+    staging rows and the transpose's rows of 33 floats do the same by
+    construction. A row phase's read of another block's tile (in a
+    cluster, whose tiles are column-major) is one aligned 128-byte run a
+    warp."""
+    x = [torch.from_numpy(a) for a in _planar((1, 2, n) if fused else (2, n))]
+    trace = []
+    if fused:
+        emulate_fused_long(*x, inverse=False, trace=trace)
+    else:
+        emulate_long(*x, inverse=False, trace=trace)
+    kinds = {name for name, _ in trace}
+    rows = {'row read'} if _long.cluster(n) == 1 else {'row remote read'}
+    want = {'column exchange read', 'column exchange write', 'column twiddled write',
+            'row exchange read', 'row exchange write'} | rows
+    if fused:
+        want |= {'transpose read', 'transpose write'}
+    if _long.async_loads(n):
+        want |= {'column load write', 'column load read'}
+    assert kinds == want, kinds
+    for name, at in trace:
+        banks = torch.sort(at.reshape(-1, 32) % 32, dim=-1).values
+        assert torch.equal(banks, torch.arange(32).expand_as(banks)), name
+        if name == 'row remote read':
+            runs = at.reshape(-1, 32) // 32
+            assert torch.equal(runs.min(-1).values, runs.max(-1).values), name
 
 
 def test_mirrors_by_hand():
